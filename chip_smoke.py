@@ -8,17 +8,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from spt_proto_tpu_torch/csrc and print the build time;
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
-   at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32, plus
-   a block-sparse selection with off-diagonal and -1 entries (S=4096,
-   sparse_coeff 4), and time kernel, twin and the one-call library
-   equivalent where there is one;
+   at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
+   decode front (with and without int8 KV quantization), decode attention
+   over a bf16/f32 cache (dense tables at max_len 2176, dense supertiles of
+   4 at max_len 2048, sparse tables) and over an int8 cache (sparse tables,
+   and dense supertiles of 4 through one table row), the lm_head argmax,
+   block-sparse prefill attention (also with off-diagonal and -1 entries at
+   S=4096, sparse_coeff 4), and the fused FFN tail at OPT-125M and OPT-1.3B
+   widths; time kernel, twin and the one-call library equivalent where
+   there is one;
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
-   the CPU through the plain twins; the greedy tokens must agree;
-4. the serving run: OPT-125M in bf16, B=8, prompt 2048, max_len 2176, int8
-   KV cache, prefill + 32 greedy steps, with the kernel launch counters read
-   around it and prefill / decode tokens per second from CUDA events;
-5. print the per-kernel JSON line, then the contract line
+   the CPU through the plain twins, in four decode modes (sparse int8-KV,
+   dense f32-KV, sparse f32-KV, the unfused l1 front over int8 KV); the
+   greedy tokens must agree;
+4. the serving runs, OPT-125M in bf16, B=8, prompt 2048, max_len 2176, in
+   bench.py's three decode modes (dense bf16-KV, sparse bf16-KV, sparse
+   int8-KV) and sparse int8-KV with the fused FFN tail: prefill + 32 greedy
+   steps each, with the kernel launch counters zeroed before and read after
+   each run and checked exactly, prefill / decode tokens per second from
+   CUDA events, and a profiled 4-step decode window per mode;
+5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, B=8, prompt
+   2048, max_len 2176, 32 steps, with tokens per second and peak memory;
+6. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -43,10 +55,11 @@ SPIN_CYCLES = 10_000_000            # ~5 ms at the H100's clock
 
 # serving shapes (bench.py's decode headline, OPT-125M)
 B, PROMPT, MAX_LEN, STEPS = 8, 2048, 2176, 32
-D, HEADS, LAYERS, VOCAB = 768, 12, 12, 50272
+D, HEADS, LAYERS, VOCAB, FF = 768, 12, 12, 50272, 3072
 DH, N_SUB, N_CODE, TILE = 64, 8, 16, 128
 NT = -(-MAX_LEN // TILE)                      # 17 tiles per layer
 NSEL = min(NT, max(1, NT // 8) + 1)           # sparse_coeff 8 -> 3
+D_13B, FF_13B = 2048, 8192                    # OPT-1.3B widths
 
 
 def log(msg: str) -> None:
@@ -142,6 +155,32 @@ def randn(g, shape, dtype, dev=None, std=1.0):
             * std).to(dtype)
 
 
+def log_times(res) -> None:
+    """One line with a timed check's device times and bound."""
+    extra = (f', unfused torch {res["unfused_ms"] * 1e3:.1f} us'
+             if 'unfused_ms' in res else '')
+    lib = (f', library {res["library_ms"] * 1e3:.1f} us'
+           if res.get('library_ms') is not None else '')
+    log(f'      {res["ms"] * 1e3:.1f} us (cold L2), bound '
+        f'{res["bound_ms"] * 1e3:.2f} us ({res["bound_by"]}), plain '
+        f'{res["plain_ms"] * 1e3:.1f} us{lib}{extra}')
+
+
+def covered_tokens(tables, n_tiles, pos, tile_base, tps, kv) -> int:
+    """(slot, head, token) triples the tables cover, masked as in the
+    kernels: full tiles below the write tile, the write tile up to the new
+    token; -1 entries and entries at or past n_tiles are empty."""
+    rows = tables.repeat_interleave(kv // tables.shape[1], dim=1).long()
+    t_max = rows.shape[2]
+    gt = rows[..., None] + torch.arange(tps, device=rows.device)
+    ok = (rows >= 0) & (torch.arange(t_max, device=rows.device)
+                        < n_tiles[:, None, None])
+    wt = (tile_base + pos // TILE).long()[:, None, None, None]
+    per = torch.where(gt == wt, (pos % TILE + 1).long()[:, None, None, None],
+                      torch.where(gt < wt, TILE, 0))
+    return int((per * ok[..., None]).sum())
+
+
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain twin
 # ---------------------------------------------------------------------------
@@ -162,16 +201,19 @@ def front_inputs(dtype, g):
     return [x, nsc, nbi, w, bq, bd, cbn, cc, pos]
 
 
-def check_front(dtype, timer=None):
+def check_front(dtype, timer=None, quantized=True):
     """decode_front vs decode_front_ref at the serving shape (the middle
-    layer's slab)."""
+    layer's slab), with int8 KV quantization (sparse int8-KV decode) or
+    without (sparse bf16-KV decode)."""
     from spt_proto_tpu_torch.ops import decode_front as m
     args = front_inputs(dtype, gen(SEED + 1))
-    kw = dict(nt=NT, nsel=NSEL, n_sub=N_SUB, ps=TILE, quantized=True)
+    kw = dict(nt=NT, nsel=NSEL, n_sub=N_SUB, ps=TILE, quantized=quantized)
     base = LAYERS // 2 * NT
     got = m.decode_front(*args, base, **kw)
     want = m.decode_front_ref(*args, base, **kw)
     sync()
+    require(len(got) == len(want) == (9 if quantized else 5),
+            f'decode_front returned {len(got)} outputs')
     q_err = max(max_err(g_, w_) for g_, w_ in zip(got[:3], want[:3]))
     # exact expected; the kernel and torch sum the projection in different
     # orders, so a projection one rounding step apart can move a value
@@ -180,22 +222,26 @@ def check_front(dtype, timer=None):
     # shows as more). k8/v8: a few values one int8 step apart.
     sel_flips = max(int((got[i] != want[i]).sum()) for i in (3, 4))
     sel_tol = 0 if dtype == torch.float32 else 1
-    kv_flips = max(mismatch(got[i], want[i]) for i in (5, 6))
-    kv_tol = 1e-3 if dtype == torch.float32 else 1e-2
-    step = max(max_err(got[i], want[i]) for i in (5, 6))
-    s_err = max(((got[i] - want[i]).abs() / want[i]).max().item()
-                for i in (7, 8))
     qkv_ok = all(close(g_, w_, dtype) for g_, w_ in zip(got[:3], want[:3]))
-    require(qkv_ok and sel_flips <= sel_tol and kv_flips <= kv_tol
-            and step <= 1
-            and s_err <= (1e-5 if dtype == torch.float32 else 1e-2),
-            f'decode_front {dtype}: qkv err {q_err}, code/table flips '
-            f'{sel_flips} (tol {sel_tol}), k8/v8 mismatch {kv_flips} (tol '
-            f'{kv_tol}), int8 step {step}, scale err {s_err}')
-    log(f'  decode_front {str(dtype):15s} qkv max err {q_err:.3g} '
+    label = f'decode_front {"int8-KV" if quantized else "bf16-KV"}'
+    if quantized:
+        kv_flips = max(mismatch(got[i], want[i]) for i in (5, 6))
+        kv_tol = 1e-3 if dtype == torch.float32 else 1e-2
+        step = max(max_err(got[i], want[i]) for i in (5, 6))
+        s_err = max(((got[i] - want[i]).abs() / want[i]).max().item()
+                    for i in (7, 8))
+        s_tol = 1e-5 if dtype == torch.float32 else 1e-2
+        kv_ok = kv_flips <= kv_tol and step <= 1 and s_err <= s_tol
+        kv_msg = (f'; k8/v8 mismatch {kv_flips:.3g} (tol {kv_tol}), int8 '
+                  f'step {step}, scale rel err {s_err:.3g}')
+    else:
+        kv_ok, kv_msg = True, ''
+    require(qkv_ok and sel_flips <= sel_tol and kv_ok,
+            f'{label} {dtype}: qkv err {q_err}, code/table flips '
+            f'{sel_flips} (tol {sel_tol}){kv_msg}')
+    log(f'  {label} {str(dtype):15s} qkv max err {q_err:.3g} '
         f'({tol_str(dtype)}); code/table entries flipped {sel_flips} '
-        f'(tol {sel_tol}); k8/v8 mismatch {kv_flips:.3g} (tol {kv_tol}); '
-        f'scale rel err {s_err:.3g}')
+        f'(tol {sel_tol}){kv_msg}')
     res = dict(max_abs_err=q_err)
     if timer is not None:
         x, nsc, nbi, w, bq, bd, cbn, cc, pos = args
@@ -209,11 +255,12 @@ def check_front(dtype, timer=None):
         ops = 2 * B * D * 3 * D + 2 * 2 * B * D * N_CODE
         res['bound_ms'], res['bound_by'] = bound_ms(io + slab, ops, dtype)
         res['library_ms'] = None
+        log_times(res)
     return res, got
 
 
 def attention_inputs(dtype, front_out, g):
-    """Caches at the serving shape; tables and the new token from the
+    """int8 caches at the serving shape; tables and the new token from the
     decode_front outputs (their contract: entry n_tiles-1 is the write
     tile)."""
     q, k, v, c_new, tables, k8, v8, ks, vs = front_out
@@ -237,10 +284,60 @@ def attention_inputs(dtype, front_out, g):
             ks, vs, base]
 
 
-def check_attention(dtype, front_out, timer=None):
+def dense_tables(pos, nt, tps, base):
+    """One table row for all heads: supertile starts e * tps (+ base) for
+    e <= (pos // TILE) // tps, -1 past them; the JAX engine's dense form."""
+    cur = (pos // TILE).long()
+    e = torch.arange(-(-nt // tps), device=pos.device)
+    n_sup = cur // tps + 1
+    tables = torch.where(e[None] < n_sup[:, None], e * tps + base, -1)
+    return tables[:, None].to(torch.int32), n_sup.to(torch.int32)
+
+
+def attention_q_dense_inputs(g):
+    """int8 caches at max_len 2048 (16 tiles a layer) read as dense
+    supertiles of 4 through one table row, slots at positions 2040-2047."""
+    nt, tps = PROMPT // TILE, 4
+    n_all = LAYERS * nt
+    base = LAYERS // 2 * nt
+    kc = torch.randint(-127, 128, (B, HEADS, n_all, DH, TILE), generator=g,
+                       device=DEV, dtype=torch.int8)
+    vc = torch.randint(-127, 128, kc.shape, generator=g, device=DEV,
+                       dtype=torch.int8)
+    cc = torch.zeros((B, HEADS, n_all, 1, TILE), device=DEV,
+                     dtype=torch.int32)
+    kvp = -(-HEADS // 8) * 8
+    ksc = torch.rand((B, n_all, kvp, TILE), generator=g, device=DEV) * 0.05
+    vsc = torch.rand(ksc.shape, generator=g, device=DEV) * 0.05
+    ksc[:, :, HEADS:] = vsc[:, :, HEADS:] = 0.0
+    pos = PROMPT - B + torch.arange(B, device=DEV, dtype=torch.int32)
+    tables, n_tiles = dense_tables(pos, nt, tps, base)
+    kn = torch.randint(-127, 128, (B, HEADS, DH), generator=g, device=DEV,
+                       dtype=torch.int8)
+    vn = torch.randint(-127, 128, kn.shape, generator=g, device=DEV,
+                       dtype=torch.int8)
+    ksn = torch.rand((B, HEADS), generator=g, device=DEV) * 0.05
+    vsn = torch.rand((B, HEADS), generator=g, device=DEV) * 0.05
+    return [None, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn,
+            torch.zeros((B, HEADS, 1), device=DEV, dtype=torch.int32), ksn,
+            vsn, torch.full((B,), base, device=DEV, dtype=torch.int32)], tps
+
+
+def check_attention(dtype, front_out, timer=None, dense=False):
+    """decode_attention_rows_q vs its twin: sparse tables from the front at
+    the serving shape, or (dense=True) dense supertiles of 4 through one
+    table row, as dense decode over the int8 cache sends them."""
     from spt_proto_tpu_torch.ops import decode_attention as m
-    args = attention_inputs(dtype, front_out, gen(SEED + 2))
-    kw = dict(ps=TILE, scale=DH ** -0.5, clamp=10.0)
+    g = gen(SEED + 2)
+    if dense:
+        args, tps = attention_q_dense_inputs(g)
+        args[0] = randn(g, (B, HEADS, 1, DH), dtype)
+        label = 'int8 dense tps 4'
+    else:
+        args, tps = attention_inputs(dtype, front_out, g), 1
+        label = 'int8 sparse'
+    kw = dict(ps=TILE, tps=tps, scale=DH ** -0.5,
+              clamp=0.0 if dense else 10.0)
     ref_args = [a.clone() for a in args]
     got = m.decode_attention_rows_q(*args, **kw)
     want = m.decode_attention_rows_q_ref(*ref_args, **kw)
@@ -249,11 +346,10 @@ def check_attention(dtype, front_out, timer=None):
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
     require(close(got[0], want[0], dtype) and caches_equal,
-            f'decode_attention {dtype}: o err {err}, appended '
+            f'decode_attention_rows_q {label} {dtype}: o err {err}, appended '
             f'caches equal: {caches_equal}')
-    log(f'  decode_attention {str(dtype):11s} o max err {err:.3g} '
-        f'({tol_str(dtype)}); '
-        f'appended caches exact')
+    log(f'  decode_attention_rows_q {label} {str(dtype):14s} o max err '
+        f'{err:.3g} ({tol_str(dtype)}); appended caches exact')
     res = dict(max_abs_err=err)
     if timer is not None:
         res['ms'] = timer.ms(lambda: m.decode_attention_rows_q(*args, **kw))
@@ -261,20 +357,126 @@ def check_attention(dtype, front_out, timer=None):
             lambda: m.decode_attention_rows_q_ref(*ref_args, **kw), reps=5)
         q, tables, n_tiles, pos, tb = args[0], args[6], args[7], args[8], \
             args[14]
-        # tokens the tables cover: full tiles below the write tile, the
-        # write tile up to the new token (masking as in the kernel)
-        wt = (tb + pos // TILE)[:, None, None]
-        ok = (tables >= 0) & (torch.arange(tables.shape[2], device=DEV)
-                              < n_tiles[:, None, None])
-        per = torch.where(tables == wt, (pos % TILE + 1)[:, None, None],
-                          torch.where(tables < wt, TILE, 0))
-        tokens = int((per * ok).sum())
+        tokens = covered_tokens(tables, n_tiles, pos, tb, tps, HEADS)
         moved = tokens * (2 * DH + 2 * 4)           # K, V int8 + 2 scales
         io = nbytes(q, *args[6:15], got[0])
         ops = tokens * 2 * 2 * DH
         res['bound_ms'], res['bound_by'] = bound_ms(moved + io, ops,
                                                     torch.int8)
         res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def rows_inputs(dtype, mode, front_out, g):
+    """bf16/f32 caches at the serving shape for decode_attention_rows.
+    'dense': max_len 2176 (17 tiles a layer), tps 1, one table row of 17
+    entries, slots at 2048-2055; 'dense-tps4': max_len 2048, supertiles of
+    4, slots at 2040-2047; 'sparse': the bf16-KV front's tables and new
+    token (3 tiles a head)."""
+    nt = PROMPT // TILE if mode == 'dense-tps4' else NT
+    n_all = LAYERS * nt
+    base = LAYERS // 2 * nt
+    kc = randn(g, (B, HEADS, n_all, DH, TILE), dtype)
+    vc = randn(g, kc.shape, dtype)
+    if mode == 'sparse':
+        q, k, v, c_new, tables = front_out[:5]
+        q4, kn, vn = (q.reshape(B, HEADS, 1, DH), k.reshape(B, HEADS, DH),
+                      v.reshape(B, HEADS, DH))
+        cc = torch.randint(0, N_CODE, (B, HEADS, n_all, N_SUB, TILE),
+                           generator=g, device=DEV, dtype=torch.int32)
+        pos = (NT - 1) * TILE + torch.arange(B, device=DEV, dtype=torch.int32)
+        n_tiles = torch.full((B,), NSEL, device=DEV, dtype=torch.int32)
+        tps = 1
+    else:
+        tps = 4 if mode == 'dense-tps4' else 1
+        q4 = randn(g, (B, HEADS, 1, DH), dtype)
+        kn, vn = randn(g, (B, HEADS, DH), dtype), randn(g, (B, HEADS, DH),
+                                                       dtype)
+        cc = torch.zeros((B, HEADS, n_all, 1, TILE), device=DEV,
+                         dtype=torch.int32)
+        c_new = torch.zeros((B, HEADS, 1), device=DEV, dtype=torch.int32)
+        first = PROMPT - B if mode == 'dense-tps4' else PROMPT
+        pos = first + torch.arange(B, device=DEV, dtype=torch.int32)
+        tables, n_tiles = dense_tables(pos, nt, tps, base)
+    tile_base = torch.full((B,), base, device=DEV, dtype=torch.int32)
+    return [q4, kc, vc, cc, tables, n_tiles, pos, kn, vn, c_new,
+            tile_base], tps
+
+
+def check_rows(dtype, mode, front_out, timer=None):
+    """decode_attention_rows (bf16/f32 cache) vs its twin. The kernel rounds
+    the unnormalised exp to the cache dtype before PV, the twin the
+    normalised probabilities (the TPU kernel vs its oracle): one bf16 step
+    apart, 1e-5 in f32."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    args, tps = rows_inputs(dtype, mode, front_out, gen(SEED + 5))
+    kw = dict(ps=TILE, tps=tps, scale=DH ** -0.5,
+              clamp=10.0 if mode == 'sparse' else 0.0)
+    ref_args = [a.clone() for a in args]
+    got = m.decode_attention_rows(*args, **kw)
+    want = m.decode_attention_rows_ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
+                                                             want[1:]))
+    t_max = args[4].shape[2]
+    require(close(got[0], want[0], dtype) and caches_equal
+            and bool(torch.isfinite(got[0]).all()),
+            f'decode_attention_rows {mode} {dtype}: o err {err}, appended '
+            f'caches equal: {caches_equal}')
+    log(f'  decode_attention_rows {mode:10s} (T={t_max}, tps {tps}) '
+        f'{str(dtype):14s} o max err {err:.3g} ({tol_str(dtype)}); appended '
+        f'caches exact')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.decode_attention_rows(*args, **kw))
+        res['plain_ms'] = timer.ms(
+            lambda: m.decode_attention_rows_ref(*ref_args, **kw), reps=5)
+        q, tables, n_tiles, pos, tb = args[0], args[4], args[5], args[6], \
+            args[10]
+        tokens = covered_tokens(tables, n_tiles, pos, tb, tps, HEADS)
+        moved = tokens * 2 * DH * q.element_size()          # K and V
+        io = nbytes(q, *args[4:11], got[0])
+        ops = tokens * 2 * 2 * DH
+        res['bound_ms'], res['bound_by'] = bound_ms(moved + io, ops, dtype)
+        # no one PyTorch call computes a tile-table gather + in-place
+        # append + attention over this token-minor layout
+        res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def check_ffn(dtype, d, f, timer=None):
+    """ffn_tail vs its twin at (B, d, d_ff); the engine's unfused torch
+    sequence is timed beside it for reference (no single PyTorch call
+    computes the function)."""
+    from spt_proto_tpu_torch.ops import ffn_tail as m
+    g = gen(SEED + 6)
+    x, res_ = randn(g, (B, d), dtype), randn(g, (B, d), dtype)
+    w1 = randn(g, (d, f), dtype, std=d ** -0.5)
+    b1 = randn(g, (f,), dtype, std=0.1)
+    w2 = randn(g, (f, d), dtype, std=f ** -0.5)
+    b2 = randn(g, (d,), dtype, std=0.1)
+    args = [x, res_, w1, b1, w2, b2]
+    got = m.ffn_tail(*args)
+    want = m.ffn_tail_ref(*args)
+    sync()
+    err = max_err(got, want)
+    require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
+            f'ffn_tail d={d} f={f} {dtype}: err {err}')
+    log(f'  ffn_tail d={d} f={f} {str(dtype):14s} max err {err:.3g} '
+        f'({tol_str(dtype)})')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.ffn_tail(*args))
+        res['plain_ms'] = timer.ms(lambda: m.ffn_tail_ref(*args))
+        res['unfused_ms'] = timer.ms(
+            lambda: res_ + (torch.relu(x @ w1 + b1) @ w2 + b2))
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            nbytes(*args, got), 2 * 2 * B * d * f, dtype)
+        res['library_ms'] = None
+        log_times(res)
     return res
 
 
@@ -307,6 +509,7 @@ def check_lm_head(dtype, timer=None):
         res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w, -1))
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(x, w, got), 2 * B * D * VOCAB, dtype)
+        log_times(res)
     return res
 
 
@@ -373,24 +576,64 @@ def check_block_sparse(dtype, s, coeff, timer=None):
             nbytes(q, sel, got) + kv_bytes,
             4 * DH * causal_pairs(sel, block_q), dtype)
         res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def phase_kernels(timer):
+    """Phase 2; returns the bf16 (serving dtype) results by kernel."""
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = timer if dtype == torch.bfloat16 else None
+        r_front, front_out = check_front(dtype, t)
+        r_front_bf, front_bf = check_front(dtype, t, quantized=False)
+        r_attn = check_attention(dtype, front_out, t)
+        r_attn_d = check_attention(dtype, None, t, dense=True)
+        r_rows = check_rows(dtype, 'dense', None, t)
+        r_rows4 = check_rows(dtype, 'dense-tps4', None, t)
+        r_rows_s = check_rows(dtype, 'sparse', front_bf, t)
+        r_ffn = check_ffn(dtype, D, FF, t)
+        r_ffn13 = check_ffn(dtype, D_13B, FF_13B, t)
+        r_head = check_lm_head(dtype, t)
+        r_bsa = check_block_sparse(dtype, PROMPT, 8, t)
+        check_block_sparse(dtype, 2 * PROMPT, 4)
+        if t is not None:
+            res = dict(
+                decode_front=dict(r_front, bf16_kv=r_front_bf),
+                decode_attention_rows_q=dict(r_attn, dense_tps4=r_attn_d),
+                lm_head_argmax=r_head, block_sparse_attention=r_bsa,
+                decode_attention_rows=dict(r_rows, dense_tps4=r_rows4,
+                                           sparse=r_rows_s),
+                ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13))
+        del front_out, front_bf
+    torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the main path through the engine
+# phases 3, 4 and 5: the main paths through the engine
 # ---------------------------------------------------------------------------
 
-def opt125m(max_length, dtype):
+def opt_cfg(name, max_length, dtype, dense=False, **kw):
     from spt_proto_tpu_torch.config import opt_config
-    return opt_config('125m', max_length=max_length, dtype=dtype,
-                      attention='sparse_v2', pq_metric='l2',
-                      attn_impl='pallas')
+    return opt_config(name, max_length=max_length, dtype=dtype,
+                      param_dtype=dtype,
+                      attention='dense' if dense else 'sparse_v2',
+                      pq_metric='l2', attn_impl='pallas', **kw)
 
 
-def greedy(iw, tokens, max_len, steps, dev):
+def dense_params(params):
+    """The same weights without the PQ codebook (bench.py's dense model is
+    the sparse one before its PQ upgrade)."""
+    mha = {k: v for k, v in params['blocks']['mha'].items()
+           if k != 'quantizer'}
+    return {**params, 'blocks': {**params['blocks'], 'mha': mha}}
+
+
+def greedy(iw, tokens, max_len, steps, dev, quantized):
     from spt_proto_tpu_torch.inference import engine
     cache = engine.KVCache.create(iw.cfg, tokens.shape[0], max_len,
-                                  dtype=iw.cfg.dtype, quantized=True,
+                                  dtype=iw.cfg.dtype, quantized=quantized,
                                   device=dev)
     logits, cache = engine.prefill(iw, tokens, cache)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
@@ -402,31 +645,46 @@ def greedy(iw, tokens, max_len, steps, dev):
 
 
 def phase_parity():
-    """f32 OPT-125M at full width: kernels on the card vs twins on the CPU."""
+    """f32 OPT-125M at full width: kernels on the card vs twins on the CPU,
+    in four decode modes."""
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
     b, prompt, steps = 2, 512, 8
     max_len = prompt + TILE
-    cfg = opt125m(max_len, torch.float32)
-    params = init_params(cfg, SEED, device='cpu')
+    sparse = opt_cfg('125m', max_len, torch.float32)
+    params = init_params(sparse, SEED, device='cpu')
     tokens = torch.randint(1, VOCAB, (b, prompt), generator=gen(SEED, 'cpu'))
-    iw_cpu = InferenceWeights.from_params(cfg, params)
-    iw_gpu = InferenceWeights.from_params(
-        cfg, {k: _to(v, DEV) for k, v in params.items()})
-    t0 = time.perf_counter()
-    lg_gpu, tok_gpu = greedy(iw_gpu, tokens.to(DEV), max_len, steps, DEV)
-    sync()
-    t1 = time.perf_counter()
-    lg_cpu, tok_cpu = greedy(iw_cpu, tokens, max_len, steps, 'cpu')
-    t2 = time.perf_counter()
-    agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
-    lg_err = max_err(lg_gpu.cpu(), lg_cpu)
-    log(f'  f32 OPT-125M B={b} prompt {prompt}: prefill logits max err '
-        f'{lg_err:.3g}; greedy token agreement {agree} over {b}x{steps} '
-        f'(card {t1 - t0:.1f} s, CPU twins {t2 - t1:.1f} s)')
-    require(agree >= 0.995, f'token agreement {agree} < 0.995: '
-            f'{tok_gpu.tolist()} vs {tok_cpu.tolist()}')
-    return dict(agreement=agree, logits_max_err=lg_err)
+    modes = [('sparse int8-KV', sparse, params, True),
+             ('dense f32-KV', opt_cfg('125m', max_len, torch.float32,
+                                      dense=True), dense_params(params),
+              False),
+             ('sparse f32-KV', sparse, params, False),
+             ('sparse l1 unfused front int8-KV',
+              sparse.replace(pq_metric='l1'), params, True)]
+    out = {}
+    for label, cfg, p, quantized in modes:
+        iw_cpu = InferenceWeights.from_params(cfg, p)
+        iw_gpu = InferenceWeights.from_params(cfg, _to(p, DEV))
+        t0 = time.perf_counter()
+        lg_gpu, tok_gpu = greedy(iw_gpu, tokens.to(DEV), max_len, steps, DEV,
+                                 quantized)
+        sync()
+        t1 = time.perf_counter()
+        lg_cpu, tok_cpu = greedy(iw_cpu, tokens, max_len, steps, 'cpu',
+                                 quantized)
+        t2 = time.perf_counter()
+        agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
+        lg_err = max_err(lg_gpu.cpu(), lg_cpu)
+        log(f'  {label:32s} f32 OPT-125M B={b} prompt {prompt}: prefill '
+            f'logits max err {lg_err:.3g}; greedy token agreement {agree} '
+            f'over {b}x{steps} (card {t1 - t0:.1f} s, CPU twins '
+            f'{t2 - t1:.1f} s)')
+        require(agree >= 0.995, f'{label}: token agreement {agree} < 0.995: '
+                f'{tok_gpu.tolist()} vs {tok_cpu.tolist()}')
+        out[label] = dict(agreement=agree, logits_max_err=lg_err)
+        del iw_gpu
+    torch.cuda.empty_cache()
+    return out
 
 
 def _to(tree, dev):
@@ -438,35 +696,49 @@ def _to(tree, dev):
 def wrappers():
     from spt_proto_tpu_torch.ops.block_sparse_attention import \
         block_sparse_attention
-    from spt_proto_tpu_torch.ops.decode_attention import \
-        decode_attention_rows_q
+    from spt_proto_tpu_torch.ops.decode_attention import (
+        decode_attention_rows, decode_attention_rows_q)
     from spt_proto_tpu_torch.ops.decode_front import decode_front
+    from spt_proto_tpu_torch.ops.ffn_tail import ffn_tail
     from spt_proto_tpu_torch.ops.lm_head import lm_head_argmax
     return dict(decode_front=decode_front,
                 decode_attention_rows_q=decode_attention_rows_q,
                 lm_head_argmax=lm_head_argmax,
-                block_sparse_attention=block_sparse_attention)
+                block_sparse_attention=block_sparse_attention,
+                decode_attention_rows=decode_attention_rows,
+                ffn_tail=ffn_tail)
 
 
-def phase_serving():
-    """bf16 OPT-125M, B=8, prompt 2048, int8 KV: prefill + 32 greedy steps,
-    with the kernels' launch counters read around the timed run."""
+def expected_launches(cfg, quantized):
+    """Launches per prefill and per decode step on each mode's path."""
+    layers = cfg.n_layers
+    sparse = cfg.attention == 'sparse_v2'
+    prefill = dict.fromkeys(wrappers(), 0)
+    step = dict.fromkeys(wrappers(), 0)
+    prefill['block_sparse_attention'] = layers if sparse else 0
+    step['decode_front'] = layers if sparse else 0
+    step['decode_attention_rows_q' if quantized
+         else 'decode_attention_rows'] = layers
+    step['ffn_tail'] = layers if cfg.decode_fused_ffn else 0
+    step['lm_head_argmax'] = 1
+    return prefill, step
+
+
+def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
+    """Prefill + `steps` greedy steps: the launch counters are zeroed just
+    before the timed run and read after its prefill and after its decode
+    loop, and must equal the mode's expected counts exactly."""
     from spt_proto_tpu_torch.inference import engine
-    from spt_proto_tpu_torch.inference.bridge import init_params
-    from spt_proto_tpu_torch.inference.weights import InferenceWeights
-    cfg = opt125m(MAX_LEN, torch.bfloat16)
-    iw = InferenceWeights.from_params(cfg, init_params(cfg, SEED, device=DEV))
-    tokens = torch.randint(1, VOCAB, (B, PROMPT), generator=gen(SEED),
-                           device=DEV)
-
+    cfg = iw.cfg
+    b = tokens.shape[0]
     ws = wrappers()
 
     def counts():
         return {n: w.launches for n, w in ws.items()}
 
-    def run(steps, events=None):
-        cache = engine.KVCache.create(cfg, B, MAX_LEN, dtype=cfg.dtype,
-                                      quantized=True, device=DEV)
+    def run(n_steps, events=None):
+        cache = engine.KVCache.create(cfg, b, max_len, dtype=cfg.dtype,
+                                      quantized=quantized, device=DEV)
         if events:
             events[0].record()
         logits, cache = engine.prefill(iw, tokens, cache)
@@ -475,7 +747,7 @@ def phase_serving():
         at_prefill = counts()
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         out = []
-        for _ in range(steps):
+        for _ in range(n_steps):
             tok, cache = engine.decode_step_greedy(iw, tok, cache)
             out.append(tok)
         if events:
@@ -484,55 +756,120 @@ def phase_serving():
 
     run(2)                                   # warm-up
     sync()
+    torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
         w.launches = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    logits, toks, cache, prefill_counts = run(STEPS, ev)
+    logits, toks, cache, prefill_counts = run(steps, ev)
     sync()
     total = counts()
     decode_counts = {n: total[n] - prefill_counts[n] for n in total}
-    want_prefill = dict(decode_front=0, decode_attention_rows_q=0,
-                        lm_head_argmax=0, block_sparse_attention=LAYERS)
-    want_decode = dict(decode_front=LAYERS * STEPS,
-                       decode_attention_rows_q=LAYERS * STEPS,
-                       lm_head_argmax=STEPS, block_sparse_attention=0)
-    require(prefill_counts == want_prefill and decode_counts == want_decode,
-            f'launch counts: prefill {prefill_counts} (expected '
-            f'{want_prefill}), {STEPS} decode steps {decode_counts} '
+    per_prefill, per_step = expected_launches(cfg, quantized)
+    want_decode = {n: c * steps for n, c in per_step.items()}
+    require(prefill_counts == per_prefill and decode_counts == want_decode,
+            f'{label} launch counts: prefill {prefill_counts} (expected '
+            f'{per_prefill}), {steps} decode steps {decode_counts} '
             f'(expected {want_decode})')
     require(bool(torch.isfinite(logits.float()).all()), 'NaN/inf logits')
-    require(toks.shape == (B, STEPS) and bool(((toks >= 0)
+    require(toks.shape == (b, steps) and bool(((toks >= 0)
                                                & (toks < VOCAB)).all()),
             f'token ids outside the vocabulary: {toks.tolist()}')
-    require(cache.length.tolist() == [PROMPT + STEPS] * B, 'cache length')
+    require(cache.length.tolist() == [tokens.shape[1] + steps] * b,
+            'cache length')
     prefill_ms = ev[0].elapsed_time(ev[1])
     decode_ms = ev[1].elapsed_time(ev[2])
     res = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
-               prefill_tok_s=B * PROMPT / prefill_ms * 1e3,
-               decode_tok_s=B * STEPS / decode_ms * 1e3,
-               launches=total,
-               launches_per_prefill=prefill_counts,
-               launches_per_step={n: c / STEPS
+               prefill_tok_s=b * tokens.shape[1] / prefill_ms * 1e3,
+               decode_tok_s=b * steps / decode_ms * 1e3,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=total, launches_per_prefill=prefill_counts,
+               launches_per_step={n: c / steps
                                   for n, c in decode_counts.items()})
-    log(f'  launches: prefill {prefill_counts}; {STEPS} decode steps '
-        f'{decode_counts}')
-    log(f'  prefill {prefill_ms:.2f} ms = {res["prefill_tok_s"]:.0f} tok/s; '
-        f'{STEPS} decode steps {decode_ms:.2f} ms = '
-        f'{res["decode_tok_s"]:.0f} tok/s '
-        f'({decode_ms / STEPS:.3f} ms/step)')
+    log(f'  [{label}] launches: prefill {prefill_counts}; {steps} decode '
+        f'steps {decode_counts}')
+    log(f'  [{label}] prefill {prefill_ms:.2f} ms = '
+        f'{res["prefill_tok_s"]:.0f} tok/s; {steps} decode steps '
+        f'{decode_ms:.2f} ms = {res["decode_tok_s"]:.0f} tok/s '
+        f'({decode_ms / steps:.3f} ms/step); peak memory '
+        f'{res["peak_mem_gb"]:.2f} GB')
+    if profile:
+        cache = engine.KVCache.create(cfg, b, max_len, dtype=cfg.dtype,
+                                      quantized=quantized, device=DEV)
+        _, cache = engine.prefill(iw, tokens, cache)
+        tok = toks[:, -1].contiguous()
 
-    cache = engine.KVCache.create(cfg, B, MAX_LEN, dtype=cfg.dtype,
-                                  quantized=True, device=DEV)
-    res['prefill_profile'] = device_profile(
-        'prefill', lambda: engine.prefill(iw, tokens, cache))
-    tok = toks[:, -1].contiguous()
-
-    def steps4():
-        t = tok
-        for _ in range(4):
-            t, _ = engine.decode_step_greedy(iw, t, cache)
-    res['decode_profile'] = device_profile('4 decode steps', steps4)
+        def steps4():
+            t = tok
+            for _ in range(4):
+                t, _ = engine.decode_step_greedy(iw, t, cache)
+        res['decode_profile'] = device_profile(f'{label}: 4 decode steps',
+                                               steps4)
     return res
+
+
+def phase_serving():
+    """bf16 OPT-125M, B=8, prompt 2048, max_len 2176: bench.py's three
+    decode modes and the fused FFN tail on the int8-KV mode."""
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    sparse = opt_cfg('125m', MAX_LEN, torch.bfloat16)
+    params = init_params(sparse, SEED, device=DEV)
+    tokens = torch.randint(1, VOCAB, (B, PROMPT), generator=gen(SEED),
+                           device=DEV)
+    iw = InferenceWeights.from_params(sparse, params)
+    runs = {}
+    runs['dense bf16-KV'] = serving_run(
+        'dense bf16-KV', InferenceWeights.from_params(
+            opt_cfg('125m', MAX_LEN, torch.bfloat16, dense=True),
+            dense_params(params)), tokens, MAX_LEN, STEPS, False)
+    runs['sparse bf16-KV'] = serving_run('sparse bf16-KV', iw, tokens,
+                                         MAX_LEN, STEPS, False)
+    runs['sparse int8-KV'] = serving_run('sparse int8-KV', iw, tokens,
+                                         MAX_LEN, STEPS, True)
+    runs['sparse int8-KV fused FFN tail'] = serving_run(
+        'sparse int8-KV fused FFN tail', InferenceWeights.from_params(
+            sparse.replace(decode_fused_ffn=True), params), tokens, MAX_LEN,
+        STEPS, True)
+    cache = engine.KVCache.create(sparse, B, MAX_LEN, dtype=sparse.dtype,
+                                  quantized=True, device=DEV)
+    runs['sparse int8-KV']['prefill_profile'] = device_profile(
+        'sparse int8-KV: prefill', lambda: engine.prefill(iw, tokens, cache))
+    dense_tps = runs['dense bf16-KV']['decode_tok_s']
+    ratios = {k: r['decode_tok_s'] / dense_tps for k, r in runs.items()}
+    best = max(runs['sparse int8-KV']['decode_tok_s'],
+               runs['sparse bf16-KV']['decode_tok_s'])
+    log(f'  decode tok/s over dense bf16-KV: '
+        + ', '.join(f'{k} {v:.3f}' for k, v in ratios.items())
+        + f"; bench.py's vs_baseline (best sparse / dense) "
+          f'{best / dense_tps:.3f}')
+    return dict(runs=runs, vs_dense=ratios, vs_baseline=best / dense_tps)
+
+
+def phase_1p3b():
+    """bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, B=8,
+    prompt 2048, max_len 2176, 32 steps, random weights made on the card."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    sparse = opt_cfg('1.3b', MAX_LEN, torch.bfloat16)
+    params = init_params(sparse, SEED, device=DEV)
+    tokens = torch.randint(1, VOCAB, (B, PROMPT), generator=gen(SEED),
+                           device=DEV)
+    runs = {}
+    runs['dense bf16-KV'] = serving_run(
+        '1.3B dense bf16-KV', InferenceWeights.from_params(
+            opt_cfg('1.3b', MAX_LEN, torch.bfloat16, dense=True),
+            dense_params(params)), tokens, MAX_LEN, STEPS, False,
+        profile=False)
+    runs['sparse int8-KV'] = serving_run(
+        '1.3B sparse int8-KV', InferenceWeights.from_params(sparse, params),
+        tokens, MAX_LEN, STEPS, True, profile=False)
+    ratio = runs['sparse int8-KV']['decode_tok_s'] \
+        / runs['dense bf16-KV']['decode_tok_s']
+    log(f'  1.3B sparse int8-KV / dense bf16-KV decode tok/s {ratio:.3f}')
+    del params
+    torch.cuda.empty_cache()
+    return dict(runs=runs, sparse_vs_dense=ratio)
 
 
 def device_profile(label, fn, top=8):
@@ -567,18 +904,27 @@ def device_profile(label, fn, top=8):
 
 # ---------------------------------------------------------------------------
 
+# (name, source, TPU kernel it replaces, others it also replaces, the
+# phase-4 run whose launch counts the kernel line reports)
 KERNELS = [
     ('decode_front', 'spt_proto_tpu_torch/csrc/decode_front.cu',
-     'spt_proto_tpu/ops/pallas/decode_front.py:359', []),
+     'spt_proto_tpu/ops/pallas/decode_front.py:359', [], 'sparse int8-KV'),
     ('decode_attention_rows_q', 'spt_proto_tpu_torch/csrc/decode_attention.cu',
      'spt_proto_tpu/ops/pallas/decode_attention.py:1627',
-     ['spt_proto_tpu/ops/pallas/decode_attention.py:1275']),
+     ['spt_proto_tpu/ops/pallas/decode_attention.py:1275'], 'sparse int8-KV'),
     ('lm_head_argmax', 'spt_proto_tpu_torch/csrc/lm_head.cu',
-     'spt_proto_tpu/ops/pallas/lm_head.py:69', []),
+     'spt_proto_tpu/ops/pallas/lm_head.py:69', [], 'sparse int8-KV'),
     ('block_sparse_attention',
      'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:373',
-     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108']),
+     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108'],
+     'sparse int8-KV'),
+    ('decode_attention_rows', 'spt_proto_tpu_torch/csrc/decode_attention.cu',
+     'spt_proto_tpu/ops/pallas/decode_attention.py:883',
+     ['spt_proto_tpu/ops/pallas/decode_attention.py:571'], 'dense bf16-KV'),
+    ('ffn_tail', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
+     'spt_proto_tpu/ops/pallas/ffn_tail.py:99', [],
+     'sparse int8-KV fused FFN tail'),
 ]
 
 
@@ -602,43 +948,45 @@ def main() -> int:
     log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
 
     log('phase 2: kernels vs plain twins')
-    timer = Timer()
-    res = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        main_dtype = dtype == torch.bfloat16
-        t = timer if main_dtype else None
-        r_front, front_out = check_front(dtype, t)
-        r_attn = check_attention(dtype, front_out, t)
-        r_head = check_lm_head(dtype, t)
-        r_bsa = check_block_sparse(dtype, PROMPT, 8, t)
-        check_block_sparse(dtype, 2 * PROMPT, 4)
-        if main_dtype:
-            res = dict(decode_front=r_front, decode_attention_rows_q=r_attn,
-                       lm_head_argmax=r_head, block_sparse_attention=r_bsa)
-        del front_out
-    torch.cuda.empty_cache()
+    res = phase_kernels(Timer())
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
     log('phase 3: f32 slice parity, card kernels vs CPU twins')
     parity = phase_parity()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
-    log('phase 4: bf16 serving run, OPT-125M B=8 prompt 2048 int8 KV')
+    log('phase 4: bf16 serving runs, OPT-125M B=8 prompt 2048')
     serving = phase_serving()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
+    log('phase 5: OPT-1.3B rung, B=8 prompt 2048')
+    big = phase_1p3b()
 
     rows = []
-    for name, src, replaces, also in KERNELS:
+    for name, src, replaces, also, run in KERNELS:
         r = res[name]
+        sv = serving['runs'][run]
         rows.append(dict(
             name=name, route='cuda', source=src, replaces=replaces,
-            also_replaces=also, launches=serving['launches'][name],
-            launches_per_step=serving['launches_per_step'][name],
-            launches_per_prefill=serving['launches_per_prefill'][name],
+            also_replaces=also, launches=sv['launches'][name],
+            launches_run=run,
+            launches_per_step=sv['launches_per_step'][name],
+            launches_per_prefill=sv['launches_per_prefill'][name],
+            launches_by_run={k: s['launches'][name]
+                             for k, s in serving['runs'].items()},
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
-            library_ms=r['library_ms']))
+            library_ms=r['library_ms'],
+            **{k: v for k, v in r.items() if isinstance(v, dict)
+               or k == 'unfused_ms'}))
+
+    def brief(run):
+        return {k: v for k, v in run.items() if not k.startswith('launches')}
     log(json.dumps(dict(
         device=smi, parity=parity,
-        serving={k: v for k, v in serving.items() if not
-                 k.startswith('launches')},
+        serving=dict(serving, runs={k: brief(r)
+                                    for k, r in serving['runs'].items()}),
+        opt_1p3b=dict(big, runs={k: brief(r) for k, r in big['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

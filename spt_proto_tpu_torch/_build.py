@@ -38,7 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     'spt_decode_front': [_I] + [_P] * 9 + [_I] + [_P] * 9 + [_I] * 11
                         + [_F, _F, _I, _P],
-    'spt_decode_attention_q': [_I] + [_P] * 16 + [_I] * 9 + [_F, _F, _P],
+    'spt_decode_attention': [_I] + [_P] * 12 + [_I] * 10 + [_F, _F, _P],
+    'spt_decode_attention_q': [_I] + [_P] * 16 + [_I] * 11 + [_F, _F, _P],
+    'spt_ffn_tail': [_I] + [_P] * 8 + [_I] * 4 + [_P],
     'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
     'spt_block_sparse_fwd': [_I] + [_P] * 5 + [_I] * 6 + [_F, _F, _I, _P],
 }

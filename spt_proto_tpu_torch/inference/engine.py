@@ -1,19 +1,24 @@
-"""Inference engine: prefill + single-token decode with a PQ-coded KV cache
-(port of spt_proto_tpu/inference/engine.py, main path).
+"""Inference engine: prefill + single-token decode with a tile-major KV
+cache (port of spt_proto_tpu/inference/engine.py, serving path).
 
-This slice serves the flagship configuration: OPT, PQ-sparse attention
-(sparse_v2, l2 metric, per-head selection), an int8 KV cache, fp weights,
-greedy decoding. Per decode layer the step is two kernel launches, the
-fused front (ops/decode_front.py) and the int8 tile attention with in-place
-append (ops/decode_attention.py), and per step one fused lm_head argmax
-(ops/lm_head.py); prefill runs the block-sparse attention kernel
-(ops/block_sparse_attention.py) once per layer. Everything else is plain
-PyTorch that mirrors the JAX engine op for op.
+This port serves OPT with fp weights and greedy decoding in every decode
+mode the JAX package's bench.py measures: dense attention, and PQ-sparse
+attention (sparse_v2, l1 or l2 metric) through the fused front or the
+unfused front, each over a bf16/f32 KV cache or an int8 one, optionally
+with the fused FFN tail. Per decode layer the step launches the tile
+attention kernel with in-place append (ops/decode_attention.py:
+`decode_attention_rows` over a bf16/f32 cache, `decode_attention_rows_q`
+over an int8 one), after the fused front kernel (ops/decode_front.py) when
+the config takes it (l2 metric, per-head selection), and the fused FFN tail
+(ops/ffn_tail.py) when `decode_fused_ffn=True`; per step one fused lm_head
+argmax (ops/lm_head.py). Sparse prefill runs the block-sparse attention
+kernel (ops/block_sparse_attention.py) once per layer. Everything else,
+dense prefill and the unfused front among it, is plain PyTorch that
+mirrors the JAX engine op for op, as the JAX package leaves it to XLA.
 
-Out of this slice, and raising NotImplementedError with the slice that
-brings them: dense attention, a bf16 KV cache and the l1 metric at decode
-(bf16-KV / dense decode slice), LLaMA and GQA (LLaMA slice), int8 weights
-(int8-weight slice), routed FFN (training slice), the fused FFN tail.
+Out of this port so far, and raising NotImplementedError with the slice
+that brings them: LLaMA and GQA (LLaMA slice), int8 weights (int8-weight
+slice), routed FFN (training slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -34,12 +39,15 @@ from spt_proto_tpu_torch.ops import pq as pq_ops
 from spt_proto_tpu_torch.ops.block_sparse import pq_tile_scores, select_tiles
 from spt_proto_tpu_torch.ops.block_sparse_attention import \
     block_sparse_attention
-from spt_proto_tpu_torch.ops.decode_attention import decode_attention_rows_q
+from spt_proto_tpu_torch.ops.decode_attention import (decode_attention_rows,
+                                                      decode_attention_rows_q)
 from spt_proto_tpu_torch.ops.decode_front import decode_front
+from spt_proto_tpu_torch.ops.ffn_tail import MAX_ROWS, ffn_tail
 from spt_proto_tpu_torch.ops.lm_head import lm_head_argmax
 from spt_proto_tpu_torch.ops.lookup import pq_topk_indices
 from spt_proto_tpu_torch.ops.sparse_attention import sparse_attention
 
+NEG_INF = -1e30
 TILE = 128   # tokens per cache tile
 
 
@@ -152,12 +160,19 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
                   x: torch.Tensor) -> torch.Tensor:
-    """x + ffn(norm2(x)) (the unfused branch, the default for fp weights)."""
-    if cfg.decode_fused_ffn:
-        raise NotImplementedError(
-            'the fused decode FFN tail kernel comes with the int8-weight '
-            'slice')
-    return x + _ffn(cfg, p, _layernorm(pn, x))
+    """x + ffn(norm2(x)); through the fused tail kernel when the config
+    asks for it (decode_fused_ffn=True; None stays unfused for fp weights,
+    as in the JAX engine) and the shape is eligible: <= 256 rows, d_model
+    and d_ff multiples of 128."""
+    xn = _layernorm(pn, x)
+    rows = x.numel() // cfg.d_model
+    if not (cfg.decode_fused_ffn and rows <= MAX_ROWS
+            and cfg.d_model % 128 == 0 and cfg.d_feedforward % 128 == 0):
+        return x + _ffn(cfg, p, xn)
+    y = ffn_tail(xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model),
+                 p['fc1']['kernel'], p['fc1']['bias'], p['fc2']['kernel'],
+                 p['fc2']['bias'])
+    return y.reshape(x.shape)
 
 
 def _encode_codes(cfg: ModelConfig, quantizer: dict, x: torch.Tensor,
@@ -194,39 +209,23 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _require_slice(iw: InferenceWeights, cache: KVCache,
-                   decode: bool) -> None:
+def _require_slice(iw: InferenceWeights, cache: KVCache) -> None:
     cfg = iw.cfg
     if cfg.arch != 'opt' or cfg.kv_heads != cfg.n_heads:
         raise NotImplementedError(
-            'LLaMA and GQA serving come with the LLaMA slice')
-    if cfg.attention != ATTN_SPARSE_V2:
-        raise NotImplementedError(
-            'dense attention serving comes with the bf16-KV / dense decode '
-            'slice')
+            'LLaMA and GQA serving (RMSNorm, RoPE, the gated FFN tail) come '
+            'with the LLaMA slice')
     if cfg.ffn == FFN_ROUTED:
         raise NotImplementedError('routed FFN comes with the training slice')
     if iw.quant is not None:
         raise NotImplementedError(
-            'int8 weight-only serving comes with the int8-weight slice')
+            'int8 weight-only serving (and the int8 FFN tail) comes with the '
+            'int8-weight slice')
     if cache.k.device.type == 'cuda' and cfg.attn_impl != 'pallas':
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: on the GPU the port attends only "
             f"through its kernels (attn_impl='pallas'); the plain twins run "
             f"on CPU tensors")
-    if not decode:
-        return
-    if not cache.quantized:
-        raise NotImplementedError(
-            'decode over a bf16 KV cache comes with the bf16-KV / dense '
-            'decode slice')
-    if not (cfg.decode_fused_front and cfg.pq_metric == 'l2'
-            and cfg.sparse_select_heads == 1 and cfg.d_model % 128 == 0
-            and 'quantizer_bd' in iw.params['blocks']['mha']):
-        raise NotImplementedError(
-            'this slice decodes through the fused front only (l2 metric, '
-            'per-head selection, d_model a multiple of 128); the unfused '
-            'decode front comes with the bf16-KV / dense decode slice')
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +236,7 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
             cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """Teacher-forced pass over prompts; fills the cache (in place) and
     returns the full-sequence logits. tokens [B, S] (left-aligned)."""
-    _require_slice(iw, cache, decode=False)
+    _require_slice(iw, cache)
     cfg = iw.cfg
     p = iw.params
     b, s = tokens.shape
@@ -251,6 +250,7 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
     nt = cache.tiles_per_layer(cfg.n_layers)
     nt_m = -(-s // TILE)
     scale = dh ** -0.5
+    sparse = cfg.attention == ATTN_SPARSE_V2
 
     def to_tiles(x_std):            # [B, H, S, w] -> [B, H, NTm, w, T]
         xp = torch.nn.functional.pad(x_std, (0, 0, 0, nt_m * TILE - s))
@@ -265,34 +265,18 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
         q, k, v = _qkv_proj(bp['mha'], _layernorm(bp['norm1'], x))
         q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2)    # [B, H, S, dh]
                    for t in (q, k, v))
-        qz, kz, vz = (t.reshape(b * h, s, dh) for t in (q, k, v))
-        quantizer = bp['mha']['quantizer']
-        bd_m = _bd_of(bp['mha'])
-        codes_q = _encode_codes(cfg, quantizer, qz, bd=bd_m)
-        codes_k = _encode_codes(cfg, quantizer, kz, bd=bd_m)
-        blk_k = 128
-        blk_q = 256 if s % 256 == 0 else 128
-        if s % blk_q == 0 and s >= 2 * blk_k:
-            ratio = blk_q // blk_k
-            n_sel = max(ratio, (s // blk_k) // cfg.sparse_coeff)
-            ts = pq_tile_scores(codes_q, codes_k,
-                                n_codewords=cfg.n_codewords,
-                                block_q=blk_q, block_k=blk_k)
-            sel = select_tiles(ts, n_sel, block_ratio=ratio)
-            o = block_sparse_attention(qz, kz, vz, sel, block_q=blk_q,
-                                       block_k=blk_k, scale=scale,
-                                       clamp=cfg.score_clamp)
+        if sparse:
+            o, codes_k = _sparse_prefill_attention(cfg, bp['mha'], q, k, v,
+                                                   scale)
         else:
-            if s > 1024:
-                warnings.warn(
-                    f'sparse prefill at S={s} (not a tile multiple) falls '
-                    f'back to the O(S^2) per-row oracle — pad prompts to a '
-                    f'multiple of {blk_q}', stacklevel=2)
-            idx = pq_topk_indices(codes_q, codes_k,
-                                  top_k=max(1, s // cfg.sparse_coeff),
-                                  n_codewords=cfg.n_codewords)
-            o = sparse_attention(qz, kz, vz, idx, scale=scale,
-                                 clamp=cfg.score_clamp)
+            # causal f32 scores; the softmax rounds to the serving dtype
+            # before the PV product (the JAX engine's dense branch)
+            scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+            causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+            scores = torch.where(causal, scores, NEG_INF)
+            o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
+            codes_k = torch.zeros((b, h, s, 1), dtype=torch.int32,
+                                  device=dev)
         o = o.reshape(b, h, s, dh).transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + _dense(bp['mha']['o'], o)
         x = x + _ffn(cfg, bp['ffn'], _layernorm(bp['norm2'], x))
@@ -312,6 +296,40 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
     return _dense(p['lm_head'], _layernorm(p['final_norm'], x)), cache
 
 
+def _sparse_prefill_attention(cfg: ModelConfig, mha: dict, q, k, v,
+                              scale: float):
+    """PQ-sparse prefill attention of one layer: q/k/v [B, H, S, dh] ->
+    (o [B*H, S, dh], key codes [B*H, S, n_sub])."""
+    bh, s, dh = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    qz, kz, vz = (t.reshape(bh, s, dh) for t in (q, k, v))
+    bd_m = _bd_of(mha)
+    codes_q = _encode_codes(cfg, mha['quantizer'], qz, bd=bd_m)
+    codes_k = _encode_codes(cfg, mha['quantizer'], kz, bd=bd_m)
+    blk_k = 128
+    blk_q = 256 if s % 256 == 0 else 128
+    if s % blk_q == 0 and s >= 2 * blk_k:
+        ratio = blk_q // blk_k
+        n_sel = max(ratio, (s // blk_k) // cfg.sparse_coeff)
+        ts = pq_tile_scores(codes_q, codes_k, n_codewords=cfg.n_codewords,
+                            block_q=blk_q, block_k=blk_k)
+        sel = select_tiles(ts, n_sel, block_ratio=ratio)
+        o = block_sparse_attention(qz, kz, vz, sel, block_q=blk_q,
+                                   block_k=blk_k, scale=scale,
+                                   clamp=cfg.score_clamp)
+    else:
+        if s > 1024:
+            warnings.warn(
+                f'sparse prefill at S={s} (not a tile multiple) falls back '
+                f'to the O(S^2) per-row oracle — pad prompts to a multiple '
+                f'of {blk_q}', stacklevel=3)
+        idx = pq_topk_indices(codes_q, codes_k,
+                              top_k=max(1, s // cfg.sparse_coeff),
+                              n_codewords=cfg.n_codewords)
+        o = sparse_attention(qz, kz, vz, idx, scale=scale,
+                             clamp=cfg.score_clamp)
+    return o, codes_k
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -323,40 +341,128 @@ def decode_step(iw: InferenceWeights, tokens: torch.Tensor,
     return _dense(iw.params['lm_head'], x), cache
 
 
+def _uses_fused_front(cfg: ModelConfig, mha: dict) -> bool:
+    """The JAX engine's envelope of the fused decode front: sparse_v2, l2
+    metric, per-head selection, d_model a multiple of 128."""
+    return (cfg.attention == ATTN_SPARSE_V2 and cfg.decode_fused_front
+            and cfg.sparse_select_heads == 1 and cfg.pq_metric == 'l2'
+            and cfg.d_model % 128 == 0 and 'quantizer_bd' in mha)
+
+
+def _sparse_tables(cfg: ModelConfig, mha: dict, q4, k_new, codes, base: int,
+                   nt: int, nsel: int, cur):
+    """The unfused sparse front's selection: the new key's codes
+    [B, KV, w] and the layer-relative tables [B, KV / sparse_select_heads,
+    nsel] (-1 = empty): the top nsel-1 FULL tiles by mean PQ match (pooled
+    over the group's heads and query rows), in lax.top_k order, then the
+    current tile."""
+    b, kv, g, dh = q4.shape
+    bd_m = _bd_of(mha)
+    codes_q = _encode_codes(cfg, mha['quantizer'], q4.reshape(b, kv * g, dh),
+                            bd=bd_m).reshape(b, kv, g, -1)
+    c_new = _fit_codes(_encode_codes(cfg, mha['quantizer'], k_new, bd=bd_m),
+                       codes.shape[3])
+    # match over the TRUE subspaces only (the stored width may be padded)
+    c_l = codes[:, :, base:base + nt, :cfg.n_subspaces]    # [B,KV,NT,ns,T]
+    match = (c_l[:, :, None] == codes_q[:, :, :, None, :, None]
+             ).float().sum(4)                              # [B,KV,G,NT,T]
+    tscore = match.mean(dim=(2, 4))                        # [B, KV, NT]
+    gsel = cfg.sparse_select_heads
+    if gsel > 1:
+        tscore = tscore.reshape(b, kv // gsel, gsel, nt).mean(2)
+    full = torch.arange(nt, device=q4.device)[None, :] < cur[:, None]
+    tscore = torch.where(full[:, None, :], tscore, float('-inf'))
+    # lax.top_k order: descending, the lowest index first on ties
+    svals, sidx = torch.sort(tscore, dim=-1, descending=True, stable=True)
+    svals, sidx = svals[..., :nsel - 1], sidx[..., :nsel - 1]
+    rel = torch.where(svals > float('-inf'), sidx, -1)
+    cur_col = cur[:, None, None].expand(b, rel.shape[1], 1)
+    return c_new, torch.cat([rel, cur_col], dim=-1)
+
+
 def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
                    cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
-    """One token per active slot through the fused front + int8 tile
-    attention, two launches per layer. tokens [B]; positions come from
+    """One token per active slot: per layer the front (fused kernel, or
+    plain QKV + PQ selection, or dense tables), then the tile attention
+    kernel for the cache's dtype. tokens [B]; positions come from
     cache.length. Returns (final-normed hidden [B, D], cache)."""
-    _require_slice(iw, cache, decode=True)
+    _require_slice(iw, cache)
     cfg = iw.cfg
     p = iw.params
     b = tokens.shape[0]
     nt = cache.tiles_per_layer(cfg.n_layers)
     pos = cache.length
+    dev = pos.device
     h_tok = p['embedding']['embedding'][tokens.long()] \
         + p['learned_pe']['embedding'][pos.long() + PE_OFFSET]
     x = h_tok[:, None].to(cfg.dtype)                        # [B, 1, D]
-    h, dh = cfg.n_heads, cfg.d_head
-    nsel = min(nt, max(1, nt // cfg.sparse_coeff) + 1)
-    n_tiles = torch.full((b,), nsel, dtype=torch.int32, device=pos.device)
+    kv, g, dh = cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    scale = dh ** -0.5
+    cur = (pos // TILE).long()                              # [B]
+    sparse = cfg.attention == ATTN_SPARSE_V2
+    if sparse:
+        nsel = min(nt, max(1, nt // cfg.sparse_coeff) + 1)
+        n_tiles = torch.full((b,), nsel, dtype=torch.int32, device=dev)
+        tps, clamp = 1, cfg.score_clamp
+    else:
+        # dense tables cover [0, cur] in tps-wide supertiles: ONE row for
+        # all heads, entries e * tps for e <= cur // tps, -1 past them
+        tps = 4 if nt % 4 == 0 and nt >= 8 else 1
+        e = torch.arange(-(-nt // tps), device=dev)
+        n_sup = cur // tps + 1
+        dense_rel = torch.where(e[None] < n_sup[:, None], e * tps,
+                                -1)[:, None]                # [B, 1, n_sup]
+        n_tiles = n_sup.to(torch.int32)
+        clamp = 0.0
+    use_front = _uses_fused_front(cfg, p['blocks']['mha'])
     for li in range(cfg.n_layers):
         bp = _layer(p['blocks'], li)
         mha = bp['mha']
-        (q, _, _, c_new, tables, k8, v8, ks_new, vs_new) = decode_front(
-            x[:, 0], bp['norm1']['scale'], bp['norm1']['bias'],
-            mha['qkv']['kernel'], mha['qkv']['bias'], mha['quantizer_bd'],
-            mha['quantizer_cbn'], cache.codes, pos, li * nt, nt=nt,
-            nsel=nsel, n_sub=cfg.n_subspaces, ps=TILE, eps=1e-5,
-            arch=cfg.arch, quantized=True)
-        base = torch.full((b,), li * nt, dtype=torch.int32,
-                          device=pos.device)
-        o = decode_attention_rows_q(
-            q.reshape(b, h, 1, dh), cache.k, cache.v, cache.codes,
-            cache.k_scale, cache.v_scale, tables, n_tiles, pos,
-            k8.reshape(b, h, dh), v8.reshape(b, h, dh), c_new, ks_new,
-            vs_new, base, ps=TILE, scale=dh ** -0.5,
-            clamp=cfg.score_clamp)[0]
+        base = li * nt
+        kv_quant = None
+        if use_front:
+            out = decode_front(
+                x[:, 0], bp['norm1']['scale'], bp['norm1']['bias'],
+                mha['qkv']['kernel'], mha['qkv']['bias'],
+                mha['quantizer_bd'], mha['quantizer_cbn'], cache.codes, pos,
+                base, nt=nt, nsel=nsel, n_sub=cfg.n_subspaces, ps=TILE,
+                eps=1e-5, arch=cfg.arch, quantized=cache.quantized)
+            q, k_new, v_new, c_new, tables = out[:5]
+            kv_quant = out[5:]
+        else:
+            q, k_new, v_new = _qkv_proj(mha, _layernorm(bp['norm1'], x))
+            if sparse:
+                c_new, rel = _sparse_tables(
+                    cfg, mha, q.reshape(b, kv, g, dh),
+                    k_new.reshape(b, kv, dh), cache.codes, base, nt, nsel,
+                    cur)
+            else:
+                c_new = torch.zeros((b, kv, cache.codes.shape[3]),
+                                    dtype=torch.int32, device=dev)
+                rel = dense_rel
+            tables = torch.where(rel < 0, -1, rel + base).to(torch.int32)
+        # the kernels take contiguous tensors; _qkv_proj's einsum may
+        # return strided views
+        q4 = q.reshape(b, kv, g, dh).contiguous()
+        k_new = k_new.reshape(b, kv, dh).contiguous()
+        v_new = v_new.reshape(b, kv, dh).contiguous()
+        base_t = torch.full((b,), base, dtype=torch.int32, device=dev)
+        kw = dict(ps=TILE, tps=tps, scale=scale, clamp=clamp)
+        if cache.quantized:
+            if kv_quant:
+                k8, v8, ks_new, vs_new = kv_quant
+            else:
+                k8, ks_new = _quantize_kv(k_new)
+                v8, vs_new = _quantize_kv(v_new)
+            o = decode_attention_rows_q(
+                q4, cache.k, cache.v, cache.codes, cache.k_scale,
+                cache.v_scale, tables, n_tiles, pos, k8.reshape(b, kv, dh),
+                v8.reshape(b, kv, dh), c_new, ks_new, vs_new, base_t,
+                **kw)[0]
+        else:
+            o = decode_attention_rows(
+                q4, cache.k, cache.v, cache.codes, tables, n_tiles, pos,
+                k_new, v_new, c_new, base_t, **kw)[0]
         x = x + _dense(mha['o'], o.reshape(b, 1, cfg.d_model))
         x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
     cache = dataclasses.replace(cache, length=cache.length + 1)

@@ -1,11 +1,14 @@
-"""Fused sparse decode FRONT: norm1 + QKV projection + int8 KV quantization
-+ PQ encode + tile selection in one launch per decode layer (port of
+"""Fused sparse decode FRONT: norm1 + QKV projection + PQ encode + tile
+selection (+ int8 KV quantization) in one launch per decode layer (port of
 spt_proto_tpu/ops/pallas/decode_front.py).
 
 `decode_front` launches the CUDA kernel csrc/decode_front.cu for CUDA
-tensors and runs the plain twin `decode_front_ref` for CPU tensors. This
-slice covers the OPT / MHA / stacked-QKV ('stack') weight form in f32 or
-bf16; RoPE (LLaMA), GQA and int8 weight forms raise NotImplementedError.
+tensors and runs the plain twin `decode_front_ref` for CPU tensors. The
+engine calls it for sparse decode over an int8 KV cache (quantized=True)
+and over a bf16/f32 one (quantized=False). The port covers the OPT / MHA /
+stacked-QKV ('stack') weight form in f32 or bf16; RoPE and GQA (LLaMA
+slice) and the int8 weight forms (int8-weight slice) raise
+NotImplementedError.
 
 Numerics follow the JAX kernel op for op in the serving dtype: f32 norm
 statistics with dtype affine, f32-accumulated dot rounded to the dtype

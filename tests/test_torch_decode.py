@@ -1,11 +1,13 @@
-"""PyTorch port vs the JAX package: the decode-front and int8 decode
-attention twins against the JAX Pallas kernels (interpret mode), on the CPU.
+"""PyTorch port vs the JAX package: the decode-front and decode attention
+twins (bf16/f32 and int8 caches) against the JAX oracles and Pallas kernels
+(interpret mode), on the CPU.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from spt_proto_tpu.ops.pallas import decode_attention as jattn
 from spt_proto_tpu.ops.pallas.decode_attention import \
     decode_attention_rows_q_ms as j_attn_ms
 from spt_proto_tpu.ops.pallas.decode_front import build_pq_bd as j_build_pq_bd
@@ -143,3 +145,132 @@ def test_decode_attention_twin_matches_jax_kernel(clamp):
     wrapped = tattn.decode_attention_rows_q_ms(*tens, **kw)
     assert torch.equal(wrapped[0], got[0])
     assert tattn.decode_attention_rows_q.launches == n0 == 0
+
+
+def _rows_inputs(g, mode, seed=1, b=3, kv=4, d=64, ps=32, n_sub=4, layers=1):
+    """bf16-path inputs in the layout of tests/test_decode_attention_kernel.py
+    (f32 caches of 8 tiles of 32 tokens a layer), from a numpy seed.
+    mode 'dense' / 'dense-tps2' / 'dense-tps4': supertile starts 0, tps, ...
+    covering the write tile, one table row for all heads, and zero codes;
+    'sparse': per-head rows of 3 entries with -1 padding, current last."""
+    rng = np.random.RandomState(seed)
+    nt = 8
+    tps = int(mode[len('dense-tps'):]) if mode.startswith('dense-tps') else 1
+    q = rng.randn(b, kv, g, d).astype(np.float32)
+    kc = rng.randn(b, kv, layers * nt, d, ps).astype(np.float32)
+    vc = rng.randn(b, kv, layers * nt, d, ps).astype(np.float32)
+    pos = rng.randint(ps, nt * ps - 1, size=b).astype(np.int32)
+    cur = pos // ps
+    if mode.startswith('dense'):
+        cc = np.zeros((b, kv, layers * nt, 1, ps), np.int32)
+        cn = np.zeros((b, kv, 1), np.int32)
+        t_max = -(-nt // tps)
+        tables = np.full((b, 1, t_max), -1, np.int32)
+        n_tiles = cur // tps + 1
+        for i in range(b):
+            tables[i, 0, :n_tiles[i]] = np.arange(n_tiles[i]) * tps
+    else:
+        cc = rng.randint(0, 16, size=(b, kv, layers * nt, n_sub, ps)).astype(
+            np.int32)
+        cn = rng.randint(0, 16, size=(b, kv, n_sub)).astype(np.int32)
+        tables = np.full((b, kv, 3), -1, np.int32)
+        n_tiles = np.full(b, 3, np.int32)
+        for i in range(b):
+            for h in range(kv):
+                k_n = min(2, cur[i])
+                chosen = np.sort(rng.choice(cur[i], size=k_n, replace=False))
+                tables[i, h] = list(chosen) + [-1] * (2 - k_n) + [cur[i]]
+    kn = rng.randn(b, kv, d).astype(np.float32)
+    vn = rng.randn(b, kv, d).astype(np.float32)
+    return [q, kc, vc, cc, tables, n_tiles.astype(np.int32), pos, kn, vn,
+            cn], tps
+
+
+def _rows_both(arrays, tps, tile_base=None, clamp=0.0, ps=32):
+    """The JAX oracle and the port's twin on the same inputs."""
+    kw = dict(ps=ps, tps=tps, scale=64 ** -0.5, clamp=clamp)
+    tb = () if tile_base is None else (tile_base,)
+    want = jattn.decode_attention_rows_ref(
+        *(jnp.asarray(a) for a in arrays + list(tb)), **kw)
+    got = tattn.decode_attention_rows_ref(*(t(a) for a in arrays + list(tb)),
+                                          **kw)
+    return [np.asarray(a) for a in want], [a.numpy() for a in got], kw
+
+
+@pytest.mark.parametrize('mode', ['dense', 'dense-tps2', 'dense-tps4',
+                                  'sparse'])
+@pytest.mark.parametrize('g', [1, 2])
+def test_decode_attention_rows_twin_matches_jax_ref(mode, g):
+    arrays, tps = _rows_inputs(g, mode)
+    want, got, kw = _rows_both(arrays, tps,
+                               clamp=10.0 if mode == 'sparse' else 0.0)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+    for g_, w_ in zip(got[1:], want[1:]):          # appended caches: exact
+        np.testing.assert_array_equal(g_, w_)
+    # the wrapper on CPU tensors is the twin (in place) and launches nothing
+    tens = [t(a) for a in arrays]
+    n0 = tattn.decode_attention_rows.launches
+    wrapped = tattn.decode_attention_rows_ms(*tens, **kw)
+    np.testing.assert_array_equal(wrapped[0].numpy(), got[0])
+    assert all(w_ is a for w_, a in zip(wrapped[1:], tens[1:4]))
+    assert tattn.decode_attention_rows.launches == n0 == 0
+
+
+def test_decode_attention_rows_grouped_tables_and_tile_base():
+    """Two layers folded on the tile axis; the second slot reads layer 1
+    (tile_base 8) through two table rows, each serving two of the 4 heads,
+    and the first slot reads layer 0."""
+    arrays, tps = _rows_inputs(1, 'sparse', seed=2, layers=2)
+    base = np.array([0, 8, 8], np.int32)
+    tables = arrays[4][:, ::2]                         # rows for heads 0, 2
+    arrays[4] = np.where(tables >= 0, tables + base[:, None, None], -1)
+    want, got, _ = _rows_both(arrays, tps, tile_base=base, clamp=10.0)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+    for g_, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g_, w_)
+    # a grouped row reads as the same row repeated per head
+    per_head = list(arrays)
+    per_head[4] = np.repeat(arrays[4], 2, axis=1)
+    again = tattn.decode_attention_rows_ref(*(t(a) for a in per_head),
+                                            t(base), ps=32, scale=0.125,
+                                            clamp=10.0)
+    np.testing.assert_allclose(again[0].numpy(), got[0], atol=1e-6)
+
+
+def test_decode_attention_rows_twin_matches_jax_kernel():
+    """The twin against the JAX Pallas kernel itself (interpret mode), dense
+    supertiles of 2 with one table row for all heads."""
+    arrays, tps = _rows_inputs(2, 'dense-tps2', seed=3)
+    want = jattn.decode_attention_rows(
+        *(jnp.asarray(a) for a in arrays), ps=32, tps=tps, scale=0.125,
+        interpret=True)
+    got = tattn.decode_attention_rows_ref(*(t(a) for a in arrays), ps=32,
+                                          tps=tps, scale=0.125)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-5, rtol=1e-5)
+    for g_, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+
+
+def test_decode_attention_q_twin_dense_supertiles_match_jax_ref():
+    """The int8 twin with tps 4 and one table row for all heads, as dense
+    decode over the int8 cache sends it, vs the JAX int8 oracle."""
+    arrays, nt = _attn_inputs(seed=4)
+    b, kv = 3, 2
+    pos = arrays[8]
+    n_sup = pos // TILE // 4 + 1
+    tables = np.full((b, 1, 2), -1, np.int32)
+    for i in range(b):
+        tables[i, 0, :n_sup[i]] = np.arange(n_sup[i]) * 4 + nt
+    arrays = list(arrays)
+    arrays[3] = np.zeros((b, kv, 2 * nt, 1, TILE), np.int32)    # code cache
+    arrays[6], arrays[7] = tables, n_sup.astype(np.int32)
+    arrays[11] = np.zeros((b, kv, 1), np.int32)                 # c_new
+    kw = dict(ps=TILE, tps=4, scale=64 ** -0.5, clamp=0.0)
+    want = jattn.decode_attention_rows_q_ref(
+        *(jnp.asarray(a) for a in arrays), **kw)
+    got = tattn.decode_attention_rows_q_ref(*(t(a) for a in arrays), **kw)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-5, rtol=1e-5)
+    for g_, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))

@@ -1,0 +1,119 @@
+"""PyTorch port vs the JAX package: every decode mode of the serving engine
+on the CPU, beyond the int8-KV fused-front path of test_torch_engine.py.
+
+Dense attention and PQ-sparse attention through the fused front (l2) and
+the unfused front (l1, and l2 with two heads per table row), over an f32 or
+an int8 KV cache, and the fused FFN tail. The JAX engine runs its Pallas
+kernels in interpret mode; the port, handed CPU tensors, runs its plain
+twins. Both start from the same parameters and the same numpy prompts.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spt_proto_tpu import config as jcfg
+from spt_proto_tpu.inference import engine as jeng
+from spt_proto_tpu.inference.weights import InferenceWeights as JIW
+from spt_proto_tpu.tuning import surgery
+from spt_proto_tpu_torch.inference import bridge
+from spt_proto_tpu_torch.inference import engine as teng
+from spt_proto_tpu_torch.inference.weights import InferenceWeights as TIW
+from test_torch_engine import port_config
+
+B, MAX_LEN, STEPS = 2, 1024, 8
+
+
+@pytest.fixture(scope='module')
+def models():
+    """test_torch_engine.py's recipe (d_model 128, two heads, max_length
+    1024: 8 tiles per layer, so dense decode walks supertiles of 4), before
+    and after the PQ upgrade. The JAX engine takes its per-slot decode
+    kernels (decode_multislot=False), which compute the same function as
+    the all-slot ones and compile in half the time; the port has one
+    kernel for both launch shapes."""
+    dense = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
+                             vocab_size=256, max_length=MAX_LEN).replace(
+        dtype=jnp.float32, pq_metric='l2', attn_impl='pallas',
+        decode_multislot=False)
+    dparams = surgery.init_params(dense, jax.random.PRNGKey(0))
+    cfg, params = surgery.upgrade(dense, dparams, 'mha_v1',
+                                  jax.random.PRNGKey(1))
+    cfg, params = surgery.upgrade(cfg, params, 'mha_v2',
+                                  jax.random.PRNGKey(2))
+    return ((dense, jax.device_get(dparams)),
+            (cfg.replace(sparse_coeff=2), jax.device_get(params)))
+
+
+def _run(cfg, params, tokens, quantized, port):
+    if port:
+        cfg = port_config(cfg)
+        iw = TIW.from_params(cfg, bridge.params_from_numpy(params,
+                                                           device='cpu'))
+        cache = teng.KVCache.create(cfg, B, MAX_LEN, dtype=torch.float32,
+                                    quantized=quantized, device='cpu')
+        logits, cache = teng.prefill(iw, torch.from_numpy(tokens), cache)
+        step, argmax = teng.decode_step_greedy, torch.argmax
+    else:
+        iw = JIW.from_params(cfg, params)
+        cache = jeng.KVCache.create(cfg, B, MAX_LEN, dtype=jnp.float32,
+                                    quantized=quantized)
+        logits, cache = jax.jit(jeng.prefill)(iw, jnp.asarray(tokens), cache)
+        step, argmax = jax.jit(jeng.decode_step_greedy), jnp.argmax
+    names = ('k', 'v', 'codes', 'length') + (
+        ('k_scale', 'v_scale') if quantized else ())
+    after_prefill = {n: np.array(getattr(cache, n)) for n in names}
+    tok = argmax(logits[:, -1], -1)
+    tok = tok.to(torch.int32) if port else tok.astype(jnp.int32)
+    out = []
+    for _ in range(STEPS):
+        tok, cache = step(iw, tok, cache)
+        out.append(np.asarray(tok))
+    return np.asarray(logits), after_prefill, np.stack(out, 1)
+
+
+# (attention, quantized KV, config changes, prompt)
+MODES = {
+    'dense-f32kv': ('dense', False, {}, 512),
+    'dense-int8kv': ('dense', True, {}, 512),
+    'sparse-fused-front-f32kv': ('sparse', False, {}, 512),
+    'sparse-fused-front-f32kv-prompt300': ('sparse', False, {}, 300),
+    'sparse-unfused-l1-int8kv': ('sparse', True, {'pq_metric': 'l1'}, 512),
+    'sparse-unfused-l2-select2-f32kv': (
+        'sparse', False, {'sparse_select_heads': 2}, 512),
+    'sparse-fused-ffn-int8kv': (
+        'sparse', True, {'decode_fused_ffn': True}, 512),
+}
+
+
+@pytest.mark.parametrize('mode', list(MODES))
+def test_decode_mode_matches_jax(models, mode):
+    """Prefill logits within 1e-4, prefill caches equal (f32 entries to
+    1e-5, int8 entries within one step: XLA's CPU dot and torch sum the
+    projections in different orders), and greedy tokens exactly equal over
+    8 steps."""
+    attention, quantized, changes, prompt = MODES[mode]
+    cfg, params = models[attention == 'sparse']
+    cfg = cfg.replace(**changes)
+    tokens = np.random.RandomState(prompt).randint(
+        1, cfg.vocab_size, size=(B, prompt)).astype(np.int32)
+    j_logits, j_cache, j_tokens = _run(cfg, params, tokens, quantized, False)
+    t_logits, t_cache, t_tokens = _run(cfg, params, tokens, quantized, True)
+    np.testing.assert_allclose(t_logits, j_logits, atol=1e-4, rtol=0)
+    for name in ('codes', 'length'):
+        np.testing.assert_array_equal(t_cache[name], j_cache[name],
+                                      err_msg=name)
+    for name in ('k', 'v'):
+        got, want = t_cache[name], j_cache[name]
+        if quantized:
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-4, name
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                                       err_msg=name)
+    if quantized:
+        for name in ('k_scale', 'v_scale'):
+            np.testing.assert_allclose(t_cache[name], j_cache[name],
+                                       rtol=1e-5, atol=0, err_msg=name)
+    np.testing.assert_array_equal(t_tokens, j_tokens)

@@ -2,6 +2,7 @@
 the JAX package, its entry points default to CUDA and raise without it,
 and on CPU tensors every kernel wrapper runs its plain twin and launches
 nothing."""
+import dataclasses
 import subprocess
 import sys
 import types
@@ -18,12 +19,14 @@ from spt_proto_tpu_torch.inference.weights import InferenceWeights
 from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import decode_front as tfront
+from spt_proto_tpu_torch.ops import ffn_tail as tffn
 from spt_proto_tpu_torch.ops import lm_head as tlm
 
 REPO = Path(__file__).resolve().parents[1]
 
 WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
-            tlm.lm_head_argmax, tbsa.block_sparse_attention)
+            tlm.lm_head_argmax, tbsa.block_sparse_attention,
+            tattn.decode_attention_rows, tffn.ffn_tail)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -65,25 +68,29 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
-    """A whole prefill + greedy decode on CPU tensors: every wrapper on the
-    main path is reached, and none launches its kernel."""
-    cfg = _tiny_cfg()
+    """Prefill + greedy decode on CPU tensors, sparse over an int8 cache
+    and dense over an f32 cache with the fused FFN tail: every kernel
+    wrapper is reached, and none launches its kernel."""
     for w in WRAPPERS:
         w.launches = 0
-    iw = InferenceWeights.from_params(
-        cfg, bridge.init_params(cfg, seed=0, device='cpu'))
-    cache = teng.KVCache.create(cfg, 2, 512, dtype=torch.float32,
-                                quantized=True, device='cpu')
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
-        1, cfg.vocab_size, size=(2, 256)))
-    logits, cache = teng.prefill(iw, tokens, cache)
-    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    for _ in range(2):
-        tok, cache = teng.decode_step_greedy(iw, tok, cache)
-    assert tok.dtype == torch.int32 and tok.shape == (2,)
-    assert ((tok >= 0) & (tok < cfg.vocab_size)).all()
-    assert cache.length.tolist() == [258, 258]
-    assert [w.launches for w in WRAPPERS] == [0, 0, 0, 0]
+        1, 256, size=(2, 256)))
+    for cfg, quantized in ((_tiny_cfg(), True),
+                           (_tiny_cfg().replace(attention='dense',
+                                                decode_fused_ffn=True),
+                            False)):
+        iw = InferenceWeights.from_params(
+            cfg, bridge.init_params(cfg, seed=0, device='cpu'))
+        cache = teng.KVCache.create(cfg, 2, 512, dtype=torch.float32,
+                                    quantized=quantized, device='cpu')
+        logits, cache = teng.prefill(iw, tokens, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        for _ in range(2):
+            tok, cache = teng.decode_step_greedy(iw, tok, cache)
+        assert tok.dtype == torch.int32 and tok.shape == (2,)
+        assert ((tok >= 0) & (tok < cfg.vocab_size)).all()
+        assert cache.length.tolist() == [258, 258]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
@@ -111,14 +118,48 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 
 def test_unported_forms_raise_not_implemented():
+    """What later slices bring raises and names its slice: int8 weights
+    (and their FFN tail), LLaMA / GQA (and the gated FFN tail), routed
+    FFN."""
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
     with pytest.raises(NotImplementedError, match='int8-weight slice'):
         InferenceWeights.from_params(cfg, params, quant='int8')
-    iw = InferenceWeights.from_params(cfg, params)
-    bf16_cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
-    with pytest.raises(NotImplementedError, match='bf16-KV'):
-        teng.decode_step_greedy(iw, torch.zeros(1, dtype=torch.int32),
-                                bf16_cache)
     with pytest.raises(NotImplementedError, match='LLaMA slice'):
         bridge.init_params(tcfg.tiny_config('llama'), seed=0, device='cpu')
+    cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
+    tok = torch.zeros(1, dtype=torch.int32)
+    iw = InferenceWeights.from_params(cfg, params)
+    for changes, match in (({'ffn': 'routed'}, 'training slice'),
+                           ({'n_kv_heads': 1, 'decode_fused_ffn': True},
+                            'LLaMA slice')):
+        bad = dataclasses.replace(iw, cfg=cfg.replace(**changes))
+        with pytest.raises(NotImplementedError, match=match):
+            teng.decode_step_greedy(bad, tok, cache)
+    int8_weights = dataclasses.replace(
+        iw, cfg=cfg.replace(decode_fused_ffn=True), quant='int8')
+    with pytest.raises(NotImplementedError, match='int8-weight slice'):
+        teng.decode_step_greedy(int8_weights, tok, cache)
+    # a bf16 KV cache decodes now (the bf16-KV path of this port)
+    tok, cache = teng.decode_step_greedy(iw, tok, cache)
+    assert cache.length.tolist() == [1]
+
+
+def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
+    """On the card a table whose scores outgrow the kernel's shared memory
+    raises RuntimeError naming the limit; it never runs the plain twin.
+    (Checked on CPU tensors reported as CUDA ones: the check comes before
+    the build.)"""
+    monkeypatch.setattr(tattn._build, 'on_cuda', lambda *ts: True)
+    b, kv, d, ps, t_max = 1, 2, 64, 128, 400
+    q = torch.zeros((b, kv, 1, d))
+    k = torch.zeros((b, kv, t_max, d, ps))
+    codes = torch.zeros((b, kv, t_max, 1, ps), dtype=torch.int32)
+    tables = torch.arange(t_max, dtype=torch.int32)[None, None]
+    ints = torch.zeros((b,), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
+        tattn.decode_attention_rows(
+            q, k, k.clone(), codes, tables, ints + t_max, ints,
+            torch.zeros((b, kv, d)), torch.zeros((b, kv, d)),
+            torch.zeros((b, kv, 1), dtype=torch.int32))
+    assert tattn.decode_attention_rows.launches == 0

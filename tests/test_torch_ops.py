@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: PQ math, tile selection, the per-row
-oracle, block-sparse attention and the greedy lm_head, on the CPU.
+oracle, block-sparse attention, the greedy lm_head and the fused FFN tail,
+on the CPU.
 
 Inputs come from numpy seeds and go through both packages. The JAX Pallas
 kernels run in interpret mode (as the JAX package's own tests run them);
@@ -15,10 +16,12 @@ from spt_proto_tpu.ops import lookup as jlookup
 from spt_proto_tpu.ops import pq as jpq
 from spt_proto_tpu.ops import sparse_attention as jsa
 from spt_proto_tpu.ops.pallas import block_sparse_attention as jbsa
+from spt_proto_tpu.ops.pallas import ffn_tail as jffn
 from spt_proto_tpu.ops.pallas import lm_head as jlm
 from spt_proto_tpu.ops.pallas.decode_front import build_pq_bd as j_build_pq_bd
 from spt_proto_tpu_torch.ops import block_sparse as tbs
 from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
+from spt_proto_tpu_torch.ops import ffn_tail as tffn
 from spt_proto_tpu_torch.ops import lm_head as tlm
 from spt_proto_tpu_torch.ops import lookup as tlookup
 from spt_proto_tpu_torch.ops import pq as tpq
@@ -169,3 +172,36 @@ def test_lm_head_argmax_matches_jax():
         jnp.asarray(wb.float().numpy()).astype(jnp.bfloat16)))
     np.testing.assert_array_equal(tlm.lm_head_argmax_ref(xb, wb).numpy(),
                                   want_b)
+
+
+def _ffn_inputs(m, d, f, seed=6):
+    """tests/test_ffn_tail.py's shapes and scales, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return [rng.randn(m, d).astype(np.float32),
+            rng.randn(m, d).astype(np.float32),
+            (rng.randn(d, f) * 0.05).astype(np.float32),
+            rng.randn(f).astype(np.float32),
+            (rng.randn(f, d) * 0.05).astype(np.float32),
+            rng.randn(d).astype(np.float32)]
+
+
+@pytest.mark.parametrize('m,d,f', [(8, 128, 256), (3, 256, 512)])
+def test_ffn_tail_matches_jax(m, d, f):
+    """The twin and its wrapper on CPU tensors vs the JAX oracle."""
+    arrays = _ffn_inputs(m, d, f)
+    want = np.asarray(jffn.ffn_tail_ref(*(jnp.asarray(a) for a in arrays),
+                                        act='relu'))
+    got = tffn.ffn_tail_ref(*(t(a) for a in arrays))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    n0 = tffn.ffn_tail.launches
+    assert torch.equal(tffn.ffn_tail(*(t(a) for a in arrays)), got)
+    assert tffn.ffn_tail.launches == n0 == 0
+
+
+def test_ffn_tail_matches_jax_kernel():
+    """The twin against the JAX Pallas kernel (interpret mode)."""
+    arrays = _ffn_inputs(5, 128, 384, seed=7)
+    want = np.asarray(jffn.ffn_tail(*(jnp.asarray(a) for a in arrays),
+                                    act='relu', interpret=True))
+    got = tffn.ffn_tail_ref(*(t(a) for a in arrays))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
