@@ -9,27 +9,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels from spt_proto_tpu_torch/csrc and print the build time;
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
-   decode front (with and without int8 KV quantization), decode attention
-   over a bf16/f32 cache (dense tables at max_len 2176, dense supertiles of
-   4 at max_len 2048, sparse tables) and over an int8 cache (sparse tables,
-   and dense supertiles of 4 through one table row), the lm_head argmax,
-   block-sparse prefill attention (also with off-diagonal and -1 entries at
-   S=4096, sparse_coeff 4), and the fused FFN tail at OPT-125M and OPT-1.3B
-   widths; time kernel, twin and the one-call library equivalent where
-   there is one;
+   decode front (with and without int8 KV quantization, with the stacked fp
+   and the packed int8 QKV weight), decode attention over a bf16/f32 cache
+   (dense tables at max_len 2176, dense supertiles of 4 at max_len 2048,
+   sparse tables) and over an int8 cache (sparse tables, and dense
+   supertiles of 4 through one table row), the lm_head argmax (fp, and int8
+   at OPT-125M and OPT-1.3B widths), block-sparse prefill attention (also
+   with off-diagonal and -1 entries at S=4096, sparse_coeff 4), the fused FFN
+   tail (fp and int8) at OPT-125M and OPT-1.3B widths, and the int8 matmul
+   at the decode shapes (m = 8: o and qkv of OPT-125M and OPT-1.3B) and a
+   prefill shape (m = 16,384, fc1 of OPT-125M); time kernel, twin and the
+   one-call library equivalent where there is one;
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
-   the CPU through the plain twins, in four decode modes (sparse int8-KV,
-   dense f32-KV, sparse f32-KV, the unfused l1 front over int8 KV); the
-   greedy tokens must agree;
+   the CPU through the plain twins, in six decode modes (sparse int8-KV,
+   dense f32-KV, sparse f32-KV, the unfused l1 front over int8 KV, and with
+   int8 weights (w8, built staged on the card) sparse int8-KV and dense
+   f32-KV); the greedy tokens must agree;
 4. the serving runs, OPT-125M in bf16, B=8, prompt 2048, max_len 2176, in
    bench.py's three decode modes (dense bf16-KV, sparse bf16-KV, sparse
-   int8-KV) and sparse int8-KV with the fused FFN tail: prefill + 32 greedy
-   steps each, with the kernel launch counters zeroed before and read after
-   each run and checked exactly, prefill / decode tokens per second from
-   CUDA events, and a profiled 4-step decode window per mode;
-5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, B=8, prompt
-   2048, max_len 2176, 32 steps, with tokens per second and peak memory;
+   int8-KV), sparse int8-KV with the fused FFN tail, and with int8 weights
+   (bench_serving.py's int8 mode) sparse int8-KV and dense bf16-KV: prefill
+   + 32 greedy steps each, with the kernel launch counters zeroed before
+   and read after each run and checked exactly, prefill / decode tokens per
+   second from CUDA events, and a profiled 4-step decode window per mode;
+5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, and sparse
+   int8-KV w8 (the round-4 ladder's "sparse w8"), B=8, prompt 2048, max_len
+   2176, 32 steps, with tokens per second and peak memory;
 6. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
@@ -46,8 +52,10 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# dense bf16 / f32 (no tensor core) / int8 (the int8 KV attention's int8
+# inputs); the int8 weight kernels multiply in bf16 and count at bf16's rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-            torch.int8: 1979e12}   # dense bf16 / f32 (no tensor core) / int8
+            torch.int8: 1979e12}
 SEED = 0
 DEV = 'cuda'
 L2_FLUSH_BYTES = 128 << 20          # > the 50 MB L2: launches start cold
@@ -60,6 +68,14 @@ DH, N_SUB, N_CODE, TILE = 64, 8, 16, 128
 NT = -(-MAX_LEN // TILE)                      # 17 tiles per layer
 NSEL = min(NT, max(1, NT // 8) + 1)           # sparse_coeff 8 -> 3
 D_13B, FF_13B = 2048, 8192                    # OPT-1.3B widths
+# (m, K, N) of int8_matmul on the w8 paths: decode (m = B) o and qkv of
+# OPT-125M and OPT-1.3B, prefill (m = B x PROMPT) fc1 of OPT-125M; the
+# first is the one the kernel line reports (o runs every layer and step)
+INT8_MATMUL_SHAPES = {
+    'decode o 125m': (B, D, D), 'decode qkv 125m': (B, D, 3 * D),
+    'decode o 1.3b': (B, D_13B, D_13B),
+    'decode qkv 1.3b': (B, D_13B, 3 * D_13B),
+    'prefill fc1 125m': (B * PROMPT, D, FF)}
 
 
 def log(msg: str) -> None:
@@ -106,7 +122,9 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of the tensors (int8 weight dicts count q and scale)."""
+    return sum(nbytes(*t.values()) if isinstance(t, dict)
+               else t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def max_err(a, b) -> float:
@@ -201,12 +219,30 @@ def front_inputs(dtype, g):
     return [x, nsc, nbi, w, bq, bd, cbn, cc, pos]
 
 
-def check_front(dtype, timer=None, quantized=True):
+def int8_weight(g, k, n, dtype):
+    """A [k, n] weight in `dtype` (std k^-1/2) through the int8 build's
+    quantizer: {'q': [k, n_pad] int8, 'scale': [1, n] f32}."""
+    from spt_proto_tpu_torch.inference.weights import quantize_int8
+    return quantize_int8(randn(g, (k, n), dtype, std=k ** -0.5))
+
+
+def dequant(wq, dtype):
+    """The true-width [k, n] weight in `dtype` (for the library yardstick:
+    it reads twice the bytes of the int8 weight)."""
+    n = wq['scale'].numel()
+    return (wq['q'][:, :n].float() * wq['scale'].reshape(1, n)).to(dtype)
+
+
+def check_front(dtype, timer=None, quantized=True, packed=False):
     """decode_front vs decode_front_ref at the serving shape (the middle
     layer's slab), with int8 KV quantization (sparse int8-KV decode) or
-    without (sparse bf16-KV decode)."""
+    without (sparse bf16-KV decode), with the stacked fp QKV weight or the
+    packed int8 one (int8 weight-only serving)."""
     from spt_proto_tpu_torch.ops import decode_front as m
     args = front_inputs(dtype, gen(SEED + 1))
+    if packed:
+        from spt_proto_tpu_torch.inference.weights import quantize_int8
+        args[3] = quantize_int8(torch.cat(list(args[3]), dim=-1))
     kw = dict(nt=NT, nsel=NSEL, n_sub=N_SUB, ps=TILE, quantized=quantized)
     base = LAYERS // 2 * NT
     got = m.decode_front(*args, base, **kw)
@@ -219,18 +255,24 @@ def check_front(dtype, timer=None, quantized=True):
     # orders, so a projection one rounding step apart can move a value
     # across an argmin or int8 boundary. Codes and tables: none in f32, at
     # most one flipped entry each in bf16 (a wrong selection on a head
-    # shows as more). k8/v8: a few values one int8 step apart.
+    # shows as more). k8/v8: a few values one int8 step apart. The packed
+    # int8 form rounds the kernel's own f32 norm output to bf16 in both
+    # serving dtypes, so an f32 ulp between its norm sums and the twin's
+    # can become a whole bf16 step of one operand: it is held to the bf16
+    # bounds in f32 too.
+    tdt = torch.bfloat16 if packed else dtype
     sel_flips = max(int((got[i] != want[i]).sum()) for i in (3, 4))
-    sel_tol = 0 if dtype == torch.float32 else 1
-    qkv_ok = all(close(g_, w_, dtype) for g_, w_ in zip(got[:3], want[:3]))
-    label = f'decode_front {"int8-KV" if quantized else "bf16-KV"}'
+    sel_tol = 0 if tdt == torch.float32 else 1
+    qkv_ok = all(close(g_, w_, tdt) for g_, w_ in zip(got[:3], want[:3]))
+    label = (f'decode_front {"packed-int8 " if packed else ""}'
+             f'{"int8-KV" if quantized else "bf16-KV"}')
     if quantized:
         kv_flips = max(mismatch(got[i], want[i]) for i in (5, 6))
-        kv_tol = 1e-3 if dtype == torch.float32 else 1e-2
+        kv_tol = 1e-3 if tdt == torch.float32 else 1e-2
         step = max(max_err(got[i], want[i]) for i in (5, 6))
         s_err = max(((got[i] - want[i]).abs() / want[i]).max().item()
                     for i in (7, 8))
-        s_tol = 1e-5 if dtype == torch.float32 else 1e-2
+        s_tol = 1e-5 if tdt == torch.float32 else 1e-2
         kv_ok = kv_flips <= kv_tol and step <= 1 and s_err <= s_tol
         kv_msg = (f'; k8/v8 mismatch {kv_flips:.3g} (tol {kv_tol}), int8 '
                   f'step {step}, scale rel err {s_err:.3g}')
@@ -239,8 +281,8 @@ def check_front(dtype, timer=None, quantized=True):
     require(qkv_ok and sel_flips <= sel_tol and kv_ok,
             f'{label} {dtype}: qkv err {q_err}, code/table flips '
             f'{sel_flips} (tol {sel_tol}){kv_msg}')
-    log(f'  {label} {str(dtype):15s} qkv max err {q_err:.3g} '
-        f'({tol_str(dtype)}); code/table entries flipped {sel_flips} '
+    log(f'  {label:31s} {str(dtype):15s} qkv max err {q_err:.3g} '
+        f'({tol_str(tdt)}); code/table entries flipped {sel_flips} '
         f'(tol {sel_tol}){kv_msg}')
     res = dict(max_abs_err=q_err)
     if timer is not None:
@@ -447,37 +489,58 @@ def check_rows(dtype, mode, front_out, timer=None):
     return res
 
 
-def check_ffn(dtype, d, f, timer=None):
-    """ffn_tail vs its twin at (B, d, d_ff); the engine's unfused torch
-    sequence is timed beside it for reference (no single PyTorch call
-    computes the function)."""
+def check_ffn(dtype, d, f, timer=None, int8=False):
+    """ffn_tail (or, int8=True, ffn_tail_int8 over int8 weights) vs its twin
+    at (B, d, d_ff); the engine's unfused torch sequence (over dequantized
+    weights for int8) is timed beside it for reference (no single PyTorch
+    call computes the function)."""
     from spt_proto_tpu_torch.ops import ffn_tail as m
-    g = gen(SEED + 6)
+    g = gen(SEED + (9 if int8 else 6))
     x, res_ = randn(g, (B, d), dtype), randn(g, (B, d), dtype)
-    w1 = randn(g, (d, f), dtype, std=d ** -0.5)
+    if int8:
+        w1, w2 = int8_weight(g, d, f, dtype), int8_weight(g, f, d, dtype)
+        fn, ref, name = m.ffn_tail_int8, m.ffn_tail_int8_ref, 'ffn_tail_int8'
+    else:
+        w1 = randn(g, (d, f), dtype, std=d ** -0.5)
+        w2 = randn(g, (f, d), dtype, std=f ** -0.5)
+        fn, ref, name = m.ffn_tail, m.ffn_tail_ref, 'ffn_tail'
     b1 = randn(g, (f,), dtype, std=0.1)
-    w2 = randn(g, (f, d), dtype, std=f ** -0.5)
     b2 = randn(g, (d,), dtype, std=0.1)
     args = [x, res_, w1, b1, w2, b2]
-    got = m.ffn_tail(*args)
-    want = m.ffn_tail_ref(*args)
+    got = fn(*args)
+    want = ref(*args)
     sync()
     err = max_err(got, want)
     require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
-            f'ffn_tail d={d} f={f} {dtype}: err {err}')
-    log(f'  ffn_tail d={d} f={f} {str(dtype):14s} max err {err:.3g} '
+            f'{name} d={d} f={f} {dtype}: err {err}')
+    log(f'  {name} d={d} f={f} {str(dtype):14s} max err {err:.3g} '
         f'({tol_str(dtype)})')
     res = dict(max_abs_err=err)
     if timer is not None:
-        res['ms'] = timer.ms(lambda: m.ffn_tail(*args))
-        res['plain_ms'] = timer.ms(lambda: m.ffn_tail_ref(*args))
+        res['ms'] = timer.ms(lambda: fn(*args))
+        res['plain_ms'] = timer.ms(lambda: ref(*args))
+        w1f, w2f = (dequant(w1, dtype), dequant(w2, dtype)) if int8 \
+            else (w1, w2)
         res['unfused_ms'] = timer.ms(
-            lambda: res_ + (torch.relu(x @ w1 + b1) @ w2 + b2))
+            lambda: res_ + (torch.relu(x @ w1f + b1) @ w2f + b2))
+        del w1f, w2f
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(*args, got), 2 * 2 * B * d * f, dtype)
         res['library_ms'] = None
         log_times(res)
     return res
+
+
+def chosen_logit_gap(logits, ids, dtype):
+    """How far below the maximum the chosen logit lies, per row, and the
+    bound it is held to: exact expected, but where a kernel's f32 sum rounds
+    a logit to the other side of a serving-dtype step a tie can resolve
+    differently, so the chosen logit must lie within one step of the
+    maximum. Returns (gap, bound, relative step)."""
+    gap = (logits.max(-1).values
+           - logits.gather(1, ids.long()[:, None])[:, 0]).abs()
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    return gap, logits.abs().max(-1).values * rel, rel
 
 
 def check_lm_head(dtype, timer=None):
@@ -488,14 +551,8 @@ def check_lm_head(dtype, timer=None):
     got = m.lm_head_argmax(x, w)
     want = m.lm_head_argmax_ref(x, w)
     sync()
-    # exact expected; where the kernel's f32 sum rounds a logit to the
-    # other side of a serving-dtype step, a tie can resolve differently:
-    # the chosen logit must then be within one step of the maximum
     logits = (x.float() @ w.float()).to(dtype).float()
-    gap = (logits.max(-1).values
-           - logits.gather(1, got.long()[:, None])[:, 0]).abs()
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
-    step = logits.abs().max(-1).values * rel
+    gap, step, rel = chosen_logit_gap(logits, got, dtype)
     err = gap.max().item()
     require(bool((gap <= step).all()) and got.dtype == torch.int32,
             f'lm_head_argmax {dtype}: ids {got.tolist()} vs {want.tolist()}')
@@ -509,6 +566,71 @@ def check_lm_head(dtype, timer=None):
         res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w, -1))
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(x, w, got), 2 * B * D * VOCAB, dtype)
+        log_times(res)
+    return res
+
+
+def check_int8_matmul(dtype, m, k, n, timer=None):
+    """int8_matmul vs its twin: x [m, k] @ an int8 [k, n] weight. m = 8 is
+    the decode regime (the skinny weight-stream kernel), m = 16,384 prefill
+    (the tiled mma.sync kernel)."""
+    from spt_proto_tpu_torch.ops import int8_matmul as mm
+    g = gen(SEED + 7)
+    wq = int8_weight(g, k, n, dtype)
+    x = randn(g, (m, k), dtype)
+    got = mm.int8_matmul(x, wq['q'], wq['scale'])
+    want = mm.int8_matmul_ref(x, wq['q'], wq['scale'])
+    sync()
+    err = max_err(got, want)
+    require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
+            f'int8_matmul m={m} k={k} n={n} {dtype}: err {err}')
+    log(f'  int8_matmul m={m} k={k} n={n} {str(dtype):14s} max err '
+        f'{err:.3g} ({tol_str(dtype)})')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: mm.int8_matmul(x, wq['q'], wq['scale']))
+        res['plain_ms'] = timer.ms(
+            lambda: mm.int8_matmul_ref(x, wq['q'], wq['scale']), reps=5)
+        w_dq = dequant(wq, dtype)
+        res['library_ms'] = timer.ms(lambda: x @ w_dq)
+        del w_dq
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            nbytes(x, wq, got), 2 * m * k * n, torch.bfloat16)
+        log_times(res)
+    return res
+
+
+def check_lm_head_int8(dtype, d, timer=None):
+    """lm_head_argmax_int8 vs its twin over the int8 head [d, 50432] with
+    the true vocab 50272."""
+    from spt_proto_tpu_torch.ops import lm_head as m
+    g = gen(SEED + 8)
+    x = randn(g, (B, d), dtype)
+    wq = int8_weight(g, d, VOCAB, dtype)
+    got = m.lm_head_argmax_int8(x, wq)
+    want = m.lm_head_argmax_int8_ref(x, wq)
+    sync()
+    logits = m.int8_head_logits(x, wq['q'], wq['scale'])
+    gap, step, rel = chosen_logit_gap(logits, got, dtype)
+    err = gap.max().item()
+    require(bool((gap <= step).all()) and got.dtype == torch.int32
+            and bool((got < VOCAB).all()),
+            f'lm_head_argmax_int8 d={d} {dtype}: ids {got.tolist()} vs '
+            f'{want.tolist()}')
+    log(f'  lm_head_argmax_int8 d={d} {str(dtype):14s} ids equal: '
+        f'{torch.equal(got, want)}; chosen-logit gap {err:.3g} (tol '
+        f'{rel:g}|max logit|)')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.lm_head_argmax_int8(x, wq))
+        res['plain_ms'] = timer.ms(lambda: m.lm_head_argmax_int8_ref(x, wq),
+                                   reps=5)
+        w_dq = dequant(wq, dtype)
+        res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w_dq, -1))
+        del w_dq
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            nbytes(x, wq['q'][:, :VOCAB], wq['scale'], got),
+            2 * B * d * VOCAB, torch.bfloat16)
         log_times(res)
     return res
 
@@ -597,14 +719,29 @@ def phase_kernels(timer):
         r_head = check_lm_head(dtype, t)
         r_bsa = check_block_sparse(dtype, PROMPT, 8, t)
         check_block_sparse(dtype, 2 * PROMPT, 4)
+        # int8 weight-only serving (w8)
+        r_front8, _ = check_front(dtype, t, packed=True)
+        r_front8_bf, _ = check_front(dtype, t, quantized=False, packed=True)
+        r_mm = {name: check_int8_matmul(dtype, m_, k_, n_, t)
+                for name, (m_, k_, n_) in INT8_MATMUL_SHAPES.items()}
+        r_head8 = check_lm_head_int8(dtype, D, t)
+        r_head8_13 = check_lm_head_int8(dtype, D_13B, t)
+        r_ffn8 = check_ffn(dtype, D, FF, t, int8=True)
+        r_ffn8_13 = check_ffn(dtype, D_13B, FF_13B, t, int8=True)
         if t is not None:
             res = dict(
-                decode_front=dict(r_front, bf16_kv=r_front_bf),
+                decode_front=dict(r_front, bf16_kv=r_front_bf,
+                                  packed_int8=r_front8,
+                                  packed_int8_bf16_kv=r_front8_bf),
                 decode_attention_rows_q=dict(r_attn, dense_tps4=r_attn_d),
                 lm_head_argmax=r_head, block_sparse_attention=r_bsa,
                 decode_attention_rows=dict(r_rows, dense_tps4=r_rows4,
                                            sparse=r_rows_s),
-                ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13))
+                ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13),
+                int8_matmul=dict(r_mm['decode o 125m'], **{
+                    k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
+                lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13),
+                ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13))
         del front_out, front_bf
     torch.cuda.empty_cache()
     return res
@@ -644,9 +781,40 @@ def greedy(iw, tokens, max_len, steps, dev, quantized):
     return logits, torch.stack(out, 1)
 
 
+def stepwise(iw_cpu, iw_gpu, tokens, max_len, steps, quantized):
+    """Greedy decisions of the card from the CPU twins' state: both
+    prefill; then before each step the card gets a copy of the twins'
+    cache and their token, takes one greedy step through its kernels, and
+    the twins take theirs. Returns the prefill logits of both, the twins'
+    logits at each decision [B, 1 + steps, V] and the card's choices
+    [B, 1 + steps]."""
+    from spt_proto_tpu_torch.inference import engine
+
+    def create(dev):
+        return engine.KVCache.create(iw_cpu.cfg, tokens.shape[0], max_len,
+                                     dtype=iw_cpu.cfg.dtype,
+                                     quantized=quantized, device=dev)
+    lg_pre, cache = engine.prefill(iw_cpu, tokens, create('cpu'))
+    lg_pre_g, _ = engine.prefill(iw_gpu, tokens.to(DEV), create(DEV))
+    logits = [lg_pre[:, -1]]
+    chosen = [torch.argmax(lg_pre_g[:, -1], -1).to(torch.int32).cpu()]
+    tok = torch.argmax(lg_pre[:, -1], -1).to(torch.int32)
+    for _ in range(steps):
+        card = engine.KVCache(**{
+            f: None if getattr(cache, f) is None else getattr(cache, f).to(DEV)
+            for f in ('k', 'v', 'codes', 'length', 'k_scale', 'v_scale')})
+        t_g, _ = engine.decode_step_greedy(iw_gpu, tok.to(DEV), card)
+        lg, cache = engine.decode_step(iw_cpu, tok, cache)
+        logits.append(lg)
+        chosen.append(t_g.cpu())
+        tok = torch.argmax(lg, -1).to(torch.int32)
+    return lg_pre, lg_pre_g, torch.stack(logits, 1), torch.stack(chosen, 1)
+
+
 def phase_parity():
     """f32 OPT-125M at full width: kernels on the card vs twins on the CPU,
-    in four decode modes."""
+    in six decode modes (two with int8 weights, built staged on the card
+    from the CPU tree)."""
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
     b, prompt, steps = 2, 512, 8
@@ -654,43 +822,61 @@ def phase_parity():
     sparse = opt_cfg('125m', max_len, torch.float32)
     params = init_params(sparse, SEED, device='cpu')
     tokens = torch.randint(1, VOCAB, (b, prompt), generator=gen(SEED, 'cpu'))
-    modes = [('sparse int8-KV', sparse, params, True),
-             ('dense f32-KV', opt_cfg('125m', max_len, torch.float32,
-                                      dense=True), dense_params(params),
-              False),
-             ('sparse f32-KV', sparse, params, False),
+    dense = opt_cfg('125m', max_len, torch.float32, dense=True)
+    modes = [('sparse int8-KV', sparse, params, True, None),
+             ('dense f32-KV', dense, dense_params(params), False, None),
+             ('sparse f32-KV', sparse, params, False, None),
              ('sparse l1 unfused front int8-KV',
-              sparse.replace(pq_metric='l1'), params, True)]
+              sparse.replace(pq_metric='l1'), params, True, None),
+             ('w8 sparse int8-KV', sparse, params, True, 'int8'),
+             ('w8 dense f32-KV', dense, dense_params(params), False, 'int8')]
     out = {}
-    for label, cfg, p, quantized in modes:
-        iw_cpu = InferenceWeights.from_params(cfg, p)
-        iw_gpu = InferenceWeights.from_params(cfg, _to(p, DEV))
+    for label, cfg, p, quantized, quant in modes:
+        iw_cpu = InferenceWeights.from_params(cfg, p, quant=quant)
+        iw_gpu = InferenceWeights.from_params(cfg, p, quant=quant, device=DEV)
         t0 = time.perf_counter()
-        lg_gpu, tok_gpu = greedy(iw_gpu, tokens.to(DEV), max_len, steps, DEV,
-                                 quantized)
-        sync()
-        t1 = time.perf_counter()
-        lg_cpu, tok_cpu = greedy(iw_cpu, tokens, max_len, steps, 'cpu',
-                                 quantized)
+        if quant is None:
+            lg_gpu, tok_gpu = greedy(iw_gpu, tokens.to(DEV), max_len, steps,
+                                     DEV, quantized)
+            lg_cpu, tok_cpu = greedy(iw_cpu, tokens, max_len, steps, 'cpu',
+                                     quantized)
+            agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
+            lg_err = max_err(lg_gpu.cpu(), lg_cpu)
+            res = dict(agreement=agree, logits_max_err=lg_err)
+            msg = f'greedy token agreement {agree} over {b}x{steps}'
+            ok = agree >= 0.995
+        else:
+            # int8 weights round every projection's input to bf16: an f32
+            # ulp between the card's and the CPU's plain ops (norm sums)
+            # becomes a bf16 step of that operand where it sits on a
+            # rounding boundary; the logits of one step drift by ~5e-3,
+            # and over steps a flipped PQ code selects other tiles, so two
+            # free-running greedy runs part. Each card decision is taken
+            # from the twins' own state (prefill, then their cache and
+            # token before every step) and must agree with theirs, or lie
+            # within one bf16 step (2^-7 |max logit|) of their maximum.
+            lg_cpu_pre, lg_gpu, lg_cpu, chosen = stepwise(
+                iw_cpu, iw_gpu, tokens, max_len, steps, quantized)
+            top = lg_cpu.max(-1).values
+            gap = top - lg_cpu.gather(2, chosen.long()[..., None])[..., 0]
+            tol = 2.0 ** -7 * lg_cpu.abs().max(-1).values
+            agree = (torch.argmax(lg_cpu, -1) == chosen).float().mean().item()
+            lg_err = max_err(lg_gpu.cpu(), lg_cpu_pre)
+            res = dict(agreement=agree, max_gap=gap.max().item(),
+                       logits_max_err=lg_err)
+            msg = (f'stepwise greedy agreement {agree} over {b}x{steps + 1}, '
+                   f'max chosen-logit gap {gap.max().item():.3g} (tol 2^-7 '
+                   f'|max logit| >= {tol.min().item():.3g})')
+            ok = bool((gap <= tol).all())
+            tok_gpu = chosen
         t2 = time.perf_counter()
-        agree = (tok_gpu.cpu() == tok_cpu).float().mean().item()
-        lg_err = max_err(lg_gpu.cpu(), lg_cpu)
         log(f'  {label:32s} f32 OPT-125M B={b} prompt {prompt}: prefill '
-            f'logits max err {lg_err:.3g}; greedy token agreement {agree} '
-            f'over {b}x{steps} (card {t1 - t0:.1f} s, CPU twins '
-            f'{t2 - t1:.1f} s)')
-        require(agree >= 0.995, f'{label}: token agreement {agree} < 0.995: '
-                f'{tok_gpu.tolist()} vs {tok_cpu.tolist()}')
-        out[label] = dict(agreement=agree, logits_max_err=lg_err)
+            f'logits max err {lg_err:.3g}; {msg} ({t2 - t0:.1f} s)')
+        require(ok, f'{label}: {msg}: {tok_gpu.tolist()}')
+        out[label] = res
         del iw_gpu
     torch.cuda.empty_cache()
     return out
-
-
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
 
 
 def wrappers():
@@ -699,28 +885,45 @@ def wrappers():
     from spt_proto_tpu_torch.ops.decode_attention import (
         decode_attention_rows, decode_attention_rows_q)
     from spt_proto_tpu_torch.ops.decode_front import decode_front
-    from spt_proto_tpu_torch.ops.ffn_tail import ffn_tail
-    from spt_proto_tpu_torch.ops.lm_head import lm_head_argmax
+    from spt_proto_tpu_torch.ops.ffn_tail import ffn_tail, ffn_tail_int8
+    from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
+    from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
+                                                 lm_head_argmax_int8)
     return dict(decode_front=decode_front,
                 decode_attention_rows_q=decode_attention_rows_q,
                 lm_head_argmax=lm_head_argmax,
                 block_sparse_attention=block_sparse_attention,
                 decode_attention_rows=decode_attention_rows,
-                ffn_tail=ffn_tail)
+                ffn_tail=ffn_tail, int8_matmul=int8_matmul,
+                lm_head_argmax_int8=lm_head_argmax_int8,
+                ffn_tail_int8=ffn_tail_int8)
 
 
-def expected_launches(cfg, quantized):
-    """Launches per prefill and per decode step on each mode's path."""
+def expected_launches(iw, quantized):
+    """Launches per prefill and per decode step on each mode's path. With
+    int8 weights (w8) every projection outside the fused kernels is one
+    int8_matmul: per prefill qkv, o, fc1, fc2 a layer and the lm_head; per
+    step o, plus qkv where the front is unfused, plus fc1 and fc2 where the
+    FFN tail is (the tail is fused by default for int8 weights)."""
+    from spt_proto_tpu_torch.inference.engine import _uses_fused_front
+    cfg = iw.cfg
     layers = cfg.n_layers
     sparse = cfg.attention == 'sparse_v2'
+    front = _uses_fused_front(cfg, iw.params['blocks']['mha'])
+    w8 = iw.quant == 'int8'
+    fused_ffn = w8 if cfg.decode_fused_ffn is None else cfg.decode_fused_ffn
     prefill = dict.fromkeys(wrappers(), 0)
     step = dict.fromkeys(wrappers(), 0)
     prefill['block_sparse_attention'] = layers if sparse else 0
-    step['decode_front'] = layers if sparse else 0
+    step['decode_front'] = layers if front else 0
     step['decode_attention_rows_q' if quantized
          else 'decode_attention_rows'] = layers
-    step['ffn_tail'] = layers if cfg.decode_fused_ffn else 0
-    step['lm_head_argmax'] = 1
+    step['ffn_tail_int8' if w8 else 'ffn_tail'] = layers if fused_ffn else 0
+    step['lm_head_argmax_int8' if w8 else 'lm_head_argmax'] = 1
+    if w8:
+        prefill['int8_matmul'] = 4 * layers + 1
+        step['int8_matmul'] = layers * (1 + (0 if front else 1)
+                                        + (0 if fused_ffn else 2))
     return prefill, step
 
 
@@ -764,7 +967,7 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
     sync()
     total = counts()
     decode_counts = {n: total[n] - prefill_counts[n] for n in total}
-    per_prefill, per_step = expected_launches(cfg, quantized)
+    per_prefill, per_step = expected_launches(iw, quantized)
     want_decode = {n: c * steps for n, c in per_step.items()}
     require(prefill_counts == per_prefill and decode_counts == want_decode,
             f'{label} launch counts: prefill {prefill_counts} (expected '
@@ -809,7 +1012,8 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
 
 def phase_serving():
     """bf16 OPT-125M, B=8, prompt 2048, max_len 2176: bench.py's three
-    decode modes and the fused FFN tail on the int8-KV mode."""
+    decode modes, the fused FFN tail on the int8-KV mode, and int8 weights
+    (w8) in the sparse int8-KV and dense bf16-KV modes."""
     from spt_proto_tpu_torch.inference import engine
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
@@ -831,6 +1035,14 @@ def phase_serving():
         'sparse int8-KV fused FFN tail', InferenceWeights.from_params(
             sparse.replace(decode_fused_ffn=True), params), tokens, MAX_LEN,
         STEPS, True)
+    runs['sparse int8-KV w8'] = serving_run(
+        'sparse int8-KV w8', InferenceWeights.from_params(
+            sparse, params, quant='int8'), tokens, MAX_LEN, STEPS, True)
+    runs['dense bf16-KV w8'] = serving_run(
+        'dense bf16-KV w8', InferenceWeights.from_params(
+            opt_cfg('125m', MAX_LEN, torch.bfloat16, dense=True),
+            dense_params(params), quant='int8'), tokens, MAX_LEN, STEPS,
+        False)
     cache = engine.KVCache.create(sparse, B, MAX_LEN, dtype=sparse.dtype,
                                   quantized=True, device=DEV)
     runs['sparse int8-KV']['prefill_profile'] = device_profile(
@@ -847,8 +1059,9 @@ def phase_serving():
 
 
 def phase_1p3b():
-    """bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, B=8,
-    prompt 2048, max_len 2176, 32 steps, random weights made on the card."""
+    """bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, and sparse
+    int8-KV with int8 weights (w8), B=8, prompt 2048, max_len 2176, 32
+    steps, random weights made on the card."""
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
     sparse = opt_cfg('1.3b', MAX_LEN, torch.bfloat16)
@@ -864,9 +1077,15 @@ def phase_1p3b():
     runs['sparse int8-KV'] = serving_run(
         '1.3B sparse int8-KV', InferenceWeights.from_params(sparse, params),
         tokens, MAX_LEN, STEPS, True, profile=False)
+    runs['sparse int8-KV w8'] = serving_run(
+        '1.3B sparse int8-KV w8', InferenceWeights.from_params(
+            sparse, params, quant='int8'), tokens, MAX_LEN, STEPS, True,
+        profile=False)
     ratio = runs['sparse int8-KV']['decode_tok_s'] \
         / runs['dense bf16-KV']['decode_tok_s']
     log(f'  1.3B sparse int8-KV / dense bf16-KV decode tok/s {ratio:.3f}')
+    log('  1.3B peak memory GB: ' + ', '.join(
+        f'{k} {r["peak_mem_gb"]:.2f}' for k, r in runs.items()))
     del params
     torch.cuda.empty_cache()
     return dict(runs=runs, sparse_vs_dense=ratio)
@@ -925,6 +1144,12 @@ KERNELS = [
     ('ffn_tail', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
      'spt_proto_tpu/ops/pallas/ffn_tail.py:99', [],
      'sparse int8-KV fused FFN tail'),
+    ('int8_matmul', 'spt_proto_tpu_torch/csrc/int8_matmul.cu',
+     'spt_proto_tpu/ops/pallas/int8_matmul.py:49', [], 'sparse int8-KV w8'),
+    ('lm_head_argmax_int8', 'spt_proto_tpu_torch/csrc/lm_head.cu',
+     'spt_proto_tpu/ops/pallas/lm_head.py:129', [], 'sparse int8-KV w8'),
+    ('ffn_tail_int8', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
+     'spt_proto_tpu/ops/pallas/ffn_tail.py:231', [], 'sparse int8-KV w8'),
 ]
 
 

@@ -1,24 +1,27 @@
 """Inference engine: prefill + single-token decode with a tile-major KV
 cache (port of spt_proto_tpu/inference/engine.py, serving path).
 
-This port serves OPT with fp weights and greedy decoding in every decode
-mode the JAX package's bench.py measures: dense attention, and PQ-sparse
-attention (sparse_v2, l1 or l2 metric) through the fused front or the
-unfused front, each over a bf16/f32 KV cache or an int8 one, optionally
-with the fused FFN tail. Per decode layer the step launches the tile
-attention kernel with in-place append (ops/decode_attention.py:
+This port serves OPT with fp or int8 weight-only ("w8") weights and greedy
+decoding in every decode mode the JAX package's bench.py measures: dense
+attention, and PQ-sparse attention (sparse_v2, l1 or l2 metric) through the
+fused front or the unfused front, each over a bf16/f32 KV cache or an int8
+one, optionally with the fused FFN tail. Per decode layer the step launches
+the tile attention kernel with in-place append (ops/decode_attention.py:
 `decode_attention_rows` over a bf16/f32 cache, `decode_attention_rows_q`
 over an int8 one), after the fused front kernel (ops/decode_front.py) when
 the config takes it (l2 metric, per-head selection), and the fused FFN tail
-(ops/ffn_tail.py) when `decode_fused_ffn=True`; per step one fused lm_head
-argmax (ops/lm_head.py). Sparse prefill runs the block-sparse attention
+(ops/ffn_tail.py) when the config asks for it or, by default, for int8
+weights; per step one fused lm_head argmax (ops/lm_head.py). With int8
+weights every other projection (prefill's, the unfused front's QKV, the
+o-projection, the unfused FFN, prefill's lm_head) is one int8_matmul
+launch (ops/int8_matmul.py). Sparse prefill runs the block-sparse attention
 kernel (ops/block_sparse_attention.py) once per layer. Everything else,
 dense prefill and the unfused front among it, is plain PyTorch that
 mirrors the JAX engine op for op, as the JAX package leaves it to XLA.
 
 Out of this port so far, and raising NotImplementedError with the slice
-that brings them: LLaMA and GQA (LLaMA slice), int8 weights (int8-weight
-slice), routed FFN (training slice).
+that brings them: LLaMA and GQA (LLaMA slice), routed FFN (training
+slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -42,8 +45,11 @@ from spt_proto_tpu_torch.ops.block_sparse_attention import \
 from spt_proto_tpu_torch.ops.decode_attention import (decode_attention_rows,
                                                       decode_attention_rows_q)
 from spt_proto_tpu_torch.ops.decode_front import decode_front
-from spt_proto_tpu_torch.ops.ffn_tail import MAX_ROWS, ffn_tail
-from spt_proto_tpu_torch.ops.lm_head import lm_head_argmax
+from spt_proto_tpu_torch.ops.ffn_tail import (MAX_ROWS, ffn_tail,
+                                              ffn_tail_int8, int8_tile)
+from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
+from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
+                                             lm_head_argmax_int8)
 from spt_proto_tpu_torch.ops.lookup import pq_topk_indices
 from spt_proto_tpu_torch.ops.sparse_attention import sparse_attention
 
@@ -125,17 +131,29 @@ def _fit_codes(codes: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def _qkv_proj(mha: dict, x: torch.Tensor):
-    """q/k/v projections: one einsum over the fused [3, D, D] stack that
-    InferenceWeights builds for MHA."""
+    """q/k/v projections of x [B, S, D]: one einsum over the fused
+    [3, D, D] stack that InferenceWeights builds for MHA, or one int8_matmul
+    over the packed int8 [D, 3D] kernel (columns [q|k|v])."""
     w = mha['qkv']
-    y = torch.einsum('bsd,tdo->tbso', x, w['kernel'])
+    kern = w['kernel']
+    if isinstance(kern, dict):
+        d3 = kern['scale'].shape[-1]
+        y = int8_matmul(x, kern['q'], kern['scale'])[..., :d3]
+        y = y.reshape(*x.shape[:-1], 3, d3 // 3).movedim(-2, 0)
+    else:
+        y = torch.einsum('bsd,tdo->tbso', x, kern)
     if 'bias' in w:
         y = y + w['bias'][:, None, None, :]
     return y[0], y[1], y[2]
 
 
 def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p['kernel']
+    kern = p['kernel']
+    if isinstance(kern, dict):       # int8: q is N-padded, scale true-width
+        y = int8_matmul(x, kern['q'], kern['scale'])[
+            ..., :kern['scale'].shape[-1]]
+    else:
+        y = x @ kern
     if 'bias' in p:
         y = y + p['bias']
     return y
@@ -161,17 +179,27 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
                   x: torch.Tensor) -> torch.Tensor:
     """x + ffn(norm2(x)); through the fused tail kernel when the config
-    asks for it (decode_fused_ffn=True; None stays unfused for fp weights,
+    asks for it (decode_fused_ffn=True; None means "for int8 weights only",
     as in the JAX engine) and the shape is eligible: <= 256 rows, d_model
-    and d_ff multiples of 128."""
+    and d_ff multiples of 128, and for int8 weights a d_ff tile of >= 128
+    dividing d_ff."""
     xn = _layernorm(pn, x)
     rows = x.numel() // cfg.d_model
-    if not (cfg.decode_fused_ffn and rows <= MAX_ROWS
-            and cfg.d_model % 128 == 0 and cfg.d_feedforward % 128 == 0):
+    quant = [isinstance(p[n]['kernel'], dict) for n in ('fc1', 'fc2')]
+    use_fused = cfg.decode_fused_ffn
+    if use_fused is None:
+        use_fused = all(quant)
+    eligible = (use_fused and rows <= MAX_ROWS and cfg.d_model % 128 == 0
+                and cfg.d_feedforward % 128 == 0
+                and (all(quant) or not any(quant)))
+    if eligible and all(quant):
+        eligible = int8_tile(cfg.d_feedforward) >= 128
+    if not eligible:
         return x + _ffn(cfg, p, xn)
-    y = ffn_tail(xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model),
-                 p['fc1']['kernel'], p['fc1']['bias'], p['fc2']['kernel'],
-                 p['fc2']['bias'])
+    tail = ffn_tail_int8 if all(quant) else ffn_tail
+    y = tail(xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model),
+             p['fc1']['kernel'], p['fc1']['bias'], p['fc2']['kernel'],
+             p['fc2']['bias'])
     return y.reshape(x.shape)
 
 
@@ -217,10 +245,6 @@ def _require_slice(iw: InferenceWeights, cache: KVCache) -> None:
             'with the LLaMA slice')
     if cfg.ffn == FFN_ROUTED:
         raise NotImplementedError('routed FFN comes with the training slice')
-    if iw.quant is not None:
-        raise NotImplementedError(
-            'int8 weight-only serving (and the int8 FFN tail) comes with the '
-            'int8-weight slice')
     if cache.k.device.type == 'cuda' and cfg.attn_impl != 'pallas':
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: on the GPU the port attends only "
@@ -479,4 +503,7 @@ def decode_step_greedy(iw: InferenceWeights, tokens: torch.Tensor,
             'decode_fused_head=False: on the GPU the port takes the greedy '
             'token only through its fused lm_head kernel')
     x, cache = _decode_hidden(iw, tokens, cache)
-    return lm_head_argmax(x, iw.params['lm_head']['kernel']), cache
+    kern = iw.params['lm_head']['kernel']
+    if isinstance(kern, dict):           # int8 weight-only lm_head
+        return lm_head_argmax_int8(x, kern), cache
+    return lm_head_argmax(x, kern), cache

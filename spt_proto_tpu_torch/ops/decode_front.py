@@ -5,14 +5,18 @@ spt_proto_tpu/ops/pallas/decode_front.py).
 `decode_front` launches the CUDA kernel csrc/decode_front.cu for CUDA
 tensors and runs the plain twin `decode_front_ref` for CPU tensors. The
 engine calls it for sparse decode over an int8 KV cache (quantized=True)
-and over a bf16/f32 one (quantized=False). The port covers the OPT / MHA /
-stacked-QKV ('stack') weight form in f32 or bf16; RoPE and GQA (LLaMA
-slice) and the int8 weight forms (int8-weight slice) raise
-NotImplementedError.
+and over a bf16/f32 one (quantized=False). The port covers OPT / MHA in two
+weight forms: the stacked fp QKV ('stack', [3, D, D] in the serving dtype)
+and the column-packed int8 one ('packed_int8', {'q': [D, 3D_pad] int8,
+'scale': [3D] f32} from int8 weight-only serving). RoPE, GQA and the
+'triple_int8' form (LLaMA slice) raise NotImplementedError.
 
 Numerics follow the JAX kernel op for op in the serving dtype: f32 norm
 statistics with dtype affine, f32-accumulated dot rounded to the dtype
-before the dtype bias add, per-token int8 quantization (max-abs / 127,
+before the dtype bias add (in the int8 form the dot is int8_matmul's: hn
+rounded to bf16, f32 partials per K block of 256 -- 128 when D is not a
+multiple of 256 -- added in ascending order, then the per-column scale),
+per-token int8 quantization (max-abs / 127,
 round half to even), l2 PQ encode through the block-diagonal codebook with
 lowest-index ties, and tile selection in lax.top_k order (highest mean
 match over FULL tiles first, lowest index on ties) with the current tile
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from spt_proto_tpu_torch import _build
+from spt_proto_tpu_torch.ops.int8_matmul import int8_dot
 
 NEG = -1e30
 
@@ -44,11 +49,27 @@ def _check_form(wqkv, arch, cos, sin):
     if arch != 'opt' or cos is not None or sin is not None:
         raise NotImplementedError(
             'decode_front: LLaMA (RMSNorm + RoPE) comes with the LLaMA slice')
-    if not isinstance(wqkv, torch.Tensor):
+    if not isinstance(wqkv, (torch.Tensor, dict)):
         raise NotImplementedError(
-            'decode_front: GQA (q/k/v triple) and int8 weight forms come with '
-            'the int8-weight and LLaMA slices; this slice takes the stacked '
-            '[3, D, D] form')
+            'decode_front: GQA (the q/k/v triple and triple_int8 forms) comes '
+            'with the LLaMA slice; this port takes the stacked [3, D, D] and '
+            'the packed int8 [D, 3D_pad] forms')
+
+
+def _front_block_k(d: int) -> int:
+    """K block of the packed-int8 projection (decode_front.py:205)."""
+    return 256 if d % 256 == 0 else 128
+
+
+def _project(hn, wqkv, bqkv, dtype):
+    """q, k, v [B, D] in the serving dtype from the normed row hn."""
+    if isinstance(wqkv, torch.Tensor):
+        return [(hn.float() @ wqkv[t].float()).to(dtype) + bqkv[t].to(dtype)
+                for t in range(3)]
+    d = hn.shape[1]
+    acc = int8_dot(hn, wqkv['q'][:, :3 * d], _front_block_k(d))
+    y = (acc * wqkv['scale'].reshape(1, -1).float()).to(dtype)
+    return [y[:, t * d:(t + 1) * d] + bqkv[t].to(dtype) for t in range(3)]
 
 
 def decode_front_ref(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
@@ -71,8 +92,7 @@ def decode_front_ref(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     y = (xf - mu) * torch.rsqrt(var + eps)
     hn = y.to(dtype) * norm_scale.to(dtype) + norm_bias.to(dtype)
 
-    q, k, v = [(hn.float() @ wqkv[t].float()).to(dtype) + bqkv[t].to(dtype)
-               for t in range(3)]
+    q, k, v = _project(hn, wqkv, bqkv, dtype)
     outs = [q, k, v]
 
     if quantized:
@@ -123,11 +143,15 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
                  tables [B, KV, nsel] PHYSICAL tile ids
                  [, k8 [B, D] int8, v8, ks [B, KV] f32, vs]).
 
-    wqkv [3, D, D] and bqkv [3, D] in the serving dtype; bd / cb_norm from
-    build_pq_bd; c_cache [B, KV, L*NT, w, T] int32 (pad columns -2);
-    pos [B] int32; base = layer_index * nt (int)."""
+    wqkv [3, D, D] in the serving dtype, or the packed int8 form
+    {'q': [D, 3D_pad] int8, 'scale': [3D] or [1, 3D] f32}; bqkv [3, D] in
+    the serving dtype; bd / cb_norm from build_pq_bd; c_cache
+    [B, KV, L*NT, w, T] int32 (pad columns -2); pos [B] int32;
+    base = layer_index * nt (int)."""
     _check_form(wqkv, arch, cos, sin)
-    if not _build.on_cuda(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
+    packed = isinstance(wqkv, dict)
+    w_ts = [wqkv['q'], wqkv['scale']] if packed else [wqkv]
+    if not _build.on_cuda(x, norm_scale, norm_bias, *w_ts, bqkv, bd, cb_norm,
                           c_cache, pos):
         return decode_front_ref(
             x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm, c_cache, pos,
@@ -138,12 +162,23 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     _, kv, n_all, width, t = c_cache.shape
     dh = d // kv
     req = _build.require
-    req(all(a.dtype == x.dtype for a in (norm_scale, norm_bias, wqkv, bqkv)),
-        'x, norm and QKV weights must share the serving dtype')
+    req(all(a.dtype == x.dtype for a in (norm_scale, norm_bias, bqkv)),
+        'x, norm and QKV bias must share the serving dtype')
     code = _build.dtype_code(x)
-    req(wqkv.shape == (3, d, d) and bqkv.shape == (3, d),
-        f'wqkv {tuple(wqkv.shape)} / bqkv {tuple(bqkv.shape)} != [3, D, D]'
-        f' / [3, D] at D={d}')
+    req(bqkv.shape == (3, d), f'bqkv {tuple(bqkv.shape)} != [3, {d}]')
+    if packed:
+        w8, wsc = wqkv['q'], wqkv['scale']
+        req(w8.dtype == torch.int8 and w8.dim() == 2 and w8.shape[0] == d
+            and w8.shape[1] >= 3 * d and wsc.dtype == torch.float32
+            and wsc.numel() == 3 * d and d % 128 == 0,
+            f'packed int8 QKV {tuple(w8.shape)} {w8.dtype} / scale '
+            f'[{wsc.numel()}] at D={d} (a multiple of 128)')
+        w_arg, ldw = None, w8.shape[1]
+    else:
+        req(wqkv.dtype == x.dtype and wqkv.shape == (3, d, d),
+            f'wqkv {tuple(wqkv.shape)} {wqkv.dtype} != [3, {d}, {d}] '
+            f'{x.dtype}')
+        w_arg, w8, wsc, ldw = wqkv, None, None, 0
     req(norm_scale.numel() == d and norm_bias.numel() == d, 'norm width')
     req(kv * dh == d and 256 % dh == 0, f'd_head {dh} must divide 256')
     req(bd.dtype == torch.float32 and cb_norm.dtype == torch.float32,
@@ -155,8 +190,9 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     req(c_cache.shape[0] == b and 0 <= base and base + nt <= n_all
         and 1 <= nsel <= nt and 2 * n_sub <= 256, 'tile geometry')
     req(pos.dtype == torch.int32 and pos.shape == (b,), 'pos [B] int32')
-    args = [x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm, c_cache, pos]
-    req(all(a.is_contiguous() for a in args), 'inputs must be contiguous')
+    args = [x, norm_scale, norm_bias, w_arg, bqkv, bd, cb_norm, c_cache, pos]
+    req(all(a.is_contiguous() for a in args + [w8, wsc] if a is not None),
+        'inputs must be contiguous')
 
     dev = x.device
     q, k, v = (torch.empty((b, d), dtype=x.dtype, device=dev)
@@ -171,10 +207,11 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
                   for _ in range(2))
     p = _build.ptr
     err = _build.lib().spt_decode_front(
-        code, *[p(a) for a in args[:7]], p(c_cache), p(pos), base,
-        p(q), p(k), p(v), p(c_new), p(tables), p(k8), p(v8), p(ks), p(vs),
-        b, d, kv, dh, n_sub, bd.shape[1] // n_sub, width, n_all, nt, nsel,
-        ps, 1.0 / ps, eps, int(quantized), _build.stream())
+        code, *[p(a) for a in args[:7]], p(w8), p(wsc), ldw, p(c_cache),
+        p(pos), base, p(q), p(k), p(v), p(c_new), p(tables), p(k8), p(v8),
+        p(ks), p(vs), b, d, kv, dh, n_sub, bd.shape[1] // n_sub, width, n_all,
+        nt, nsel, ps, _front_block_k(d) if packed else 0, 1.0 / ps, eps,
+        int(quantized), _build.stream())
     _build.check(err, 'decode_front')
     decode_front.launches += 1
     res = (q, k, v, c_new, tables)

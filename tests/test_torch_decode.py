@@ -2,11 +2,13 @@
 twins (bf16/f32 and int8 caches) against the JAX oracles and Pallas kernels
 (interpret mode), on the CPU.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from spt_proto_tpu.inference.weights import quantize_int8 as j_quantize
 from spt_proto_tpu.ops.pallas import decode_attention as jattn
 from spt_proto_tpu.ops.pallas.decode_attention import \
     decode_attention_rows_q_ms as j_attn_ms
@@ -42,17 +44,35 @@ def _front_inputs(width, seed=0):
     return x, nsc, nbi, w, bq, bd, cbn, cc, pos, nt
 
 
-@pytest.mark.parametrize('width,quantized', [(8, True), (16, True),
-                                             (8, False)])
-def test_decode_front_twin_matches_jax_kernel(width, quantized):
+def _packed_int8(w):
+    """[3, D, D] -> the int8 weight build's packed form {'q': [D, 3D_pad]
+    int8 (3 x 128 -> 512 columns), 'scale': [1, 3D] f32}, as numpy."""
+    wq = j_quantize(jnp.concatenate([jnp.asarray(w[i]) for i in range(3)],
+                                    axis=-1))
+    return {k: np.asarray(a) for k, a in wq.items()}
+
+
+@pytest.mark.parametrize('width,quantized,w_form', [
+    (8, True, 'stack'), (16, True, 'stack'), (8, False, 'stack'),
+    (8, True, 'packed_int8'), (16, False, 'packed_int8')],
+    ids=['8-True', '16-True', '8-False', '8-True-packed_int8',
+         '16-False-packed_int8'])
+def test_decode_front_twin_matches_jax_kernel(width, quantized, w_form):
+    """The twin vs the JAX kernel (interpret mode) in both weight forms:
+    codes, tables and k8/v8 exact, q/k/v to ulps."""
     x, nsc, nbi, w, bq, bd, cbn, cc, pos, nt = _front_inputs(width)
     nsel, base = 5, nt          # second layer's slab
     kw = dict(nt=nt, nsel=nsel, n_sub=8, ps=TILE, quantized=quantized)
-    want = j_front(*(jnp.asarray(a) for a in (x, nsc, nbi, w, bq, bd, cbn,
-                                              cc, pos)),
+    if w_form == 'packed_int8':
+        w = _packed_int8(w)
+        assert w['q'].shape == (128, 512) and w['scale'].shape == (1, 384)
+    j_w = jax.tree.map(jnp.asarray, w)
+    want = j_front(*(jnp.asarray(a) for a in (x, nsc, nbi)), j_w,
+                   *(jnp.asarray(a) for a in (bq, bd, cbn, cc, pos)),
                    jnp.full((1,), base, jnp.int32), **kw)
     want = [np.asarray(a) for a in want]
-    args = [t(a) for a in (x, nsc, nbi, w, bq, bd, cbn, cc, pos)]
+    args = [t(x), t(nsc), t(nbi), jax.tree.map(t, w)] + \
+        [t(a) for a in (bq, bd, cbn, cc, pos)]
     got = [a.numpy() for a in tfront.decode_front_ref(*args, base, **kw)]
     assert len(got) == len(want) == (9 if quantized else 5)
     # q/k/v: XLA and torch sum the norm statistics and the projection in

@@ -20,13 +20,15 @@ from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import decode_front as tfront
 from spt_proto_tpu_torch.ops import ffn_tail as tffn
+from spt_proto_tpu_torch.ops import int8_matmul as tmm
 from spt_proto_tpu_torch.ops import lm_head as tlm
 
 REPO = Path(__file__).resolve().parents[1]
 
 WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tlm.lm_head_argmax, tbsa.block_sparse_attention,
-            tattn.decode_attention_rows, tffn.ffn_tail)
+            tattn.decode_attention_rows, tffn.ffn_tail, tmm.int8_matmul,
+            tlm.lm_head_argmax_int8, tffn.ffn_tail_int8)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -68,19 +70,21 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
-    """Prefill + greedy decode on CPU tensors, sparse over an int8 cache
-    and dense over an f32 cache with the fused FFN tail: every kernel
-    wrapper is reached, and none launches its kernel."""
+    """Prefill + greedy decode on CPU tensors, sparse over an int8 cache,
+    dense over an f32 cache with the fused FFN tail, and sparse int8-KV with
+    int8 weights: every kernel wrapper is reached, and none launches its
+    kernel."""
     for w in WRAPPERS:
         w.launches = 0
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         1, 256, size=(2, 256)))
-    for cfg, quantized in ((_tiny_cfg(), True),
-                           (_tiny_cfg().replace(attention='dense',
-                                                decode_fused_ffn=True),
-                            False)):
+    for cfg, quantized, quant in (
+            (_tiny_cfg(), True, None),
+            (_tiny_cfg().replace(attention='dense', decode_fused_ffn=True),
+             False, None),
+            (_tiny_cfg(), True, 'int8')):
         iw = InferenceWeights.from_params(
-            cfg, bridge.init_params(cfg, seed=0, device='cpu'))
+            cfg, bridge.init_params(cfg, seed=0, device='cpu'), quant=quant)
         cache = teng.KVCache.create(cfg, 2, 512, dtype=torch.float32,
                                     quantized=quantized, device='cpu')
         logits, cache = teng.prefill(iw, tokens, cache)
@@ -118,13 +122,13 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 
 def test_unported_forms_raise_not_implemented():
-    """What later slices bring raises and names its slice: int8 weights
-    (and their FFN tail), LLaMA / GQA (and the gated FFN tail), routed
-    FFN."""
+    """What later slices bring raises and names its slice: LLaMA / GQA (and
+    the gated FFN tail, and int8 weights for GQA), routed FFN."""
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
-    with pytest.raises(NotImplementedError, match='int8-weight slice'):
-        InferenceWeights.from_params(cfg, params, quant='int8')
+    gqa = cfg.replace(n_kv_heads=1)
+    with pytest.raises(NotImplementedError, match='LLaMA slice'):
+        InferenceWeights.from_params(gqa, params, quant='int8')
     with pytest.raises(NotImplementedError, match='LLaMA slice'):
         bridge.init_params(tcfg.tiny_config('llama'), seed=0, device='cpu')
     cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
@@ -136,13 +140,13 @@ def test_unported_forms_raise_not_implemented():
         bad = dataclasses.replace(iw, cfg=cfg.replace(**changes))
         with pytest.raises(NotImplementedError, match=match):
             teng.decode_step_greedy(bad, tok, cache)
-    int8_weights = dataclasses.replace(
-        iw, cfg=cfg.replace(decode_fused_ffn=True), quant='int8')
-    with pytest.raises(NotImplementedError, match='int8-weight slice'):
-        teng.decode_step_greedy(int8_weights, tok, cache)
-    # a bf16 KV cache decodes now (the bf16-KV path of this port)
+    # a bf16 KV cache decodes now (the bf16-KV path of this port), and so
+    # do int8 weights (the w8 path)
     tok, cache = teng.decode_step_greedy(iw, tok, cache)
     assert cache.length.tolist() == [1]
+    int8_weights = InferenceWeights.from_params(cfg, params, quant='int8')
+    tok, cache = teng.decode_step_greedy(int8_weights, tok, cache)
+    assert cache.length.tolist() == [2]
 
 
 def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
