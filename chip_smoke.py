@@ -10,22 +10,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
    decode front (with and without int8 KV quantization, with the stacked fp
-   and the packed int8 QKV weight), decode attention over a bf16/f32 cache
-   (dense tables at max_len 2176, dense supertiles of 4 at max_len 2048,
-   sparse tables) and over an int8 cache (sparse tables, and dense
-   supertiles of 4 through one table row), the lm_head argmax (fp, and int8
-   at OPT-125M and OPT-1.3B widths), block-sparse prefill attention (also
-   with off-diagonal and -1 entries at S=4096, sparse_coeff 4), the fused FFN
-   tail (fp and int8) at OPT-125M and OPT-1.3B widths, and the int8 matmul
-   at the decode shapes (m = 8: o and qkv of OPT-125M and OPT-1.3B) and a
-   prefill shape (m = 16,384, fc1 of OPT-125M); time kernel, twin and the
-   one-call library equivalent where there is one;
+   and the packed int8 QKV weight; and LLaMA's RMSNorm + RoPE forms: the
+   stack and packed int8 at LLaMA-7B width, B=4, and the GQA triple and
+   triple_int8 at Llama-3-8B width, B=8), decode attention over a bf16/f32
+   cache (dense tables at max_len 2176, dense supertiles of 4 at max_len
+   2048, sparse tables) and over an int8 cache (sparse tables, and dense
+   supertiles of 4 through one table row; and both at Llama-3-8B's G = 4),
+   the lm_head argmax (fp, and int8 at OPT-125M and OPT-1.3B widths; both
+   at d 4096 over 128,256 and 32,000 tokens), block-sparse prefill
+   attention (d_head 64 and 128, at S=2048 and with off-diagonal and -1
+   entries at S=4096, sparse_coeff 4), the fused FFN tail (fp and int8) at
+   OPT-125M and OPT-1.3B widths, the gated tails (fp and int8) at LLaMA-7B
+   and Llama-3-8B widths, m = 4 and 8, and the int8 matmul at the decode
+   shapes (o and qkv of OPT-125M and OPT-1.3B; o and k / v of LLaMA) and
+   two prefill shapes (m = 16,384: fc1 of OPT-125M, Llama-3-8B's gate);
+   time kernel, twin and the one-call library equivalent where there is
+   one;
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
    dense f32-KV, sparse f32-KV, the unfused l1 front over int8 KV, and with
    int8 weights (w8, built staged on the card) sparse int8-KV and dense
-   f32-KV); the greedy tokens must agree;
+   f32-KV), and Llama-3-8B at full width cut to 2 layers and a 32,000-token
+   vocabulary in three (sparse int8-KV through the triple front, dense
+   f32-KV, and w8 sparse int8-KV through the triple_int8 front and the
+   gated int8 tail); the greedy tokens must agree (the w8 modes are held
+   stepwise from the twins' state, codes and tables, each decision within
+   one bf16 step of theirs);
 4. the serving runs, OPT-125M in bf16, B=8, prompt 2048, max_len 2176, in
    bench.py's three decode modes (dense bf16-KV, sparse bf16-KV, sparse
    int8-KV), sparse int8-KV with the fused FFN tail, and with int8 weights
@@ -36,7 +47,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, and sparse
    int8-KV w8 (the round-4 ladder's "sparse w8"), B=8, prompt 2048, max_len
    2176, 32 steps, with tokens per second and peak memory;
-6. print the per-kernel JSON line, then the contract line
+6. LLaMA serving at full depth and width in bf16, prompt 2048, max_len
+   2176, 32 steps, with exact launch counts, decode ms/step, tokens per
+   second, prefill ms and peak memory: Llama-3-8B at B=8 dense bf16-KV,
+   sparse int8-KV, sparse int8-KV with the fused gated tail and sparse
+   int8-KV w8, then LLaMA-7B sparse int8-KV w8 at B=4 (bench_ladder.py's
+   llama-7b rung), each model freed before the next is built;
+7. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -44,6 +61,7 @@ either it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -70,12 +88,28 @@ NSEL = min(NT, max(1, NT // 8) + 1)           # sparse_coeff 8 -> 3
 D_13B, FF_13B = 2048, 8192                    # OPT-1.3B widths
 # (m, K, N) of int8_matmul on the w8 paths: decode (m = B) o and qkv of
 # OPT-125M and OPT-1.3B, prefill (m = B x PROMPT) fc1 of OPT-125M; the
-# first is the one the kernel line reports (o runs every layer and step)
+# first is the one the kernel line reports (o runs every layer and step).
+# LLaMA's are added below its widths.
 INT8_MATMUL_SHAPES = {
     'decode o 125m': (B, D, D), 'decode qkv 125m': (B, D, 3 * D),
     'decode o 1.3b': (B, D_13B, D_13B),
     'decode qkv 1.3b': (B, D_13B, 3 * D_13B),
     'prefill fc1 125m': (B * PROMPT, D, FF)}
+# LLaMA (llama_config '7b' and '3-8b'): d_model 4096, 32 query heads of
+# d_head 128 (16 PQ subspaces, so the code width is 16); d_ff 11008 and
+# 14336; Llama-3-8B has 8 kv heads (groups of 4). LLaMA-7B serves at B=4
+# (bench_ladder.py's llama-7b rung), Llama-3-8B at B=8.
+D_LL, HEADS_LL, DH_LL, N_SUB_LL = 4096, 32, 128, 16
+FF_7B, FF_38B, KV_38B, B_7B = 11008, 14336, 8, 4
+VOCAB_38B, VOCAB_7B = 128256, 32000
+# int8_matmul on LLaMA's w8 paths: per decode step o (Llama-3-8B at B=8,
+# LLaMA-7B at B=4); q and k / v where the front is unfused; per prefill
+# (m = B x PROMPT) every projection, the widest being the gate and side
+INT8_MATMUL_SHAPES.update({
+    'decode o llama-3-8b': (B, D_LL, D_LL),
+    'decode k/v llama-3-8b': (B, D_LL, KV_38B * DH_LL),
+    'decode o llama-7b': (B_7B, D_LL, D_LL),
+    'prefill gate llama-3-8b': (B * PROMPT, D_LL, FF_38B)})
 
 
 def log(msg: str) -> None:
@@ -203,20 +237,44 @@ def covered_tokens(tables, n_tiles, pos, tile_base, tps, kv) -> int:
 # phase 2: each kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-def front_inputs(dtype, g):
-    b, d, kv, layers, nt, dev = B, D, HEADS, LAYERS, NT, DEV
+def front_inputs(dtype, g, b=B, d=D, heads=HEADS, kv=HEADS, n_sub=N_SUB,
+                 llama=False, triple=False, layers=LAYERS, nt=NT):
+    """decode_front inputs at a serving shape, slots at positions
+    (nt-1)*TILE + slot: x, norm scale / bias (None for LLaMA), the QKV
+    weight (a [3, D, D] stack, or the (wq, wk, wv) triple), the QKV bias
+    (None for LLaMA), bd / cbn, the code cache, pos, then cos / sin (None
+    for OPT)."""
+    dev = DEV
+    from spt_proto_tpu_torch.layers.common import rope_cos_sin
     from spt_proto_tpu_torch.ops.decode_front import build_pq_bd
+    dh = d // heads
     x = randn(g, (b, d), dtype, dev)
     nsc = (1 + randn(g, (d,), torch.float32, dev, 0.1)).to(dtype)
-    nbi = randn(g, (d,), dtype, dev, 0.1)
-    w = randn(g, (3, d, d), dtype, dev, d ** -0.5)
-    bq = randn(g, (3, d), dtype, dev, 0.1)
-    bd, cbn = build_pq_bd(randn(g, (N_SUB, N_CODE, d // kv // N_SUB),
+    nbi = None if llama else randn(g, (d,), dtype, dev, 0.1)
+    if triple:
+        w = tuple(randn(g, (d, n), dtype, dev, d ** -0.5)
+                  for n in (heads * dh, kv * dh, kv * dh))
+    else:
+        w = randn(g, (3, d, d), dtype, dev, d ** -0.5)
+    bq = None if llama else randn(g, (3, d), dtype, dev, 0.1)
+    bd, cbn = build_pq_bd(randn(g, (n_sub, N_CODE, dh // n_sub),
                                 torch.float32, dev))
-    cc = torch.randint(0, N_CODE, (b, kv, layers * nt, N_SUB, TILE),
+    cc = torch.randint(0, N_CODE, (b, kv, layers * nt, n_sub, TILE),
                        generator=g, device=dev, dtype=torch.int32)
     pos = (nt - 1) * TILE + torch.arange(b, device=dev, dtype=torch.int32)
-    return [x, nsc, nbi, w, bq, bd, cbn, cc, pos]
+    cos = sin = None
+    if llama:
+        cos, sin = rope_cos_sin(pos, dh, base=10000.0)
+    return [x, nsc, nbi, w, bq, bd, cbn, cc, pos, cos, sin]
+
+
+# (label, front_inputs geometry) of the LLaMA front checks: LLaMA-7B's MHA
+# forms at B=4, Llama-3-8B's GQA triples at B=8
+LLAMA_FRONTS = {
+    'llama-7b': dict(b=B_7B, d=D_LL, heads=HEADS_LL, kv=HEADS_LL,
+                     n_sub=N_SUB_LL, llama=True),
+    'llama-3-8b': dict(b=B, d=D_LL, heads=HEADS_LL, kv=KV_38B,
+                       n_sub=N_SUB_LL, llama=True, triple=True)}
 
 
 def int8_weight(g, k, n, dtype):
@@ -233,20 +291,33 @@ def dequant(wq, dtype):
     return (wq['q'][:, :n].float() * wq['scale'].reshape(1, n)).to(dtype)
 
 
-def check_front(dtype, timer=None, quantized=True, packed=False):
+def check_front(dtype, timer=None, quantized=True, packed=False,
+                model=None):
     """decode_front vs decode_front_ref at the serving shape (the middle
     layer's slab), with int8 KV quantization (sparse int8-KV decode) or
-    without (sparse bf16-KV decode), with the stacked fp QKV weight or the
-    packed int8 one (int8 weight-only serving)."""
+    without (sparse bf16-KV decode), with the fp weight or the int8 one
+    (packed=True: int8 weight-only serving). model None: OPT-125M, the
+    stacked QKV (int8: packed); else a LLAMA_FRONTS entry: LLaMA-7B's stack
+    (int8: packed) or Llama-3-8B's GQA triple (int8: triple_int8), with
+    RMSNorm and RoPE."""
     from spt_proto_tpu_torch.ops import decode_front as m
-    args = front_inputs(dtype, gen(SEED + 1))
-    if packed:
-        from spt_proto_tpu_torch.inference.weights import quantize_int8
+    from spt_proto_tpu_torch.inference.weights import quantize_int8
+    geo = LLAMA_FRONTS[model] if model else {}
+    b, n_sub = geo.get('b', B), geo.get('n_sub', N_SUB)
+    layers = geo.get('layers', LAYERS)
+    args = front_inputs(dtype, gen(SEED + 1), **geo)
+    cos_sin = args[9:]
+    args = args[:9]
+    if packed and isinstance(args[3], tuple):
+        args[3] = tuple(quantize_int8(w) for w in args[3])
+    elif packed:
         args[3] = quantize_int8(torch.cat(list(args[3]), dim=-1))
-    kw = dict(nt=NT, nsel=NSEL, n_sub=N_SUB, ps=TILE, quantized=quantized)
-    base = LAYERS // 2 * NT
-    got = m.decode_front(*args, base, **kw)
-    want = m.decode_front_ref(*args, base, **kw)
+    llama = model is not None
+    kw = dict(nt=NT, nsel=NSEL, n_sub=n_sub, ps=TILE, quantized=quantized,
+              eps=1e-6 if llama else 1e-5, arch='llama' if llama else 'opt')
+    base = layers // 2 * NT
+    got = m.decode_front(*args, base, *cos_sin, **kw)
+    want = m.decode_front_ref(*args, base, *cos_sin, **kw)
     sync()
     require(len(got) == len(want) == (9 if quantized else 5),
             f'decode_front returned {len(got)} outputs')
@@ -264,7 +335,8 @@ def check_front(dtype, timer=None, quantized=True, packed=False):
     sel_flips = max(int((got[i] != want[i]).sum()) for i in (3, 4))
     sel_tol = 0 if tdt == torch.float32 else 1
     qkv_ok = all(close(g_, w_, tdt) for g_, w_ in zip(got[:3], want[:3]))
-    label = (f'decode_front {"packed-int8 " if packed else ""}'
+    form = m.weight_form(args[3])
+    label = (f'decode_front {form}{" " + model if model else ""} '
              f'{"int8-KV" if quantized else "bf16-KV"}')
     if quantized:
         kv_flips = max(mismatch(got[i], want[i]) for i in (5, 6))
@@ -281,20 +353,25 @@ def check_front(dtype, timer=None, quantized=True, packed=False):
     require(qkv_ok and sel_flips <= sel_tol and kv_ok,
             f'{label} {dtype}: qkv err {q_err}, code/table flips '
             f'{sel_flips} (tol {sel_tol}){kv_msg}')
-    log(f'  {label:31s} {str(dtype):15s} qkv max err {q_err:.3g} '
+    log(f'  {label:45s} {str(dtype):15s} qkv max err {q_err:.3g} '
         f'({tol_str(tdt)}); code/table entries flipped {sel_flips} '
         f'(tol {sel_tol}){kv_msg}')
     res = dict(max_abs_err=q_err)
     if timer is not None:
         x, nsc, nbi, w, bq, bd, cbn, cc, pos = args
-        res['ms'] = timer.ms(lambda: m.decode_front(*args, base, **kw))
-        res['plain_ms'] = timer.ms(lambda: m.decode_front_ref(*args, base,
-                                                              **kw), reps=5)
+        res['ms'] = timer.ms(lambda: m.decode_front(*args, base, *cos_sin,
+                                                    **kw))
+        res['plain_ms'] = timer.ms(lambda: m.decode_front_ref(
+            *args, base, *cos_sin, **kw), reps=5)
         cur = int(pos[0]) // TILE
         n_full = min(cur, NT)
-        slab = B * HEADS * n_full * N_SUB * TILE * 4   # code slab it scans
-        io = nbytes(x, nsc, nbi, w, bq, bd, cbn, pos, *got)
-        ops = 2 * B * D * 3 * D + 2 * 2 * B * D * N_CODE
+        kv = cc.shape[1]
+        slab = b * kv * n_full * n_sub * TILE * 4      # code slab it scans
+        w_ts = [w] if not isinstance(w, tuple) else list(w)
+        io = nbytes(x, nsc, nbi, *w_ts, bq, bd, cbn, pos, *cos_sin, *got)
+        n_q, n_k = got[0].shape[1], got[1].shape[1]
+        ops = 2 * b * x.shape[1] * (n_q + 2 * n_k) \
+            + 2 * b * (n_q + n_k) * bd.shape[1]        # projection, encode
         res['bound_ms'], res['bound_by'] = bound_ms(io + slab, ops, dtype)
         res['library_ms'] = None
         log_times(res)
@@ -489,43 +566,147 @@ def check_rows(dtype, mode, front_out, timer=None):
     return res
 
 
-def check_ffn(dtype, d, f, timer=None, int8=False):
-    """ffn_tail (or, int8=True, ffn_tail_int8 over int8 weights) vs its twin
-    at (B, d, d_ff); the engine's unfused torch sequence (over dequantized
-    weights for int8) is timed beside it for reference (no single PyTorch
-    call computes the function)."""
+def check_ffn(dtype, d, f, timer=None, int8=False, gated=False, m_rows=B):
+    """ffn_tail / ffn_tail_int8, or (gated=True, LLaMA) ffn_tail_gated /
+    ffn_tail_gated_int8, vs its twin at (m_rows, d, d_ff); the engine's
+    unfused torch sequence (over dequantized weights for int8) is timed
+    beside it for reference (no single PyTorch call computes the
+    function)."""
     from spt_proto_tpu_torch.ops import ffn_tail as m
-    g = gen(SEED + (9 if int8 else 6))
-    x, res_ = randn(g, (B, d), dtype), randn(g, (B, d), dtype)
-    if int8:
-        w1, w2 = int8_weight(g, d, f, dtype), int8_weight(g, f, d, dtype)
-        fn, ref, name = m.ffn_tail_int8, m.ffn_tail_int8_ref, 'ffn_tail_int8'
+    g = gen(SEED + (9 if int8 else 6) + (10 if gated else 0))
+    x, res_ = randn(g, (m_rows, d), dtype), randn(g, (m_rows, d), dtype)
+    if gated:
+        shapes = ((d, f), (d, f), (f, d))
+        if int8:
+            ws = [int8_weight(g, k, n, dtype) for k, n in shapes]
+            fn, ref = m.ffn_tail_gated_int8, m.ffn_tail_gated_int8_ref
+        else:
+            ws = [randn(g, (k, n), dtype, std=k ** -0.5) for k, n in shapes]
+            fn, ref = m.ffn_tail_gated, m.ffn_tail_gated_ref
+        args = [x, res_, *ws]
+        n_w = 3
     else:
-        w1 = randn(g, (d, f), dtype, std=d ** -0.5)
-        w2 = randn(g, (f, d), dtype, std=f ** -0.5)
-        fn, ref, name = m.ffn_tail, m.ffn_tail_ref, 'ffn_tail'
-    b1 = randn(g, (f,), dtype, std=0.1)
-    b2 = randn(g, (d,), dtype, std=0.1)
-    args = [x, res_, w1, b1, w2, b2]
+        if int8:
+            w1, w2 = int8_weight(g, d, f, dtype), int8_weight(g, f, d, dtype)
+            fn, ref = m.ffn_tail_int8, m.ffn_tail_int8_ref
+        else:
+            w1 = randn(g, (d, f), dtype, std=d ** -0.5)
+            w2 = randn(g, (f, d), dtype, std=f ** -0.5)
+            fn, ref = m.ffn_tail, m.ffn_tail_ref
+        b1 = randn(g, (f,), dtype, std=0.1)
+        b2 = randn(g, (d,), dtype, std=0.1)
+        args = [x, res_, w1, b1, w2, b2]
+        ws = [w1, w2]
+        n_w = 2
+    name = fn.__name__
     got = fn(*args)
     want = ref(*args)
     sync()
     err = max_err(got, want)
     require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
-            f'{name} d={d} f={f} {dtype}: err {err}')
-    log(f'  {name} d={d} f={f} {str(dtype):14s} max err {err:.3g} '
-        f'({tol_str(dtype)})')
+            f'{name} m={m_rows} d={d} f={f} {dtype}: err {err}')
+    log(f'  {name} m={m_rows} d={d} f={f} {str(dtype):14s} max err '
+        f'{err:.3g} ({tol_str(dtype)})')
     res = dict(max_abs_err=err)
     if timer is not None:
         res['ms'] = timer.ms(lambda: fn(*args))
         res['plain_ms'] = timer.ms(lambda: ref(*args))
-        w1f, w2f = (dequant(w1, dtype), dequant(w2, dtype)) if int8 \
-            else (w1, w2)
-        res['unfused_ms'] = timer.ms(
-            lambda: res_ + (torch.relu(x @ w1f + b1) @ w2f + b2))
-        del w1f, w2f
+        wf = [dequant(w, dtype) for w in ws] if int8 else ws
+        if gated:
+            res['unfused_ms'] = timer.ms(lambda: res_ + (
+                torch.nn.functional.silu(x @ wf[0]) * (x @ wf[1])) @ wf[2])
+        else:
+            res['unfused_ms'] = timer.ms(
+                lambda: res_ + (torch.relu(x @ wf[0] + b1) @ wf[1] + b2))
+        del wf
         res['bound_ms'], res['bound_by'] = bound_ms(
-            nbytes(*args, got), 2 * 2 * B * d * f, dtype)
+            nbytes(*args, got), n_w * 2 * m_rows * d * f, dtype)
+        res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def check_attention_gqa(dtype, int8, dense, timer=None):
+    """decode_attention_rows_q (int8 cache) or decode_attention_rows
+    (bf16/f32 cache) vs its twin at Llama-3-8B's decode shape: B=8, 8 kv
+    heads with G = 4 query rows each, d_head 128, 17 tiles a layer (max_len
+    2176), slots at 2048-2055; dense tables (one row, tps 1) or sparse ones
+    (per kv head: two random full tiles, then the write tile)."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    g = gen(SEED + 11)
+    b, kv, grp, dh, layers = B, KV_38B, HEADS_LL // KV_38B, DH_LL, 4
+    n_all, base = layers * NT, layers // 2 * NT
+    pos = PROMPT + torch.arange(b, device=DEV, dtype=torch.int32)
+    cur = (pos // TILE).long()
+    if dense:
+        tables, n_tiles = dense_tables(pos, NT, 1, base)
+        width = 1
+    else:
+        full = torch.rand((b, kv, NT), generator=g, device=DEV)
+        full = full.masked_fill(torch.arange(NT, device=DEV) >= cur[:, None,
+                                                                   None], 2)
+        pick = full.argsort(-1)[..., :NSEL - 1]
+        tables = torch.cat([pick, cur[:, None, None].expand(b, kv, 1)],
+                           -1).to(torch.int32) + base
+        n_tiles = torch.full((b,), NSEL, device=DEV, dtype=torch.int32)
+        width = N_SUB_LL
+    q = randn(g, (b, kv, grp, dh), dtype)
+    # a dense cache keeps one zero code column, which the kernels leave be
+    cc = torch.randint(0, N_CODE if width > 1 else 1,
+                       (b, kv, n_all, width, TILE), generator=g, device=DEV,
+                       dtype=torch.int32)
+    c_new = torch.randint(0, N_CODE if width > 1 else 1, (b, kv, width),
+                          generator=g, device=DEV, dtype=torch.int32)
+    tb = torch.full((b,), base, device=DEV, dtype=torch.int32)
+    kw = dict(ps=TILE, tps=1, scale=dh ** -0.5, clamp=0.0 if dense else 10.0)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, (b, kv, n_all, dh, TILE),
+                                generator=g, device=DEV, dtype=torch.int8)
+                  for _ in range(2))
+        kvp = -(-kv // 8) * 8
+        ksc, vsc = (torch.rand((b, n_all, kvp, TILE), generator=g,
+                               device=DEV) * 0.05 for _ in range(2))
+        kn, vn = (torch.randint(-127, 128, (b, kv, dh), generator=g,
+                                device=DEV, dtype=torch.int8)
+                  for _ in range(2))
+        ksn, vsn = (torch.rand((b, kv), generator=g, device=DEV) * 0.05
+                    for _ in range(2))
+        args = [q, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn, c_new,
+                ksn, vsn, tb]
+        fn, ref = m.decode_attention_rows_q, m.decode_attention_rows_q_ref
+        per_token = 2 * dh + 2 * 4                  # K, V int8 + 2 scales
+    else:
+        kc, vc = (randn(g, (b, kv, n_all, dh, TILE), dtype)
+                  for _ in range(2))
+        kn, vn = (randn(g, (b, kv, dh), dtype) for _ in range(2))
+        args = [q, kc, vc, cc, tables, n_tiles, pos, kn, vn, c_new, tb]
+        fn, ref = m.decode_attention_rows, m.decode_attention_rows_ref
+        per_token = 2 * dh * q.element_size()
+    ref_args = [a.clone() for a in args]
+    got = fn(*args, **kw)
+    want = ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
+                                                             want[1:]))
+    label = (f'{fn.__name__} G={grp} {"dense" if dense else "sparse"} '
+             f'(T={tables.shape[2]})')
+    require(close(got[0], want[0], dtype) and caches_equal
+            and bool(torch.isfinite(got[0]).all()),
+            f'{label} {dtype}: o err {err}, appended caches equal: '
+            f'{caches_equal}')
+    log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
+        f'({tol_str(dtype)}); appended caches exact')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: fn(*args, **kw))
+        res['plain_ms'] = timer.ms(lambda: ref(*ref_args, **kw), reps=5)
+        tokens = covered_tokens(tables, n_tiles, pos, tb, 1, kv)
+        new = [kn, vn] + ([ksn, vsn] if int8 else [])
+        io = nbytes(q, tables, n_tiles, pos, c_new, tb, got[0], *new)
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            tokens * per_token + io, tokens * 2 * 2 * dh * grp,
+            torch.int8 if int8 else dtype)
         res['library_ms'] = None
         log_times(res)
     return res
@@ -543,20 +724,23 @@ def chosen_logit_gap(logits, ids, dtype):
     return gap, logits.abs().max(-1).values * rel, rel
 
 
-def check_lm_head(dtype, timer=None):
+def check_lm_head(dtype, timer=None, d=D, vocab=VOCAB):
+    """lm_head_argmax vs its twin: x [B, d] @ w [d, vocab] (OPT-125M's head,
+    or LLaMA's at d 4096 with the 128,256 or the 32,000 vocabulary)."""
     from spt_proto_tpu_torch.ops import lm_head as m
     g = gen(SEED + 3)
-    x = randn(g, (B, D), dtype)
-    w = randn(g, (D, VOCAB), dtype, std=D ** -0.5)
+    x = randn(g, (B, d), dtype)
+    w = randn(g, (d, vocab), dtype, std=d ** -0.5)
     got = m.lm_head_argmax(x, w)
     want = m.lm_head_argmax_ref(x, w)
     sync()
     logits = (x.float() @ w.float()).to(dtype).float()
     gap, step, rel = chosen_logit_gap(logits, got, dtype)
     err = gap.max().item()
+    label = f'lm_head_argmax d={d} V={vocab}'
     require(bool((gap <= step).all()) and got.dtype == torch.int32,
-            f'lm_head_argmax {dtype}: ids {got.tolist()} vs {want.tolist()}')
-    log(f'  lm_head_argmax {str(dtype):13s} ids equal: '
+            f'{label} {dtype}: ids {got.tolist()} vs {want.tolist()}')
+    log(f'  {label} {str(dtype):14s} ids equal: '
         f'{torch.equal(got, want)}; chosen-logit gap {err:.3g} (tol '
         f'{rel:g}|max logit|)')
     res = dict(max_abs_err=err)
@@ -565,7 +749,7 @@ def check_lm_head(dtype, timer=None):
         res['plain_ms'] = timer.ms(lambda: m.lm_head_argmax_ref(x, w))
         res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w, -1))
         res['bound_ms'], res['bound_by'] = bound_ms(
-            nbytes(x, w, got), 2 * B * D * VOCAB, dtype)
+            nbytes(x, w, got), 2 * B * d * vocab, dtype)
         log_times(res)
     return res
 
@@ -600,24 +784,25 @@ def check_int8_matmul(dtype, m, k, n, timer=None):
     return res
 
 
-def check_lm_head_int8(dtype, d, timer=None):
-    """lm_head_argmax_int8 vs its twin over the int8 head [d, 50432] with
-    the true vocab 50272."""
+def check_lm_head_int8(dtype, d, timer=None, vocab=VOCAB):
+    """lm_head_argmax_int8 vs its twin over the int8 head [d, vocab padded
+    to 256] with the true vocab (OPT's 50,272, or LLaMA's 128,256 and
+    32,000)."""
     from spt_proto_tpu_torch.ops import lm_head as m
     g = gen(SEED + 8)
     x = randn(g, (B, d), dtype)
-    wq = int8_weight(g, d, VOCAB, dtype)
+    wq = int8_weight(g, d, vocab, dtype)
     got = m.lm_head_argmax_int8(x, wq)
     want = m.lm_head_argmax_int8_ref(x, wq)
     sync()
     logits = m.int8_head_logits(x, wq['q'], wq['scale'])
     gap, step, rel = chosen_logit_gap(logits, got, dtype)
     err = gap.max().item()
+    label = f'lm_head_argmax_int8 d={d} V={vocab}'
     require(bool((gap <= step).all()) and got.dtype == torch.int32
-            and bool((got < VOCAB).all()),
-            f'lm_head_argmax_int8 d={d} {dtype}: ids {got.tolist()} vs '
-            f'{want.tolist()}')
-    log(f'  lm_head_argmax_int8 d={d} {str(dtype):14s} ids equal: '
+            and bool((got < vocab).all()),
+            f'{label} {dtype}: ids {got.tolist()} vs {want.tolist()}')
+    log(f'  {label} {str(dtype):14s} ids equal: '
         f'{torch.equal(got, want)}; chosen-logit gap {err:.3g} (tol '
         f'{rel:g}|max logit|)')
     res = dict(max_abs_err=err)
@@ -629,19 +814,19 @@ def check_lm_head_int8(dtype, d, timer=None):
         res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w_dq, -1))
         del w_dq
         res['bound_ms'], res['bound_by'] = bound_ms(
-            nbytes(x, wq['q'][:, :VOCAB], wq['scale'], got),
-            2 * B * d * VOCAB, torch.bfloat16)
+            nbytes(x, wq['q'][:, :vocab], wq['scale'], got),
+            2 * B * d * vocab, torch.bfloat16)
         log_times(res)
     return res
 
 
-def sparse_sel(s, n_sel, bh, block_q, g):
+def sparse_sel(s, n_sel, bh, block_q, g, n_sub=N_SUB):
     """Selection from random PQ codes, as prefill builds it."""
     from spt_proto_tpu_torch.ops.block_sparse import (pq_tile_scores,
                                                       select_tiles)
-    qc = torch.randint(0, N_CODE, (bh, s, N_SUB), generator=g, device=DEV,
+    qc = torch.randint(0, N_CODE, (bh, s, n_sub), generator=g, device=DEV,
                        dtype=torch.int32)
-    kc = torch.randint(0, N_CODE, (bh, s, N_SUB), generator=g, device=DEV,
+    kc = torch.randint(0, N_CODE, (bh, s, n_sub), generator=g, device=DEV,
                        dtype=torch.int32)
     ts = pq_tile_scores(qc, kc, n_codewords=N_CODE, block_q=block_q,
                         block_k=128)
@@ -658,17 +843,21 @@ def causal_pairs(sel, block_q, block_k=128) -> int:
     return int((per * (sel >= 0)[..., None]).sum())
 
 
-def check_block_sparse(dtype, s, coeff, timer=None):
+def check_block_sparse(dtype, s, coeff, timer=None, bh=B * HEADS, dh=DH,
+                       n_sub=N_SUB):
+    """block_sparse_attention vs its twin over bh (slot, head) rows of s
+    tokens and d_head dh (OPT-125M's 64, or LLaMA's 128, a kernel of its
+    own), selection from random codes of n_sub subspaces."""
     from spt_proto_tpu_torch.ops.block_sparse import block_sparse_attention_ref
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
     g = gen(SEED + 4)
-    bh, block_q = B * HEADS, 256
+    block_q = 256
     n_sel = max(2, (s // 128) // coeff)
-    sel = sparse_sel(s, n_sel, bh, block_q, g)
-    q = randn(g, (bh, s, DH), dtype, std=2.0)
-    k = randn(g, (bh, s, DH), dtype)
-    v = randn(g, (bh, s, DH), dtype)
-    kw = dict(block_q=block_q, block_k=128, scale=DH ** -0.5, clamp=10.0)
+    sel = sparse_sel(s, n_sel, bh, block_q, g, n_sub)
+    q = randn(g, (bh, s, dh), dtype, std=2.0)
+    k = randn(g, (bh, s, dh), dtype)
+    v = randn(g, (bh, s, dh), dtype)
+    kw = dict(block_q=block_q, block_k=128, scale=dh ** -0.5, clamp=10.0)
     got = m.block_sparse_attention(q, k, v, sel, **kw)
     want = block_sparse_attention_ref(q, k, v, sel, **kw)
     sync()
@@ -681,9 +870,9 @@ def check_block_sparse(dtype, s, coeff, timer=None):
     if n_sel > block_q // 128:      # more tiles than the forced diagonal
         require(off_diag and invalid, f'sel at S={s} lacks off-diagonal or '
                 f'-1 entries')
-    log(f'  block_sparse S={s} n_sel={n_sel} {str(dtype):14s} max err '
-        f'{err:.3g} ({tol_str(dtype)}); off-diagonal tiles {off_diag}, -1 '
-        f'entries {invalid}')
+    log(f'  block_sparse S={s} d_head {dh} n_sel={n_sel} {str(dtype):14s} '
+        f'max err {err:.3g} ({tol_str(dtype)}); off-diagonal tiles '
+        f'{off_diag}, -1 entries {invalid}')
     res = dict(max_abs_err=err)
     if timer is not None:
         res['ms'] = timer.ms(lambda: m.block_sparse_attention(q, k, v, sel,
@@ -693,10 +882,10 @@ def check_block_sparse(dtype, s, coeff, timer=None):
         # K/V bytes of the tiles some query tile selects, q read, o written
         used = sum(int(torch.unique(sel[i][sel[i] >= 0]).numel())
                    for i in range(bh))
-        kv_bytes = used * 128 * DH * 2 * q.element_size()
+        kv_bytes = used * 128 * dh * 2 * q.element_size()
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(q, sel, got) + kv_bytes,
-            4 * DH * causal_pairs(sel, block_q), dtype)
+            4 * dh * causal_pairs(sel, block_q), dtype)
         res['library_ms'] = None
         log_times(res)
     return res
@@ -728,20 +917,63 @@ def phase_kernels(timer):
         r_head8_13 = check_lm_head_int8(dtype, D_13B, t)
         r_ffn8 = check_ffn(dtype, D, FF, t, int8=True)
         r_ffn8_13 = check_ffn(dtype, D_13B, FF_13B, t, int8=True)
+        # LLaMA: the front's RMSNorm + RoPE and GQA forms, the gated tails
+        r_fl = {f'{"int8 " if packed else ""}{model} '
+                f'{"int8-KV" if quantized else "bf16-KV"}': check_front(
+                    dtype, t, quantized=quantized, packed=packed,
+                    model=model)[0]
+                for model in LLAMA_FRONTS for packed in (False, True)
+                for quantized in (True, False)}
+        r_gated = {}
+        for int8 in (False, True):
+            for f, name in ((FF_38B, 'llama-3-8b'), (FF_7B, 'llama-7b')):
+                for m_rows in (B, B_7B):
+                    r_gated[int8, f'{name} m={m_rows}'] = check_ffn(
+                        dtype, D_LL, f, t, int8=int8, gated=True,
+                        m_rows=m_rows)
+        gated = {n: {k[1]: r for k, r in r_gated.items() if k[0] == int8}
+                 for n, int8 in (('ffn_tail_gated', False),
+                                 ('ffn_tail_gated_int8', True))}
+        # both attention kernels at G = 4 (Llama-3-8B's groups)
+        r_gqa = {(int8, dense): check_attention_gqa(dtype, int8, dense, t)
+                 for int8 in (True, False) for dense in (False, True)}
+        # the lm_head kernels at d 4096 over Llama-3-8B's vocabulary and the
+        # 32,000 of LLaMA-7B (and of phase 3's cut), and block-sparse prefill
+        # at d_head 128: B=8 x 32 heads at S 2048 (the serving shape), and
+        # one slot's 32 heads at S 4096, sparse_coeff 4 (off-diagonal tiles)
+        r_head_ll = {f'llama d={D_LL} V={v}': check_lm_head(
+            dtype, t, D_LL, v) for v in (VOCAB_38B, VOCAB_7B)}
+        r_head8_ll = {f'llama d={D_LL} V={v}': check_lm_head_int8(
+            dtype, D_LL, t, v) for v in (VOCAB_38B, VOCAB_7B)}
+        r_bsa_ll = check_block_sparse(dtype, PROMPT, 8, t, B * HEADS_LL,
+                                      DH_LL, N_SUB_LL)
+        check_block_sparse(dtype, 2 * PROMPT, 4, None, HEADS_LL, DH_LL,
+                           N_SUB_LL)
         if t is not None:
             res = dict(
                 decode_front=dict(r_front, bf16_kv=r_front_bf,
                                   packed_int8=r_front8,
-                                  packed_int8_bf16_kv=r_front8_bf),
-                decode_attention_rows_q=dict(r_attn, dense_tps4=r_attn_d),
-                lm_head_argmax=r_head, block_sparse_attention=r_bsa,
-                decode_attention_rows=dict(r_rows, dense_tps4=r_rows4,
-                                           sparse=r_rows_s),
+                                  packed_int8_bf16_kv=r_front8_bf,
+                                  **r_fl),
+                decode_attention_rows_q=dict(
+                    r_attn, dense_tps4=r_attn_d,
+                    gqa_llama_3_8b_sparse=r_gqa[True, False],
+                    gqa_llama_3_8b_dense=r_gqa[True, True]),
+                lm_head_argmax=dict(r_head, **r_head_ll),
+                block_sparse_attention=dict(r_bsa, llama_d_head_128=r_bsa_ll),
+                decode_attention_rows=dict(
+                    r_rows, dense_tps4=r_rows4, sparse=r_rows_s,
+                    gqa_llama_3_8b_sparse=r_gqa[False, False],
+                    gqa_llama_3_8b_dense=r_gqa[False, True]),
                 ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13),
                 int8_matmul=dict(r_mm['decode o 125m'], **{
                     k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
-                lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13),
-                ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13))
+                lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
+                                         **r_head8_ll),
+                ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13),
+                # the kernel line reports Llama-3-8B at m = 8 (its run)
+                **{n: dict(r[f'llama-3-8b m={B}'], **r)
+                   for n, r in gated.items()})
         del front_out, front_bf
     torch.cuda.empty_cache()
     return res
@@ -757,6 +989,14 @@ def opt_cfg(name, max_length, dtype, dense=False, **kw):
                       param_dtype=dtype,
                       attention='dense' if dense else 'sparse_v2',
                       pq_metric='l2', attn_impl='pallas', **kw)
+
+
+def llama_cfg(name, max_length, dtype, dense=False, **kw):
+    from spt_proto_tpu_torch.config import llama_config
+    return llama_config(name, max_length=max_length, dtype=dtype,
+                        param_dtype=dtype,
+                        attention='dense' if dense else 'sparse_v2',
+                        pq_metric='l2', attn_impl='pallas', **kw)
 
 
 def dense_params(params):
@@ -781,13 +1021,115 @@ def greedy(iw, tokens, max_len, steps, dev, quantized):
     return logits, torch.stack(out, 1)
 
 
+class SelectionTap:
+    """Gives each card decode step the CPU twins' PQ codes and tile tables
+    (stepwise w8 parity). Inside `with tap:` the engine's decode_front is
+    wrapped. A call on CPU tensors (the twins' step, taken first) runs the
+    twin and is recorded, layer by layer. A call on CUDA tensors (the
+    card's step from the same state) launches the kernel, is held against
+    the record of the same layer, and passes on the twins' new key codes
+    and tables in place of its own; its q / k / v / int8 k and v are the
+    card's. Where the card's codes or tables differ from the twins', the
+    difference must be one the gap between the card's and the twins'
+    vectors can make: for z = the twins' k (or a query row), z' = the
+    card's and codeword c, the score |c|^2 - 2 z.c moves by at most
+    2 |z' - z|_sub |c - c'| between two codewords c, c' of a subspace, so
+    a flipped key code c must lie within that of the twins' best code's
+    score (+ 1e-4 of the scale for the f32 sums), and a table row may
+    differ only where some query row of its group has a code that close
+    to its best. Anything else raises."""
+
+    def __init__(self):
+        self.rec = collections.deque()
+        self.stats = dict(fronts=0, key_codes=0, key_code_flips=0,
+                          table_rows=0, table_row_flips=0)
+
+    def __enter__(self):
+        from spt_proto_tpu_torch.inference import engine
+        self.engine, self.orig = engine, engine.decode_front
+        engine.decode_front = self
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.decode_front = self.orig
+
+    def __call__(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        if args[0].device.type == 'cpu':
+            self.rec.append((args, kw, out))
+            return out
+        t_args, t_kw, twin = self.rec.popleft()
+        self.compare(t_args[5], t_args[6], t_kw['n_sub'], twin,
+                     [o.cpu() for o in out[:5]])
+        return tuple(out[:3]) + tuple(o.to(DEV) for o in twin[3:5]) \
+            + tuple(out[5:])
+
+    def room(self, bd, cbn, n_sub, z_t, z_c, best):
+        """[N, n_sub, n_code]: how far each codeword's score (the twins' z)
+        lies above the best code's, less what the card's z can move it;
+        <= 0 where the card may pick that codeword."""
+        bd, cbn = bd.float(), cbn.float().reshape(-1)
+        n, n_code = z_t.shape[0], bd.shape[1] // n_sub
+        sc = (cbn - 2 * z_t @ bd).reshape(n, n_sub, n_code)
+        gap = sc - sc.gather(-1, best.long()[..., None])
+        dist = (cbn[:, None] + cbn[None, :] - 2 * bd.T @ bd).clamp(
+            min=0).sqrt().reshape(n_sub, n_code, n_sub, n_code).diagonal(
+            dim1=0, dim2=2).permute(2, 0, 1)          # [n_sub, code, code]
+        d_best = dist[torch.arange(n_sub)[None], best.long()]
+        dz = (z_c - z_t).reshape(n, n_sub, -1).norm(dim=-1)
+        zn = z_t.reshape(n, n_sub, -1).norm(dim=-1)
+        cb = cbn.reshape(n_sub, n_code).max(-1).values
+        eps = 1e-4 * (1 + zn * cb.sqrt() + cb)
+        return gap - 2 * dz[..., None] * d_best - eps[..., None]
+
+    def compare(self, bd, cbn, n_sub, twin, card):
+        q_t, k_t, _, cn_t, tb_t = twin[:5]
+        q_c, k_c, _, cn_c, tb_c = card
+        b, kv, _ = cn_t.shape
+        dh = bd.shape[0]
+        n_code = bd.shape[1] // n_sub
+        zk_t, zk_c = (z.float().reshape(b * kv, dh) for z in (k_t, k_c))
+        best_k = cn_t[..., :n_sub].reshape(b * kv, n_sub)
+        got_k = cn_c[..., :n_sub].reshape(b * kv, n_sub)
+        room_k = self.room(bd, cbn, n_sub, zk_t, zk_c, best_k)
+        flip_k = got_k != best_k
+        bad_k = flip_k & (room_k.gather(
+            -1, got_k.long().clamp(0, n_code - 1)[..., None])[..., 0] > 0)
+        zq_t, zq_c = (z.float().reshape(-1, dh) for z in (q_t, q_c))
+        sc_q = (cbn.float().reshape(-1) - 2 * zq_t @ bd.float()).reshape(
+            zq_t.shape[0], n_sub, n_code)
+        best_q = sc_q.argmin(-1)
+        near = (self.room(bd, cbn, n_sub, zq_t, zq_c, best_q) <= 0).sum(-1) > 1
+        may_flip = near.reshape(b, kv, -1).any(-1)    # [B, KV]
+        flip_row = (tb_c != tb_t).any(-1)
+        bad_rows = flip_row & ~may_flip
+        pads_equal = torch.equal(cn_c[..., n_sub:], cn_t[..., n_sub:])
+        st = self.stats
+        st['fronts'] += 1
+        st['key_codes'] += flip_k.numel()
+        st['key_code_flips'] += int(flip_k.sum())
+        st['table_rows'] += flip_row.numel()
+        st['table_row_flips'] += int(flip_row.sum())
+        require(not bool(bad_k.any()) and not bool(bad_rows.any())
+                and pads_equal,
+                f'decode_front in the engine: {int(bad_k.sum())} key codes '
+                f'and {int(bad_rows.sum())} table rows differ from the '
+                f'twins\' where the card\'s k / q cannot explain it (pad '
+                f'columns equal: {pads_equal}); tables {tb_c.tolist()} vs '
+                f'{tb_t.tolist()}')
+
+    def step_done(self):
+        require(not self.rec, f'{len(self.rec)} twin front calls unmatched')
+
+
 def stepwise(iw_cpu, iw_gpu, tokens, max_len, steps, quantized):
     """Greedy decisions of the card from the CPU twins' state: both
     prefill; then before each step the card gets a copy of the twins'
-    cache and their token, takes one greedy step through its kernels, and
-    the twins take theirs. Returns the prefill logits of both, the twins'
-    logits at each decision [B, 1 + steps, V] and the card's choices
-    [B, 1 + steps]."""
+    cache and their token, the twins take their step, and the card takes
+    its greedy step through its kernels with the twins' codes and tables
+    (SelectionTap). Returns the prefill logits of both, the twins' logits
+    at each decision [B, 1 + steps, V], the card's choices [B, 1 + steps]
+    and the tap's counts."""
     from spt_proto_tpu_torch.inference import engine
 
     def create(dev):
@@ -799,16 +1141,25 @@ def stepwise(iw_cpu, iw_gpu, tokens, max_len, steps, quantized):
     logits = [lg_pre[:, -1]]
     chosen = [torch.argmax(lg_pre_g[:, -1], -1).to(torch.int32).cpu()]
     tok = torch.argmax(lg_pre[:, -1], -1).to(torch.int32)
-    for _ in range(steps):
-        card = engine.KVCache(**{
-            f: None if getattr(cache, f) is None else getattr(cache, f).to(DEV)
-            for f in ('k', 'v', 'codes', 'length', 'k_scale', 'v_scale')})
-        t_g, _ = engine.decode_step_greedy(iw_gpu, tok.to(DEV), card)
-        lg, cache = engine.decode_step(iw_cpu, tok, cache)
-        logits.append(lg)
-        chosen.append(t_g.cpu())
-        tok = torch.argmax(lg, -1).to(torch.int32)
-    return lg_pre, lg_pre_g, torch.stack(logits, 1), torch.stack(chosen, 1)
+    with SelectionTap() as tap:
+        for _ in range(steps):
+            card = engine.KVCache(**{
+                f: None if getattr(cache, f) is None
+                else getattr(cache, f).to(DEV)
+                for f in ('k', 'v', 'codes', 'length', 'k_scale',
+                          'v_scale')})
+            lg, cache = engine.decode_step(iw_cpu, tok, cache)
+            t_g, _ = engine.decode_step_greedy(iw_gpu, tok.to(DEV), card)
+            tap.step_done()
+            logits.append(lg)
+            chosen.append(t_g.cpu())
+            tok = torch.argmax(lg, -1).to(torch.int32)
+    return (lg_pre, lg_pre_g, torch.stack(logits, 1), torch.stack(chosen, 1),
+            tap.stats)
+
+
+PARITY_B, PARITY_PROMPT, PARITY_STEPS = 2, 512, 8
+PARITY_MAX_LEN = PARITY_PROMPT + TILE
 
 
 def phase_parity():
@@ -816,20 +1167,49 @@ def phase_parity():
     in six decode modes (two with int8 weights, built staged on the card
     from the CPU tree)."""
     from spt_proto_tpu_torch.inference.bridge import init_params
-    from spt_proto_tpu_torch.inference.weights import InferenceWeights
-    b, prompt, steps = 2, 512, 8
-    max_len = prompt + TILE
+    max_len = PARITY_MAX_LEN
     sparse = opt_cfg('125m', max_len, torch.float32)
     params = init_params(sparse, SEED, device='cpu')
-    tokens = torch.randint(1, VOCAB, (b, prompt), generator=gen(SEED, 'cpu'))
+    tokens = torch.randint(1, VOCAB, (PARITY_B, PARITY_PROMPT),
+                           generator=gen(SEED, 'cpu'))
     dense = opt_cfg('125m', max_len, torch.float32, dense=True)
-    modes = [('sparse int8-KV', sparse, params, True, None),
-             ('dense f32-KV', dense, dense_params(params), False, None),
-             ('sparse f32-KV', sparse, params, False, None),
-             ('sparse l1 unfused front int8-KV',
-              sparse.replace(pq_metric='l1'), params, True, None),
-             ('w8 sparse int8-KV', sparse, params, True, 'int8'),
-             ('w8 dense f32-KV', dense, dense_params(params), False, 'int8')]
+    return parity_modes('OPT-125M', tokens, [
+        ('sparse int8-KV', sparse, params, True, None),
+        ('dense f32-KV', dense, dense_params(params), False, None),
+        ('sparse f32-KV', sparse, params, False, None),
+        ('sparse l1 unfused front int8-KV', sparse.replace(pq_metric='l1'),
+         params, True, None),
+        ('w8 sparse int8-KV', sparse, params, True, 'int8'),
+        ('w8 dense f32-KV', dense, dense_params(params), False, 'int8')])
+
+
+def phase_parity_llama():
+    """f32 Llama-3-8B at full width (d_model 4096, 32 query heads over 8 kv
+    heads, d_ff 14336) cut to 2 layers and a 32,000-token vocabulary (the
+    CPU twins' time): sparse int8-KV through the triple front and dense
+    f32-KV free-running, and with int8 weights sparse int8-KV (the
+    triple_int8 front, the gated int8 tail) stepwise."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    max_len = PARITY_MAX_LEN
+    sparse = llama_cfg('3-8b', max_len, torch.float32, n_layers=2,
+                       vocab_size=32000)
+    params = init_params(sparse, SEED, device='cpu')
+    tokens = torch.randint(1, 32000, (PARITY_B, PARITY_PROMPT),
+                           generator=gen(SEED, 'cpu'))
+    dense = llama_cfg('3-8b', max_len, torch.float32, dense=True,
+                      n_layers=2, vocab_size=32000)
+    return parity_modes('Llama-3-8B 2-layer', tokens, [
+        ('sparse int8-KV', sparse, params, True, None),
+        ('dense f32-KV', dense, dense_params(params), False, None),
+        ('w8 sparse int8-KV', sparse, params, True, 'int8')])
+
+
+def parity_modes(model, tokens, modes):
+    """Each (label, cfg, params, int8 KV, weight quantization) mode at f32:
+    the card's kernels against the CPU twins on the same prompts."""
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    b, steps, max_len = PARITY_B, PARITY_STEPS, PARITY_MAX_LEN
+    prompt = tokens.shape[1]
     out = {}
     for label, cfg, p, quantized, quant in modes:
         iw_cpu = InferenceWeights.from_params(cfg, p, quant=quant)
@@ -850,12 +1230,14 @@ def phase_parity():
             # ulp between the card's and the CPU's plain ops (norm sums)
             # becomes a bf16 step of that operand where it sits on a
             # rounding boundary; the logits of one step drift by ~5e-3,
-            # and over steps a flipped PQ code selects other tiles, so two
-            # free-running greedy runs part. Each card decision is taken
-            # from the twins' own state (prefill, then their cache and
-            # token before every step) and must agree with theirs, or lie
-            # within one bf16 step (2^-7 |max logit|) of their maximum.
-            lg_cpu_pre, lg_gpu, lg_cpu, chosen = stepwise(
+            # and a PQ code at a near-tie can flip and select other tiles,
+            # so two free-running greedy runs part. Each card decision is
+            # taken from the twins' own state (prefill, then their cache,
+            # token, codes and tables before every step: SelectionTap,
+            # which fails on a code or table the drift cannot explain) and
+            # must agree with theirs, or lie within one bf16 step (2^-7
+            # |max logit|) of their maximum.
+            lg_cpu_pre, lg_gpu, lg_cpu, chosen, tap = stepwise(
                 iw_cpu, iw_gpu, tokens, max_len, steps, quantized)
             top = lg_cpu.max(-1).values
             gap = top - lg_cpu.gather(2, chosen.long()[..., None])[..., 0]
@@ -863,14 +1245,18 @@ def phase_parity():
             agree = (torch.argmax(lg_cpu, -1) == chosen).float().mean().item()
             lg_err = max_err(lg_gpu.cpu(), lg_cpu_pre)
             res = dict(agreement=agree, max_gap=gap.max().item(),
-                       logits_max_err=lg_err)
+                       logits_max_err=lg_err, selection=tap)
             msg = (f'stepwise greedy agreement {agree} over {b}x{steps + 1}, '
                    f'max chosen-logit gap {gap.max().item():.3g} (tol 2^-7 '
-                   f'|max logit| >= {tol.min().item():.3g})')
+                   f'|max logit| >= {tol.min().item():.3g}); card front vs '
+                   f'twins: {tap["key_code_flips"]} of {tap["key_codes"]} '
+                   f'key codes and {tap["table_row_flips"]} of '
+                   f'{tap["table_rows"]} table rows differ, each within '
+                   f'the drift')
             ok = bool((gap <= tol).all())
             tok_gpu = chosen
         t2 = time.perf_counter()
-        log(f'  {label:32s} f32 OPT-125M B={b} prompt {prompt}: prefill '
+        log(f'  {label:32s} f32 {model} B={b} prompt {prompt}: prefill '
             f'logits max err {lg_err:.3g}; {msg} ({t2 - t0:.1f} s)')
         require(ok, f'{label}: {msg}: {tok_gpu.tolist()}')
         out[label] = res
@@ -885,7 +1271,9 @@ def wrappers():
     from spt_proto_tpu_torch.ops.decode_attention import (
         decode_attention_rows, decode_attention_rows_q)
     from spt_proto_tpu_torch.ops.decode_front import decode_front
-    from spt_proto_tpu_torch.ops.ffn_tail import ffn_tail, ffn_tail_int8
+    from spt_proto_tpu_torch.ops.ffn_tail import (ffn_tail, ffn_tail_gated,
+                                                  ffn_tail_gated_int8,
+                                                  ffn_tail_int8)
     from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
     from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
                                                  lm_head_argmax_int8)
@@ -896,15 +1284,18 @@ def wrappers():
                 decode_attention_rows=decode_attention_rows,
                 ffn_tail=ffn_tail, int8_matmul=int8_matmul,
                 lm_head_argmax_int8=lm_head_argmax_int8,
-                ffn_tail_int8=ffn_tail_int8)
+                ffn_tail_int8=ffn_tail_int8, ffn_tail_gated=ffn_tail_gated,
+                ffn_tail_gated_int8=ffn_tail_gated_int8)
 
 
 def expected_launches(iw, quantized):
     """Launches per prefill and per decode step on each mode's path. With
     int8 weights (w8) every projection outside the fused kernels is one
-    int8_matmul: per prefill qkv, o, fc1, fc2 a layer and the lm_head; per
-    step o, plus qkv where the front is unfused, plus fc1 and fc2 where the
-    FFN tail is (the tail is fused by default for int8 weights)."""
+    int8_matmul: per prefill the q/k/v projection (one packed kernel for
+    MHA, three for GQA), o, the FFN's fc1 and fc2 (LLaMA: gate, side, down)
+    a layer and the lm_head; per step o, plus q/k/v where the front is
+    unfused, plus the FFN's where the tail is (the tail is fused by default
+    for int8 weights)."""
     from spt_proto_tpu_torch.inference.engine import _uses_fused_front
     cfg = iw.cfg
     layers = cfg.n_layers
@@ -912,18 +1303,22 @@ def expected_launches(iw, quantized):
     front = _uses_fused_front(cfg, iw.params['blocks']['mha'])
     w8 = iw.quant == 'int8'
     fused_ffn = w8 if cfg.decode_fused_ffn is None else cfg.decode_fused_ffn
+    n_qkv = 1 if 'qkv' in iw.params['blocks']['mha'] else 3
+    n_ffn = 3 if cfg.ffn_gated else 2
+    tail = ('ffn_tail_gated' if cfg.ffn_gated else 'ffn_tail') \
+        + ('_int8' if w8 else '')
     prefill = dict.fromkeys(wrappers(), 0)
     step = dict.fromkeys(wrappers(), 0)
     prefill['block_sparse_attention'] = layers if sparse else 0
     step['decode_front'] = layers if front else 0
     step['decode_attention_rows_q' if quantized
          else 'decode_attention_rows'] = layers
-    step['ffn_tail_int8' if w8 else 'ffn_tail'] = layers if fused_ffn else 0
+    step[tail] = layers if fused_ffn else 0
     step['lm_head_argmax_int8' if w8 else 'lm_head_argmax'] = 1
     if w8:
-        prefill['int8_matmul'] = 4 * layers + 1
-        step['int8_matmul'] = layers * (1 + (0 if front else 1)
-                                        + (0 if fused_ffn else 2))
+        prefill['int8_matmul'] = (n_qkv + 1 + n_ffn) * layers + 1
+        step['int8_matmul'] = layers * (1 + (0 if front else n_qkv)
+                                        + (0 if fused_ffn else n_ffn))
     return prefill, step
 
 
@@ -975,7 +1370,8 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
             f'(expected {want_decode})')
     require(bool(torch.isfinite(logits.float()).all()), 'NaN/inf logits')
     require(toks.shape == (b, steps) and bool(((toks >= 0)
-                                               & (toks < VOCAB)).all()),
+                                               & (toks < cfg.vocab_size)
+                                               ).all()),
             f'token ids outside the vocabulary: {toks.tolist()}')
     require(cache.length.tolist() == [tokens.shape[1] + steps] * b,
             'cache length')
@@ -1091,6 +1487,54 @@ def phase_1p3b():
     return dict(runs=runs, sparse_vs_dense=ratio)
 
 
+LLAMA_PROMPT, LLAMA_STEPS = 2048, 32
+
+
+def phase_llama():
+    """bf16 LLaMA at full depth and width, prompt 2048, max_len 2176, 32
+    steps, random weights made on the card: Llama-3-8B at B=8 dense
+    bf16-KV (the baseline), sparse int8-KV, the same with the fused gated
+    tail, and sparse int8-KV w8; LLaMA-7B sparse int8-KV w8 at B=4
+    (bench_ladder.py's llama-7b rung). Each model is freed before the next
+    is built."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    runs = {}
+
+    def run(label, cfg, params, tokens, quantized, quant=None):
+        iw = InferenceWeights.from_params(cfg, params, quant=quant)
+        runs[label] = serving_run(label, iw, tokens, MAX_LEN, LLAMA_STEPS,
+                                  quantized)
+        del iw
+        torch.cuda.empty_cache()
+
+    sparse = llama_cfg('3-8b', MAX_LEN, torch.bfloat16)
+    params = init_params(sparse, SEED, device=DEV)
+    tokens = torch.randint(1, sparse.vocab_size, (B, LLAMA_PROMPT),
+                           generator=gen(SEED), device=DEV)
+    run('3-8B dense bf16-KV', llama_cfg('3-8b', MAX_LEN, torch.bfloat16,
+                                        dense=True),
+        dense_params(params), tokens, False)
+    run('3-8B sparse int8-KV', sparse, params, tokens, True)
+    run('3-8B sparse int8-KV fused FFN tail',
+        sparse.replace(decode_fused_ffn=True), params, tokens, True)
+    run('3-8B sparse int8-KV w8', sparse, params, tokens, True, 'int8')
+    del params
+    torch.cuda.empty_cache()
+    sparse = llama_cfg('7b', MAX_LEN, torch.bfloat16)
+    params = init_params(sparse, SEED, device=DEV)
+    tokens = torch.randint(1, sparse.vocab_size, (B_7B, LLAMA_PROMPT),
+                           generator=gen(SEED), device=DEV)
+    run('7B sparse int8-KV w8 B=4', sparse, params, tokens, True, 'int8')
+    del params
+    torch.cuda.empty_cache()
+    log('  LLaMA decode ms/step: ' + ', '.join(
+        f'{k} {r["decode_ms"] / LLAMA_STEPS:.3f}' for k, r in runs.items()))
+    log('  LLaMA peak memory GB: ' + ', '.join(
+        f'{k} {r["peak_mem_gb"]:.2f}' for k, r in runs.items()))
+    return dict(runs=runs)
+
+
 def device_profile(label, fn, top=8):
     """Device busy share of a window and its device time by kernel, from
     torch.profiler (CUPTI) over one call of fn, bracketed by CUDA events."""
@@ -1124,7 +1568,7 @@ def device_profile(label, fn, top=8):
 # ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel it replaces, others it also replaces, the
-# phase-4 run whose launch counts the kernel line reports)
+# phase-4 or phase-6 run whose launch counts the kernel line reports)
 KERNELS = [
     ('decode_front', 'spt_proto_tpu_torch/csrc/decode_front.cu',
      'spt_proto_tpu/ops/pallas/decode_front.py:359', [], 'sparse int8-KV'),
@@ -1150,6 +1594,12 @@ KERNELS = [
      'spt_proto_tpu/ops/pallas/lm_head.py:129', [], 'sparse int8-KV w8'),
     ('ffn_tail_int8', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
      'spt_proto_tpu/ops/pallas/ffn_tail.py:231', [], 'sparse int8-KV w8'),
+    ('ffn_tail_gated', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
+     'spt_proto_tpu/ops/pallas/ffn_tail.py:137', [],
+     '3-8B sparse int8-KV fused FFN tail'),
+    ('ffn_tail_gated_int8', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
+     'spt_proto_tpu/ops/pallas/ffn_tail.py:278', [],
+     '3-8B sparse int8-KV w8'),
 ]
 
 
@@ -1178,6 +1628,7 @@ def main() -> int:
 
     log('phase 3: f32 slice parity, card kernels vs CPU twins')
     parity = phase_parity()
+    parity_llama = phase_parity_llama()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
     log('phase 4: bf16 serving runs, OPT-125M B=8 prompt 2048')
@@ -1186,11 +1637,17 @@ def main() -> int:
 
     log('phase 5: OPT-1.3B rung, B=8 prompt 2048')
     big = phase_1p3b()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
+    log('phase 6: bf16 LLaMA serving runs, prompt 2048, full depth')
+    llama = phase_llama()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
+    all_runs = {**serving['runs'], **llama['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
-        sv = serving['runs'][run]
+        sv = all_runs[run]
         rows.append(dict(
             name=name, route='cuda', source=src, replaces=replaces,
             also_replaces=also, launches=sv['launches'][name],
@@ -1198,7 +1655,7 @@ def main() -> int:
             launches_per_step=sv['launches_per_step'][name],
             launches_per_prefill=sv['launches_per_prefill'][name],
             launches_by_run={k: s['launches'][name]
-                             for k, s in serving['runs'].items()},
+                             for k, s in all_runs.items()},
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'],
@@ -1208,10 +1665,11 @@ def main() -> int:
     def brief(run):
         return {k: v for k, v in run.items() if not k.startswith('launches')}
     log(json.dumps(dict(
-        device=smi, parity=parity,
+        device=smi, parity=parity, parity_llama=parity_llama,
         serving=dict(serving, runs={k: brief(r)
                                     for k, r in serving['runs'].items()}),
         opt_1p3b=dict(big, runs={k: brief(r) for k, r in big['runs'].items()}),
+        llama=dict(runs={k: brief(r) for k, r in llama['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

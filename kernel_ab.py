@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's fp decode kernels from several checkouts, in turns, on
+"""Time the port's OPT decode kernels from several checkouts, in turns, on
 one CUDA card.
 
     python3 kernel_ab.py PARENT CHANGE CHANGE PARENT
@@ -7,9 +7,9 @@ one CUDA card.
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
 chip_smoke.py's Timer (cold L2, device time, bf16, OPT-125M serving
-shapes): decode_front (stacked fp QKV, int8 KV), ffn_tail and
-lm_head_argmax. One JSON line per checkout. Two versions are compared only
-within one call, on one card, in turns.
+shapes): decode_front (stacked fp QKV and packed int8 QKV, int8 KV),
+ffn_tail, ffn_tail_int8 and lm_head_argmax. One JSON line per checkout.
+Two versions are compared only within one call, on one card, in turns.
 """
 from __future__ import annotations
 
@@ -27,9 +27,13 @@ def one(root: str) -> dict:
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     timer, bf = cs.Timer(), torch.bfloat16
-    return dict(tree=root,
-                decode_front_us=cs.check_front(bf, timer)[0]['ms'] * 1e3,
+    front = cs.check_front(bf, timer)[0]['ms']
+    front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
+    tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']
+    return dict(tree=root, decode_front_us=front * 1e3,
+                decode_front_packed_int8_us=front8 * 1e3,
                 ffn_tail_us=cs.check_ffn(bf, cs.D, cs.FF, timer)['ms'] * 1e3,
+                ffn_tail_int8_us=tail8 * 1e3,
                 lm_head_argmax_us=cs.check_lm_head(bf, timer)['ms'] * 1e3)
 
 

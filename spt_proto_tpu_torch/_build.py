@@ -36,12 +36,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    'spt_decode_front': [_I] + [_P] * 9 + [_I] + [_P] * 2 + [_I]
-                        + [_P] * 9 + [_I] * 12 + [_F, _F, _I, _P],
+    'spt_decode_front': [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] * 12 + [_I]
+                        + [_P] * 9 + [_I] * 13 + [_F, _F, _I, _I, _P],
     'spt_decode_attention': [_I] + [_P] * 12 + [_I] * 10 + [_F, _F, _P],
     'spt_decode_attention_q': [_I] + [_P] * 16 + [_I] * 11 + [_F, _F, _P],
     'spt_ffn_tail': [_I] + [_P] * 8 + [_I] * 4 + [_P],
     'spt_ffn_tail_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    'spt_ffn_tail_gated': [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    'spt_ffn_tail_gated_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],
     'spt_int8_matmul': [_I] + [_P] * 4 + [_I] * 5 + [_P],
     'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
     'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],

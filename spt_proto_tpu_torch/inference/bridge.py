@@ -5,10 +5,10 @@ jax.device_get) into the port's tree of tensors, keeping the paths and the
 stacked `blocks` layer axis; the parity tests always go through it.
 
 `init_params` builds a seeded tree with the same paths, shapes and init
-scales as the JAX package's surgery.init_params followed by the mha_v1 and
-mha_v2 upgrades (for a sparse config). Its numbers differ from JAX's (a
-torch.Generator, not jax.random), so it serves runs where JAX is absent,
-such as chip_smoke.py on a GPU host without JAX.
+scales as the JAX package's surgery.init_params (OPT or LLaMA) followed by
+the mha_v1 and mha_v2 upgrades (for a sparse config). Its numbers differ
+from JAX's (a torch.Generator, not jax.random), so it serves runs where JAX
+is absent, such as chip_smoke.py on a GPU host without JAX.
 """
 from __future__ import annotations
 
@@ -69,27 +69,33 @@ def _lecun_normal(g, shape, dtype, device):
 
 
 def init_params(cfg: ModelConfig, seed: int, device='cuda') -> dict:
-    """Seeded param tree for `cfg` (OPT, dense FFN, no LoRA), made on
-    `device`. A sparse_v1/v2 config gets the PQ codebook, normal(1.0) of
-    shape [L, n_sub, n_code, d_code]."""
-    if cfg.arch != 'opt' or cfg.ffn == FFN_ROUTED or cfg.d_lora:
+    """Seeded param tree for `cfg` (OPT or LLaMA, MHA or GQA, dense FFN, no
+    LoRA), made on `device`. LLaMA has no learned positions and no biases,
+    RMSNorm scales only, and a gated FFN (gate, side, down); k and v are
+    kv_heads x d_head wide. A sparse_v1/v2 config gets the PQ codebook,
+    normal(1.0) of shape [L, n_sub, n_code, d_code]."""
+    if cfg.ffn == FFN_ROUTED or cfg.d_lora:
         raise NotImplementedError(
-            'init_params covers OPT with a dense FFN and no LoRA; LLaMA comes '
-            'with the LLaMA slice, routed FFN and LoRA with the training '
-            'slice')
+            'init_params covers a dense FFN and no LoRA; routed FFN and LoRA '
+            'come with the training slice')
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     dt = cfg.param_dtype
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_feedforward, cfg.vocab_size
+    opt = cfg.arch == 'opt'
 
     def dense(fan_in, fan_out):
-        return {'kernel': _lecun_normal(g, (L, fan_in, fan_out), dt, dev),
-                'bias': torch.zeros((L, fan_out), dtype=dt, device=dev)}
+        out = {'kernel': _lecun_normal(g, (L, fan_in, fan_out), dt, dev)}
+        if opt:
+            out['bias'] = torch.zeros((L, fan_out), dtype=dt, device=dev)
+        return out
 
     def norm(*lead):
-        return {'scale': torch.ones((*lead, D), dtype=dt, device=dev),
-                'bias': torch.zeros((*lead, D), dtype=dt, device=dev)}
+        out = {'scale': torch.ones((*lead, D), dtype=dt, device=dev)}
+        if opt:
+            out['bias'] = torch.zeros((*lead, D), dtype=dt, device=dev)
+        return out
 
     kv = cfg.kv_heads * cfg.d_head
     mha = {'q': dense(D, D), 'k': dense(D, kv), 'v': dense(D, kv),
@@ -98,13 +104,16 @@ def init_params(cfg: ModelConfig, seed: int, device='cuda') -> dict:
         mha['quantizer'] = {'codebook': _normal(
             g, (L, cfg.n_subspaces, cfg.n_codewords, cfg.d_codeword), 1.0,
             dt, dev)}
-    return {
-        'embedding': {'embedding': _normal(g, (V, D), 0.02, dt, dev)},
-        'learned_pe': {'embedding': _normal(
-            g, (cfg.max_length + PE_OFFSET, D), 0.02, dt, dev)},
-        'blocks': {'mha': mha,
-                   'ffn': {'fc1': dense(D, F), 'fc2': dense(F, D)},
-                   'norm1': norm(L), 'norm2': norm(L)},
+    # draw order: q, k, v, o, codebook, embeddings, FFN, lm_head
+    tree = {'embedding': {'embedding': _normal(g, (V, D), 0.02, dt, dev)}}
+    if opt:
+        tree['learned_pe'] = {'embedding': _normal(
+            g, (cfg.max_length + PE_OFFSET, D), 0.02, dt, dev)}
+    ffn = ({'gate': dense(D, F), 'side': dense(D, F), 'down': dense(F, D)}
+           if cfg.ffn_gated else {'fc1': dense(D, F), 'fc2': dense(F, D)})
+    tree.update({
+        'blocks': {'mha': mha, 'ffn': ffn, 'norm1': norm(L), 'norm2': norm(L)},
         'final_norm': norm(),
         'lm_head': {'kernel': _lecun_normal(g, (D, V), dt, dev)},
-    }
+    })
+    return tree

@@ -1,15 +1,18 @@
 """Inference engine: prefill + single-token decode with a tile-major KV
 cache (port of spt_proto_tpu/inference/engine.py, serving path).
 
-This port serves OPT with fp or int8 weight-only ("w8") weights and greedy
-decoding in every decode mode the JAX package's bench.py measures: dense
-attention, and PQ-sparse attention (sparse_v2, l1 or l2 metric) through the
-fused front or the unfused front, each over a bf16/f32 KV cache or an int8
-one, optionally with the fused FFN tail. Per decode layer the step launches
-the tile attention kernel with in-place append (ops/decode_attention.py:
-`decode_attention_rows` over a bf16/f32 cache, `decode_attention_rows_q`
-over an int8 one), after the fused front kernel (ops/decode_front.py) when
-the config takes it (l2 metric, per-head selection), and the fused FFN tail
+This port serves OPT and LLaMA (MHA and GQA: RMSNorm, RoPE, the gated
+FFN) with fp or int8 weight-only ("w8") weights and greedy decoding in
+every decode mode the JAX package's bench.py measures: dense attention, and
+PQ-sparse attention (sparse_v2, l1 or l2 metric) through the fused front or
+the unfused front, each over a bf16/f32 KV cache or an int8 one, optionally
+with the fused FFN tail (fp or int8, plain or gated). GQA keeps kv_heads in
+the cache and pools each kv head's tile selection over its query group.
+Per decode layer the step launches the tile attention kernel with in-place
+append (ops/decode_attention.py: `decode_attention_rows` over a bf16/f32
+cache, `decode_attention_rows_q` over an int8 one), after the fused front
+kernel (ops/decode_front.py) when the config takes it (l2 metric, per-head
+selection), and the fused FFN tail
 (ops/ffn_tail.py) when the config asks for it or, by default, for int8
 weights; per step one fused lm_head argmax (ops/lm_head.py). With int8
 weights every other projection (prefill's, the unfused front's QKV, the
@@ -20,8 +23,7 @@ dense prefill and the unfused front among it, is plain PyTorch that
 mirrors the JAX engine op for op, as the JAX package leaves it to XLA.
 
 Out of this port so far, and raising NotImplementedError with the slice
-that brings them: LLaMA and GQA (LLaMA slice), routed FFN (training
-slice).
+that brings it: routed FFN (training slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -38,6 +40,7 @@ from spt_proto_tpu_torch.config import (ATTN_SPARSE_V2, FFN_ROUTED,
                                         ModelConfig)
 from spt_proto_tpu_torch.inference.bridge import PE_OFFSET, resolve_device
 from spt_proto_tpu_torch.inference.weights import InferenceWeights
+from spt_proto_tpu_torch.layers.common import rope_cos_sin, rotate_half
 from spt_proto_tpu_torch.ops import pq as pq_ops
 from spt_proto_tpu_torch.ops.block_sparse import pq_tile_scores, select_tiles
 from spt_proto_tpu_torch.ops.block_sparse_attention import \
@@ -46,6 +49,8 @@ from spt_proto_tpu_torch.ops.decode_attention import (decode_attention_rows,
                                                       decode_attention_rows_q)
 from spt_proto_tpu_torch.ops.decode_front import decode_front
 from spt_proto_tpu_torch.ops.ffn_tail import (MAX_ROWS, ffn_tail,
+                                              ffn_tail_gated,
+                                              ffn_tail_gated_int8,
                                               ffn_tail_int8, int8_tile)
 from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
 from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
@@ -133,7 +138,10 @@ def _fit_codes(codes: torch.Tensor, w: int) -> torch.Tensor:
 def _qkv_proj(mha: dict, x: torch.Tensor):
     """q/k/v projections of x [B, S, D]: one einsum over the fused
     [3, D, D] stack that InferenceWeights builds for MHA, or one int8_matmul
-    over the packed int8 [D, 3D] kernel (columns [q|k|v])."""
+    over the packed int8 [D, 3D] kernel (columns [q|k|v]); three
+    projections (fp or int8) for GQA's separate q / k / v."""
+    if 'qkv' not in mha:
+        return _dense(mha['q'], x), _dense(mha['k'], x), _dense(mha['v'], x)
     w = mha['qkv']
     kern = w['kernel']
     if isinstance(kern, dict):
@@ -168,11 +176,43 @@ def _layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y.to(x.dtype) * p['scale'] + p['bias']).to(x.dtype)
 
 
+def _rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """f32 statistics, scale in the serving dtype (LLaMA)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (p['scale'] * y.to(x.dtype)).to(x.dtype)
+
+
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return _rmsnorm(p, x) if cfg.arch == 'llama' else _layernorm(p, x)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE in f32: x [B, H, T, D], cos/sin [B, 1, T, D] f32
+    (the JAX engine's _apply_rope_1 with its tables computed once)."""
+    xf = x.float()
+    return (cos * xf + sin * rotate_half(xf)).to(x.dtype)
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """cos/sin [B, 1, T, d_head] f32 at positions [B, T]."""
+    cos, sin = rope_cos_sin(positions.reshape(-1), cfg.d_head,
+                            base=cfg.rope_base)
+    shape = (*positions.shape, cfg.d_head)
+    return cos.reshape(shape)[:, None], sin.reshape(shape)[:, None]
+
+
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Dense OPT FFN (ReLU)."""
+    """Dense FFN: ReLU (OPT) or gated SiLU, down(silu(gate x) * side x)
+    (LLaMA), in the serving dtype."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, cfg.d_model)
-    y = _dense(p['fc2'], torch.relu(_dense(p['fc1'], xf)))
+    if cfg.ffn_gated:
+        y = _dense(p['down'], torch.nn.functional.silu(_dense(p['gate'], xf))
+                   * _dense(p['side'], xf))
+    else:
+        y = _dense(p['fc2'], torch.relu(_dense(p['fc1'], xf)))
     return y.reshape(*lead, cfg.d_model)
 
 
@@ -183,9 +223,10 @@ def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
     as in the JAX engine) and the shape is eligible: <= 256 rows, d_model
     and d_ff multiples of 128, and for int8 weights a d_ff tile of >= 128
     dividing d_ff."""
-    xn = _layernorm(pn, x)
+    xn = _norm(cfg, pn, x)
     rows = x.numel() // cfg.d_model
-    quant = [isinstance(p[n]['kernel'], dict) for n in ('fc1', 'fc2')]
+    names = ('gate', 'side', 'down') if cfg.ffn_gated else ('fc1', 'fc2')
+    quant = [isinstance(p[n]['kernel'], dict) for n in names]
     use_fused = cfg.decode_fused_ffn
     if use_fused is None:
         use_fused = all(quant)
@@ -196,10 +237,14 @@ def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
         eligible = int8_tile(cfg.d_feedforward) >= 128
     if not eligible:
         return x + _ffn(cfg, p, xn)
-    tail = ffn_tail_int8 if all(quant) else ffn_tail
-    y = tail(xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model),
-             p['fc1']['kernel'], p['fc1']['bias'], p['fc2']['kernel'],
-             p['fc2']['bias'])
+    xs = (xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model))
+    if cfg.ffn_gated:
+        tail = ffn_tail_gated_int8 if all(quant) else ffn_tail_gated
+        y = tail(*xs, *(p[n]['kernel'] for n in names))
+    else:
+        tail = ffn_tail_int8 if all(quant) else ffn_tail
+        y = tail(*xs, p['fc1']['kernel'], p['fc1']['bias'],
+                 p['fc2']['kernel'], p['fc2']['bias'])
     return y.reshape(x.shape)
 
 
@@ -239,10 +284,6 @@ def _layer(tree, i: int):
 
 def _require_slice(iw: InferenceWeights, cache: KVCache) -> None:
     cfg = iw.cfg
-    if cfg.arch != 'opt' or cfg.kv_heads != cfg.n_heads:
-        raise NotImplementedError(
-            'LLaMA and GQA serving (RMSNorm, RoPE, the gated FFN tail) come '
-            'with the LLaMA slice')
     if cfg.ffn == FFN_ROUTED:
         raise NotImplementedError('routed FFN comes with the training slice')
     if cache.k.device.type == 'cuda' and cfg.attn_impl != 'pallas':
@@ -267,31 +308,43 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
     dev = tokens.device
     tokens = tokens.long()
     pos = torch.arange(s, device=dev)[None].expand(b, s)
-    h_tok = p['embedding']['embedding'][tokens] \
-        + p['learned_pe']['embedding'][pos + PE_OFFSET]
+    h_tok = p['embedding']['embedding'][tokens]
+    if cfg.arch == 'opt':
+        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET]
     x = h_tok.to(cfg.dtype)
-    h, dh = cfg.n_heads, cfg.d_head
+    h, kv, g, dh = cfg.n_heads, cfg.kv_heads, cfg.kv_groups, cfg.d_head
     nt = cache.tiles_per_layer(cfg.n_layers)
     nt_m = -(-s // TILE)
     scale = dh ** -0.5
     sparse = cfg.attention == ATTN_SPARSE_V2
+    rope = _rope_tables(cfg, pos) if cfg.arch == 'llama' else None
 
-    def to_tiles(x_std):            # [B, H, S, w] -> [B, H, NTm, w, T]
+    def to_tiles(x_std):            # [B, KV, S, w] -> [B, KV, NTm, w, T]
         xp = torch.nn.functional.pad(x_std, (0, 0, 0, nt_m * TILE - s))
-        return xp.reshape(b, h, nt_m, TILE, -1).transpose(3, 4)
+        return xp.reshape(b, kv, nt_m, TILE, -1).transpose(3, 4)
 
-    def sc_tiles(x_std):            # [B, H, S] -> [B, NTm, H, T]
+    def sc_tiles(x_std):            # [B, KV, S] -> [B, NTm, KV, T]
         xp = torch.nn.functional.pad(x_std, (0, nt_m * TILE - s))
-        return xp.reshape(b, h, nt_m, TILE).transpose(1, 2)
+        return xp.reshape(b, kv, nt_m, TILE).transpose(1, 2)
 
     for li in range(cfg.n_layers):
         bp = _layer(p['blocks'], li)
-        q, k, v = _qkv_proj(bp['mha'], _layernorm(bp['norm1'], x))
-        q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2)    # [B, H, S, dh]
-                   for t in (q, k, v))
+        q, k, v = _qkv_proj(bp['mha'], _norm(cfg, bp['norm1'], x))
+        q = q.reshape(b, s, h, dh).transpose(1, 2)          # [B, H, S, dh]
+        k, v = (t.reshape(b, s, kv, dh).transpose(1, 2)     # [B, KV, S, dh]
+                for t in (k, v))
+        if rope is not None:
+            q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
+        # the cache keeps kv_heads; attention repeats them per query group
+        k_kv, v_kv = k, v
+        if g > 1:
+            k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
         if sparse:
             o, codes_k = _sparse_prefill_attention(cfg, bp['mha'], q, k, v,
                                                    scale)
+            if g > 1:
+                codes_k = _encode_codes(cfg, bp['mha']['quantizer'], k_kv,
+                                        bd=_bd_of(bp['mha']))
         else:
             # causal f32 scores; the softmax rounds to the serving dtype
             # before the PV product (the JAX engine's dense branch)
@@ -299,25 +352,26 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
             causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
             scores = torch.where(causal, scores, NEG_INF)
             o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
-            codes_k = torch.zeros((b, h, s, 1), dtype=torch.int32,
+            codes_k = torch.zeros((b, kv, s, 1), dtype=torch.int32,
                                   device=dev)
         o = o.reshape(b, h, s, dh).transpose(1, 2).reshape(b, s, cfg.d_model)
         x = x + _dense(bp['mha']['o'], o)
-        x = x + _ffn(cfg, bp['ffn'], _layernorm(bp['norm2'], x))
+        x = x + _ffn(cfg, bp['ffn'], _norm(cfg, bp['norm2'], x))
 
-        # write this layer's tiles into the cache, in place
+        # write this layer's tiles (from the unrepeated k/v) into the cache,
+        # in place
         t0, t1 = li * nt, li * nt + nt_m
         cache.codes[:, :, t0:t1] = to_tiles(_fit_codes(
-            codes_k.reshape(b, h, s, -1), cache.codes.shape[3]))
+            codes_k.reshape(b, kv, s, -1), cache.codes.shape[3]))
         if cache.quantized:
-            k, ksc = _quantize_kv(k)
-            v, vsc = _quantize_kv(v)
-            cache.k_scale[:, t0:t1, :h] = sc_tiles(ksc)
-            cache.v_scale[:, t0:t1, :h] = sc_tiles(vsc)
-        cache.k[:, :, t0:t1] = to_tiles(k).to(cache.k.dtype)
-        cache.v[:, :, t0:t1] = to_tiles(v).to(cache.v.dtype)
+            k_kv, ksc = _quantize_kv(k_kv)
+            v_kv, vsc = _quantize_kv(v_kv)
+            cache.k_scale[:, t0:t1, :kv] = sc_tiles(ksc)
+            cache.v_scale[:, t0:t1, :kv] = sc_tiles(vsc)
+        cache.k[:, :, t0:t1] = to_tiles(k_kv).to(cache.k.dtype)
+        cache.v[:, :, t0:t1] = to_tiles(v_kv).to(cache.v.dtype)
     cache = dataclasses.replace(cache, length=torch.full_like(cache.length, s))
-    return _dense(p['lm_head'], _layernorm(p['final_norm'], x)), cache
+    return _dense(p['lm_head'], _norm(cfg, p['final_norm'], x)), cache
 
 
 def _sparse_prefill_attention(cfg: ModelConfig, mha: dict, q, k, v,
@@ -367,10 +421,28 @@ def decode_step(iw: InferenceWeights, tokens: torch.Tensor,
 
 def _uses_fused_front(cfg: ModelConfig, mha: dict) -> bool:
     """The JAX engine's envelope of the fused decode front: sparse_v2, l2
-    metric, per-head selection, d_model a multiple of 128."""
+    metric, per-head selection, d_model a multiple of 128, and q/k/v in one
+    of its weight forms (the fused 'qkv' or GQA's separate 'q'/'k'/'v')."""
     return (cfg.attention == ATTN_SPARSE_V2 and cfg.decode_fused_front
             and cfg.sparse_select_heads == 1 and cfg.pq_metric == 'l2'
-            and cfg.d_model % 128 == 0 and 'quantizer_bd' in mha)
+            and cfg.d_model % 128 == 0 and 'quantizer_bd' in mha
+            and ('qkv' in mha or 'q' in mha))
+
+
+def _front_weights(mha: dict):
+    """(weights, bias) of the decode front: the fused 'qkv' kernel (stack
+    or packed int8) with its [3, D] bias, or the GQA triple (fp tensors or
+    int8 dicts) with its biases zero-padded to one ragged [3, max width]
+    stack (None when bias-free)."""
+    if 'qkv' in mha:
+        return mha['qkv']['kernel'], mha['qkv'].get('bias')
+    w = tuple(mha[n]['kernel'] for n in ('q', 'k', 'v'))
+    if 'bias' not in mha['q']:
+        return w, None
+    bs = [mha[n]['bias'] for n in ('q', 'k', 'v')]
+    wmax = max(t.shape[-1] for t in bs)
+    return w, torch.stack([torch.nn.functional.pad(t, (0, wmax - t.shape[-1]))
+                           for t in bs])
 
 
 def _sparse_tables(cfg: ModelConfig, mha: dict, q4, k_new, codes, base: int,
@@ -417,8 +489,9 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
     nt = cache.tiles_per_layer(cfg.n_layers)
     pos = cache.length
     dev = pos.device
-    h_tok = p['embedding']['embedding'][tokens.long()] \
-        + p['learned_pe']['embedding'][pos.long() + PE_OFFSET]
+    h_tok = p['embedding']['embedding'][tokens.long()]
+    if cfg.arch == 'opt':
+        h_tok = h_tok + p['learned_pe']['embedding'][pos.long() + PE_OFFSET]
     x = h_tok[:, None].to(cfg.dtype)                        # [B, 1, D]
     kv, g, dh = cfg.kv_heads, cfg.kv_groups, cfg.d_head
     scale = dh ** -0.5
@@ -439,22 +512,34 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
         n_tiles = n_sup.to(torch.int32)
         clamp = 0.0
     use_front = _uses_fused_front(cfg, p['blocks']['mha'])
+    llama = cfg.arch == 'llama'
+    if llama:
+        # RoPE tables at each slot's position, once a step for every layer
+        cos_b, sin_b = rope_cos_sin(pos, dh, base=cfg.rope_base)
     for li in range(cfg.n_layers):
         bp = _layer(p['blocks'], li)
         mha = bp['mha']
         base = li * nt
         kv_quant = None
         if use_front:
+            w_in, b_in = _front_weights(mha)
+            rope = (cos_b, sin_b) if llama else ()
             out = decode_front(
-                x[:, 0], bp['norm1']['scale'], bp['norm1']['bias'],
-                mha['qkv']['kernel'], mha['qkv']['bias'],
-                mha['quantizer_bd'], mha['quantizer_cbn'], cache.codes, pos,
-                base, nt=nt, nsel=nsel, n_sub=cfg.n_subspaces, ps=TILE,
-                eps=1e-5, arch=cfg.arch, quantized=cache.quantized)
+                x[:, 0], bp['norm1']['scale'], bp['norm1'].get('bias'), w_in,
+                b_in, mha['quantizer_bd'], mha['quantizer_cbn'], cache.codes,
+                pos, base, *rope, nt=nt, nsel=nsel, n_sub=cfg.n_subspaces,
+                ps=TILE, eps=1e-6 if llama else 1e-5, arch=cfg.arch,
+                quantized=cache.quantized)
             q, k_new, v_new, c_new, tables = out[:5]
             kv_quant = out[5:]
         else:
-            q, k_new, v_new = _qkv_proj(mha, _layernorm(bp['norm1'], x))
+            q, k_new, v_new = _qkv_proj(mha, _norm(cfg, bp['norm1'], x))
+            if llama:
+                rope = (cos_b[:, None, None], sin_b[:, None, None])
+                q = _apply_rope(q.reshape(b, kv * g, 1, dh),
+                                *rope).reshape(b, 1, kv * g * dh)
+                k_new = _apply_rope(k_new.reshape(b, kv, 1, dh),
+                                    *rope).reshape(b, 1, kv * dh)
             if sparse:
                 c_new, rel = _sparse_tables(
                     cfg, mha, q.reshape(b, kv, g, dh),
@@ -490,7 +575,7 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
         x = x + _dense(mha['o'], o.reshape(b, 1, cfg.d_model))
         x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
     cache = dataclasses.replace(cache, length=cache.length + 1)
-    return _layernorm(p['final_norm'], x)[:, 0], cache
+    return _norm(cfg, p['final_norm'], x)[:, 0], cache
 
 
 def decode_step_greedy(iw: InferenceWeights, tokens: torch.Tensor,

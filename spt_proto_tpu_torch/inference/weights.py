@@ -5,8 +5,10 @@ floating leaves cast to the serving dtype, q/k/v fuse into one [L, 3, D, O]
 stack for MHA, and the PQ codebook gains the block-diagonal encode matrices
 the decode-front kernel uses. With quant='int8' the big GEMM weights become
 int8 weight-only ({'q': N-padded int8, 'scale': true-width f32}), q/k/v
-fused into one column-packed [L, D, 3D] kernel; the staged build makes the
-same tree one leaf at a time on the target device.
+fused into one column-packed [L, D, 3D] kernel for MHA; the staged build
+makes the same tree one leaf at a time on the target device. GQA keeps
+separate q / k / v (fp and int8, each part quantized on its own), as the
+JAX build does.
 
 Param trees are nested dicts of tensors with the flax tree's paths, the
 per-layer leaves stacked on a leading [n_layers] axis under 'blocks'.
@@ -96,11 +98,7 @@ def _cast_to(dtype, device):
     return fn
 
 
-def _require_int8_form(cfg: ModelConfig, params: Any) -> None:
-    if cfg.kv_heads != cfg.n_heads:
-        raise NotImplementedError(
-            'int8 weights for GQA (the triple_int8 front form) come with the '
-            'LLaMA slice')
+def _require_int8_form(params: Any) -> None:
     if 'router' in params['blocks']['ffn']:
         raise NotImplementedError(
             'int8 weights with a routed FFN come with the training slice')
@@ -130,7 +128,7 @@ class InferenceWeights:
         src = next(_leaves(params)).device
         device = torch.device(device) if device is not None else src
         if quant == 'int8':
-            _require_int8_form(cfg, params)
+            _require_int8_form(params)
             if staged is None:
                 staged = src.type == 'cpu' and device.type == 'cuda'
             if staged:
@@ -178,17 +176,22 @@ class InferenceWeights:
         _attach_pq_bd(out)
         if quant == 'int8':
             # the big per-layer GEMMs become int8 weight-only; biases,
-            # norms, embeddings and the codebook stay fp. q/k/v are
-            # quantized as ONE [L, D, 3D] kernel, columns [q|k|v]
+            # norms, embeddings and the codebook stay fp. For MHA q/k/v are
+            # quantized as ONE [L, D, 3D] kernel, columns [q|k|v]; GQA
+            # quantizes each part on its own (the widths differ)
             mha = out['blocks']['mha']
-            qkv = {'kernel': quantize_int8(torch.cat(
-                [mha[n]['kernel'] for n in ('q', 'k', 'v')], dim=-1))}
-            if 'bias' in mha['q']:
-                qkv['bias'] = torch.stack(
-                    [mha[n]['bias'] for n in ('q', 'k', 'v')], dim=-2)
-            for n in ('q', 'k', 'v'):
-                del mha[n]
-            mha['qkv'] = qkv
+            if cfg.kv_heads == cfg.n_heads:
+                qkv = {'kernel': quantize_int8(torch.cat(
+                    [mha[n]['kernel'] for n in ('q', 'k', 'v')], dim=-1))}
+                if 'bias' in mha['q']:
+                    qkv['bias'] = torch.stack(
+                        [mha[n]['bias'] for n in ('q', 'k', 'v')], dim=-2)
+                for n in ('q', 'k', 'v'):
+                    del mha[n]
+                mha['qkv'] = qkv
+            else:
+                for n in ('q', 'k', 'v'):
+                    mha[n]['kernel'] = quantize_int8(mha[n]['kernel'])
             mha['o']['kernel'] = quantize_int8(mha['o']['kernel'])
             for name in ffn_names:
                 out['blocks']['ffn'][name]['kernel'] = quantize_int8(
@@ -226,19 +229,24 @@ class InferenceWeights:
                        'norm1': _map(small, dict(blocks['norm1'])),
                        'norm2': _map(small, dict(blocks['norm2']))}
         parts = [quant_dense(blocks['mha'][n]) for n in ('q', 'k', 'v')]
-        # per-column scales make the concat of separately quantized parts
-        # exact: strip each part's tail padding so the [q|k|v] boundaries
-        # land at D and 2D, then pad the whole to 256 again
-        d = cfg.d_model
-        qcat = torch.cat([p_['kernel']['q'][..., :d] for p_ in parts], dim=-1)
-        qcat = torch.nn.functional.pad(qcat, (0, (-qcat.shape[-1]) % 256))
-        qkv = {'kernel': {'q': qcat.contiguous(), 'scale': torch.cat(
-            [p_['kernel']['scale'] for p_ in parts], dim=-1)}}
-        if 'bias' in parts[0]:
-            qkv['bias'] = torch.stack([p_['bias'] for p_ in parts], dim=-2)
+        if cfg.kv_heads == cfg.n_heads:
+            # per-column scales make the concat of separately quantized
+            # parts exact: strip each part's tail padding so the [q|k|v]
+            # boundaries land at D and 2D, then pad the whole to 256 again
+            d = cfg.d_model
+            qcat = torch.cat([p_['kernel']['q'][..., :d] for p_ in parts],
+                             dim=-1)
+            qcat = torch.nn.functional.pad(qcat, (0, (-qcat.shape[-1]) % 256))
+            qkv = {'kernel': {'q': qcat.contiguous(), 'scale': torch.cat(
+                [p_['kernel']['scale'] for p_ in parts], dim=-1)}}
+            if 'bias' in parts[0]:
+                qkv['bias'] = torch.stack([p_['bias'] for p_ in parts],
+                                          dim=-2)
+            b_out['mha']['qkv'] = qkv
+        else:                       # GQA keeps the three parts
+            b_out['mha'].update(zip(('q', 'k', 'v'), parts))
         del parts
         b_out['mha']['o'] = quant_dense(blocks['mha']['o'])
-        b_out['mha']['qkv'] = qkv
         if 'quantizer' in blocks['mha']:
             b_out['mha']['quantizer'] = _map(
                 small, dict(blocks['mha']['quantizer']))

@@ -28,7 +28,8 @@ REPO = Path(__file__).resolve().parents[1]
 WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tlm.lm_head_argmax, tbsa.block_sparse_attention,
             tattn.decode_attention_rows, tffn.ffn_tail, tmm.int8_matmul,
-            tlm.lm_head_argmax_int8, tffn.ffn_tail_int8)
+            tlm.lm_head_argmax_int8, tffn.ffn_tail_int8, tffn.ffn_tail_gated,
+            tffn.ffn_tail_gated_int8)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -58,6 +59,13 @@ def _tiny_cfg():
                             attn_impl='pallas')
 
 
+def _tiny_llama_gqa():
+    return tcfg.tiny_config('llama', d_model=128, n_heads=4, n_kv_heads=2,
+                            d_feedforward=256, vocab_size=256,
+                            max_length=512, attention='sparse_v2',
+                            pq_metric='l2', attn_impl='pallas')
+
+
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     cfg = _tiny_cfg()
@@ -72,8 +80,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
     """Prefill + greedy decode on CPU tensors, sparse over an int8 cache,
     dense over an f32 cache with the fused FFN tail, and sparse int8-KV with
-    int8 weights: every kernel wrapper is reached, and none launches its
-    kernel."""
+    int8 weights, for OPT and for a LLaMA GQA model (its gated tails): every
+    kernel wrapper is reached, and none launches its kernel."""
     for w in WRAPPERS:
         w.launches = 0
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
@@ -82,7 +90,9 @@ def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
             (_tiny_cfg(), True, None),
             (_tiny_cfg().replace(attention='dense', decode_fused_ffn=True),
              False, None),
-            (_tiny_cfg(), True, 'int8')):
+            (_tiny_cfg(), True, 'int8'),
+            (_tiny_llama_gqa().replace(decode_fused_ffn=True), False, None),
+            (_tiny_llama_gqa(), True, 'int8')):
         iw = InferenceWeights.from_params(
             cfg, bridge.init_params(cfg, seed=0, device='cpu'), quant=quant)
         cache = teng.KVCache.create(cfg, 2, 512, dtype=torch.float32,
@@ -122,31 +132,41 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 
 def test_unported_forms_raise_not_implemented():
-    """What later slices bring raises and names its slice: LLaMA / GQA (and
-    the gated FFN tail, and int8 weights for GQA), routed FFN."""
+    """What a later slice brings raises and names its slice: the routed FFN
+    (training slice), in init_params, the int8 weight build and the engine.
+    What earlier slices brought runs: a bf16/f32 KV cache, int8 weights,
+    and a tiny LLaMA GQA model that builds int8 weights (the triple_int8
+    form) and decodes a step on the CPU."""
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
-    gqa = cfg.replace(n_kv_heads=1)
-    with pytest.raises(NotImplementedError, match='LLaMA slice'):
-        InferenceWeights.from_params(gqa, params, quant='int8')
-    with pytest.raises(NotImplementedError, match='LLaMA slice'):
-        bridge.init_params(tcfg.tiny_config('llama'), seed=0, device='cpu')
+    with pytest.raises(NotImplementedError, match='training slice'):
+        bridge.init_params(cfg.replace(ffn='routed'), seed=0, device='cpu')
+    router = {'kernel': torch.zeros(2, 128, 4)}
+    routed = {**params, 'blocks': {**params['blocks'], 'ffn': {
+        **params['blocks']['ffn'], 'router': router}}}
+    with pytest.raises(NotImplementedError, match='training slice'):
+        InferenceWeights.from_params(cfg, routed, quant='int8')
     cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
     tok = torch.zeros(1, dtype=torch.int32)
     iw = InferenceWeights.from_params(cfg, params)
-    for changes, match in (({'ffn': 'routed'}, 'training slice'),
-                           ({'n_kv_heads': 1, 'decode_fused_ffn': True},
-                            'LLaMA slice')):
-        bad = dataclasses.replace(iw, cfg=cfg.replace(**changes))
-        with pytest.raises(NotImplementedError, match=match):
-            teng.decode_step_greedy(bad, tok, cache)
-    # a bf16 KV cache decodes now (the bf16-KV path of this port), and so
-    # do int8 weights (the w8 path)
+    bad = dataclasses.replace(iw, cfg=cfg.replace(ffn='routed'))
+    with pytest.raises(NotImplementedError, match='training slice'):
+        teng.decode_step_greedy(bad, tok, cache)
     tok, cache = teng.decode_step_greedy(iw, tok, cache)
     assert cache.length.tolist() == [1]
     int8_weights = InferenceWeights.from_params(cfg, params, quant='int8')
     tok, cache = teng.decode_step_greedy(int8_weights, tok, cache)
     assert cache.length.tolist() == [2]
+    llama = _tiny_llama_gqa()
+    iw8 = InferenceWeights.from_params(
+        llama, bridge.init_params(llama, seed=0, device='cpu'), quant='int8')
+    mha = iw8.params['blocks']['mha']
+    assert 'qkv' not in mha and all(
+        mha[n]['kernel']['q'].dtype == torch.int8 for n in ('q', 'k', 'v'))
+    cache = teng.KVCache.create(llama, 1, 256, quantized=True, device='cpu')
+    tok, cache = teng.decode_step_greedy(
+        iw8, torch.zeros(1, dtype=torch.int32), cache)
+    assert cache.length.tolist() == [1] and 0 <= int(tok) < 256
 
 
 def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
