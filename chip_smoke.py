@@ -23,9 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    OPT-125M and OPT-1.3B widths, the gated tails (fp and int8) at LLaMA-7B
    and Llama-3-8B widths, m = 4 and 8, and the int8 matmul at the decode
    shapes (o and qkv of OPT-125M and OPT-1.3B; o and k / v of LLaMA) and
-   two prefill shapes (m = 16,384: fc1 of OPT-125M, Llama-3-8B's gate);
-   time kernel, twin and the one-call library equivalent where there is
-   one;
+   two prefill shapes (m = 16,384: fc1 of OPT-125M, Llama-3-8B's gate),
+   and the speculative block verify (OPT-125M and Llama-3-8B, union and
+   dense tables at max_len 2304, one block across a tile boundary); time
+   kernel, twin and the one-call library equivalent where there is one;
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
@@ -36,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32-KV, and w8 sparse int8-KV through the triple_int8 front and the
    gated int8 tail); the greedy tokens must agree (the w8 modes are held
    stepwise from the twins' state, codes and tables, each decision within
-   one bf16 step of theirs);
+   one bf16 step of theirs); then, for both models, one speculative verify
+   block against K sequential decode steps on the card and against the CPU
+   twins, and greedy generate_speculative (n-gram, and at OPT-125M the
+   model as its own draft) against greedy generate() on the card;
 4. the serving runs, OPT-125M in bf16, B=8, prompt 2048, max_len 2176, in
    bench.py's three decode modes (dense bf16-KV, sparse bf16-KV, sparse
    int8-KV), sparse int8-KV with the fused FFN tail, and with int8 weights
@@ -52,8 +56,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    second, prefill ms and peak memory: Llama-3-8B at B=8 dense bf16-KV,
    sparse int8-KV, sparse int8-KV with the fused gated tail and sparse
    int8-KV w8, then LLaMA-7B sparse int8-KV w8 at B=4 (bench_ladder.py's
-   llama-7b rung), each model freed before the next is built;
-7. print the per-kernel JSON line, then the contract line
+   llama-7b rung), each model freed before the next is built; and, while
+   Llama-3-8B is loaded, its speculative serving run (as in phase 7);
+7. speculative serving in bf16, bench_serving.py's workload (a 16-token
+   phrase tiled through a 2048-token prompt, B=8, k=4, 64 new tokens,
+   max_len 2304): OPT-125M with n-gram drafts over a bf16 KV cache (the
+   verify kernel) and over an int8 one (the plain verify path), OPT-1.3B
+   with OPT-125M as its draft; each prints acceptance, verify-step and
+   decode-step ms, tok/s by bench_serving's formula, its token agreement
+   with greedy generate() and its exact launch counts;
+8. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -110,6 +122,12 @@ INT8_MATMUL_SHAPES.update({
     'decode k/v llama-3-8b': (B, D_LL, KV_38B * DH_LL),
     'decode o llama-7b': (B_7B, D_LL, D_LL),
     'prefill gate llama-3-8b': (B * PROMPT, D_LL, FF_38B)})
+# speculative decoding (bench_serving.py's speculative workload): a 16-token
+# random phrase tiled through a 2048-token prompt, k = 4 proposals, a verify
+# block of K = 5 columns, 64 new tokens, max_len 2304 (18 tiles a layer)
+SPEC_K, SPEC_NEW, SPEC_MAX_LEN, SPEC_PERIOD = 4, 64, 2304, 16
+KK = SPEC_K + 1
+NT_SPEC = SPEC_MAX_LEN // TILE
 
 
 def log(msg: str) -> None:
@@ -712,6 +730,110 @@ def check_attention_gqa(dtype, int8, dense, timer=None):
     return res
 
 
+def verify_inputs(dtype, model, dense, g):
+    """verify_attention_rows inputs at the speculative serving shape: B=8
+    slots at positions 2046 + 3 x slot (slot 0's block of K = 5 crosses the
+    tile boundary at 2048, so its two write tiles differ; the others repeat
+    one), 2 layers of 18 tiles (max_len 2304) with the second addressed.
+    Tables and bits come from the engine's own table code over a random
+    decode selection per block position (2 full tiles below its own, then
+    its own: sparse_coeff 8 at 18 tiles), or dense."""
+    from spt_proto_tpu_torch.inference.engine import _Block
+    kv, grp, dh, n_sub = ((HEADS, 1, DH, N_SUB) if model == 'opt-125m' else
+                          (KV_38B, HEADS_LL // KV_38B, DH_LL, N_SUB_LL))
+    b, nt, base = B, NT_SPEC, NT_SPEC
+    nsel = min(nt, max(1, nt // 8) + 1)
+    pos = PROMPT - 2 + 3 * torch.arange(b, device=DEV, dtype=torch.int32)
+    keep = None
+    if not dense:
+        ar = torch.arange(nt, device=DEV)
+        own = (pos.long()[:, None] + torch.arange(KK, device=DEV)) // TILE
+        r = torch.rand((b, kv, KK, nt), generator=g, device=DEV)
+        r = r.masked_fill(ar >= own[:, None, :, None], 2.0)
+        keep = torch.zeros(r.shape, dtype=torch.bool, device=DEV)
+        keep.scatter_(-1, r.argsort(-1)[..., :nsel - 1], True)
+        keep |= ar == own[:, None, :, None]
+    tables, bits = _Block(pos, KK, nt, kv, nsel).tables(keep, base)
+    width = 1 if dense else n_sub
+    q = randn(g, (b, kv, grp * KK, dh), dtype)
+    kc, vc = (randn(g, (b, kv, 2 * nt, dh, TILE), dtype) for _ in range(2))
+    cc = torch.randint(0, N_CODE if width > 1 else 1,
+                       (b, kv, 2 * nt, width, TILE), generator=g, device=DEV,
+                       dtype=torch.int32)
+    kn, vn = (randn(g, (b, kv, dh, KK), dtype) for _ in range(2))
+    cn = torch.randint(0, N_CODE if width > 1 else 1, (b, kv, width, KK),
+                       generator=g, device=DEV, dtype=torch.int32)
+    tb = torch.full((b,), base, device=DEV, dtype=torch.int32)
+    return [q, kc, vc, cc, tables, bits, pos, kn, vn, cn, tb]
+
+
+def verify_work(args):
+    """(entries read, visible (row, lane) pairs) of one verify launch: an
+    entry is read when its tile id is valid and some block position sees
+    it; row r (position j = r % K) sees a lane of it when bit j is set and
+    the lane's position is <= pos + j."""
+    q, tables, bits, pos, tb = args[0], args[4], args[5], args[6], args[10]
+    n_all = args[1].shape[2]
+    j = torch.arange(q.shape[2], device=q.device) % KK
+    valid = (tables >= 0) & (tables < n_all) & (bits != 0)
+    seen = ((bits[:, :, None, :] >> j[:, None]) & 1).bool() \
+        & valid[:, :, None]                                  # [B,KV,GK,T]
+    first = (tables.long() - tb.long()[:, None, None]) * TILE  # [B, KV, T]
+    lanes = (pos.long()[:, None, None, None] + j[:, None] - first[:, :, None]
+             + 1).clamp(0, TILE)
+    return int(valid.sum()), int((lanes * seen).sum())
+
+
+def check_verify(dtype, model, dense, timer=None):
+    """verify_attention_rows vs its twin at the speculative serving shape
+    (verify_inputs): OPT-125M (12 heads, d_head 64) or Llama-3-8B (8 kv
+    heads of G = 4, d_head 128), union or dense tables. Kernel and twin
+    round e at the same place (the TPU kernel's numerics), so the f32 and
+    bf16 bounds of the other attention kernels hold; the appended caches
+    and codes must be exact."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    g = gen(SEED + 12)
+    args = verify_inputs(dtype, model, dense, g)
+    kw = dict(ps=TILE, scale=args[0].shape[3] ** -0.5,
+              clamp=0.0 if dense else 10.0)
+    ref_args = [a.clone() for a in args]
+    got = m.verify_attention_rows(*args, **kw)
+    want = m.verify_attention_rows_ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
+                                                             want[1:]))
+    tables = args[4]
+    crosses = bool((tables[:, 0, -2] != tables[:, 0, -1]).any())
+    label = (f'verify_attention_rows {model} {"dense" if dense else "union"} '
+             f'(GK={args[0].shape[2]}, T={tables.shape[2]})')
+    require(close(got[0], want[0], dtype) and caches_equal and crosses
+            and bool(torch.isfinite(got[0]).all()),
+            f'{label} {dtype}: o err {err}, appended caches equal: '
+            f'{caches_equal}, a block across a tile boundary: {crosses}')
+    log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
+        f'({tol_str(dtype)}); appended caches exact; a block across a tile '
+        f'boundary')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.verify_attention_rows(*args, **kw))
+        res['plain_ms'] = timer.ms(
+            lambda: m.verify_attention_rows_ref(*ref_args, **kw), reps=5)
+        q, kn = args[0], args[7]
+        entries, pairs = verify_work(args)
+        kv_bytes = entries * 2 * kn.shape[2] * TILE * q.element_size()
+        new = [args[7], args[8]] + ([args[9]] if args[3].shape[3] > 1 else [])
+        io = nbytes(q, *args[4:7], args[10], got[0], *new)
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            kv_bytes + io, pairs * 2 * 2 * kn.shape[2], dtype)
+        # no one PyTorch call does the table gather + append + per-position
+        # visibility
+        res['library_ms'] = None
+        res.update(entries_read=entries, visible_pairs=pairs)
+        log_times(res)
+    return res
+
+
 def chosen_logit_gap(logits, ids, dtype):
     """How far below the maximum the chosen logit lies, per row, and the
     bound it is held to: exact expected, but where a kernel's f32 sum rounds
@@ -949,6 +1071,11 @@ def phase_kernels(timer):
                                       DH_LL, N_SUB_LL)
         check_block_sparse(dtype, 2 * PROMPT, 4, None, HEADS_LL, DH_LL,
                            N_SUB_LL)
+        # the speculative block verify (OPT-125M and Llama-3-8B, union and
+        # dense tables at max_len 2304)
+        r_ver = {f'{model} {"dense" if dense else "union"}': check_verify(
+            dtype, model, dense, t) for model in ('opt-125m', 'llama-3-8b')
+            for dense in (False, True)}
         if t is not None:
             res = dict(
                 decode_front=dict(r_front, bf16_kv=r_front_bf,
@@ -971,6 +1098,8 @@ def phase_kernels(timer):
                 lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
                                          **r_head8_ll),
                 ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13),
+                verify_attention_rows=dict(r_ver['opt-125m union'],
+                                           **r_ver),
                 # the kernel line reports Llama-3-8B at m = 8 (its run)
                 **{n: dict(r[f'llama-3-8b m={B}'], **r)
                    for n, r in gated.items()})
@@ -1173,7 +1302,7 @@ def phase_parity():
     tokens = torch.randint(1, VOCAB, (PARITY_B, PARITY_PROMPT),
                            generator=gen(SEED, 'cpu'))
     dense = opt_cfg('125m', max_len, torch.float32, dense=True)
-    return parity_modes('OPT-125M', tokens, [
+    modes = parity_modes('OPT-125M', tokens, [
         ('sparse int8-KV', sparse, params, True, None),
         ('dense f32-KV', dense, dense_params(params), False, None),
         ('sparse f32-KV', sparse, params, False, None),
@@ -1181,6 +1310,12 @@ def phase_parity():
          params, True, None),
         ('w8 sparse int8-KV', sparse, params, True, 'int8'),
         ('w8 dense f32-KV', dense, dense_params(params), False, 'int8')])
+    verify = verify_parity('OPT-125M', tokens, [
+        ('sparse f32-KV', sparse, params, False),
+        ('dense f32-KV', dense, dense_params(params), False),
+        ('sparse int8-KV', sparse, params, True)])
+    spec = speculative_parity('OPT-125M', sparse, params, True)
+    return dict(modes=modes, verify=verify, speculative=spec)
 
 
 def phase_parity_llama():
@@ -1198,10 +1333,15 @@ def phase_parity_llama():
                            generator=gen(SEED, 'cpu'))
     dense = llama_cfg('3-8b', max_len, torch.float32, dense=True,
                       n_layers=2, vocab_size=32000)
-    return parity_modes('Llama-3-8B 2-layer', tokens, [
+    modes = parity_modes('Llama-3-8B 2-layer', tokens, [
         ('sparse int8-KV', sparse, params, True, None),
         ('dense f32-KV', dense, dense_params(params), False, None),
         ('w8 sparse int8-KV', sparse, params, True, 'int8')])
+    verify = verify_parity('Llama-3-8B 2-layer', tokens, [
+        ('sparse f32-KV', sparse, params, False),
+        ('dense f32-KV', dense, dense_params(params), False)])
+    spec = speculative_parity('Llama-3-8B 2-layer', sparse, params, False)
+    return dict(modes=modes, verify=verify, speculative=spec)
 
 
 def parity_modes(model, tokens, modes):
@@ -1265,11 +1405,155 @@ def parity_modes(model, tokens, modes):
     return out
 
 
+CACHE_FIELDS = ('k', 'v', 'codes', 'length', 'k_scale', 'v_scale')
+
+
+def copy_cache(cache, dev):
+    """A copy of a KVCache's tensors on `dev`."""
+    from spt_proto_tpu_torch.inference import engine
+    return engine.KVCache(**{
+        f: None if getattr(cache, f) is None
+        else getattr(cache, f).to(dev, copy=True) for f in CACHE_FIELDS})
+
+
+def verify_parity(model, tokens, modes):
+    """f32 at full width, B=2, prompt 512, max_len 640, a block of K = 5
+    random tokens: (a) on the card, from one prefilled cache, one
+    verify_step against K sequential decode_step calls (the kernels of
+    each: the verify kernel, or the plain path over an int8 cache, against
+    the decode front and decode attention kernels); (b) the card's
+    verify_step against the CPU twins', each from its own prefill. Bounds:
+    logits within 2e-3 (f32 sums of full-width rows in other orders; the
+    JAX tests hold a tiny model to 5e-4 - 1e-3) or 2e-2 over an int8 cache
+    (a new column whose projections differ by an ulp can land one int8 step
+    away), greedy decisions agreeing at >= 0.995 of the positions; the
+    caches of (a): f32 entries to 1e-4, int8 entries within one step in <=
+    1e-3 of them, scales to 1e-5 relative, codes flipped in <= 1e-3 of the
+    block's code entries (an ulp at an argmin near-tie)."""
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    b, max_len = PARITY_B, PARITY_MAX_LEN
+    out = {}
+    for label, cfg, p, quantized in modes:
+        block = torch.randint(1, cfg.vocab_size, (b, KK),
+                              generator=gen(SEED + 13, 'cpu'))
+        iw_cpu = InferenceWeights.from_params(cfg, p)
+        iw_gpu = InferenceWeights.from_params(cfg, p, device=DEV)
+
+        def prefilled(iw, dev):
+            cache = engine.KVCache.create(cfg, b, max_len, dtype=cfg.dtype,
+                                          quantized=quantized, device=dev)
+            return engine.prefill(iw, tokens.to(dev), cache)[1]
+        t0 = time.perf_counter()
+        card = prefilled(iw_gpu, DEV)
+        seq_cache = copy_cache(card, DEV)
+        seq = []
+        for j in range(KK):
+            lg, seq_cache = engine.decode_step(iw_gpu, block[:, j].to(DEV),
+                                               seq_cache)
+            seq.append(lg)
+        seq = torch.stack(seq, 1).cpu()
+        blk, card = engine.verify_step(iw_gpu, block.to(DEV), card)
+        blk = blk.cpu()
+        blk_cpu, _ = engine.verify_step(iw_cpu, block,
+                                        prefilled(iw_cpu, 'cpu'))
+        sync()
+        bound = 2e-2 if quantized else 2e-3
+        err_seq, err_cpu = max_err(blk, seq), max_err(blk, blk_cpu)
+        agree_seq = mismatch(blk.argmax(-1), seq.argmax(-1))
+        agree_cpu = mismatch(blk.argmax(-1), blk_cpu.argmax(-1))
+        agree_seq, agree_cpu = 1 - agree_seq, 1 - agree_cpu
+        cache_msg, cache_ok = [], True
+        for f in ('k', 'v'):
+            a, c = getattr(card, f), getattr(seq_cache, f)
+            if quantized:
+                d = (a.int() - c.int()).abs()
+                ok = int(d.max()) <= 1 and mismatch(a, c) <= 1e-3
+                cache_msg.append(f'{f} int8 steps {int(d.max())} in '
+                                 f'{mismatch(a, c):.2g}')
+            else:
+                ok = max_err(a, c) <= 1e-4
+                cache_msg.append(f'{f} err {max_err(a, c):.3g}')
+            cache_ok &= ok
+        if quantized:
+            s_err = max(((getattr(card, f) - getattr(seq_cache, f)).abs()
+                         / getattr(seq_cache, f).abs().clamp(min=1e-30)
+                         ).max().item() for f in ('k_scale', 'v_scale'))
+            cache_ok &= s_err <= 1e-5
+            cache_msg.append(f'scales rel err {s_err:.2g}')
+        flips = int((card.codes != seq_cache.codes).sum())
+        n_new = b * cfg.kv_heads * KK * cfg.n_layers * card.codes.shape[3]
+        cache_ok &= flips <= 1e-3 * n_new and torch.equal(card.length,
+                                                          seq_cache.length)
+        cache_msg.append(f'codes flipped {flips} of {n_new}')
+        msg = (f'verify vs {KK} decode steps: logits err {err_seq:.3g}, '
+               f'decisions {agree_seq}; card vs CPU twins: logits err '
+               f'{err_cpu:.3g}, decisions {agree_cpu} (bound {bound:g}, '
+               f'>= 0.995); caches {", ".join(cache_msg)}')
+        log(f'  {label:16s} f32 {model} verify K={KK}: {msg} '
+            f'({time.perf_counter() - t0:.1f} s)')
+        require(err_seq <= bound and err_cpu <= bound and agree_seq >= 0.995
+                and agree_cpu >= 0.995 and cache_ok, f'{label}: {msg}')
+        out[label] = dict(logits_err_vs_decode=err_seq,
+                          logits_err_vs_cpu=err_cpu,
+                          agreement_vs_decode=agree_seq,
+                          agreement_vs_cpu=agree_cpu, code_flips=flips)
+        del iw_gpu, card, seq_cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_workload(vocab, b=B, prompt=PROMPT):
+    """bench_serving.py's speculative prompts: a 16-token random phrase
+    (numpy seed 7), shifted by the row index, tiled through the prompt."""
+    import numpy as np
+    phrase = np.random.RandomState(7).randint(1, vocab, size=SPEC_PERIOD)
+    rows = [np.tile(phrase + i, prompt // SPEC_PERIOD + 1)[:prompt] % vocab
+            for i in range(b)]
+    return torch.tensor(np.stack(rows), dtype=torch.int64, device=DEV)
+
+
+SPEC_PARITY_NEW = 16
+
+
+def speculative_parity(model, cfg, params, self_draft):
+    """f32 at full width, B=2, prompt 512 (the speculative workload's
+    phrase), max_len 640: greedy generate_speculative (n-gram, and the
+    model as its own draft) against greedy generate() on the card, 16 new
+    tokens, held to the fp policy (>= 0.995 token agreement)."""
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.speculative import \
+        generate_speculative
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    iw = InferenceWeights.from_params(cfg, params, device=DEV)
+    prompts = spec_workload(cfg.vocab_size, PARITY_B, PARITY_PROMPT)
+    ref = engine.generate(iw, prompts, SPEC_PARITY_NEW,
+                          max_len=PARITY_MAX_LEN)
+    out = {}
+    for name, draft in (('n-gram', None),) + (
+            (('self-draft', iw),) if self_draft else ()):
+        got, st = generate_speculative(iw, prompts, SPEC_PARITY_NEW,
+                                       draft=draft, k=SPEC_K,
+                                       max_len=PARITY_MAX_LEN)
+        agree = (got[:, PARITY_PROMPT:] == ref[:, PARITY_PROMPT:]
+                 ).float().mean().item()
+        log(f'  speculative {name:10s} f32 {model}: token agreement with '
+            f'generate() {agree} over {PARITY_B}x{SPEC_PARITY_NEW}, '
+            f'acceptance {st["acceptance"]:.3f} in {st["rounds"]} rounds')
+        require(got.shape == ref.shape and agree >= 0.995,
+                f'speculative {name} {model}: agreement {agree}: '
+                f'{got.tolist()} vs {ref.tolist()}')
+        out[name] = dict(agreement=agree, **st)
+    del iw
+    torch.cuda.empty_cache()
+    return out
+
+
 def wrappers():
     from spt_proto_tpu_torch.ops.block_sparse_attention import \
         block_sparse_attention
     from spt_proto_tpu_torch.ops.decode_attention import (
-        decode_attention_rows, decode_attention_rows_q)
+        decode_attention_rows, decode_attention_rows_q, verify_attention_rows)
     from spt_proto_tpu_torch.ops.decode_front import decode_front
     from spt_proto_tpu_torch.ops.ffn_tail import (ffn_tail, ffn_tail_gated,
                                                   ffn_tail_gated_int8,
@@ -1285,7 +1569,8 @@ def wrappers():
                 ffn_tail=ffn_tail, int8_matmul=int8_matmul,
                 lm_head_argmax_int8=lm_head_argmax_int8,
                 ffn_tail_int8=ffn_tail_int8, ffn_tail_gated=ffn_tail_gated,
-                ffn_tail_gated_int8=ffn_tail_gated_int8)
+                ffn_tail_gated_int8=ffn_tail_gated_int8,
+                verify_attention_rows=verify_attention_rows)
 
 
 def expected_launches(iw, quantized):
@@ -1487,6 +1772,182 @@ def phase_1p3b():
     return dict(runs=runs, sparse_vs_dense=ratio)
 
 
+def spec_expected(iw, draft, quantized, rounds):
+    """Launches of one generate_speculative run: (the prefills', the whole
+    run's). The prefill(s) as in expected_launches; per round one
+    verify_attention_rows a target layer (none over an int8 cache: its
+    plain path) and, with a draft model, K draft decode_steps (their
+    per-step kernels but the fused lm_head: decode_step's head is a plain
+    matmul for the sampled logits)."""
+    prefill, _ = expected_launches(iw, quantized)
+    per_round = dict.fromkeys(prefill, 0)
+    if draft is not None:
+        d_pre, d_step = expected_launches(draft, quantized)
+        for n in prefill:
+            prefill[n] += d_pre[n]
+            per_round[n] = 0 if n.startswith('lm_head') else KK * d_step[n]
+    if not quantized:
+        per_round['verify_attention_rows'] = iw.cfg.n_layers
+    return prefill, {n: prefill[n] + rounds * per_round[n] for n in prefill}
+
+
+def step_costs(iw, prompts, quantized, steps=16):
+    """bench_serving.py's step costs at the workload's batch and context:
+    ms per decode_step (+ argmax) and per verify_step of a K-column block
+    rolled back by k (+1 token a step), each timed with CUDA events over
+    `steps` steps after 2 warm-up steps, from one prefilled cache; and the
+    share of the decode steps' greedy decisions at a near-tie."""
+    from spt_proto_tpu_torch.inference import engine
+    import dataclasses
+    cfg = iw.cfg
+    cache = engine.KVCache.create(cfg, prompts.shape[0], SPEC_MAX_LEN,
+                                  dtype=cfg.dtype, quantized=quantized,
+                                  device=DEV)
+    logits, cache = engine.prefill(iw, prompts, cache)
+    tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    del logits
+
+    gaps = []
+
+    def dec(tok, c):
+        lg, c = engine.decode_step(iw, tok, c)
+        gaps.append(lg.float().topk(2, -1).values)       # [B, 2]
+        return torch.argmax(lg, -1).to(torch.int32), c
+
+    def ver(tok, c):
+        blk = tok[:, None].expand(-1, KK).contiguous()
+        lg, c = engine.verify_step(iw, blk, c)
+        c = dataclasses.replace(c, length=c.length - SPEC_K)
+        return torch.argmax(lg[:, -1], -1).to(torch.int32), c
+
+    out = {}
+    for name, fn in (('decode', dec), ('verify', ver)):
+        c, tok = copy_cache(cache, DEV), tok0
+        for _ in range(2):
+            tok, c = fn(tok, c)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(steps):
+            tok, c = fn(tok, c)
+        ev[1].record()
+        sync()
+        out[name] = ev[0].elapsed_time(ev[1]) / steps
+        del c
+    # greedy decisions whose two best logits lie within one bf16 step
+    # (2^-7 |max logit|): where rounding in another order can pick the other
+    top2 = torch.stack(gaps)
+    out['near_ties'] = ((top2[..., 0] - top2[..., 1])
+                        <= 2.0 ** -7 * top2[..., 0].abs()).float().mean().item()
+    return out, cache, tok0
+
+
+def spec_run(label, iw, prompts, quantized, draft=None, profile=True):
+    """One speculative serving run, bench_serving.py's workload: greedy
+    generate_speculative (k = 4, 64 new tokens, max_len 2304), the launch
+    counters zeroed just before it and read just after, held exactly to
+    spec_expected; its wall time (CUDA events); the token agreement with
+    greedy generate() on the same prompts; the verify and decode step
+    costs; tok/s by bench_serving's formula B (1 + acceptance k) / t_verify
+    beside plain decode's B / t_decode; and a profiled window of 4 verify
+    steps."""
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.speculative import \
+        generate_speculative
+    import dataclasses
+    b = prompts.shape[0]
+    ws = wrappers()
+    kw = dict(draft=draft, k=SPEC_K, max_len=SPEC_MAX_LEN,
+              quantized_kv=quantized)
+    generate_speculative(iw, prompts, 2, **kw)              # warm-up
+    sync()
+    for w in ws.values():
+        w.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out, st = generate_speculative(iw, prompts, SPEC_NEW, **kw)
+    ev[1].record()
+    sync()
+    counts = {n: w.launches for n, w in ws.items()}
+    rounds = st['rounds']
+    per_prefill, want = spec_expected(iw, draft, quantized, rounds)
+    require(counts == want, f'{label} launch counts {counts} (expected '
+            f'{want}, {rounds} rounds)')
+    require(out.shape == (b, prompts.shape[1] + SPEC_NEW)
+            and bool(((out >= 0) & (out < iw.cfg.vocab_size)).all()),
+            f'{label}: tokens {out.shape}')
+    wall_ms = ev[0].elapsed_time(ev[1])
+    ref = engine.generate(iw, prompts, SPEC_NEW, max_len=SPEC_MAX_LEN,
+                          quantized_kv=quantized)
+    s0 = prompts.shape[1]
+    same = out[:, s0:] == ref[:, s0:]
+    agree = same.float().mean().item()
+    # each row's first generated token that differs (SPEC_NEW: none)
+    first_div = torch.where(same.all(1), SPEC_NEW,
+                            (~same).int().argmax(1)).tolist()
+    costs, cache, tok0 = step_costs(iw, prompts, quantized)
+    acc = st['acceptance']
+    res = dict(st, wall_ms=wall_ms, wall_tok_s=b * SPEC_NEW / wall_ms * 1e3,
+               agreement_with_generate=agree, near_ties=costs['near_ties'],
+               first_divergence=first_div, verify_ms=costs['verify'],
+               decode_ms=costs['decode'],
+               verify_over_decode=costs['verify'] / costs['decode'],
+               spec_tok_s=b * (1 + acc * SPEC_K) / costs['verify'] * 1e3,
+               plain_tok_s=b / costs['decode'] * 1e3,
+               launches=counts, launches_per_prefill=per_prefill,
+               launches_per_step={n: (c - per_prefill[n]) / rounds
+                                  for n, c in counts.items()})
+    log(f'  [{label}] launches in {rounds} rounds: {counts}')
+    log(f'  [{label}] acceptance {acc:.3f} ({st["accepted"]} of '
+        f'{st["proposed"]}); verify step {costs["verify"]:.3f} ms, decode '
+        f'step {costs["decode"]:.3f} ms (ratio '
+        f'{res["verify_over_decode"]:.3f}); B(1 + acc k) / t_verify = '
+        f'{res["spec_tok_s"]:.0f} tok/s vs plain decode {res["plain_tok_s"]:.0f}'
+        f' tok/s; whole run {wall_ms:.1f} ms = {res["wall_tok_s"]:.0f} tok/s; '
+        f'token agreement with generate() {agree:.4f} (rows part at tokens '
+        f'{first_div}; {costs["near_ties"]:.3f} of the decode steps\' '
+        f'decisions lie at a bf16 near-tie)')
+    if profile:
+        def steps4():
+            c, tok = cache, tok0
+            for _ in range(4):
+                blk = tok[:, None].expand(-1, KK).contiguous()
+                lg, c = engine.verify_step(iw, blk, c)
+                c = dataclasses.replace(c, length=c.length - SPEC_K)
+                tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
+        res['verify_profile'] = device_profile(f'{label}: 4 verify steps',
+                                               steps4)
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_speculative():
+    """bf16 speculative serving, bench_serving.py's workload (B=8, prompt
+    2048, k = 4, 64 new tokens, max_len 2304): OPT-125M with n-gram drafts
+    over a bf16 KV cache (the verify kernel) and over an int8 one (the
+    plain verify path), and OPT-1.3B with OPT-125M as the draft model, both
+    with random weights from a seed."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    cfg = opt_cfg('125m', SPEC_MAX_LEN, torch.bfloat16)
+    small = InferenceWeights.from_params(cfg, init_params(cfg, SEED,
+                                                          device=DEV))
+    prompts = spec_workload(cfg.vocab_size)
+    runs = {}
+    runs['spec 125M n-gram bf16-KV'] = spec_run(
+        'spec 125M n-gram bf16-KV', small, prompts, False)
+    runs['spec 125M n-gram int8-KV'] = spec_run(
+        'spec 125M n-gram int8-KV', small, prompts, True, profile=False)
+    cfg13 = opt_cfg('1.3b', SPEC_MAX_LEN, torch.bfloat16)
+    big = InferenceWeights.from_params(cfg13, init_params(cfg13, SEED,
+                                                          device=DEV))
+    runs['spec 1.3B draft 125M bf16-KV'] = spec_run(
+        'spec 1.3B draft 125M bf16-KV', big, prompts, False, draft=small)
+    del big, small
+    torch.cuda.empty_cache()
+    return dict(runs=runs)
+
+
 LLAMA_PROMPT, LLAMA_STEPS = 2048, 32
 
 
@@ -1519,7 +1980,13 @@ def phase_llama():
     run('3-8B sparse int8-KV fused FFN tail',
         sparse.replace(decode_fused_ffn=True), params, tokens, True)
     run('3-8B sparse int8-KV w8', sparse, params, tokens, True, 'int8')
-    del params
+    # speculative serving while the model is loaded: n-gram drafts over a
+    # bf16 KV cache (the device-bound case for the verify / decode ratio)
+    iw = InferenceWeights.from_params(sparse, params)
+    runs['spec 3-8B n-gram bf16-KV'] = spec_run(
+        'spec 3-8B n-gram bf16-KV', iw, spec_workload(sparse.vocab_size),
+        False)
+    del iw, params
     torch.cuda.empty_cache()
     sparse = llama_cfg('7b', MAX_LEN, torch.bfloat16)
     params = init_params(sparse, SEED, device=DEV)
@@ -1529,9 +1996,11 @@ def phase_llama():
     del params
     torch.cuda.empty_cache()
     log('  LLaMA decode ms/step: ' + ', '.join(
-        f'{k} {r["decode_ms"] / LLAMA_STEPS:.3f}' for k, r in runs.items()))
+        f'{k} {r["decode_ms"] / LLAMA_STEPS:.3f}' for k, r in runs.items()
+        if not k.startswith('spec')))
     log('  LLaMA peak memory GB: ' + ', '.join(
-        f'{k} {r["peak_mem_gb"]:.2f}' for k, r in runs.items()))
+        f'{k} {r["peak_mem_gb"]:.2f}' for k, r in runs.items()
+        if not k.startswith('spec')))
     return dict(runs=runs)
 
 
@@ -1600,6 +2069,9 @@ KERNELS = [
     ('ffn_tail_gated_int8', 'spt_proto_tpu_torch/csrc/ffn_tail.cu',
      'spt_proto_tpu/ops/pallas/ffn_tail.py:278', [],
      '3-8B sparse int8-KV w8'),
+    ('verify_attention_rows', 'spt_proto_tpu_torch/csrc/decode_attention.cu',
+     'spt_proto_tpu/ops/pallas/decode_attention.py:2002', [],
+     'spec 125M n-gram bf16-KV'),
 ]
 
 
@@ -1643,7 +2115,11 @@ def main() -> int:
     llama = phase_llama()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
-    all_runs = {**serving['runs'], **llama['runs']}
+    log('phase 7: bf16 speculative serving, B=8 prompt 2048, k=4')
+    spec = phase_speculative()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
+    all_runs = {**serving['runs'], **llama['runs'], **spec['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
@@ -1670,6 +2146,7 @@ def main() -> int:
                                     for k, r in serving['runs'].items()}),
         opt_1p3b=dict(big, runs={k: brief(r) for k, r in big['runs'].items()}),
         llama=dict(runs={k: brief(r) for k, r in llama['runs'].items()}),
+        speculative=dict(runs={k: brief(r) for k, r in spec['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -40,6 +40,7 @@ SIGNATURES = {
                         + [_P] * 9 + [_I] * 13 + [_F, _F, _I, _I, _P],
     'spt_decode_attention': [_I] + [_P] * 12 + [_I] * 10 + [_F, _F, _P],
     'spt_decode_attention_q': [_I] + [_P] * 16 + [_I] * 11 + [_F, _F, _P],
+    'spt_verify_attention': [_I] + [_P] * 12 + [_I] * 9 + [_F, _F, _P],
     'spt_ffn_tail': [_I] + [_P] * 8 + [_I] * 4 + [_P],
     'spt_ffn_tail_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],
     'spt_ffn_tail_gated': [_I] + [_P] * 7 + [_I] * 4 + [_P],

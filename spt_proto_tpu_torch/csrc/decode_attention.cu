@@ -9,6 +9,10 @@
 //     Replaces decode_attention_rows_q (_rows_kernel_q) and
 //     decode_attention_rows_q_ms (_rows_kernel_q_ms).
 //
+// A third kernel, verify_attention_kernel (the speculative block verify,
+// replacing verify_attention_rows / _verify_kernel), shares the tile
+// staging; its notes are at its definition below.
+//
 // Each TPU pair differs only in how the TPU launches it (one program per
 // slot vs one program for all slots), so one kernel serves both.
 //
@@ -363,6 +367,245 @@ int launch_attention_q(const void* q, void* kc, void* vc, void* cc, void* ksc,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// block verify (speculative decoding)
+// ---------------------------------------------------------------------------
+//
+// verify_attention_kernel replaces the TPU kernel
+// spt_proto_tpu/ops/pallas/decode_attention.py verify_attention_rows
+// (_verify_kernel). It scores G*K query rows a (slot, kv head): K block
+// columns of G query heads, row r being head r / K at block position
+// j = r % K. It first appends the block's K new k/v columns (and codes when
+// w > 1) where they land in the two write tiles, the table's last two
+// entries, then attends over the table: an entry's lanes are visible to
+// row r when its tile id is valid, bit j of its sel_mask entry is set, and
+// the lane's position (tile - tile_base) * PS + lane is <= pos + j.
+//
+// Bound on the H100: memory at serving shapes. The tiles of the union
+// table are read once (K and V) and the K new columns written; the math
+// is 2 x 2 x D multiply-adds per (row, visible lane), GK times the decode
+// step's, still far below the tensor-core line for GK <= 40.
+//
+// Design: one CTA per (slot, kv head), one thread per token lane. The TPU
+// kernel's NBUF-deep per-head DMA ring and its tile-0 reads for -1
+// entries exist for VMEM and are not carried over: the CTA walks only the
+// valid entries. Scores are not kept: G*K rows x T entries x PS lanes of
+// f32 outgrow shared memory at Llama-3-8B widths, so the walk is two
+// passes over the K tiles. Pass 1 keeps each thread's running max of its
+// lane per row; a warp reduction gives the row max. Pass 2 computes the
+// scores again, e = exp(s - max) (the f32 sum l of the unrounded e kept
+// per lane), stores e rounded to the cache dtype for this tile only, and
+// adds e v over the staged V tile. The numerics are the TPU kernel's: the
+// global row max before e is rounded, no rescaled online softmax, and
+// o = pv / max(l, 1e-30).
+
+constexpr int kVerifyRows = 8;   // query rows scored per pass over a K tile
+
+template <typename T>
+__global__ void verify_attention_kernel(
+    // the caches are read after this CTA writes them: no __restrict__
+    const T* __restrict__ q, T* kc, T* vc, int* cc,
+    const int* __restrict__ tables, const int* __restrict__ selm,
+    const int* __restrict__ pos, const T* __restrict__ kn,
+    const T* __restrict__ vn, const int* __restrict__ cn,
+    const int* __restrict__ tile_base, T* __restrict__ o, int KV, int GK,
+    int KK, int D, int NTALL, int W, int TM, int PS, float scale,
+    float clamp) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x;   // blockDim.x == PS
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const size_t bh = (size_t)b * KV + h;
+  const int GKP = (GK + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
+  constexpr int kRot = 4 / (int)sizeof(T);
+
+  // the tile buffer comes first so its 16-byte stores stay aligned; q is
+  // kept transposed, [D][GKP], so one float4 load gives four rows
+  extern __shared__ __align__(16) float sm[];
+  T* tile = reinterpret_cast<T*>(sm);                     // [D][PS]
+  float* qT = sm + (size_t)D * PS * sizeof(T) / 4;        // [D][GKP]
+  float* ev = qT + (size_t)D * GKP;      // [GKP][PS] lane max, then e
+  float* lp = ev + (size_t)GKP * PS;     // [GK][PS] partial sums of e
+  float* acc = lp + (size_t)GK * PS;     // [GK][D]
+  float* rmax = acc + (size_t)GK * D;    // [GKP]
+  float* rsum = rmax + GKP;              // [GKP]
+  int* etile = reinterpret_cast<int*>(rsum + GKP);       // [TM]
+  int* ebits = etile + TM;                               // [TM]
+
+  // ---- append the block's K columns where they land in the write tiles
+  const int p = pos[b], base = tile_base[b];
+  const int* tab = tables + bh * TM;
+  const int w0 = max(tab[TM - 2], 0), w1 = max(tab[TM - 1], 0);
+  for (int i = tid; i < KK * D; i += blockDim.x) {
+    const int j = i / D, d = i % D;
+    const int ti = base + (p + j) / PS, ci = (p + j) % PS;
+    if ((ti == w0 || ti == w1) && ti < NTALL) {
+      const size_t at = ((bh * NTALL + ti) * D + d) * PS + ci;
+      kc[at] = kn[(bh * D + d) * KK + j];
+      vc[at] = vn[(bh * D + d) * KK + j];
+    }
+  }
+  if (W > 1) {   // codes: the write tiles of head 0's row, as the TPU kernel
+    const int* tab0 = tables + (size_t)b * KV * TM;
+    const int c0 = max(tab0[TM - 2], 0), c1 = max(tab0[TM - 1], 0);
+    for (int i = tid; i < KK * W; i += blockDim.x) {
+      const int j = i / W, s = i % W;
+      const int ti = base + (p + j) / PS, ci = (p + j) % PS;
+      if ((ti == c0 || ti == c1) && ti < NTALL)
+        cc[((bh * NTALL + ti) * W + s) * PS + ci] = cn[(bh * W + s) * KK + j];
+    }
+  }
+  for (int i = tid; i < GKP * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    qT[d * GKP + r] = r < GK ? to_f(q[(bh * GK + r) * D + d]) : 0.f;
+  }
+  for (int e = tid; e < TM; e += blockDim.x) {
+    const int t = tab[e], bits = selm[bh * TM + e];
+    etile[e] = (t >= 0 && t < NTALL && bits != 0) ? t : -1;
+    ebits[e] = bits;
+  }
+  for (int r = 0; r < GKP; ++r) ev[r * PS + tid] = r < GK ? kNeg : 0.f;
+  for (int r = 0; r < GK; ++r) lp[r * PS + tid] = 0.f;
+  for (int i = tid; i < GK * D; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  // scaled, clamped scores of rows [r0, r0 + 8) at this thread's lane of
+  // the staged K tile
+  auto scores = [&](int r0, float* s) {
+#pragma unroll
+    for (int u = 0; u < kVerifyRows; ++u) s[u] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = to_f(tile[d * PS + tid]);
+      const float4 a = *reinterpret_cast<const float4*>(qT + d * GKP + r0);
+      const float4 c =
+          *reinterpret_cast<const float4*>(qT + d * GKP + r0 + 4);
+      s[0] += a.x * kd; s[1] += a.y * kd; s[2] += a.z * kd; s[3] += a.w * kd;
+      s[4] += c.x * kd; s[5] += c.y * kd; s[6] += c.z * kd; s[7] += c.w * kd;
+    }
+#pragma unroll
+    for (int u = 0; u < kVerifyRows; ++u) {
+      s[u] *= scale;
+      if (clamp > 0.f) s[u] = fminf(fmaxf(s[u], -clamp), clamp);
+    }
+  };
+
+  // ---- pass 1: each row's max over its visible lanes
+  for (int e = 0; e < TM; ++e) {
+    const int t = etile[e];
+    if (t < 0) continue;              // the same for every thread
+    stage_tile(tile, kc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
+    __syncthreads();
+    const int bits = ebits[e], gpos = (t - base) * PS + tid;
+    for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+      float s[kVerifyRows];
+      scores(r0, s);
+#pragma unroll
+      for (int u = 0; u < kVerifyRows; ++u) {
+        const int r = r0 + u, j = r % KK;
+        if (r < GK && ((bits >> j) & 1) && gpos <= p + j)
+          ev[r * PS + tid] = fmaxf(ev[r * PS + tid], s[u]);
+      }
+    }
+    __syncthreads();
+  }
+  for (int r = warp; r < GK; r += nw) {
+    float m = kNeg;
+    for (int k = lane; k < PS; k += 32) m = fmaxf(m, ev[r * PS + k]);
+    m = warp_max(m);
+    if (lane == 0) rmax[r] = m;
+  }
+  __syncthreads();
+
+  // ---- pass 2: e, its sum, and o += e v, one tile at a time
+  for (int e = 0; e < TM; ++e) {
+    const int t = etile[e];
+    if (t < 0) continue;
+    stage_tile(tile, kc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
+    __syncthreads();
+    const int bits = ebits[e], gpos = (t - base) * PS + tid;
+    for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+      float s[kVerifyRows];
+      scores(r0, s);
+#pragma unroll
+      for (int u = 0; u < kVerifyRows; ++u) {
+        const int r = r0 + u, j = r % KK;
+        if (r >= GK) continue;
+        float x = 0.f;
+        if (((bits >> j) & 1) && gpos <= p + j) {
+          x = expf(s[u] - rmax[r]);
+          lp[r * PS + tid] += x;
+        }
+        ev[r * PS + tid] = rt<T>(x);
+      }
+    }
+    __syncthreads();
+    stage_tile(tile, vc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
+    __syncthreads();
+    // o += e v: a thread per d, rows in chunks of 8 so each value is read
+    // once a chunk; lanes in an order rotated by d, so the reads of a warp
+    // fall in distinct shared-memory banks (ev's pad rows are 0)
+    for (int d = tid; d < D; d += blockDim.x) {
+      const T* vrow = tile + d * PS;
+      const int rot = (kRot * d) % PS;
+      for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+        float a[kVerifyRows];
+#pragma unroll
+        for (int u = 0; u < kVerifyRows; ++u) a[u] = 0.f;
+        for (int k = 0; k < PS; ++k) {
+          int pp = k + rot;
+          if (pp >= PS) pp -= PS;
+          const float vv = to_f(vrow[pp]);
+          const float* ec = ev + (size_t)r0 * PS + pp;
+#pragma unroll
+          for (int u = 0; u < kVerifyRows; ++u) a[u] += ec[u * PS] * vv;
+        }
+#pragma unroll
+        for (int u = 0; u < kVerifyRows; ++u)
+          if (r0 + u < GK) acc[(r0 + u) * D + d] += a[u];
+      }
+    }
+    __syncthreads();
+  }
+  for (int r = warp; r < GK; r += nw) {
+    float l = 0.f;
+    for (int k = lane; k < PS; k += 32) l += lp[r * PS + k];
+    l = warp_sum(l);
+    if (lane == 0) rsum[r] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < GK * D; i += blockDim.x)
+    o[bh * GK * D + i] = from_f<T>(acc[i] / fmaxf(rsum[i / D], 1e-30f));
+}
+
+template <typename T>
+int launch_verify(const void* q, void* kc, void* vc, void* cc,
+                  const void* tables, const void* selm, const void* pos,
+                  const void* kn, const void* vn, const void* cn,
+                  const void* tile_base, void* o, int B, int KV, int GK,
+                  int KK, int D, int NTALL, int W, int TM, int PS,
+                  float scale, float clamp, cudaStream_t stream) {
+  const int GKP = (GK + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
+  // verify_attention_rows in ops/decode_attention.py computes the same
+  const size_t smem = sizeof(T) * (size_t)D * PS +
+                      sizeof(float) * ((size_t)D * GKP + (size_t)GKP * PS +
+                                       (size_t)GK * PS + (size_t)GK * D +
+                                       2 * GKP) +
+                      sizeof(int) * 2 * TM;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        verify_attention_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(KV, B);
+  verify_attention_kernel<T><<<grid, PS, smem, stream>>>(
+      (const T*)q, (T*)kc, (T*)vc, (int*)cc, (const int*)tables,
+      (const int*)selm, (const int*)pos, (const T*)kn, (const T*)vn,
+      (const int*)cn, (const int*)tile_base, (T*)o, KV, GK, KK, D, NTALL, W,
+      TM, PS, scale, clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace spt
 
 extern "C" int spt_decode_attention(
@@ -390,4 +633,16 @@ extern "C" int spt_decode_attention_q(
   return f(q, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn, cn, ksn,
            vsn, tile_base, o, B, KV, G, D, NTALL, W, KVP, NTAB, TM, TPS, PS,
            scale, clamp, (cudaStream_t)stream);
+}
+
+extern "C" int spt_verify_attention(
+    int dtype, const void* q, void* kc, void* vc, void* cc,
+    const void* tables, const void* selm, const void* pos, const void* kn,
+    const void* vn, const void* cn, const void* tile_base, void* o, int B,
+    int KV, int GK, int KK, int D, int NTALL, int W, int TM, int PS,
+    float scale, float clamp, void* stream) {
+  auto f = dtype == spt::kBF16 ? spt::launch_verify<__nv_bfloat16>
+                               : spt::launch_verify<float>;
+  return f(q, kc, vc, cc, tables, selm, pos, kn, vn, cn, tile_base, o, B, KV,
+           GK, KK, D, NTALL, W, TM, PS, scale, clamp, (cudaStream_t)stream);
 }

@@ -22,8 +22,18 @@ kernel (ops/block_sparse_attention.py) once per layer. Everything else,
 dense prefill and the unfused front among it, is plain PyTorch that
 mirrors the JAX engine op for op, as the JAX package leaves it to XLA.
 
+Speculative decoding's block verify, `verify_step`, runs K tokens a slot
+through one forward: per layer one launch of the block-verify kernel
+(ops/decode_attention.py `verify_attention_rows`) over a bf16/f32 cache, or
+plain PyTorch attention over an int8 one (the JAX package has no kernel
+there either). `generate` decodes greedily through decode_step_greedy or
+samples through decode_step + `sample`, with ragged prompt lengths, an eos
+id, an int8 KV cache and bucketed cache growth; inference/speculative.py
+drafts and verifies on top of these.
+
 Out of this port so far, and raising NotImplementedError with the slice
-that brings it: routed FFN (training slice).
+that brings it: routed FFN (training slice), generate(mesh=...)
+(parallelism slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -46,7 +56,8 @@ from spt_proto_tpu_torch.ops.block_sparse import pq_tile_scores, select_tiles
 from spt_proto_tpu_torch.ops.block_sparse_attention import \
     block_sparse_attention
 from spt_proto_tpu_torch.ops.decode_attention import (decode_attention_rows,
-                                                      decode_attention_rows_q)
+                                                      decode_attention_rows_q,
+                                                      verify_attention_rows)
 from spt_proto_tpu_torch.ops.decode_front import decode_front
 from spt_proto_tpu_torch.ops.ffn_tail import (MAX_ROWS, ffn_tail,
                                               ffn_tail_gated,
@@ -592,3 +603,422 @@ def decode_step_greedy(iw: InferenceWeights, tokens: torch.Tensor,
     if isinstance(kern, dict):           # int8 weight-only lm_head
         return lm_head_argmax_int8(x, kern), cache
     return lm_head_argmax(x, kern), cache
+
+
+# ---------------------------------------------------------------------------
+# block verify (speculative decoding)
+# ---------------------------------------------------------------------------
+
+def _insert_cols(sl: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                 tile_r: torch.Tensor, col_r: torch.Tensor) -> None:
+    """In place: sl [B, KV, NT, w, T] (a layer's slice of a cache), new
+    [B, KV, K, w]; column i of slot b lands at (tile_r[b, i], col_r[b, i])
+    (slot [B, K] holds b)."""
+    sl[slot, :, tile_r, :, col_r] = new.transpose(1, 2).to(sl.dtype)
+
+
+class _Block:
+    """The index tensors of a verify block (K columns a slot at positions
+    pos0 + [0, K), over NT tiles a layer), made once a step and shared by
+    every layer."""
+
+    def __init__(self, pos0: torch.Tensor, kk: int, nt: int, kv: int,
+                 nsel: int):
+        dev = pos0.device
+        b = pos0.shape[0]
+        self.kk, self.nt, self.kv, self.nsel = kk, nt, kv, nsel
+        self.wpos = pos0.long()[:, None] + torch.arange(kk, device=dev)
+        self.tile_r, self.col_r = self.wpos // TILE, self.wpos % TILE
+        self.slot = torch.arange(b, device=dev)[:, None].expand(b, kk)
+        ar = torch.arange(nt, device=dev)
+        self.own = ar == self.tile_r[..., None]             # [B, K, NT]
+        self.not_full = ar >= self.tile_r[..., None]        # [B, K, NT]
+        w0, w1 = self.tile_r[:, 0], self.tile_r[:, -1]      # the write tiles
+        self.wcols = torch.stack([w0, w1], -1)[:, None].expand(b, kv, 2)
+        self.not_w = ~(self.own[:, 0] | self.own[:, -1])[:, None]  # [B,1,NT]
+        self.dup = (w0 == w1)[:, None]                      # [B, 1]
+        self.jbit = 1 << torch.arange(kk, device=dev, dtype=torch.int32)
+        self._dense = None
+
+    def select(self, cfg: ModelConfig, c_l: torch.Tensor,
+               codes_q: torch.Tensor) -> torch.Tensor:
+        """Each block position's decode tile selection over the layer's
+        codes c_l [B, KV, NT, w, T] (the block's new codes already in
+        them): keep [B, N_TAB, K, NT] bool, the position's own tile and
+        the top nsel-1 FULL tiles (below its own) by group-pooled mean PQ
+        match, in lax.top_k order (descending, the lowest index first on
+        ties), as decode_step selects for that position. codes_q [B, KV,
+        G, K, n_sub]. The match counts come from each tile's code
+        histogram: sum over the group, the lanes and the subspaces of
+        [code == query code], an integer, then / (G * T), the f32 mean of
+        integer-valued terms that JAX takes in any order."""
+        b, kv, g, kk, ns = codes_q.shape
+        nt, nc = self.nt, cfg.n_codewords
+        codes = c_l[:, :, :, :ns].long()                    # [B,KV,NT,ns,T]
+        hist = torch.zeros((b, kv, nt, ns, nc), dtype=torch.int32,
+                           device=c_l.device)
+        hist.scatter_add_(-1, codes, torch.ones_like(codes, dtype=torch.int32))
+        cnt = hist[:, :, None, None].expand(b, kv, g, kk, nt, ns, nc).gather(
+            -1, codes_q.long()[:, :, :, :, None, :, None].expand(
+                b, kv, g, kk, nt, ns, 1))
+        tsc = cnt.sum((2, 5, 6)).float() / (g * TILE)       # [B, KV, K, NT]
+        gsel = cfg.sparse_select_heads
+        if gsel > 1:
+            tsc = tsc.reshape(b, kv // gsel, gsel, kk, nt).mean(2)
+        tsc = tsc.masked_fill(self.not_full[:, None], float('-inf'))
+        keep = torch.zeros(tsc.shape, dtype=torch.bool, device=c_l.device)
+        if self.nsel > 1:
+            svals, sidx = torch.sort(tsc, dim=-1, descending=True,
+                                     stable=True)
+            keep.scatter_(-1, sidx[..., :self.nsel - 1],
+                          svals[..., :self.nsel - 1] > float('-inf'))
+        return keep | self.own[:, None]
+
+    def tables(self, keep: Optional[torch.Tensor], base: int):
+        """The block-verify kernel's per-head table and visibility bits for
+        the layer whose tiles start at `base`: the union of every
+        position's full selected tiles (t_sel = min(nt, (nsel-1) K) entries
+        in lax.top_k order, -1 when empty), or every tile below the first
+        write tile when keep is None (dense), then the two write tiles;
+        bit j of an entry's mask is set where block position j selected it
+        (dense: all K bits). The first write entry's bits are zeroed when
+        it repeats the second. Returns (tables [B, KV, T] int32 physical
+        ids, bits [B, KV, T] int32)."""
+        if keep is None:
+            if self._dense is None:        # the same for every layer
+                ar = torch.arange(self.nt, device=self.wpos.device)
+                ent = torch.where(ar < self.tile_r[:, :1], ar, -1)
+                ent = ent[:, None].expand(-1, self.kv, -1)
+                bits = torch.full(ent.shape, (1 << self.kk) - 1,
+                                  dtype=torch.int32, device=ent.device)
+                self._dense = self._entries(ent, bits)
+            ent, ebits = self._dense
+        else:
+            if keep.shape[1] != self.kv:
+                keep = keep.repeat_interleave(self.kv // keep.shape[1], dim=1)
+            bits = (keep * self.jbit[:, None]).sum(2, dtype=torch.int32)
+            union = keep.any(2) & self.not_w                # [B, KV, NT]
+            t_sel = min(self.nt, (self.nsel - 1) * self.kk)
+            vals, idx = torch.sort(union.to(torch.uint8), dim=-1,
+                                   descending=True, stable=True)
+            ent, ebits = self._entries(
+                torch.where(vals[..., :t_sel] > 0, idx[..., :t_sel], -1), bits)
+        return torch.where(ent >= 0, ent + base, -1).to(torch.int32), ebits
+
+    def _entries(self, ent: torch.Tensor, bits: torch.Tensor):
+        """ent [B, KV, T-2] the table's other entries (-1 = empty), bits
+        [B, KV, NT] each tile's visibility bits: the whole table, the write
+        tiles appended, and each entry's bits."""
+        ent = torch.cat([ent, self.wcols], dim=-1)
+        ebits = torch.where(ent >= 0, bits.gather(-1, ent.clamp(min=0)), 0)
+        ebits[..., -2].masked_fill_(self.dup, 0)
+        return ent, ebits
+
+
+def verify_step(iw: InferenceWeights, tokens: torch.Tensor, cache: KVCache,
+                impl: Optional[str] = None) -> Tuple[torch.Tensor, KVCache]:
+    """Speculative-decoding block verify: K tokens a slot in one forward.
+    tokens [B, K] at positions cache.length[b] + [0, K); returns (logits
+    [B, K, V], cache with the K columns appended, in place, and length +=
+    K). The caller rolls back by lowering cache.length: rejected columns
+    stay in the tiles, every attention path masks by position, and the
+    next append overwrites them.
+
+    Attention mirrors decode_step exactly for each block position j: dense
+    is causal over positions <= pos + j; sparse attends each kv head's
+    decode selection for position j (group-pooled PQ match means over FULL
+    tiles, < (pos + j) // TILE, the top nsel-1 in lax.top_k order, plus its
+    own tile), scores clamped to +-score_clamp before masking. The new
+    codes / k / v are inserted up front: a later column i > j lands in a
+    tile >= j's own tile, which the full-tile cutoff and the position mask
+    hide from j.
+
+    impl (None = by cache): 'kernel', the default for a bf16/f32 cache,
+    launches the block-verify kernel (ops/decode_attention.py
+    verify_attention_rows) once a layer over the union of every position's
+    tiles, with a per-entry K-bit visibility mask, appending the K columns
+    in place; 'jnp', the default and the only path for an int8 cache (the
+    JAX package has no kernel for it either), computes the same attention
+    in plain PyTorch over the layer's cache slice. On the GPU a bf16/f32
+    cache verifies only through the kernel."""
+    _require_slice(iw, cache)
+    quantized = cache.quantized
+    impl = impl or ('jnp' if quantized else 'kernel')
+    if impl not in ('kernel', 'jnp'):
+        raise ValueError(f"impl must be 'kernel' or 'jnp', got {impl!r}")
+    use_kernel = impl == 'kernel'
+    if use_kernel and quantized:
+        raise ValueError('the int8 cache verifies via impl=jnp')
+    if not use_kernel and not quantized and cache.k.device.type == 'cuda':
+        raise NotImplementedError(
+            "impl='jnp' over a bf16/f32 cache would run plain PyTorch "
+            "attention on the GPU: there the port verifies through its "
+            "kernel (impl='kernel'); the plain twins run on CPU tensors")
+    cfg = iw.cfg
+    p = iw.params
+    b, kk = tokens.shape
+    nt = cache.tiles_per_layer(cfg.n_layers)
+    kv, g, dh = cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    pos0 = cache.length
+    dev = pos0.device
+    sparse = cfg.attention == ATTN_SPARSE_V2
+    nsel = min(nt, max(1, nt // cfg.sparse_coeff) + 1) if sparse else 0
+    blk = _Block(pos0, kk, nt, kv, nsel)
+    h_tok = p['embedding']['embedding'][tokens.long()]
+    if cfg.arch == 'opt':
+        h_tok = h_tok + p['learned_pe']['embedding'][blk.wpos + PE_OFFSET]
+    x = h_tok.to(cfg.dtype)                                  # [B, K, D]
+    scale = dh ** -0.5
+    rope = _rope_tables(cfg, blk.wpos) if cfg.arch == 'llama' else None
+    if use_kernel:
+        # each layer's first tile, and the dense caches' one code column
+        bases = (torch.arange(cfg.n_layers, device=dev, dtype=torch.int32)
+                 * nt)[:, None].expand(-1, b).contiguous()
+        cn_dense = torch.zeros((b, kv, cache.codes.shape[3], kk),
+                               dtype=torch.int32, device=dev)
+    for li in range(cfg.n_layers):
+        bp = _layer(p['blocks'], li)
+        mha = bp['mha']
+        base = li * nt
+        q3, k3, v3 = _qkv_proj(mha, _norm(cfg, bp['norm1'], x))
+        q = q3.reshape(b, kk, kv * g, dh).transpose(1, 2)    # [B, H, K, D]
+        k_new = k3.reshape(b, kk, kv, dh).transpose(1, 2)   # [B, KV, K, D]
+        v_new = v3.reshape(b, kk, kv, dh).transpose(1, 2)
+        if rope is not None:
+            q, k_new = _apply_rope(q, *rope), _apply_rope(k_new, *rope)
+        keep = None
+        if sparse:
+            bd_m = _bd_of(mha)
+            codes_q = _encode_codes(cfg, mha['quantizer'],
+                                    q.reshape(b, kv, g, kk, dh), bd=bd_m)
+            c_new = _fit_codes(_encode_codes(cfg, mha['quantizer'], k_new,
+                                             bd=bd_m), cache.codes.shape[3])
+            # the block's codes go in first (on the kernel path the kernel
+            # then writes the same values): a position past a tile
+            # boundary selects over the tile the block's earlier columns
+            # filled
+            c_l = cache.codes[:, :, base:base + nt]          # a view
+            _insert_cols(c_l, c_new, blk.slot, blk.tile_r, blk.col_r)
+            keep = blk.select(cfg, c_l, codes_q)
+        if use_kernel:
+            tables, bits = blk.tables(keep, base)
+            cn = c_new.transpose(2, 3) if sparse else cn_dense
+            o = verify_attention_rows(
+                q.reshape(b, kv, g * kk, dh).contiguous(), cache.k, cache.v,
+                cache.codes, tables, bits, pos0,
+                k_new.transpose(2, 3).to(cache.k.dtype).contiguous(),
+                v_new.transpose(2, 3).to(cache.v.dtype).contiguous(),
+                cn.to(torch.int32).contiguous(), bases[li], ps=TILE,
+                scale=scale, clamp=cfg.score_clamp if sparse else 0.0)[0]
+            o = o.reshape(b, kv, g, kk, dh).permute(0, 3, 1, 2, 4).reshape(
+                b, kk, cfg.d_model)
+        else:
+            o = _verify_plain(cfg, cache, base, blk, q, k_new, v_new, keep,
+                              scale)
+        x = x + _dense(mha['o'], o)
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+    cache = dataclasses.replace(cache, length=pos0 + kk)
+    logits = _dense(p['lm_head'], _norm(cfg, p['final_norm'], x))
+    return logits, cache
+
+
+def _verify_plain(cfg: ModelConfig, cache: KVCache, base: int, blk: _Block,
+                  q, k_new, v_new, keep, scale: float):
+    """verify_step's plain path for one layer: insert the K columns into the
+    layer's cache slice (int8 caches: quantized, scales beside them, the
+    pad heads' scale lanes zeroed as the JAX engine writes them), then
+    attention over the whole slice with each position's mask. Returns o
+    [B, K, d_model]."""
+    b, kv, kk, dh = k_new.shape
+    g, nt = cfg.kv_groups, blk.nt
+    at = (blk.slot, blk.tile_r, blk.col_r)
+    sl = slice(base, base + nt)
+    k_l, v_l = cache.k[:, :, sl], cache.v[:, :, sl]          # views
+    if cache.quantized:
+        k8, ks_new = _quantize_kv(k_new)                     # [B,KV,K,D]
+        v8, vs_new = _quantize_kv(v_new)
+        _insert_cols(k_l, k8, *at)
+        _insert_cols(v_l, v8, *at)
+        ksc_l, vsc_l = cache.k_scale[:, sl], cache.v_scale[:, sl]
+        hp = ksc_l.shape[2]
+        for sc_l, s_new in ((ksc_l, ks_new), (vsc_l, vs_new)):
+            s_pad = torch.nn.functional.pad(s_new, (0, 0, 0, hp - kv))
+            sc_l[blk.slot, blk.tile_r, :, blk.col_r] = s_pad.transpose(1, 2)
+        # dequantized operands (the kernels' scores x kscale and
+        # probabilities x vscale)
+        kf = (k_l.float() * ksc_l[:, :, :kv].permute(0, 2, 1, 3)[:, :, :,
+                                                                  None]
+              ).to(cfg.dtype)
+        vf = (v_l.float() * vsc_l[:, :, :kv].permute(0, 2, 1, 3)[:, :, :,
+                                                                  None]
+              ).to(cfg.dtype)
+    else:
+        _insert_cols(k_l, k_new, *at)
+        _insert_cols(v_l, v_new, *at)
+        kf, vf = k_l, v_l
+    s_all = nt * TILE
+    k_tok = kf.transpose(3, 4).reshape(b, kv, s_all, dh)
+    v_tok = vf.transpose(3, 4).reshape(b, kv, s_all, dh)
+    if g > 1:
+        k_tok = k_tok.repeat_interleave(g, dim=1)
+        v_tok = v_tok.repeat_interleave(g, dim=1)
+    scores = (q.float() @ k_tok.float().transpose(-1, -2)) * scale  # [B,H,K,S]
+    causal = torch.arange(s_all, device=q.device) <= blk.wpos[..., None]
+    if keep is not None:
+        scores = scores.clamp(-cfg.score_clamp, cfg.score_clamp)
+        keep_s = keep.repeat_interleave(cfg.n_heads // keep.shape[1], dim=1)
+        allowed = keep_s.repeat_interleave(TILE, dim=3) & causal[:, None]
+    else:
+        allowed = causal[:, None]
+    scores = torch.where(allowed, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_tok.dtype)
+    o = (probs.float() @ v_tok.float()).to(cfg.dtype)       # [B, H, K, D]
+    return o.transpose(1, 2).reshape(b, kk, cfg.d_model)
+
+
+# ---------------------------------------------------------------------------
+# cache growth (length bucketing), sampling, generate
+# ---------------------------------------------------------------------------
+
+DECODE_BUCKET = 256   # a multiple of the tile size
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def grow_cache(cache: KVCache, new_len: int, n_layers: int) -> KVCache:
+    """A cache of new_len tokens a layer holding `cache`'s tiles: each
+    layer's block of tiles is padded with zero tiles, so decode cost tracks
+    the current bucket instead of the final max_len. Returns new tensors;
+    the old ones free when the caller drops them."""
+    nt_old = cache.tiles_per_layer(n_layers)
+    nt_new = -(-new_len // TILE)
+
+    def grow(big, t_axis):          # t_axis: the folded layer-tile axis
+        lead = big.shape[:t_axis]
+        tail = big.shape[t_axis + 1:]
+        out = big.new_zeros((*lead, n_layers, nt_new, *tail))
+        out.narrow(t_axis + 1, 0, nt_old).copy_(
+            big.reshape(*lead, n_layers, nt_old, *tail))
+        return out.reshape(*lead, n_layers * nt_new, *tail)
+
+    scales = {}
+    if cache.quantized:
+        scales = dict(k_scale=grow(cache.k_scale, 1),
+                      v_scale=grow(cache.v_scale, 1))
+    return KVCache(k=grow(cache.k, 2), v=grow(cache.v, 2),
+                   codes=grow(cache.codes, 2), length=cache.length, **scales)
+
+
+def warp_logits(logits: torch.Tensor, *, temperature: float,
+                top_k: Optional[int] = None,
+                top_p: Optional[float] = None) -> torch.Tensor:
+    """Temperature / top-k / nucleus warping (f32 logits out, NEG_INF where
+    cut). The warped softmax is the sampling distribution; speculative
+    rejection sampling (inference/speculative.py) warps draft and target
+    the same way."""
+    logits = logits.float() / temperature
+    if top_k is not None:
+        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
+        logits = torch.where(logits >= kth, logits, NEG_INF)
+    if top_p is not None:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < top_p).sum(-1, keepdim=True)
+        cutoff = sorted_logits.gather(-1, cutoff_idx)
+        logits = torch.where(logits >= cutoff, logits, NEG_INF)
+    return logits
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+           *, temperature: float = 0.0, top_k: Optional[int] = None,
+           top_p: Optional[float] = None) -> torch.Tensor:
+    """Greedy (temperature 0: argmax, the lowest index on ties) or a draw
+    from the warped softmax with `generator` (on the logits' device). The
+    JAX package draws with jax.random; the two cannot give the same
+    numbers, only the same distribution."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(warp_logits(logits, temperature=temperature,
+                                      top_k=top_k, top_p=top_p), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    tok = torch.multinomial(flat, 1, generator=generator)
+    return tok.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def weights_device(iw: InferenceWeights) -> torch.device:
+    """The device the weights live on (the entry points below run there)."""
+    return iw.params['embedding']['embedding'].device
+
+
+def generate(iw: InferenceWeights, prompts: torch.Tensor,
+             max_new_tokens: int, *, max_len: Optional[int] = None,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None,
+             eos_id: Optional[int] = None,
+             lengths: Optional[torch.Tensor] = None,
+             quantized_kv: bool = False, mesh=None) -> torch.Tensor:
+    """Batch generate on the weights' device. prompts [B, S_prompt] ->
+    int32 [B, S_prompt + max_new_tokens] (fewer columns when every row hit
+    eos_id early).
+
+    Greedy without eos_id decodes through decode_step_greedy (the fused
+    lm_head argmax); otherwise decode_step + sample, drawing with
+    `generator` (default: one seeded with 0; JAX's random draws cannot be
+    reproduced). quantized_kv keeps the KV cache in int8 with per-token
+    scales. The cache starts at the smallest DECODE_BUCKET multiple that
+    fits the prompt and grows as decoding proceeds (up to max_len).
+
+    Ragged batches: right-pad the prompts and pass the true per-row
+    `lengths [B]`: the cache length is set per row and the first token is
+    sampled at each row's last prompt token; generated tokens still land at
+    out[:, S_prompt + i]. `mesh` (tensor-parallel serving) comes with the
+    parallelism slice and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            'generate(mesh=...): tensor-parallel serving comes with the '
+            'parallelism slice')
+    dev = weights_device(iw)
+    prompts = prompts.to(dev)
+    b, s0 = prompts.shape
+    limit = max_len or (s0 + max_new_tokens)
+    cap = min(max(s0, round_up(s0 + 1, DECODE_BUCKET)), max(limit, s0))
+    cache = KVCache.create(iw.cfg, b, cap, dtype=iw.cfg.dtype,
+                           quantized=quantized_kv, device=dev)
+    greedy = temperature == 0.0 and eos_id is None
+    logits, cache = prefill(iw, prompts, cache)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+        max_pos = int(lengths.max())
+        cache = dataclasses.replace(cache, length=lengths.clone())
+        last = logits[torch.arange(b, device=dev), lengths.long() - 1]
+    else:
+        max_pos = s0
+        last = logits[:, -1]
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    warps = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    out = [prompts.to(torch.int32)]
+    tok = sample(last, generator, **warps)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        out.append(tok[:, None])
+        if eos_id is not None:
+            done = done | (tok == eos_id)
+            if bool(done.all()):
+                break
+        if i == max_new_tokens - 1:
+            break
+        if max_pos + 1 > cap and cap < limit:
+            cap = min(round_up(max_pos + 1, DECODE_BUCKET), limit)
+            cache = grow_cache(cache, cap, iw.cfg.n_layers)
+        if greedy:
+            tok, cache = decode_step_greedy(iw, tok, cache)
+        else:
+            logits, cache = decode_step(iw, tok, cache)
+            tok = sample(logits, generator, **warps)
+        max_pos += 1
+    return torch.cat(out, dim=1)

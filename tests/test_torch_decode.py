@@ -17,6 +17,10 @@ from spt_proto_tpu.ops.pallas.decode_front import decode_front as j_front
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import decode_front as tfront
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 TILE = 128
 
 

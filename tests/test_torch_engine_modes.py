@@ -24,6 +24,10 @@ from spt_proto_tpu_torch.inference import engine as teng
 from spt_proto_tpu_torch.inference.weights import InferenceWeights as TIW
 from test_torch_engine import port_config
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 B, MAX_LEN, STEPS = 2, 1024, 8
 
 

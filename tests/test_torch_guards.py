@@ -23,13 +23,17 @@ from spt_proto_tpu_torch.ops import ffn_tail as tffn
 from spt_proto_tpu_torch.ops import int8_matmul as tmm
 from spt_proto_tpu_torch.ops import lm_head as tlm
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 
 WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tlm.lm_head_argmax, tbsa.block_sparse_attention,
             tattn.decode_attention_rows, tffn.ffn_tail, tmm.int8_matmul,
             tlm.lm_head_argmax_int8, tffn.ffn_tail_int8, tffn.ffn_tail_gated,
-            tffn.ffn_tail_gated_int8)
+            tffn.ffn_tail_gated_int8, tattn.verify_attention_rows)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -78,10 +82,11 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
-    """Prefill + greedy decode on CPU tensors, sparse over an int8 cache,
-    dense over an f32 cache with the fused FFN tail, and sparse int8-KV with
-    int8 weights, for OPT and for a LLaMA GQA model (its gated tails): every
-    kernel wrapper is reached, and none launches its kernel."""
+    """Prefill + greedy decode + a speculative verify block on CPU tensors,
+    sparse over an int8 cache, dense over an f32 cache with the fused FFN
+    tail, and sparse int8-KV with int8 weights, for OPT and for a LLaMA GQA
+    model (its gated tails): every kernel wrapper is reached, and none
+    launches its kernel."""
     for w in WRAPPERS:
         w.launches = 0
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
@@ -104,6 +109,9 @@ def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
         assert tok.dtype == torch.int32 and tok.shape == (2,)
         assert ((tok >= 0) & (tok < cfg.vocab_size)).all()
         assert cache.length.tolist() == [258, 258]
+        logits, cache = teng.verify_step(iw, tokens[:, :3], cache)
+        assert logits.shape == (2, 3, cfg.vocab_size)
+        assert cache.length.tolist() == [261, 261]
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
@@ -187,3 +195,49 @@ def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
             torch.zeros((b, kv, d)), torch.zeros((b, kv, d)),
             torch.zeros((b, kv, 1), dtype=torch.int32))
     assert tattn.decode_attention_rows.launches == 0
+
+
+def test_generate_with_a_mesh_raises_and_names_its_slice():
+    """Tensor-parallel generate() comes with the parallelism slice."""
+    cfg = _tiny_cfg()
+    iw = InferenceWeights.from_params(
+        cfg, bridge.init_params(cfg, seed=0, device='cpu'))
+    with pytest.raises(NotImplementedError, match='parallelism slice'):
+        teng.generate(iw, torch.ones((1, 4), dtype=torch.int64), 2,
+                      mesh=object())
+
+
+def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
+        monkeypatch):
+    """On the card a bf16/f32 cache verifies only through the kernel:
+    verify_step(impl='jnp') there raises (checked on a cache that reports a
+    CUDA device), and the int8 cache, which has no kernel, refuses
+    impl='kernel'. A query row count whose buffers outgrow the kernel's
+    shared memory raises RuntimeError naming the limit and never runs the
+    plain twin (CPU tensors reported as CUDA ones: the check comes before
+    the build)."""
+    iw = InferenceWeights.from_params(
+        _tiny_cfg(), bridge.init_params(_tiny_cfg(), seed=0, device='cpu'))
+    card = types.SimpleNamespace(device=torch.device('cuda'))
+    card_cache = teng.KVCache(k=card, v=card, codes=card,
+                              length=torch.zeros(1, dtype=torch.int32))
+    block = torch.ones((1, 3), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="impl='kernel'"):
+        teng.verify_step(iw, block, card_cache, impl='jnp')
+    cache = teng.KVCache.create(_tiny_cfg(), 1, 256, quantized=True,
+                                device='cpu')
+    with pytest.raises(ValueError, match='impl=jnp'):
+        teng.verify_step(iw, block, cache, impl='kernel')
+    monkeypatch.setattr(tattn._build, 'on_cuda', lambda *ts: True)
+    b, kv, d, ps, kk, g = 1, 1, 128, 128, 30, 8
+    q = torch.zeros((b, kv, g * kk, d))
+    k = torch.zeros((b, kv, 4, d, ps))
+    codes = torch.zeros((b, kv, 4, 1, ps), dtype=torch.int32)
+    tables = torch.tensor([[[0, 1, 1]]], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
+        tattn.verify_attention_rows(
+            q, k, k.clone(), codes, tables, torch.ones_like(tables),
+            torch.zeros((b,), dtype=torch.int32), torch.zeros((b, kv, d, kk)),
+            torch.zeros((b, kv, d, kk)),
+            torch.zeros((b, kv, 1, kk), dtype=torch.int32))
+    assert tattn.verify_attention_rows.launches == 0

@@ -23,6 +23,10 @@ from spt_proto_tpu_torch.ops import int8_matmul as tmm
 from spt_proto_tpu_torch.ops import lm_head as tlm
 from test_torch_engine import port_config
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 DTYPES = {'f32': (jnp.float32, torch.float32),
           'bf16': (jnp.bfloat16, torch.bfloat16)}
 

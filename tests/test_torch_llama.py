@@ -30,6 +30,10 @@ from test_torch_engine import flat, port_config
 from test_torch_engine_modes import B, _run
 from test_torch_int8 import as_np, t
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 TILE = 128
 
 

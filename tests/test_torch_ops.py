@@ -28,6 +28,10 @@ from spt_proto_tpu_torch.ops import pq as tpq
 from spt_proto_tpu_torch.ops import sparse_attention as tsa
 from spt_proto_tpu_torch.ops.decode_front import build_pq_bd as t_build_pq_bd
 
+# the suite runs in several xdist workers on a few cores, and these
+# tensors are small: one torch thread per worker
+torch.set_num_threads(1)
+
 
 def t(a):
     return torch.from_numpy(np.asarray(a).copy())
