@@ -24,9 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    and Llama-3-8B widths, m = 4 and 8, and the int8 matmul at the decode
    shapes (o and qkv of OPT-125M and OPT-1.3B; o and k / v of LLaMA) and
    two prefill shapes (m = 16,384: fc1 of OPT-125M, Llama-3-8B's gate),
-   and the speculative block verify (OPT-125M and Llama-3-8B, union and
-   dense tables at max_len 2304, one block across a tile boundary); time
-   kernel, twin and the one-call library equivalent where there is one;
+   the speculative block verify (OPT-125M and Llama-3-8B, union and
+   dense tables at max_len 2304, one block across a tile boundary), the
+   paged-attention kernel (OPT-125M and Llama-3-8B's G = 4 at B=8, context
+   2041-2048, pages of 64 tokens, fp and int8 pages, a released lane's -1
+   table row read through the sink page), the tile-pool decode attention
+   (OPT-125M, 96 rows of 17 tiles) and both tile-table decode attention
+   kernels over a dense Llama-3-8B table of 96 tiles (12,288 tokens: the
+   two-pass walk); time kernel, twin and the one-call library equivalent
+   where there is one;
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
@@ -57,7 +63,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    sparse int8-KV, sparse int8-KV with the fused gated tail and sparse
    int8-KV w8, then LLaMA-7B sparse int8-KV w8 at B=4 (bench_ladder.py's
    llama-7b rung), each model freed before the next is built; and, while
-   Llama-3-8B is loaded, its speculative serving run (as in phase 7);
+   Llama-3-8B is loaded, its speculative serving run (as in phase 7) and
+   a paged dense bf16-KV serving run through the continuous batching
+   engine on phase 8's traffic;
 7. speculative serving in bf16, bench_serving.py's workload (a 16-token
    phrase tiled through a 2048-token prompt, B=8, k=4, 64 new tokens,
    max_len 2304): OPT-125M with n-gram drafts over a bf16 KV cache (the
@@ -65,7 +73,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    with OPT-125M as its draft; each prints acceptance, verify-step and
    decode-step ms, tok/s by bench_serving's formula, its token agreement
    with greedy generate() and its exact launch counts;
-8. print the per-kernel JSON line, then the contract line
+8. the serving stack: OPT-125M in bf16 through ContinuousBatchingEngine,
+   16 requests over 8 slots, prompts of 128-1920 tokens (numpy seed 3),
+   64 new tokens each, max_len 2176, in seven modes: contiguous sparse
+   int8-KV; contiguous dense bf16-KV with prefill_chunk 512 and the
+   prefix cache (every other request shares a pinned 1,024-token prefix);
+   paged dense bf16-KV and int8-KV (pages of 64, the paged-attention
+   kernel); paged sparse int8-KV; paged dense with a pool of 60% of the
+   need (preemption); contiguous sparse bf16-KV speculative=4. Each prints
+   its tokens, wall time, tok/s, engine steps, mean step ms (CUDA events),
+   preemptions, prefix hits, acceptance and peak memory, with exact launch
+   counts. Then an f32 parity step (6 requests, 3 slots, 16 tokens; each
+   engine and the HTTP server against its reference, >= 0.995 of the
+   tokens: see serving_parity);
+9. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -79,6 +100,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -189,14 +211,25 @@ def tolerance(dtype) -> tuple[float, float]:
     return (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2 ** -7)
 
 
-def close(got, want, dtype) -> bool:
+def output_tolerance(want, dtype) -> tuple[float, float]:
+    """(atol, rtol) for an attention output: f32 as `tolerance`; bf16 one
+    bf16 step of the largest output (2^-7 max|want|) plus one step
+    relative, in place of the fixed 2e-2, which is 2-19 bf16 steps of the
+    outputs phase 2 checks with it (max |o| 0.14-1.24)."""
     atol, rtol = tolerance(dtype)
+    if dtype != torch.float32:
+        atol = rtol * want.float().abs().max().item()
+    return atol, rtol
+
+
+def close(got, want, dtype, tol=None) -> bool:
+    atol, rtol = tol or tolerance(dtype)
     return bool(((got.float() - want.float()).abs()
                  <= atol + rtol * want.float().abs()).all())
 
 
-def tol_str(dtype) -> str:
-    atol, rtol = tolerance(dtype)
+def tol_str(dtype, tol=None) -> str:
+    atol, rtol = tol or tolerance(dtype)
     return f'tol {atol:g} + {rtol:g}|x|'
 
 
@@ -644,20 +677,23 @@ def check_ffn(dtype, d, f, timer=None, int8=False, gated=False, m_rows=B):
     return res
 
 
-def check_attention_gqa(dtype, int8, dense, timer=None):
+def check_attention_gqa(dtype, int8, dense, timer=None, nt=NT, pos0=PROMPT,
+                        layers=4):
     """decode_attention_rows_q (int8 cache) or decode_attention_rows
     (bf16/f32 cache) vs its twin at Llama-3-8B's decode shape: B=8, 8 kv
     heads with G = 4 query rows each, d_head 128, 17 tiles a layer (max_len
     2176), slots at 2048-2055; dense tables (one row, tps 1) or sparse ones
-    (per kv head: two random full tiles, then the write tile)."""
+    (per kv head: two random full tiles, then the write tile). With nt 97
+    and slots at 12,280-12,287 the dense table has 96 tiles (12,288
+    tokens): past the one-pass kernel's shared memory, the two-pass walk."""
     from spt_proto_tpu_torch.ops import decode_attention as m
     g = gen(SEED + 11)
-    b, kv, grp, dh, layers = B, KV_38B, HEADS_LL // KV_38B, DH_LL, 4
-    n_all, base = layers * NT, layers // 2 * NT
-    pos = PROMPT + torch.arange(b, device=DEV, dtype=torch.int32)
+    b, kv, grp, dh = B, KV_38B, HEADS_LL // KV_38B, DH_LL
+    n_all, base = layers * nt, layers // 2 * nt
+    pos = pos0 + torch.arange(b, device=DEV, dtype=torch.int32)
     cur = (pos // TILE).long()
     if dense:
-        tables, n_tiles = dense_tables(pos, NT, 1, base)
+        tables, n_tiles = dense_tables(pos, nt, 1, base)
         width = 1
     else:
         full = torch.rand((b, kv, NT), generator=g, device=DEV)
@@ -707,15 +743,17 @@ def check_attention_gqa(dtype, int8, dense, timer=None):
     err = max_err(got[0], want[0])
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
+    walk = m.rows_walk(grp, dh, TILE, tables.shape[2],
+                       1 if int8 else q.element_size())
     label = (f'{fn.__name__} G={grp} {"dense" if dense else "sparse"} '
-             f'(T={tables.shape[2]})')
+             f'(T={int(n_tiles.max())}, {walk})')
     require(close(got[0], want[0], dtype) and caches_equal
             and bool(torch.isfinite(got[0]).all()),
             f'{label} {dtype}: o err {err}, appended caches equal: '
             f'{caches_equal}')
     log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
         f'({tol_str(dtype)}); appended caches exact')
-    res = dict(max_abs_err=err)
+    res = dict(max_abs_err=err, walk=walk)
     if timer is not None:
         res['ms'] = timer.ms(lambda: fn(*args, **kw))
         res['plain_ms'] = timer.ms(lambda: ref(*ref_args, **kw), reps=5)
@@ -830,6 +868,144 @@ def check_verify(dtype, model, dense, timer=None):
         # visibility
         res['library_ms'] = None
         res.update(entries_read=entries, visible_pairs=pairs)
+        log_times(res)
+    return res
+
+
+PAGED_PS = 64                                  # the engine's page size
+
+
+def paged_inputs(dtype, model, int8, g):
+    """paged_attention inputs at the serving shape: B=8 slots at lengths
+    2041-2048 over pages of 64 tokens (34 a slot, max_len 2176), OPT-125M
+    (12 heads of d_head 64) or Llama-3-8B (8 kv heads of G = 4, d_head
+    128); pools of one layer's pages plus the sink page, each slot's pages
+    a random disjoint set; slot 0 is a released lane (its whole table -1,
+    read through the sink as the engine builds it). int8 pages come from
+    the engine's own quantization of random values."""
+    from spt_proto_tpu_torch.inference.paged import _quantize_pages
+    kv, grp, dh = ((HEADS, 1, DH) if model == 'opt-125m' else
+                   (KV_38B, HEADS_LL // KV_38B, DH_LL))
+    pps = -(-MAX_LEN // PAGED_PS)
+    n_pages = B * pps + 1
+    sink = n_pages - 1
+    q = randn(g, (B, kv * grp, dh), dtype)
+    k, v = (randn(g, (kv, n_pages, PAGED_PS, dh), torch.float32)
+            for _ in range(2))
+    tables = torch.randperm(B * pps, generator=g, device=DEV).reshape(
+        B, pps).to(torch.int32)
+    tables[0] = sink
+    lengths = PROMPT - B + 1 + torch.arange(B, device=DEV, dtype=torch.int32)
+    if int8:
+        (k, ks), (v, vs) = _quantize_pages(k), _quantize_pages(v)
+        return [q, k, v, lengths, tables], dict(k_scales=ks, v_scales=vs)
+    return [q, k.to(dtype), v.to(dtype), lengths, tables], {}
+
+
+def check_paged(dtype, model, int8, timer=None):
+    """paged_attention (the stock paged-attention kernel's port) vs its
+    plain twin (the JAX oracle, int8 pages read back as (x h) / 127.5 in
+    q's dtype): f32 to 1e-5, int8 pages too (kernel and twin round the same
+    dequantized values to f32; only the sums run in another order); bf16,
+    fp or int8 pages, to one bf16 step of the output (output_tolerance)."""
+    from spt_proto_tpu_torch.ops import paged_attention as m
+    g = gen(SEED + 13)
+    args, sc = paged_inputs(dtype, model, int8, g)
+    q, k = args[0], args[1]
+    scale = q.shape[2] ** -0.5
+    got = m.paged_attention(*args, scale=scale, **sc)
+
+    def plain():
+        return m.paged_attention_ref(*args, scale=scale, **sc)
+    want = plain()
+    sync()
+    err = max_err(got, want)
+    tol = output_tolerance(want, dtype)
+    label = (f'paged_attention {model} {"int8" if int8 else "fp"} pages '
+             f'(G={q.shape[1] // k.shape[0]}, ps {PAGED_PS}, a -1 row)')
+    require(close(got, want, dtype, tol) and bool(torch.isfinite(got).all()),
+            f'{label} {dtype}: o err {err}')
+    log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
+        f'({tol_str(dtype, tol)})')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.paged_attention(*args, scale=scale,
+                                                       **sc))
+        res['plain_ms'] = timer.ms(plain, reps=5)
+        # each valid token's k and v (and int8 scales) read once
+        tokens = int(args[3].sum())
+        kv_heads, dh = k.shape[0], k.shape[3]
+        per_token = kv_heads * (2 * dh * k.element_size()
+                                + (8 if int8 else 0))
+        io = nbytes(q, args[3], args[4], got)
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            tokens * per_token + io, tokens * q.shape[1] * 2 * 2 * dh,
+            torch.int8 if int8 else dtype)
+        # no one PyTorch call does the page gather (SDPA wants contiguous
+        # K/V)
+        res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def check_tile_pool(dtype, timer=None):
+    """decode_attention (the tile-pool kernel of decode_attention.py:156)
+    vs its plain twin at the OPT-125M decode shape: BK = 96 (slot, head)
+    rows of G = 1, d_head 64, tiles of 128 tokens, context 2041-2048 (17
+    tiles a row, disjoint; row 1's first entry -1, read as the pool's last
+    tile as the twin wraps it), the new token appended at the last entry;
+    the appended pools must be exact. bf16 o to one bf16 step of the
+    output (output_tolerance)."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    g = gen(SEED + 14)
+    bk, grp, dh, t_max = B * HEADS, 1, DH, NT
+    n_pool = bk * t_max
+    q = randn(g, (bk, grp, dh), dtype)
+    kp, vp = (randn(g, (n_pool, dh, TILE), dtype) for _ in range(2))
+    cp = torch.randint(0, N_CODE, (n_pool, N_SUB, TILE), generator=g,
+                       device=DEV, dtype=torch.int32)
+    tables = torch.randperm(n_pool, generator=g, device=DEV).reshape(
+        bk, t_max).to(torch.int32)
+    # row 1's first entry -1, read as tile n_pool - 1 (the twin's wrap):
+    # that tile leaves the tables, so no row appends to it in this launch
+    at = (tables == n_pool - 1).nonzero()[0]
+    tables[at[0], at[1]] = tables[1, 0].clone()
+    tables[1, 0] = -1
+    pos = (PROMPT - B + torch.arange(B, device=DEV)).repeat_interleave(HEADS)
+    n_tiles = (pos // TILE + 1).to(torch.int32)
+    last = (pos % TILE + 1).to(torch.int32)
+    wt = tables.gather(1, n_tiles.long()[:, None] - 1)[:, 0].contiguous()
+    kn, vn = (randn(g, (bk, dh), dtype) for _ in range(2))
+    cn = torch.randint(0, N_CODE, (bk, N_SUB), generator=g, device=DEV,
+                       dtype=torch.int32)
+    args = [q, kp, vp, cp, tables, n_tiles, last, kn, vn, cn, wt, last - 1]
+    kw = dict(ps=TILE, scale=dh ** -0.5, clamp=10.0)
+    ref_args = [a.clone() for a in args]
+    got = m.decode_attention(*args, **kw)
+    want = m.decode_attention_ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    tol = output_tolerance(want[0], dtype)
+    pools_equal = all(torch.equal(a, b_) for a, b_ in zip(got[1:], want[1:]))
+    label = (f'decode_attention tile pool (BK {bk}, G {grp}, T {t_max}, '
+             f'a -1 entry)')
+    require(close(got[0], want[0], dtype, tol) and pools_equal
+            and bool(torch.isfinite(got[0]).all()),
+            f'{label} {dtype}: o err {err}, appended pools equal: '
+            f'{pools_equal}')
+    log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
+        f'({tol_str(dtype, tol)}); appended pools exact')
+    res = dict(max_abs_err=err)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.decode_attention(*args, **kw))
+        res['plain_ms'] = timer.ms(lambda: m.decode_attention_ref(
+            *ref_args, **kw), reps=5)
+        tokens = int(((n_tiles.long() - 1) * TILE + last).sum())
+        io = nbytes(q, tables, n_tiles, last, kn, vn, cn, wt, got[0])
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            tokens * 2 * dh * q.element_size() + io,
+            tokens * grp * 2 * 2 * dh, dtype)
+        res['library_ms'] = None     # no one call does the table gather
         log_times(res)
     return res
 
@@ -1076,6 +1252,18 @@ def phase_kernels(timer):
         r_ver = {f'{model} {"dense" if dense else "union"}': check_verify(
             dtype, model, dense, t) for model in ('opt-125m', 'llama-3-8b')
             for dense in (False, True)}
+        # the paged-attention kernel (OPT-125M and Llama-3-8B, fp and int8
+        # pages), the tile-pool kernel, and both decode attention kernels
+        # over a dense Llama-3-8B table of 96 tiles (the two-pass walk)
+        r_paged = {f'{model} {"int8" if int8 else "fp"}': check_paged(
+            dtype, model, int8, t) for model in ('opt-125m', 'llama-3-8b')
+            for int8 in (False, True)}
+        r_pool = check_tile_pool(dtype, t)
+        r_walk = {int8: check_attention_gqa(dtype, int8, True, t, nt=97,
+                                            pos0=96 * TILE - B, layers=2)
+                  for int8 in (False, True)}
+        require(all(r['walk'] == 'two-pass' for r in r_walk.values()),
+                'the 96-tile table takes the two-pass walk')
         if t is not None:
             res = dict(
                 decode_front=dict(r_front, bf16_kv=r_front_bf,
@@ -1085,13 +1273,17 @@ def phase_kernels(timer):
                 decode_attention_rows_q=dict(
                     r_attn, dense_tps4=r_attn_d,
                     gqa_llama_3_8b_sparse=r_gqa[True, False],
-                    gqa_llama_3_8b_dense=r_gqa[True, True]),
+                    gqa_llama_3_8b_dense=r_gqa[True, True],
+                    gqa_llama_3_8b_dense_96_tiles=r_walk[True]),
+                paged_attention=dict(r_paged['opt-125m fp'], **r_paged),
+                decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll),
                 block_sparse_attention=dict(r_bsa, llama_d_head_128=r_bsa_ll),
                 decode_attention_rows=dict(
                     r_rows, dense_tps4=r_rows4, sparse=r_rows_s,
                     gqa_llama_3_8b_sparse=r_gqa[False, False],
-                    gqa_llama_3_8b_dense=r_gqa[False, True]),
+                    gqa_llama_3_8b_dense=r_gqa[False, True],
+                    gqa_llama_3_8b_dense_96_tiles=r_walk[False]),
                 ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13),
                 int8_matmul=dict(r_mm['decode o 125m'], **{
                     k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
@@ -1553,7 +1745,8 @@ def wrappers():
     from spt_proto_tpu_torch.ops.block_sparse_attention import \
         block_sparse_attention
     from spt_proto_tpu_torch.ops.decode_attention import (
-        decode_attention_rows, decode_attention_rows_q, verify_attention_rows)
+        decode_attention, decode_attention_rows, decode_attention_rows_q,
+        verify_attention_rows)
     from spt_proto_tpu_torch.ops.decode_front import decode_front
     from spt_proto_tpu_torch.ops.ffn_tail import (ffn_tail, ffn_tail_gated,
                                                   ffn_tail_gated_int8,
@@ -1561,6 +1754,7 @@ def wrappers():
     from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
     from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
                                                  lm_head_argmax_int8)
+    from spt_proto_tpu_torch.ops.paged_attention import paged_attention
     return dict(decode_front=decode_front,
                 decode_attention_rows_q=decode_attention_rows_q,
                 lm_head_argmax=lm_head_argmax,
@@ -1570,7 +1764,9 @@ def wrappers():
                 lm_head_argmax_int8=lm_head_argmax_int8,
                 ffn_tail_int8=ffn_tail_int8, ffn_tail_gated=ffn_tail_gated,
                 ffn_tail_gated_int8=ffn_tail_gated_int8,
-                verify_attention_rows=verify_attention_rows)
+                verify_attention_rows=verify_attention_rows,
+                paged_attention=paged_attention,
+                decode_attention=decode_attention)
 
 
 def expected_launches(iw, quantized):
@@ -1986,6 +2182,17 @@ def phase_llama():
     runs['spec 3-8B n-gram bf16-KV'] = spec_run(
         'spec 3-8B n-gram bf16-KV', iw, spec_workload(sparse.vocab_size),
         False)
+    del iw
+    torch.cuda.empty_cache()
+    # the serving stack at Llama-3-8B width: the paged dense bf16-KV engine
+    # (the paged-attention kernel at G = 4) on phase 8's traffic
+    iw = InferenceWeights.from_params(
+        llama_cfg('3-8b', MAX_LEN, torch.bfloat16, dense=True),
+        dense_params(params))
+    runs['serve 3-8B paged dense bf16-KV'] = engine_run(
+        'serve 3-8B paged dense bf16-KV', iw,
+        serve_traffic(sparse.vocab_size)[0], paged=True,
+        page_size=PAGED_PS, profile=True)
     del iw, params
     torch.cuda.empty_cache()
     sparse = llama_cfg('7b', MAX_LEN, torch.bfloat16)
@@ -1997,11 +2204,382 @@ def phase_llama():
     torch.cuda.empty_cache()
     log('  LLaMA decode ms/step: ' + ', '.join(
         f'{k} {r["decode_ms"] / LLAMA_STEPS:.3f}' for k, r in runs.items()
-        if not k.startswith('spec')))
+        if not k.startswith(('spec', 'serve'))))
     log('  LLaMA peak memory GB: ' + ', '.join(
         f'{k} {r["peak_mem_gb"]:.2f}' for k, r in runs.items()
         if not k.startswith('spec')))
     return dict(runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving stack (continuous batching, paged cache, HTTP server)
+# ---------------------------------------------------------------------------
+
+SERVE_REQS, SERVE_SLOTS, SERVE_NEW = 16, 8, 64
+SERVE_BUCKET = 256          # prompts pad to multiples of 256: every sparse
+                            # prefill runs the block-sparse kernel
+SERVE_PREFIX = 1024
+
+
+def serve_traffic(vocab):
+    """16 prompts of lengths drawn from numpy seed 3 in 128-1920 (random
+    tokens from the same seed), and the same traffic with every other
+    request made of a shared 1,024-token prefix and a tail (its length
+    past 1,024, or half its length): (prompts, prefixed, shared)."""
+    rs = np.random.RandomState(3)
+    lens = rs.randint(128, 1921, size=SERVE_REQS)
+    prompts = [[int(x) for x in rs.randint(1, vocab, size=n)] for n in lens]
+    shared = [int(x) for x in rs.randint(1, vocab, size=SERVE_PREFIX)]
+    prefixed = [shared + p[:n - SERVE_PREFIX if n > SERVE_PREFIX + 16
+                           else n // 2] if i % 2 == 0 else p
+                for i, (p, n) in enumerate(zip(prompts, lens))]
+    return prompts, prefixed, shared
+
+
+def prefill_launches(cfg, s):
+    """block_sparse_attention launches of one prefill of s tokens: a layer
+    each when the config is sparse and s takes the kernel's tile path
+    (engine._sparse_prefill_attention), else none."""
+    if cfg.attention != 'sparse_v2':
+        return 0
+    blk_q = 256 if s % 256 == 0 else 128
+    return cfg.n_layers if s % blk_q == 0 and s >= 256 else 0
+
+
+def engine_run(label, iw, prompts, pin=None, n_new=SERVE_NEW, profile=False,
+               **kw):
+    """Serve every prompt through a ContinuousBatchingEngine (8 slots,
+    max_len 2176) after a 2-request warm-up of the same mode: the launch
+    counters zeroed just before the timed run and read after it, held
+    exactly to the run's own prefill calls, decode steps and verify rounds
+    (a paged decode step: one paged_attention a layer over a dense config;
+    a contiguous step: decode_step_greedy's kernels, as phase 4 counts
+    them; a verify round: one verify_attention_rows a layer over a bf16
+    cache; each prefill: a block_sparse_attention a layer where its length
+    takes the kernel; chunked and prefix-tail prefill are plain PyTorch, as
+    in the JAX engine). With `profile`, a fresh engine of the same mode
+    then takes the first 8 requests and, once they decode, 4 engine steps
+    are profiled. Returns the mode's numbers."""
+    from spt_proto_tpu_torch.inference import batching, paged
+    cfg = iw.cfg
+    ws = wrappers()
+    kw = {**dict(n_slots=SERVE_SLOTS, max_len=MAX_LEN,
+                 prefill_bucket=SERVE_BUCKET), **kw}
+    warm = batching.ContinuousBatchingEngine(iw, **kw)
+    for p in prompts[:2]:
+        warm.submit(p[:300], max_new_tokens=2)
+    warm.run_until_done()
+    del warm
+    eng = batching.ContinuousBatchingEngine(iw, **kw)
+    sizes, decodes = [], []
+    orig = batching.prefill, paged.prefill
+
+    def counted_prefill(iw_, tokens, cache):
+        sizes.append(tokens.shape[1])
+        return orig[0](iw_, tokens, cache)
+
+    decode_fn = eng._decode_fn
+
+    def counted_decode(*a, **k):
+        decodes.append(1)
+        return decode_fn(*a, **k)
+
+    eng._decode_fn = counted_decode
+    batching.prefill = paged.prefill = counted_prefill
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    try:
+        t0 = time.perf_counter()
+        if pin is not None:
+            eng.cache_prefix(pin)
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        ev, pure = [], []
+        while eng.num_active or eng.queue_depth:
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            n_pre = len(sizes)
+            e[0].record()
+            eng.step()
+            e[1].record()
+            ev.append(e)
+            # a step that prefilled nothing (no admission, no chunk)
+            pure.append(len(sizes) == n_pre
+                        and eng.last_step_prefill_tokens == 0)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        batching.prefill, paged.prefill = orig
+    counts = {n: w.launches for n, w in ws.items()}
+    step_ms = [a.elapsed_time(b_) for a, b_ in ev]
+    dec_ms = [t_ for t_, p_ in zip(step_ms, pure) if p_]
+    per_step = dict.fromkeys(ws, 0)
+    if eng.paged:
+        per_step['paged_attention'] = (cfg.n_layers if cfg.attention
+                                       == 'dense' else 0)
+    elif not eng.spec_k:
+        per_step = expected_launches(iw, eng.quantized_kv)[1]
+    rounds = eng.spec_stats['rounds']
+    want = {n: c * len(decodes) for n, c in per_step.items()}
+    want['block_sparse_attention'] += sum(prefill_launches(cfg, n)
+                                          for n in sizes)
+    if eng.spec_k and not eng.quantized_kv:
+        want['verify_attention_rows'] += cfg.n_layers * rounds
+    require(counts == want, f'{label} launch counts {counts} (expected '
+            f'{want}: {len(sizes)} prefills, {len(decodes)} decode steps, '
+            f'{rounds} verify rounds)')
+    done = {c.request_id: c.tokens for c in eng.completions}
+    require(sorted(done) == sorted(rids)
+            and all(len(t) == n_new and all(0 <= x < cfg.vocab_size
+                                            for x in t)
+                    for t in done.values()),
+            f'{label}: completions {[len(t) for t in done.values()]}')
+    n_tok = sum(len(t) for t in done.values())
+    st = eng.spec_stats
+    res = dict(
+        tokens=n_tok, wall_s=wall, tok_s=n_tok / wall, steps=len(ev),
+        decode_steps=len(decodes), mean_step_ms=sum(step_ms) / len(ev),
+        decode_only_step_ms=sum(dec_ms) / max(1, len(dec_ms)),
+        preemptions=eng.n_preemptions, prefix_hits=eng.prefix_hits,
+        acceptance=(st['accepted'] / max(1, st['proposed'])
+                    if eng.spec_k else None),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefills=len(sizes), launches=counts,
+        launches_per_step=per_step,
+        launches_per_prefill={n: 0 for n in ws})
+    res['launches_per_prefill']['block_sparse_attention'] = \
+        prefill_launches(cfg, kw['prefill_bucket'])
+    log(f'  [{label}] {n_tok} tokens in {wall:.2f} s = {res["tok_s"]:.0f} '
+        f'tok/s; {len(ev)} engine steps ({len(decodes)} decode, {rounds} '
+        f'verify rounds), mean step {res["mean_step_ms"]:.3f} ms '
+        f'({res["decode_only_step_ms"]:.3f} ms over the {len(dec_ms)} '
+        f'steps without prefill work); '
+        f'preemptions {eng.n_preemptions}, prefix hits {eng.prefix_hits}, '
+        f'acceptance {res["acceptance"]}; peak {res["peak_mem_gb"]:.2f} GB')
+    log(f'  [{label}] launches: {counts}')
+    del eng
+    if profile:
+        eng = batching.ContinuousBatchingEngine(iw, **kw)
+        for p in prompts[:SERVE_SLOTS]:
+            eng.submit(p, max_new_tokens=8)
+        eng.step()
+        eng.step()
+        res['step_profile'] = device_profile(
+            f'{label}: 4 engine steps of {SERVE_SLOTS} decoding slots',
+            lambda: [eng.step() for _ in range(4)])
+        del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def agreement(got, want) -> float:
+    """Share of equal tokens over completions of equal lengths."""
+    pairs = [(a, b_) for g_, w_ in zip(got, want) for a, b_ in zip(g_, w_)]
+    require(all(len(g_) == len(w_) for g_, w_ in zip(got, want)),
+            'completion lengths differ')
+    return sum(a == b_ for a, b_ in pairs) / len(pairs)
+
+
+def serve_all(iw, prompts, n_new, **kw):
+    from spt_proto_tpu_torch.inference.batching import \
+        ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(iw, **kw)
+    pin = kw.get('prefix_cache') and eng.cache_prefix(prompts[0][:256])
+    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    done = {c.request_id: c.tokens for c in eng.run_until_done()}
+    return [done[r] for r in rids], eng, pin
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+PSERVE_N, PSERVE_SLOTS, PSERVE_NEW, PSERVE_MAX_LEN = 6, 3, 16, 640
+
+
+def post_completions(url, prompts, n_new):
+    """POST every prompt to /v1/completions at once (a thread each)."""
+    import threading
+    import urllib.request
+    out = [None] * len(prompts)
+
+    def worker(i):
+        req = urllib.request.Request(
+            url + '/v1/completions', data=json.dumps(
+                {'prompt': prompts[i], 'max_tokens': n_new}).encode(),
+            headers={'Content-Type': 'application/json'})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out[i] = json.loads(r.read())['tokens']
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    require(all(o is not None for o in out), 'a completion did not return')
+    return out
+
+
+def serving_parity():
+    """f32 OPT-125M at full width, 6 requests over 3 slots, 16 tokens: the
+    engines' completions against their references, each >= 0.995 of the
+    tokens. Dense config (prompts of 128-512 tokens from numpy seed 3, the
+    first three made of a shared 256-token prefix and a tail): the
+    contiguous f32-KV engine, the paged f32-KV engine (the paged-attention
+    kernel) and the engine with prefill_chunk 128 and the prefix pinned,
+    each against greedy generate() of every request on the card; then the
+    HTTP server (make_server, port 0, 6 concurrent POSTs) over the
+    contiguous engine. Sparse config (six 512-token prompts: the padded
+    prompt is the prompt, and the decode tables' size is generate()'s):
+    the contiguous int8-KV engine against generate(quantized_kv=True). The
+    paged int8-KV engine against the same engine on the CPU through the
+    plain twins (its pages quantize per token at 127.5, unlike the
+    contiguous int8 cache, so generate() is no reference for it)."""
+    import threading
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.batching import \
+        ContinuousBatchingEngine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.server import make_server
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    ml, n_new = PSERVE_MAX_LEN, PSERVE_NEW
+    sparse = opt_cfg('125m', ml, torch.float32)
+    dense = opt_cfg('125m', ml, torch.float32, dense=True)
+    params = init_params(sparse, SEED, device=DEV)
+    iw = InferenceWeights.from_params(dense, dense_params(params))
+    rs = np.random.RandomState(3)
+    shared = [int(x) for x in rs.randint(1, VOCAB, size=256)]
+    prompts = []
+    for i in range(PSERVE_N):
+        n = int(rs.randint(128, 513))
+        p = [int(x) for x in rs.randint(1, VOCAB, size=n)]
+        prompts.append(shared + p[:n // 2] if i < 3 else p)
+
+    def refs(iw_, ps, **kw):
+        return [engine.generate(iw_, torch.tensor([p], device=DEV), n_new,
+                                max_len=ml, **kw)[0, len(p):].tolist()
+                for p in ps]
+
+    want = refs(iw, prompts)
+    base = dict(n_slots=PSERVE_SLOTS, max_len=ml, prefill_bucket=128)
+    out = {}
+    for label, kw in (('contiguous f32-KV', {}),
+                      ('paged f32-KV', dict(paged=True,
+                                            page_size=PAGED_PS)),
+                      ('prefill_chunk 128 + prefix cache',
+                       dict(prefill_chunk=128, prefix_cache=True))):
+        paged_before = wrappers()['paged_attention'].launches
+        got, eng, pin = serve_all(iw, prompts, n_new, **base, **kw)
+        agree = agreement(got, want)
+        extra = ''
+        if kw.get('paged'):
+            n = wrappers()['paged_attention'].launches - paged_before
+            require(n > 0, 'the paged engine launched no paged_attention')
+            extra = f', {n} paged_attention launches'
+        if pin:
+            require(eng.prefix_hits >= 3, f'prefix hits {eng.prefix_hits}')
+            extra = f', prefix hits {eng.prefix_hits}'
+        log(f'  {label:34s} f32: agreement with generate() {agree:.4f} '
+            f'over {PSERVE_N}x{n_new}{extra}')
+        require(agree >= 0.995, f'{label}: {got} vs {want}')
+        out[label] = agree
+    # the HTTP server over the contiguous engine
+    server, frontend = make_server(ContinuousBatchingEngine(iw, **base),
+                                   port=0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        host, port = server.server_address[:2]
+        got = post_completions(f'http://{host}:{port}', prompts, n_new)
+    finally:
+        server.shutdown()
+        frontend.shutdown()
+        th.join(timeout=60)
+    agree = agreement(got, want)
+    log(f'  {"HTTP server, 6 concurrent POSTs":34s} f32: agreement with '
+        f'generate() {agree:.4f}')
+    require(agree >= 0.995, f'HTTP server: {got} vs {want}')
+    out['http server'] = agree
+    # sparse int8-KV
+    iw_s = InferenceWeights.from_params(sparse, params)
+    prompts_s = [[int(x) for x in rs.randint(1, VOCAB, size=512)]
+                 for _ in range(PSERVE_N)]
+    want_s = refs(iw_s, prompts_s, quantized_kv=True)
+    got, _, _ = serve_all(iw_s, prompts_s, n_new, quantized_kv=True, **base)
+    agree = agreement(got, want_s)
+    log(f'  {"sparse contiguous int8-KV":34s} f32: agreement with '
+        f'generate(quantized_kv=True) {agree:.4f}')
+    require(agree >= 0.995, f'sparse int8-KV engine: {got} vs {want_s}')
+    out['sparse contiguous int8-KV'] = agree
+    del iw_s
+    # paged int8-KV: the card against the CPU twins
+    iw_cpu = InferenceWeights.from_params(
+        dense, to_device(dense_params(params), 'cpu'))
+    kw = dict(base, paged=True, page_size=PAGED_PS, quantized_kv=True)
+    t0 = time.perf_counter()
+    got, _, _ = serve_all(iw, prompts, n_new, **kw)
+    cpu, _, _ = serve_all(iw_cpu, prompts, n_new, **kw)
+    agree = agreement(got, cpu)
+    log(f'  {"paged int8-KV":34s} f32: agreement with the same engine on '
+        f'the CPU twins {agree:.4f} ({time.perf_counter() - t0:.1f} s)')
+    require(agree >= 0.995, f'paged int8-KV engine: {got} vs {cpu}')
+    out['paged int8-KV vs CPU twins'] = agree
+    del iw, iw_cpu, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_stack():
+    """bf16 OPT-125M at full width, random weights from seed 0, through the
+    continuous batching engine: 16 requests over 8 slots, prompts of
+    128-1920 tokens (numpy seed 3), 64 new tokens each, max_len 2176, in
+    seven modes (module docstring); then the f32 parity step."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    sparse = opt_cfg('125m', MAX_LEN, torch.bfloat16)
+    dense = opt_cfg('125m', MAX_LEN, torch.bfloat16, dense=True)
+    params = init_params(sparse, SEED, device=DEV)
+    iw_s = InferenceWeights.from_params(sparse, params)
+    iw_d = InferenceWeights.from_params(dense, dense_params(params))
+    prompts, prefixed, shared = serve_traffic(VOCAB)
+    # the pages the first wave of requests (one a slot) holds at its final
+    # length; prompts pad to 64 tokens there, so that growth needs pages
+    need = sum(-(-(len(p) + SERVE_NEW) // PAGED_PS)
+               for p in prompts[:SERVE_SLOTS])
+    runs = {}
+    for label, iw, kw in (
+            ('contiguous sparse int8-KV', iw_s, dict(quantized_kv=True)),
+            ('contiguous dense bf16-KV + prefill_chunk 512 + prefix cache',
+             iw_d, dict(prefill_chunk=512, prefix_cache=True,
+                        pin=shared, profile=True)),
+            ('paged dense bf16-KV', iw_d, dict(paged=True,
+                                               page_size=PAGED_PS,
+                                               profile=True)),
+            ('paged dense int8-KV', iw_d, dict(paged=True,
+                                               page_size=PAGED_PS,
+                                               quantized_kv=True)),
+            ('paged sparse int8-KV', iw_s, dict(paged=True,
+                                                page_size=PAGED_PS,
+                                                quantized_kv=True)),
+            ('paged dense bf16-KV, pool 60%', iw_d, dict(
+                paged=True, page_size=PAGED_PS, n_pages=int(0.6 * need),
+                prefill_bucket=PAGED_PS)),
+            ('contiguous sparse bf16-KV speculative=4', iw_s,
+             dict(speculative=SPEC_K))):
+        traffic = prefixed if 'prefix' in label else prompts
+        runs[label] = engine_run(label, iw, traffic, **kw)
+    require(runs['paged dense bf16-KV, pool 60%']['preemptions'] >= 1,
+            'the 60% pool preempted no request')
+    require(runs['contiguous dense bf16-KV + prefill_chunk 512 + prefix '
+                 'cache']['prefix_hits'] >= SERVE_REQS // 2,
+            'the shared prefix was not reused')
+    del iw_s, iw_d, params
+    torch.cuda.empty_cache()
+    return dict(runs=runs, parity=serving_parity())
 
 
 def device_profile(label, fn, top=8):
@@ -2072,7 +2650,16 @@ KERNELS = [
     ('verify_attention_rows', 'spt_proto_tpu_torch/csrc/decode_attention.cu',
      'spt_proto_tpu/ops/pallas/decode_attention.py:2002', [],
      'spec 125M n-gram bf16-KV'),
+    ('paged_attention', 'spt_proto_tpu_torch/csrc/paged_attention.cu',
+     'spt_proto_tpu/inference/paged.py:209', [
+         'spt_proto_tpu/inference/paged.py:198'], 'paged dense bf16-KV'),
+    # the tile-pool kernel serves no engine path (as in the JAX package):
+    # its launches in the serving run are 0
+    ('decode_attention', 'spt_proto_tpu_torch/csrc/paged_attention.cu',
+     'spt_proto_tpu/ops/pallas/decode_attention.py:156', [],
+     'paged dense bf16-KV'),
 ]
+OFF_MAIN_PATH = ('decode_attention',)
 
 
 def main() -> int:
@@ -2119,7 +2706,12 @@ def main() -> int:
     spec = phase_speculative()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
-    all_runs = {**serving['runs'], **llama['runs'], **spec['runs']}
+    log('phase 8: the serving stack, OPT-125M, 16 requests over 8 slots')
+    stack = phase_serving_stack()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
+    all_runs = {**serving['runs'], **llama['runs'], **spec['runs'],
+                **stack['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
@@ -2127,7 +2719,7 @@ def main() -> int:
         rows.append(dict(
             name=name, route='cuda', source=src, replaces=replaces,
             also_replaces=also, launches=sv['launches'][name],
-            launches_run=run,
+            launches_run=run, on_main_path=name not in OFF_MAIN_PATH,
             launches_per_step=sv['launches_per_step'][name],
             launches_per_prefill=sv['launches_per_prefill'][name],
             launches_by_run={k: s['launches'][name]
@@ -2138,6 +2730,10 @@ def main() -> int:
             **{k: v for k, v in r.items() if isinstance(v, dict)
                or k == 'unfused_ms'}))
 
+    for row in rows:
+        require(row['launches'] > 0 or not row['on_main_path'],
+                f'{row["name"]} was not launched in {row["launches_run"]}')
+
     def brief(run):
         return {k: v for k, v in run.items() if not k.startswith('launches')}
     log(json.dumps(dict(
@@ -2147,6 +2743,8 @@ def main() -> int:
         opt_1p3b=dict(big, runs={k: brief(r) for k, r in big['runs'].items()}),
         llama=dict(runs={k: brief(r) for k, r in llama['runs'].items()}),
         speculative=dict(runs={k: brief(r) for k, r in spec['runs'].items()}),
+        serving_stack=dict(stack, runs={k: brief(r) for k, r
+                                        in stack['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -9,9 +9,14 @@
 //     Replaces decode_attention_rows_q (_rows_kernel_q) and
 //     decode_attention_rows_q_ms (_rows_kernel_q_ms).
 //
-// A third kernel, verify_attention_kernel (the speculative block verify,
-// replacing verify_attention_rows / _verify_kernel), shares the tile
-// staging; its notes are at its definition below.
+// decode_attention_walk_kernel computes either of the two on the two-pass
+// walk of softmax_walk.cuh (the walk of csrc/paged_attention.cu), for
+// tables whose scores do not fit in shared memory. A fourth kernel,
+// verify_attention_kernel (the speculative block verify, replacing
+// verify_attention_rows / _verify_kernel), shares the tile staging and
+// keeps a two-pass walk of its own: each of its query rows sees a lane
+// only up to its own block position, where the shared walk counts valid
+// lanes per tile. The notes of both are at their definitions below.
 //
 // Each TPU pair differs only in how the TPU launches it (one program per
 // slot vs one program for all slots), so one kernel serves both.
@@ -37,7 +42,7 @@
 // o = sum_p e_p v_p / sum_p e_p with e_p = exp(s_p - max). The bf16/f32
 // kernel rounds the unnormalised e_p to the cache dtype before the PV
 // product; the int8 kernel folds the value scales into e_p instead.
-#include "common.cuh"
+#include "softmax_walk.cuh"
 
 namespace spt {
 
@@ -369,6 +374,116 @@ int launch_attention_q(const void* q, void* kc, void* vc, void* cc, void* ksc,
 
 
 // ---------------------------------------------------------------------------
+// two-pass walk (tables whose scores outgrow shared memory)
+// ---------------------------------------------------------------------------
+//
+// decode_attention_walk_kernel computes what decode_attention_kernel (KT =
+// T) and decode_attention_q_kernel (KT = int8_t) compute, for tables whose
+// G x entries x PS f32 scores do not fit in shared memory (a dense
+// Llama-3-8B table past 81 tiles in bf16). It runs the walk of
+// softmax_walk.cuh with the one-pass kernels' numerics (kNormLast: one row
+// max, then e, l, e v, and o = acc / l; int8 keys scaled per token after
+// the dot product, the value scales folded into e); shared memory depends
+// on G, D and PS only. The sums run in another order than the one-pass
+// kernels' (an f32 rounding apart).
+
+template <typename T, typename KT>
+__global__ void __launch_bounds__(kWalkThreads) decode_attention_walk_kernel(
+    // the caches are read after this CTA writes them: no __restrict__
+    const T* __restrict__ q, KT* kc, KT* vc, int* cc, float* ksc, float* vsc,
+    const int* __restrict__ tables, const int* __restrict__ n_tiles,
+    const int* __restrict__ pos, const KT* __restrict__ kn,
+    const KT* __restrict__ vn, const int* __restrict__ cn,
+    const float* __restrict__ ksn, const float* __restrict__ vsn,
+    const int* __restrict__ tile_base, T* __restrict__ o, int KV, int G,
+    int D, int NTALL, int W, int KVP, int NTAB, int TM, int TPS, int PS,
+    float scale, float clamp) {
+  constexpr bool kQ = sizeof(KT) == 1;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)b * KV + h;
+
+  extern __shared__ __align__(16) float sm[];
+  const WalkSmem w = walk_smem(sm, G, D, PS, D * (PS + 1), kQ);
+
+  // ---- append the new token in place
+  const int p = pos[b];
+  const int wt = tile_base[b] + p / PS, wc = p % PS;
+  for (int d = tid; d < D; d += blockDim.x) {
+    const size_t at = ((bh * NTALL + wt) * D + d) * PS + wc;
+    kc[at] = kn[bh * D + d];
+    vc[at] = vn[bh * D + d];
+  }
+  if (W > 1)
+    for (int s = tid; s < W; s += blockDim.x)
+      cc[((bh * NTALL + wt) * W + s) * PS + wc] = cn[bh * W + s];
+  if (kQ && tid == 0) {
+    const size_t at = (((size_t)b * NTALL + wt) * KVP + h) * PS + wc;
+    ksc[at] = ksn[bh];
+    vsc[at] = vsn[bh];
+  }
+  for (int i = tid; i < G * D; i += blockDim.x) w.qs[i] = to_f(q[bh * G * D + i]);
+  walk_init(w, G, D);
+  __syncthreads();                   // the appended column is visible
+
+  // entry j = t * TPS + u covers tile tables[t] + u; its valid lanes as
+  // table_walk counts them
+  const int* tab = tables + ((size_t)b * NTAB + h / (KV / NTAB)) * TM;
+  const int n_t = n_tiles[b];
+  auto tile_of = [&](int j) { return tab[j / TPS] + j % TPS; };
+  auto nvalid = [&](int j) {
+    const int t = j / TPS, e = tab[t], gt = e + j % TPS;
+    const bool ok = e >= 0 && t < n_t && gt < NTALL;
+    return !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
+  };
+  auto stage_k = [&](int j) {
+    const int gt = tile_of(j);
+    stage_f32<KT, T>(w.tile, kc + (bh * NTALL + gt) * D * PS, D, PS, nullptr);
+    if constexpr (kQ) {
+      const size_t at = (((size_t)b * NTALL + gt) * KVP + h) * PS;
+      for (int t = tid; t < PS; t += blockDim.x) {
+        w.ks[t] = ksc[at + t];
+        w.vs[t] = vsc[at + t];
+      }
+    }
+  };
+  auto stage_v = [&](int j) {
+    stage_f32<KT, T>(w.tile, vc + (bh * NTALL + tile_of(j)) * D * PS, D, PS,
+                     nullptr);
+  };
+  softmax_walk<T, true>(w, TM * TPS, G, D, PS, 1, PS + 1, scale, clamp,
+                        nvalid, stage_k, stage_v);
+  for (int i = tid; i < G * D; i += blockDim.x)
+    o[bh * G * D + i] = from_f<T>(w.acc[i]);
+}
+
+template <typename T, typename KT>
+int launch_walk(const void* q, void* kc, void* vc, void* cc, void* ksc,
+                void* vsc, const void* tables, const void* n_tiles,
+                const void* pos, const void* kn, const void* vn,
+                const void* cn, const void* ksn, const void* vsn,
+                const void* tile_base, void* o, int B, int KV, int G, int D,
+                int NTALL, int W, int KVP, int NTAB, int TM, int TPS, int PS,
+                float scale, float clamp, cudaStream_t stream) {
+  constexpr bool kQ = sizeof(KT) == 1;
+  const size_t smem = walk_smem_bytes(G, D, PS, D * (PS + 1), kQ);
+  auto kern = decode_attention_walk_kernel<T, KT>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(KV, B);
+  kern<<<grid, kWalkThreads, smem, stream>>>(
+      (const T*)q, (KT*)kc, (KT*)vc, (int*)cc, (float*)ksc, (float*)vsc,
+      (const int*)tables, (const int*)n_tiles, (const int*)pos,
+      (const KT*)kn, (const KT*)vn, (const int*)cn, (const float*)ksn,
+      (const float*)vsn, (const int*)tile_base, (T*)o, KV, G, D, NTALL, W,
+      KVP, NTAB, TM, TPS, PS, scale, clamp);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // block verify (speculative decoding)
 // ---------------------------------------------------------------------------
 //
@@ -608,13 +723,23 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
 
 }  // namespace spt
 
+// two_pass: 0 = the one-pass kernel (scores kept in shared memory), 1 = the
+// two-pass walk (ops/decode_attention.py chooses by shared memory)
 extern "C" int spt_decode_attention(
-    int dtype, const void* q, void* kc, void* vc, void* cc,
+    int dtype, int two_pass, const void* q, void* kc, void* vc, void* cc,
     const void* tables, const void* n_tiles, const void* pos, const void* kn,
     const void* vn, const void* cn, const void* tile_base, void* o, int B,
     int KV, int G, int D, int NTALL, int W, int NTAB, int TM, int TPS, int PS,
     float scale, float clamp, void* stream) {
-  auto f = dtype == spt::kBF16 ? spt::launch_attention<__nv_bfloat16>
+  using bf = __nv_bfloat16;
+  if (two_pass) {
+    auto f = dtype == spt::kBF16 ? spt::launch_walk<bf, bf>
+                                 : spt::launch_walk<float, float>;
+    return f(q, kc, vc, cc, nullptr, nullptr, tables, n_tiles, pos, kn, vn,
+             cn, nullptr, nullptr, tile_base, o, B, KV, G, D, NTALL, W, 0,
+             NTAB, TM, TPS, PS, scale, clamp, (cudaStream_t)stream);
+  }
+  auto f = dtype == spt::kBF16 ? spt::launch_attention<bf>
                                : spt::launch_attention<float>;
   return f(q, kc, vc, cc, tables, n_tiles, pos, kn, vn, cn, tile_base, o, B,
            KV, G, D, NTALL, W, NTAB, TM, TPS, PS, scale, clamp,
@@ -622,14 +747,18 @@ extern "C" int spt_decode_attention(
 }
 
 extern "C" int spt_decode_attention_q(
-    int dtype, const void* q, void* kc, void* vc, void* cc, void* ksc,
-    void* vsc, const void* tables, const void* n_tiles, const void* pos,
-    const void* kn, const void* vn, const void* cn, const void* ksn,
-    const void* vsn, const void* tile_base, void* o, int B, int KV, int G,
-    int D, int NTALL, int W, int KVP, int NTAB, int TM, int TPS, int PS,
-    float scale, float clamp, void* stream) {
-  auto f = dtype == spt::kBF16 ? spt::launch_attention_q<__nv_bfloat16>
-                               : spt::launch_attention_q<float>;
+    int dtype, int two_pass, const void* q, void* kc, void* vc, void* cc,
+    void* ksc, void* vsc, const void* tables, const void* n_tiles,
+    const void* pos, const void* kn, const void* vn, const void* cn,
+    const void* ksn, const void* vsn, const void* tile_base, void* o, int B,
+    int KV, int G, int D, int NTALL, int W, int KVP, int NTAB, int TM,
+    int TPS, int PS, float scale, float clamp, void* stream) {
+  using bf = __nv_bfloat16;
+  auto f = two_pass
+               ? (dtype == spt::kBF16 ? spt::launch_walk<bf, int8_t>
+                                      : spt::launch_walk<float, int8_t>)
+               : (dtype == spt::kBF16 ? spt::launch_attention_q<bf>
+                                      : spt::launch_attention_q<float>);
   return f(q, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn, cn, ksn,
            vsn, tile_base, o, B, KV, G, D, NTALL, W, KVP, NTAB, TM, TPS, PS,
            scale, clamp, (cudaStream_t)stream);

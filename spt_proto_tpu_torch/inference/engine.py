@@ -31,6 +31,12 @@ samples through decode_step + `sample`, with ragged prompt lengths, an eos
 id, an int8 KV cache and bucketed cache growth; inference/speculative.py
 drafts and verifies on top of these.
 
+`prefill_chunk` (with its halves `prefill_chunk_past` and
+`prefill_chunk_compute`) prefills one slot's prompt a chunk at a time over
+the context already cached, in plain PyTorch as the JAX engine writes it in
+jnp; the continuous-batching engine (inference/batching.py) splits long
+prompts and extends cached prefixes with it.
+
 Out of this port so far, and raising NotImplementedError with the slice
 that brings it: routed FFN (training slice), generate(mesh=...)
 (parallelism slice).
@@ -66,7 +72,7 @@ from spt_proto_tpu_torch.ops.ffn_tail import (MAX_ROWS, ffn_tail,
 from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul
 from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
                                              lm_head_argmax_int8)
-from spt_proto_tpu_torch.ops.lookup import pq_topk_indices
+from spt_proto_tpu_torch.ops.lookup import pq_match_scores, pq_topk_indices
 from spt_proto_tpu_torch.ops.sparse_attention import sparse_attention
 
 NEG_INF = -1e30
@@ -390,7 +396,10 @@ def _sparse_prefill_attention(cfg: ModelConfig, mha: dict, q, k, v,
     """PQ-sparse prefill attention of one layer: q/k/v [B, H, S, dh] ->
     (o [B*H, S, dh], key codes [B*H, S, n_sub])."""
     bh, s, dh = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
-    qz, kz, vz = (t.reshape(bh, s, dh) for t in (q, k, v))
+    # the kernel takes contiguous tensors; for one slot (the batching
+    # engine's prefill) the reshape of the transposed q/k/v is a strided
+    # view
+    qz, kz, vz = (t.reshape(bh, s, dh).contiguous() for t in (q, k, v))
     bd_m = _bd_of(mha)
     codes_q = _encode_codes(cfg, mha['quantizer'], qz, bd=bd_m)
     codes_k = _encode_codes(cfg, mha['quantizer'], kz, bd=bd_m)
@@ -417,6 +426,155 @@ def _sparse_prefill_attention(cfg: ModelConfig, mha: dict, q, k, v,
         o = sparse_attention(qz, kz, vz, idx, scale=scale,
                              clamp=cfg.score_clamp)
     return o, codes_k
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+def prefill_chunk_past(iw: InferenceWeights, cache: KVCache, slot: int,
+                       offset: int):
+    """A slot's cached context [0, offset) for chunked prefill, read back
+    once: token-major K/V [L, 1, KV, offset, D] (an int8 cache dequantized
+    to the serving dtype here) and codes [L, 1, KV, offset, w]."""
+    cfg = iw.cfg
+    l, kv = cfg.n_layers, cfg.kv_heads
+    nt = cache.tiles_per_layer(l)
+    t0s = max(offset // TILE, 1)
+
+    def slot_past(big):             # [B, KV, L*NT, w, T] -> token-major
+        w = big.shape[3]
+        row = big[slot].reshape(kv, l, nt, w, TILE)[:, :, :t0s]
+        tok = row.permute(1, 0, 2, 4, 3).reshape(l, 1, kv, t0s * TILE, w)
+        return tok[:, :, :, :offset]
+
+    if cache.quantized:
+        def slot_past_sc(big):      # [B, L*NT, hp, T] -> [L, 1, KV, offset]
+            hp = big.shape[2]
+            row = big[slot].reshape(l, nt, hp, TILE)[:, :t0s]
+            tok = row.permute(0, 2, 1, 3).reshape(l, 1, hp, t0s * TILE)
+            return tok[:, :, :kv, :offset]
+
+        past_k = (slot_past(cache.k).float()
+                  * slot_past_sc(cache.k_scale)[..., None]).to(cfg.dtype)
+        past_v = (slot_past(cache.v).float()
+                  * slot_past_sc(cache.v_scale)[..., None]).to(cfg.dtype)
+    else:
+        past_k, past_v = slot_past(cache.k), slot_past(cache.v)
+    return past_k, past_v, slot_past(cache.codes)
+
+
+def prefill_chunk(iw: InferenceWeights, tokens: torch.Tensor, cache: KVCache,
+                  slot: int, offset: int) -> Tuple[torch.Tensor, KVCache]:
+    """Chunked prefill: tokens [1, C] of one batch slot at positions
+    [offset, offset + C), attending over the slot's cached context [0,
+    offset) plus causal self-attention within the chunk. Appends the chunk's
+    K/V (+PQ codes) to the slot's cache tiles in place, sets the slot's
+    length to offset + C, and returns the chunk logits [1, C, V]. C and
+    offset are multiples of TILE.
+
+    Dense configs equal one-shot prefill() up to summation order. Sparse
+    configs select per row over [past + chunk] with top_k = (offset + C) //
+    sparse_coeff (pq_match_scores), the per-row selection contract of the
+    JAX engine's chunked prefill; the tile pattern may differ from one-shot
+    prefill's block-sparse kernel."""
+    past = prefill_chunk_past(iw, cache, slot, offset)
+    return prefill_chunk_compute(iw, tokens, cache, past, slot, offset)
+
+
+def prefill_chunk_compute(iw: InferenceWeights, tokens: torch.Tensor,
+                          cache: KVCache, past, slot: int,
+                          offset: int) -> Tuple[torch.Tensor, KVCache]:
+    """The compute/write half of prefill_chunk, given the past that
+    prefill_chunk_past read."""
+    _require_slice(iw, cache)
+    cfg = iw.cfg
+    p = iw.params
+    b, c = tokens.shape
+    if b != 1:
+        raise ValueError('prefill_chunk serves one slot at a time')
+    if c % TILE or offset % TILE:
+        raise ValueError(f'chunk ({c}) and offset ({offset}) must be '
+                         f'multiples of {TILE}')
+    dev = tokens.device
+    l, nt = cfg.n_layers, cache.tiles_per_layer(cfg.n_layers)
+    nt_c, t0 = c // TILE, offset // TILE
+    h, kv, g, dh = cfg.n_heads, cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    pos = offset + torch.arange(c, device=dev)[None]           # [1, C]
+    h_tok = p['embedding']['embedding'][tokens.long()]
+    if cfg.arch == 'opt':
+        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET]
+    x = h_tok.to(cfg.dtype)
+    sparse = cfg.attention == ATTN_SPARSE_V2
+    scale = dh ** -0.5
+    s_tot = offset + c
+    k_sel = max(1, s_tot // cfg.sparse_coeff) if sparse else 0
+    past_k, past_v, past_c = past
+    rope = _rope_tables(cfg, pos) if cfg.arch == 'llama' else None
+    causal = (torch.arange(s_tot, device=dev)[None, :]
+              <= offset + torch.arange(c, device=dev)[:, None])  # [C, S]
+
+    def write(big, chunk, base):    # chunk [KV, C, w] -> tiles, in place
+        tiles = chunk.reshape(kv, nt_c, TILE, -1).transpose(2, 3)
+        big[slot, :, base:base + nt_c] = tiles.to(big.dtype)
+
+    for li in range(l):
+        bp = _layer(p['blocks'], li)
+        mha = bp['mha']
+        q, k, v = _qkv_proj(mha, _norm(cfg, bp['norm1'], x))
+        q = q.reshape(b, c, h, dh).transpose(1, 2)              # [1, H, C, D]
+        k_new, v_new = (t.reshape(b, c, kv, dh).transpose(1, 2)
+                        for t in (k, v))                      # [1, KV, C, D]
+        if rope is not None:
+            q, k_new = _apply_rope(q, *rope), _apply_rope(k_new, *rope)
+        k_all = torch.cat([past_k[li].to(k_new.dtype), k_new], dim=2)
+        v_all = torch.cat([past_v[li].to(v_new.dtype), v_new], dim=2)
+        if g > 1:
+            k_all, v_all = (t.repeat_interleave(g, dim=1)
+                            for t in (k_all, v_all))
+        scores = (q.float() @ k_all.float().transpose(-1, -2)) * scale
+        if sparse:
+            bd_m = _bd_of(mha)
+            codes_q = _encode_codes(cfg, mha['quantizer'],
+                                    q.reshape(h, c, dh), bd=bd_m)
+            c_new = _encode_codes(cfg, mha['quantizer'],
+                                  k_new.reshape(kv, c, dh), bd=bd_m)
+            # past codes arrive at the stored width (maybe padded): match
+            # over the true subspaces only
+            codes_k = torch.cat([past_c[li][0][..., :cfg.n_subspaces],
+                                 c_new], dim=1).repeat_interleave(g, dim=0)
+            match = pq_match_scores(codes_q, codes_k, cfg.n_codewords)
+            match = torch.where(causal[None], match, -1.0)   # [H, C, S]
+            kth = torch.sort(match, dim=-1).values[..., -k_sel][..., None]
+            keep = causal[None] & (match >= kth.clamp(min=0.0))
+            scores = scores.clamp(-cfg.score_clamp, cfg.score_clamp)
+            scores = torch.where(keep[None], scores, NEG_INF)
+        else:
+            c_new = torch.zeros((kv, c, cache.codes.shape[3]),
+                                dtype=torch.int32, device=dev)
+            scores = torch.where(causal[None, None], scores, NEG_INF)
+        scores = scores - scores.amax(-1, keepdim=True)
+        o = torch.softmax(scores, dim=-1).to(q.dtype) @ v_all
+        o = o.transpose(1, 2).reshape(b, c, cfg.d_model)
+        x = x + _dense(mha['o'], o)
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+
+        # append the chunk's tiles in place at [offset, offset + C)
+        base = li * nt + t0
+        if cache.quantized:
+            k_w, ksc_w = _quantize_kv(k_new[0])    # [KV, C, D] + [KV, C]
+            v_w, vsc_w = _quantize_kv(v_new[0])
+            for big, sc in ((cache.k_scale, ksc_w), (cache.v_scale, vsc_w)):
+                big[slot, base:base + nt_c, :kv] = sc.reshape(
+                    kv, nt_c, TILE).transpose(0, 1)
+        else:
+            k_w, v_w = k_new[0], v_new[0]
+        write(cache.k, k_w, base)
+        write(cache.v, v_w, base)
+        write(cache.codes, _fit_codes(c_new, cache.codes.shape[3]), base)
+    cache.length[slot] = s_tot
+    logits = _dense(p['lm_head'], _norm(cfg, p['final_norm'], x))
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,16 @@ token, nothing past it.
 
 `decode_attention_rows` (bf16/f32 caches), `decode_attention_rows_q`
 (int8 caches) and `verify_attention_rows` (bf16/f32 caches, K query
-columns a slot) launch the three kernels of csrc/decode_attention.cu for
-CUDA tensors and run their plain twins for CPU tensors. The TPU package has two
-launch shapes of each function (one program per slot, and `_ms`: one
-program for all slots); here one kernel serves both, and the `_ms` names
-are the same wrappers.
+columns a slot) launch the kernels of csrc/decode_attention.cu for CUDA
+tensors and run their plain twins for CPU tensors. A table whose scores do
+not fit in shared memory (`rows_walk`) goes to the two-pass walk kernel.
+The TPU package has two launch shapes of each function (one program per
+slot, and `_ms`: one program for all slots); here one kernel serves both,
+and the `_ms` names are the same wrappers.
+
+`decode_attention` (the TPU package's tile-pool kernel: a flat pool of
+token-minor tiles behind a table) launches csrc/paged_attention.cu's
+tile-pool kernel; nothing in the engine serves through it, as in JAX.
 
 The caches are updated IN PLACE: the new token's k/v/codes (and scales)
 land at tile `tile_base + pos // ps`, column `pos % ps`, and the same
@@ -127,10 +132,32 @@ def decode_attention_rows_q_ref(q, k_cache, v_cache, c_cache, k_scale,
     return o.to(q.dtype), k_cache, v_cache, c_cache, k_scale, v_scale
 
 
+def rows_walk(g: int, d: int, ps: int, n_ent: int, kv_bytes: int) -> str:
+    """Which kernel serves a decode_attention_rows(_q) launch: 'one-pass'
+    keeps the G x n_ent x ps f32 scores of the table (n_ent = T x tps
+    entries) in shared memory; past SMEM_LIMIT, 'two-pass' walks the table
+    twice with shared memory that depends on G, d and ps only (the same
+    numerics; decode_attention_walk_kernel on csrc/softmax_walk.cuh, whose
+    walk_smem_bytes this mirrors: a tile staged as f32, and an int8 tile's
+    key and value scales)."""
+    one = d * ps * kv_bytes + 4 * (2 * g * d + g * n_ent * ps + 32) \
+        + 8 * n_ent
+    if one <= SMEM_LIMIT:
+        return 'one-pass'
+    two = 4 * (d * (ps + 1) + 2 * g * d + g * ps + 2 * g
+               + (2 * ps if kv_bytes == 1 else 0))
+    if two > SMEM_LIMIT:
+        raise RuntimeError(
+            f'decode attention: {two} B of shared memory for {g} query rows '
+            f'of d_head {d} exceeds the kernel envelope of {SMEM_LIMIT} B')
+    return 'two-pass'
+
+
 def _common_args(q, k_cache, c_cache, tables, n_tiles, pos, c_new,
                  tile_base, ps, tps, kv_bytes):
-    """Shape and shared-memory checks shared by both kernels; returns the
-    int32 metadata and the launch geometry (n_all, width, n_tab, t_max)."""
+    """Shape checks shared by both kernels; returns the int32 metadata, the
+    launch geometry (n_all, width, n_tab, t_max) and the walk (1 for the
+    two-pass kernel)."""
     b, kv, g, d = q.shape
     n_all, width = k_cache.shape[2], c_cache.shape[3]
     n_tab, t_max = tables.shape[1], tables.shape[2]
@@ -147,17 +174,10 @@ def _common_args(q, k_cache, c_cache, tables, n_tiles, pos, c_new,
         and 1 <= g <= 8 and tps >= 1,
         f'ps {ps} / d_head {d} / group {g} / tps {tps} outside the kernel '
         f'envelope')
-    n_ent = t_max * tps
-    smem = d * ps * kv_bytes + 4 * (2 * g * d + g * n_ent * ps + 32) \
-        + 8 * n_ent
-    if smem > SMEM_LIMIT:
-        raise RuntimeError(
-            f'decode attention: {smem} B of shared memory for {n_ent} table '
-            f'tiles x {ps} scores per row exceeds the kernel envelope of '
-            f'{SMEM_LIMIT} B')
+    two_pass = int(rows_walk(g, d, ps, t_max * tps, kv_bytes) == 'two-pass')
     ints = [a if a.dtype == torch.int32 else a.to(torch.int32)
             for a in (tables, n_tiles, pos, c_new, tile_base)]
-    return ints, (n_all, width, n_tab, t_max)
+    return ints, (n_all, width, n_tab, t_max), two_pass
 
 
 def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
@@ -184,7 +204,7 @@ def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
     req = _build.require
     req(k_cache.dtype == v_cache.dtype == k_new.dtype == v_new.dtype
         == q.dtype, 'q, k/v caches and k/v new share one dtype')
-    ints, (n_all, width, n_tab, t_max) = _common_args(
+    ints, (n_all, width, n_tab, t_max), two_pass = _common_args(
         q, k_cache, c_cache, tables, n_tiles, pos, c_new, tile_base, ps, tps,
         q.element_size())
     req(k_cache.shape == v_cache.shape == (b, kv, n_all, d, ps),
@@ -197,8 +217,9 @@ def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
     o = torch.empty_like(q)
     p = _build.ptr
     err = _build.lib().spt_decode_attention(
-        code, *[p(a) for a in args], p(o), b, kv, g, d, n_all, width, n_tab,
-        t_max, tps, ps, float(scale), float(clamp), _build.stream())
+        code, two_pass, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
+        width, n_tab, t_max, tps, ps, float(scale), float(clamp),
+        _build.stream())
     _build.check(err, 'decode_attention_rows')
     decode_attention_rows.launches += 1
     return o, k_cache, v_cache, c_cache
@@ -233,7 +254,7 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
         tile_base = torch.zeros((b,), dtype=torch.int32, device=q.device)
     code = _build.dtype_code(q)
     req = _build.require
-    ints, (n_all, width, n_tab, t_max) = _common_args(
+    ints, (n_all, width, n_tab, t_max), two_pass = _common_args(
         q, k_cache, c_cache, tables, n_tiles, pos, c_new, tile_base, ps, tps,
         1)
     kv_pad = k_scale.shape[2]
@@ -255,8 +276,9 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
     o = torch.empty_like(q)
     p = _build.ptr
     err = _build.lib().spt_decode_attention_q(
-        code, *[p(a) for a in args], p(o), b, kv, g, d, n_all, width, kv_pad,
-        n_tab, t_max, tps, ps, float(scale), float(clamp), _build.stream())
+        code, two_pass, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
+        width, kv_pad, n_tab, t_max, tps, ps, float(scale), float(clamp),
+        _build.stream())
     _build.check(err, 'decode_attention_rows_q')
     decode_attention_rows_q.launches += 1
     return o, k_cache, v_cache, c_cache, k_scale, v_scale
@@ -423,3 +445,100 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
 
 
 verify_attention_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tile-pool decode attention (flat pool of token-minor tiles)
+# ---------------------------------------------------------------------------
+
+def decode_attention_ref(q, k_pool, v_pool, c_pool, tables, n_tiles,
+                         last_count, k_new, v_new, c_new, write_tile,
+                         write_slot, *, ps: int, scale: float,
+                         clamp: float = 0.0):
+    """Plain twin of the tile-pool kernel (the JAX oracle,
+    decode_attention.py:234): write the new token's k/v/codes at (write_tile,
+    :, write_slot) of the pools in place, then a masked softmax over the
+    table's entries (entry n_tiles - 1 with last_count valid lanes, the
+    earlier ones full, later ones empty); the normalised probabilities are
+    rounded to the pool dtype before the PV product."""
+    bk, g, d = q.shape
+    dev = q.device
+    wt, ws = write_tile.long(), write_slot.long()
+    k_pool[wt, :, ws] = k_new.to(k_pool.dtype)
+    v_pool[wt, :, ws] = v_new.to(v_pool.dtype)
+    c_pool[wt, :, ws] = c_new.to(c_pool.dtype)
+    t_max = tables.shape[1]
+    idx = tables.long() % k_pool.shape[0]          # jnp's wrap of -1 ids
+    kg, vg = k_pool[idx], v_pool[idx]              # [BK, T, D, ps]
+    s = torch.einsum('bgd,btdp->bgtp', q.float(), kg.float()) * scale
+    if clamp > 0.0:
+        s = s.clamp(-clamp, clamp)
+    t_idx = torch.arange(t_max, device=dev)[None, :, None]
+    p_idx = torch.arange(ps, device=dev)[None, None, :]
+    n_valid = torch.where(t_idx == (n_tiles.long() - 1)[:, None, None],
+                          last_count.long()[:, None, None], ps)
+    ok = (t_idx < n_tiles.long()[:, None, None]) & (p_idx < n_valid)
+    s = torch.where(ok[:, None], s, NEG_INF)
+    p = torch.softmax(s.reshape(bk, g, -1), dim=-1).reshape(s.shape)
+    p = torch.where(ok[:, None], p, 0.0)
+    o = torch.einsum('bgtp,btdp->bgd', p.to(vg.dtype).float(), vg.float())
+    return o.to(q.dtype), k_pool, v_pool, c_pool
+
+
+def decode_attention(q, k_pool, v_pool, c_pool, tables, n_tiles, last_count,
+                     k_new, v_new, c_new, write_tile, write_slot, *, ps: int,
+                     scale: float, clamp: float = 0.0):
+    """Decode attention over a flat pool of token-minor tiles addressed
+    through a table (the TPU kernel's contract, decode_attention.py:156),
+    appending the new token in place first.
+
+    q [BK, G, D]; k_pool / v_pool [P, D, ps] (q's dtype); c_pool [P, n_sub,
+    ps] int32; tables [BK, T] tile ids (entries 0..n_tiles-2 full, entry
+    n_tiles-1 with last_count valid lanes; a negative id wraps into the
+    pool, as the oracle's gather wraps -1); n_tiles / last_count /
+    write_tile / write_slot [BK]; k_new / v_new [BK, D]; c_new [BK, n_sub].
+    Returns (o [BK, G, D], k_pool, v_pool, c_pool), the pools being the
+    (updated) inputs. The scores are clamped only when clamp > 0."""
+    ins = (q, k_pool, v_pool, c_pool, tables, n_tiles, last_count, k_new,
+           v_new, c_new, write_tile, write_slot)
+    if not _build.on_cuda(*ins):
+        return decode_attention_ref(*ins, ps=ps, scale=scale, clamp=clamp)
+    bk, g, d = q.shape
+    n_pool, n_sub = k_pool.shape[0], c_pool.shape[1]
+    t_max = tables.shape[1]
+    req = _build.require
+    code = _build.dtype_code(q)
+    req(k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype
+        == q.dtype, 'q, pools and k/v new share one dtype')
+    req(k_pool.shape == v_pool.shape == (n_pool, d, ps),
+        'k/v pools [P, D, ps]')
+    req(c_pool.dtype == torch.int32 and c_pool.shape == (n_pool, n_sub, ps),
+        'code pool [P, n_sub, ps] int32')
+    req(k_new.shape == v_new.shape == (bk, d) and c_new.shape == (bk, n_sub),
+        'k/v new [BK, D], c_new [BK, n_sub]')
+    req(tables.shape[0] == bk and n_tiles.shape == last_count.shape
+        == write_tile.shape == write_slot.shape == (bk,),
+        'tables [BK, T]; n_tiles / last_count / write_tile / write_slot '
+        '[BK]')
+    req(ps % 16 == 0 and d % 16 == 0 and 1 <= g <= 8,
+        f'ps {ps} / d_head {d} / group {g} outside the kernel envelope')
+    smem = 4 * (d * (ps + 1) + 2 * g * d + g * ps + 2 * g)
+    req(smem <= SMEM_LIMIT, f'{smem} B of shared memory exceeds the kernel '
+        f'envelope of {SMEM_LIMIT} B')
+    ints = [a.to(torch.int32) for a in (tables, n_tiles, last_count, c_new,
+                                        write_tile, write_slot)]
+    tables_i, n_tiles_i, last_i, c_new_i, wt_i, ws_i = ints
+    args = [q, k_pool, v_pool, c_pool, tables_i, n_tiles_i, last_i, k_new,
+            v_new, c_new_i, wt_i, ws_i]
+    req(all(a.is_contiguous() for a in args), 'inputs must be contiguous')
+    o = torch.empty_like(q)
+    p = _build.ptr
+    err = _build.lib().spt_tile_pool_attention(
+        code, *[p(a) for a in args], p(o), bk, n_pool, g, d, n_sub, t_max,
+        ps, float(scale), float(clamp), _build.stream())
+    _build.check(err, 'decode_attention')
+    decode_attention.launches += 1
+    return o, k_pool, v_pool, c_pool
+
+
+decode_attention.launches = 0

@@ -15,6 +15,8 @@ import torch
 from spt_proto_tpu_torch import config as tcfg
 from spt_proto_tpu_torch.inference import bridge
 from spt_proto_tpu_torch.inference import engine as teng
+from spt_proto_tpu_torch.inference import paged as tpaged
+from spt_proto_tpu_torch.inference.batching import ContinuousBatchingEngine
 from spt_proto_tpu_torch.inference.weights import InferenceWeights
 from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
 from spt_proto_tpu_torch.ops import decode_attention as tattn
@@ -22,6 +24,7 @@ from spt_proto_tpu_torch.ops import decode_front as tfront
 from spt_proto_tpu_torch.ops import ffn_tail as tffn
 from spt_proto_tpu_torch.ops import int8_matmul as tmm
 from spt_proto_tpu_torch.ops import lm_head as tlm
+from spt_proto_tpu_torch.ops import paged_attention as tpa
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -33,7 +36,8 @@ WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tlm.lm_head_argmax, tbsa.block_sparse_attention,
             tattn.decode_attention_rows, tffn.ffn_tail, tmm.int8_matmul,
             tlm.lm_head_argmax_int8, tffn.ffn_tail_int8, tffn.ffn_tail_gated,
-            tffn.ffn_tail_gated_int8, tattn.verify_attention_rows)
+            tffn.ffn_tail_gated_int8, tattn.verify_attention_rows,
+            tpa.paged_attention, tattn.decode_attention)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -53,7 +57,16 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, '-c', _IMPORT_CHECK], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12     # every module was imported
+    # every module was imported, the serving stack's among them
+    assert int(out.stdout.split()[-1]) >= 20
+    for name in ('inference/paged.py', 'inference/batching.py',
+                 'inference/server.py', 'cli/serve.py',
+                 'ops/paged_attention.py'):
+        src = (REPO / 'spt_proto_tpu_torch' / name).read_text()
+        assert 'import torch' in src or name == 'inference/server.py', name
+        assert 'jax' not in src.replace('spt_proto_tpu_torch', ''), name
+        assert 'spt_proto_tpu.' not in src.replace('spt_proto_tpu_torch',
+                                                   ''), name
 
 
 def _tiny_cfg():
@@ -79,6 +92,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         bridge.params_from_numpy({'w': np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match='no CUDA device'):
         teng.KVCache.create(cfg, 1, 256, quantized=True)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tpaged.PagedKVCache.create(cfg, 1, 4, 64, 256)
 
 
 def test_cpu_path_runs_the_plain_twins_and_launches_nothing():
@@ -178,33 +193,78 @@ def test_unported_forms_raise_not_implemented():
 
 
 def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
-    """On the card a table whose scores outgrow the kernel's shared memory
-    raises RuntimeError naming the limit; it never runs the plain twin.
-    (Checked on CPU tensors reported as CUDA ones: the check comes before
-    the build.)"""
+    """A table whose scores outgrow the one-pass kernel's shared memory (a
+    Llama-3-8B dense table of 96 tiles at G = 4, or 400 tiles at G = 1) no
+    longer raises: the wrapper launches the two-pass walk, whose shared
+    memory depends on G, d_head and the tile only. What lies past that
+    envelope still raises RuntimeError naming the limit, before any
+    launch, and never runs the plain twin. (CPU tensors reported as CUDA
+    ones, and a stand-in for the library that records the launch.)"""
+    assert tattn.rows_walk(4, 128, 128, 17, 2) == 'one-pass'
+    assert tattn.rows_walk(4, 128, 128, 96, 2) == 'two-pass'
+    assert tattn.rows_walk(4, 128, 128, 96, 4) == 'two-pass'
+    assert tattn.rows_walk(4, 128, 128, 96, 1) == 'two-pass'
+    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
+        tattn.rows_walk(8, 128, 1024, 4, 4)
+    calls = []
     monkeypatch.setattr(tattn._build, 'on_cuda', lambda *ts: True)
+    monkeypatch.setattr(tattn._build, 'lib', lambda: types.SimpleNamespace(
+        spt_decode_attention=lambda code, two_pass, *a: calls.append(
+            two_pass) or 0))
+    monkeypatch.setattr(tattn._build, 'stream', lambda: 0)
     b, kv, d, ps, t_max = 1, 2, 64, 128, 400
     q = torch.zeros((b, kv, 1, d))
     k = torch.zeros((b, kv, t_max, d, ps))
     codes = torch.zeros((b, kv, t_max, 1, ps), dtype=torch.int32)
     tables = torch.arange(t_max, dtype=torch.int32)[None, None]
     ints = torch.zeros((b,), dtype=torch.int32)
-    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
-        tattn.decode_attention_rows(
-            q, k, k.clone(), codes, tables, ints + t_max, ints,
-            torch.zeros((b, kv, d)), torch.zeros((b, kv, d)),
-            torch.zeros((b, kv, 1), dtype=torch.int32))
-    assert tattn.decode_attention_rows.launches == 0
+    tattn.decode_attention_rows.launches = 0
+    tattn.decode_attention_rows(
+        q, k, k.clone(), codes, tables, ints + t_max, ints,
+        torch.zeros((b, kv, d)), torch.zeros((b, kv, d)),
+        torch.zeros((b, kv, 1), dtype=torch.int32))
+    assert calls == [1] and tattn.decode_attention_rows.launches == 1
+    tattn.decode_attention_rows.launches = 0
 
 
 def test_generate_with_a_mesh_raises_and_names_its_slice():
-    """Tensor-parallel generate() comes with the parallelism slice."""
+    """Tensor-parallel generate() and serving come with the parallelism
+    slice."""
     cfg = _tiny_cfg()
     iw = InferenceWeights.from_params(
         cfg, bridge.init_params(cfg, seed=0, device='cpu'))
     with pytest.raises(NotImplementedError, match='parallelism slice'):
         teng.generate(iw, torch.ones((1, 4), dtype=torch.int64), 2,
                       mesh=object())
+    with pytest.raises(NotImplementedError, match='parallelism slice'):
+        ContinuousBatchingEngine(iw, n_slots=1, max_len=256, mesh=object())
+
+
+def test_serving_stack_on_cpu_runs_the_twins_and_launches_nothing():
+    """The batching engine on CPU weights (contiguous sparse int8-KV with a
+    prefix and chunked prefill; paged dense over f32 and int8 pages, with a
+    -1 table row through the sink) serves on the CPU, through the plain
+    twins: no kernel wrapper launches."""
+    for w in WRAPPERS:
+        w.launches = 0
+    cfg = _tiny_cfg()
+    params = bridge.init_params(cfg, seed=0, device='cpu')
+    prompts = [[i % 255 + 1 for i in range(n)] for n in (299, 145, 3)]
+    runs = ((cfg, dict(quantized_kv=True, prefill_chunk=128,
+                       prefix_cache=True)),
+            (cfg.replace(attention='dense'), dict(paged=True)),
+            (cfg.replace(attention='dense'), dict(paged=True,
+                                                  quantized_kv=True)))
+    for c, kw in runs:
+        iw = InferenceWeights.from_params(c, params)
+        eng = ContinuousBatchingEngine(iw, n_slots=2, max_len=384,
+                                       prefill_bucket=16, **kw)
+        assert eng.dev.type == 'cpu'
+        rids = [eng.submit(p, max_new_tokens=3) for p in prompts]
+        done = {x.request_id: x.tokens for x in eng.run_until_done()}
+        assert sorted(done) == sorted(rids)
+        assert all(len(v) == 3 for v in done.values())
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
