@@ -86,7 +86,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts. Then an f32 parity step (6 requests, 3 slots, 16 tokens; each
    engine and the HTTP server against its reference, >= 0.995 of the
    tokens: see serving_parity);
-9. print the per-kernel JSON line, then the contract line
+9. SPT fine-tuning (the routed-FFN + LoRA + PQ train step, whose sparse
+   attention runs the block-sparse forward with log-sum-exp and the dq and
+   dk/dv kernels, which phase 2 holds against their twins at OPT-125M's
+   training shape and with off-diagonal and -1 tables at S 2048 and 4096,
+   d_head 64 and 128): f32 parity of 3 train steps on the card against the
+   CPU twins, stepwise and free-running, with the kernels checked on the
+   steps' own tensors, at OPT-125M width (2 layers, B=2, S=2048,
+   sparse_coeff 4) and Llama-3-8B width (2 layers, vocabulary 32,000, B=1,
+   S=1024, sparse_coeff 2); then cli.tune.main at OPT-125M full depth, the
+   tune defaults (B=8, S=512) in f32 and bf16 and S=2048 in bf16: 2 warm-up
+   steps, 8 timed (CUDA events, exact launch counts: 1 lse forward, 1 dq,
+   1 dk/dv a layer a step), 2 profiled; step ms, tok/s, peak memory,
+   device busy, kernel time in situ and the losses;
+10. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -1189,6 +1202,92 @@ def check_block_sparse(dtype, s, coeff, timer=None, bh=B * HEADS, dh=DH,
     return res
 
 
+def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
+                             n_sub=N_SUB):
+    """The training kernels of block-sparse attention against their twins:
+    the forward with log-sum-exp (block_sparse_attention_lse), dq and dk/dv
+    (block_sparse_attention_dq / _dkv) against block_sparse_attention_lse_ref
+    and block_sparse_attention_bwd_ref, on bh (batch, head) rows of s tokens
+    and d_head dh, block_q 256, n_sel = max(2, (s / 128) / coeff) tiles from
+    random PQ codes; g the output gradient. Outputs held to
+    output_tolerance, lse to the f32 bound."""
+    from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    g_ = gen(SEED + 9)
+    block_q = 256
+    n_sel = max(2, (s // 128) // coeff)
+    sel = sparse_sel(s, n_sel, bh, block_q, g_, n_sub)
+    q = randn(g_, (bh, s, dh), dtype, std=2.0)
+    k = randn(g_, (bh, s, dh), dtype, std=2.0)
+    v = randn(g_, (bh, s, dh), dtype)
+    g = randn(g_, (bh, s, dh), dtype)
+    kw = dict(block_q=block_q, block_k=128, scale=dh ** -0.5, clamp=10.0)
+    o, lse = m.block_sparse_attention_lse(q, k, v, sel, **kw)
+    o_w, lse_w = m.block_sparse_attention_lse_ref(q, k, v, sel, **kw)
+    dd = (g.float() * o.float()).sum(-1)
+    rsel = m.reverse_table(sel, s // 128)
+    dq = m.block_sparse_attention_dq(q, k, v, sel, g, lse, dd, **kw)
+    dk, dv = m.block_sparse_attention_dkv(q, k, v, sel, rsel, g, lse, dd,
+                                          **kw)
+    want = m.block_sparse_attention_bwd_ref(q, k, v, sel, o, lse, g, **kw)
+    sync()
+    require(all(w.float().abs().max().item() > 0 for w in want),
+            'a zero twin gradient')
+    diag = (torch.arange(sel.shape[1], device=DEV) * 2)[None, :, None]
+    off_diag = bool(((sel >= 0) & (sel < diag)).any())
+    invalid = bool((sel < 0).any())
+    if n_sel > block_q // 128:      # more tiles than the forced diagonal
+        require(off_diag and invalid, f'sel at S={s} lacks off-diagonal or '
+                f'-1 entries')
+    errs = {}
+    for name, got, w in (('o', o, o_w), ('dq', dq, want[0]),
+                         ('dk', dk, want[1]), ('dv', dv, want[2]),
+                         ('lse', lse, lse_w)):
+        tol = (tolerance(torch.float32) if name == 'lse'
+               else output_tolerance(w, dtype))
+        errs[name] = max_err(got, w)
+        require(close(got, w, dtype, tol) and bool(torch.isfinite(got).all()),
+                f'block-sparse training {name} {dtype} S={s} d {dh}: err '
+                f'{errs[name]} ({tol_str(dtype, tol)})')
+    log(f'  block_sparse train BH={bh} S={s} d_head {dh} n_sel={n_sel} '
+        f'{str(dtype):14s} max err ' + ', '.join(
+            f'{k_} {v_:.3g}' for k_, v_ in errs.items())
+        + f' (bf16: 2^-7 max|want|); off-diagonal {off_diag}, -1 {invalid}')
+    res = {}
+    if timer is not None:
+        plain_fwd = timer.ms(lambda: m.block_sparse_attention_lse_ref(
+            q, k, v, sel, **kw), reps=5)
+        plain_bwd = timer.ms(lambda: m.block_sparse_attention_bwd_ref(
+            q, k, v, sel, o, lse, g, **kw), reps=5)
+        used = sum(int(torch.unique(sel[i][sel[i] >= 0]).numel())
+                   for i in range(bh))
+        kv_bytes = used * 128 * dh * 2 * q.element_size()
+        pairs = causal_pairs(sel, block_q)
+        rows = dict(
+            block_sparse_attention_lse=(
+                lambda: m.block_sparse_attention_lse(q, k, v, sel, **kw),
+                'o', nbytes(q, sel, o, lse) + kv_bytes, 4 * dh * pairs,
+                plain_fwd),
+            block_sparse_attention_dq=(
+                lambda: m.block_sparse_attention_dq(q, k, v, sel, g, lse, dd,
+                                                    **kw),
+                'dq', nbytes(q, g, lse, dd, sel, dq) + kv_bytes,
+                6 * dh * pairs, plain_bwd),
+            block_sparse_attention_dkv=(
+                lambda: m.block_sparse_attention_dkv(q, k, v, sel, rsel, g,
+                                                     lse, dd, **kw),
+                'dk', nbytes(q, g, lse, dd, rsel, dk, dv) + kv_bytes,
+                8 * dh * pairs, plain_bwd))
+        for name, (fn, out, n_b, n_o, plain) in rows.items():
+            r = dict(max_abs_err=max(errs[out], errs['dv'])
+                     if name.endswith('dkv') else errs[out],
+                     ms=timer.ms(fn), plain_ms=plain, library_ms=None)
+            r['bound_ms'], r['bound_by'] = bound_ms(n_b, n_o, dtype)
+            log(f'    {name}:')
+            log_times(r)
+            res[name] = r
+    return res
+
+
 def phase_kernels(timer):
     """Phase 2; returns the bf16 (serving dtype) results by kernel."""
     res = {}
@@ -1206,6 +1305,17 @@ def phase_kernels(timer):
         r_head = check_lm_head(dtype, t)
         r_bsa = check_block_sparse(dtype, PROMPT, 8, t)
         check_block_sparse(dtype, 2 * PROMPT, 4)
+        # the training kernels: OPT-125M's training shape (B=8 x 12 heads,
+        # S 512, the diagonal tiles), then off-diagonal and -1 tables at
+        # sparse_coeff 4: S 2048 and 4096 at d_head 64 (96 rows) and 128
+        # (32 rows)
+        r_train = check_block_sparse_train(dtype, B * HEADS, 512, DH, 8, t)
+        for s_, bh_, dh_ in ((PROMPT, B * HEADS, DH),
+                             (2 * PROMPT, B * HEADS, DH),
+                             (PROMPT, HEADS_LL, DH_LL),
+                             (2 * PROMPT, HEADS_LL, DH_LL)):
+            check_block_sparse_train(dtype, bh_, s_, dh_, 4,
+                                     n_sub=dh_ // 8)
         # int8 weight-only serving (w8)
         r_front8, _ = check_front(dtype, t, packed=True)
         r_front8_bf, _ = check_front(dtype, t, quantized=False, packed=True)
@@ -1279,6 +1389,7 @@ def phase_kernels(timer):
                 decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll),
                 block_sparse_attention=dict(r_bsa, llama_d_head_128=r_bsa_ll),
+                **r_train,
                 decode_attention_rows=dict(
                     r_rows, dense_tps4=r_rows4, sparse=r_rows_s,
                     gqa_llama_3_8b_sparse=r_gqa[False, False],
@@ -1742,8 +1853,9 @@ def speculative_parity(model, cfg, params, self_draft):
 
 
 def wrappers():
-    from spt_proto_tpu_torch.ops.block_sparse_attention import \
-        block_sparse_attention
+    from spt_proto_tpu_torch.ops.block_sparse_attention import (
+        block_sparse_attention, block_sparse_attention_dkv,
+        block_sparse_attention_dq, block_sparse_attention_lse)
     from spt_proto_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_rows, decode_attention_rows_q,
         verify_attention_rows)
@@ -1766,7 +1878,10 @@ def wrappers():
                 ffn_tail_gated_int8=ffn_tail_gated_int8,
                 verify_attention_rows=verify_attention_rows,
                 paged_attention=paged_attention,
-                decode_attention=decode_attention)
+                decode_attention=decode_attention,
+                block_sparse_attention_lse=block_sparse_attention_lse,
+                block_sparse_attention_dq=block_sparse_attention_dq,
+                block_sparse_attention_dkv=block_sparse_attention_dkv)
 
 
 def expected_launches(iw, quantized):
@@ -2585,7 +2700,6 @@ def phase_serving_stack():
 def device_profile(label, fn, top=8):
     """Device busy share of a window and its device time by kernel, from
     torch.profiler (CUPTI) over one call of fn, bracketed by CUDA events."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -2594,7 +2708,13 @@ def device_profile(label, fn, top=8):
         fn()
         ev[1].record()
         sync()
-    window_us = ev[0].elapsed_time(ev[1]) * 1e3
+    return profile_summary(label, prof, ev[0].elapsed_time(ev[1]) * 1e3, top)
+
+
+def profile_summary(label, prof, window_us, top=8):
+    """Busy share and the top kernels of a finished profile whose window,
+    bracketed by CUDA events, took window_us."""
+    from torch.autograd import DeviceType
     by_kernel = {}
     for a in prof.key_averages():
         if a.device_type == DeviceType.CUDA:      # kernels, copies, memsets
@@ -2604,12 +2724,343 @@ def device_profile(label, fn, top=8):
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     out = dict(window_us=window_us, device_busy_us=busy_us,
                busy_share=busy_us / window_us if by_kernel else None,
-               top=[(k[:90], t, n) for k, (t, n) in rows])
+               top=[(k[:90], t, n) for k, (t, n) in rows],
+               by_kernel=by_kernel)
     log(f'  profile {label}: window {window_us:.0f} us, device busy '
         f'{busy_us:.0f} us ({out["busy_share"]})')
     for k, t, n in out['top']:
         log(f'    {t:9.1f} us {n:5d} calls  {k}')
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: SPT fine-tuning (DecoderLM, the routed-FFN + LoRA + PQ train step,
+# the tune CLI) through the lse forward, dq and dk/dv kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ('block_sparse_attention_lse', 'block_sparse_attention_dq',
+                 'block_sparse_attention_dkv')
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 2
+
+
+def to_dev(tree, dev):
+    """A copy of the tree on `dev` (training updates it in place)."""
+    from spt_proto_tpu_torch.utils.tree import flatten, unflatten
+    return unflatten({k: v.to(dev, copy=True)
+                      for k, v in flatten(tree).items()})
+
+
+def capture_grads(state, grads):
+    """Make the next optimizer step of `state` first copy the trainable
+    leaves' gradients (before clipping) into `grads`, by flax path."""
+    from spt_proto_tpu_torch.utils.tree import flatten
+    opt = state.opt_state
+    step = opt.step
+
+    def capturing(norm):
+        grads.update({k: p.grad.detach().cpu().clone() for k, p in
+                      flatten(state.params).items() if p.grad is not None})
+        opt.step = step
+        step(norm)
+    opt.step = capturing
+
+
+# A trainable leaf's gradient, card against CPU, relative to its largest
+# entry. Not 1e-4: the plain PyTorch path alone (attn_impl 'block', no
+# kernel) differs by 1.8e-2 of the max in OPT-125M's fc1 LoRA right factor
+# between the card and the CPU (measured on an H100 80GB HBM3 at 700 W:
+# ReLU pre-activations within an ulp of 0 take the other side of the kink
+# when cuBLAS and the CPU sum in other orders, and each such flip moves
+# that hidden unit's gradient by a whole term; the leaves below it follow
+# at ~1e-3). The kernels are held
+# at f32 tightness on the run's own tensors instead (KERNEL_TOL).
+GRAD_REL_BOUND = 5e-2
+KERNEL_TOL = (1e-5, 1e-5)
+# Free-running losses after 1-2 steps, card against CPU. Not 1e-4: Adam
+# moves each weight by about lr * sign(g) on its first steps, so gradient
+# entries near 0 that differ in sign part the two runs' weights by 2 lr,
+# and the LoRA factors' gain (left factors are normal(1.0)) turns that
+# into 1.3e-4 and 3.2e-4 of the loss at steps 1 and 2 at OPT-125M width,
+# 5.2e-4 and 1.3e-3 at Llama-3-8B width (the same card). The stepwise
+# steps hold the same steps to 1e-5.
+FREE_REL_BOUND = 5e-3
+
+
+def record_attention(records):
+    """Patch the lse forward and the backward of ops.block_sparse_attention
+    to keep each call's inputs and outputs (the autograd Function looks
+    both up in the module); returns the function that undoes it. The lse
+    wrapper counts its launches on the name it is reached by, the recorder
+    while patched: undo hands that count back."""
+    from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    fwd, bwd = m.block_sparse_attention_lse, m.block_sparse_attention_bwd
+
+    def fwd_rec(q, k, v, sel, **kw):
+        o, lse = fwd(q, k, v, sel, **kw)
+        records.append(('fwd', (q, k, v, sel), kw, (o, lse)))
+        return o, lse
+
+    def bwd_rec(q, k, v, sel, o, lse, g, **kw):
+        out = bwd(q, k, v, sel, o, lse, g, **kw)
+        records.append(('bwd', (q, k, v, sel, o, lse, g), kw, out))
+        return out
+    fwd_rec.launches = 0
+    m.block_sparse_attention_lse, m.block_sparse_attention_bwd = \
+        fwd_rec, bwd_rec
+
+    def undo():
+        m.block_sparse_attention_lse, m.block_sparse_attention_bwd = fwd, bwd
+        fwd.launches += fwd_rec.launches
+    return undo
+
+
+def check_recorded_kernels(label, records):
+    """The kernels' outputs of a training pass against their twins on the
+    same CUDA tensors (the run's own q, k, v, selection and output
+    gradient), f32: KERNEL_TOL. Returns the worst error by output."""
+    from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    worst = {}
+    for kind, args, kw, got in records:
+        want = (m.block_sparse_attention_lse_ref(*args, **kw)
+                if kind == 'fwd' else
+                m.block_sparse_attention_bwd_ref(*args, **kw))
+        names = ('o', 'lse') if kind == 'fwd' else ('dq', 'dk', 'dv')
+        for name, a, w in zip(names, got, want):
+            err = max_err(a, w)
+            worst[name] = max(worst.get(name, 0.0), err)
+            require(close(a, w, torch.float32, KERNEL_TOL),
+                    f'{label}: kernel {name} on the training tensors: err '
+                    f'{err} ({tol_str(torch.float32, KERNEL_TOL)})')
+    log(f'  [{label}] kernels vs twins on the training tensors '
+        f'({len(records)} calls): max err ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in worst.items()))
+    return worst
+
+
+def train_parity(label, cfg, b, s):
+    """f32 training on the card through the kernels against the CPU
+    through the twins, from the same weights (the port's init_params, seed
+    0, then the four upgrade stages) and batches (numpy seed 0), 3 train
+    steps each:
+    - stepwise: each card step starts from the CPU run's weights before
+      that step; loss, ce and pq_loss to 1e-5 relative, step 0's grad_norm
+      too, and step 0's gradients (before clipping) to GRAD_REL_BOUND of
+      each trainable leaf's largest entry;
+    - the kernels: 1 lse forward, 1 dq and 1 dk/dv a layer a step, and at
+      step 0 their outputs against the twins on the step's own CUDA
+      tensors (KERNEL_TOL);
+    - free-running on the card from the same start: losses to
+      FREE_REL_BOUND of the CPU's."""
+    from spt_proto_tpu_torch.tuning import surgery, trainer
+    from spt_proto_tpu_torch.utils.tree import flatten
+    t0 = time.perf_counter()
+    params = surgery.init_params(cfg, SEED, 'cpu')
+    cfg, params = surgery.full_upgrade(cfg, params, SEED + 1)
+    cfg = cfg.replace(attn_impl='pallas', dtype=torch.float32)
+    r = np.random.RandomState(SEED)
+    batches = []
+    for _ in range(3):
+        x = r.randint(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+        batches.append({'inputs': x[:, :-1], 'targets': x[:, 1:]})
+    ws = wrappers()
+    rel = lambda a, b_: abs(a - b_) / abs(b_)
+    step = trainer.make_train_step(cfg)
+
+    def run(state, stepwise_from=None, on_first=None, keep=False):
+        """3 steps: (metrics, the weights before each step if keep); with
+        stepwise_from, each step starts from those weights."""
+        metrics, before = [], []
+        for i, batch in enumerate(batches):
+            if stepwise_from is not None:
+                with torch.no_grad():
+                    for k, v in flatten(state.params).items():
+                        v.copy_(stepwise_from[i][k])
+            if keep:
+                before.append({k: v.detach().clone()
+                               for k, v in flatten(state.params).items()})
+            if i == 0 and on_first is not None:
+                on_first(state)
+            state, m = step(state, batch)
+            metrics.append({k: v.item() for k, v in m.items()})
+        return metrics, before
+
+    grads_c, grads_g, records = {}, {}, []
+    m_cpu, before = run(trainer.create_train_state(
+        cfg, to_dev(params, 'cpu')),
+        on_first=lambda st: capture_grads(st, grads_c), keep=True)
+    log(f'  [{label}] cpu: {time.perf_counter() - t0:.1f} s')
+    for w in ws.values():
+        w.launches = 0
+    undo = []
+
+    def first_card_step(st):
+        capture_grads(st, grads_g)
+        undo.append(record_attention(records))
+    card = trainer.create_train_state(cfg, to_dev(params, DEV))
+    try:
+        m_step, _ = run(card, stepwise_from=before, on_first=first_card_step)
+    finally:
+        for u in undo:
+            u()
+    del card
+    counts = {n: w.launches for n, w in ws.items()}
+    want = {n: 3 * cfg.n_layers if n in TRAIN_KERNELS else 0 for n in ws}
+    require(counts == want, f'{label} launches in 3 steps {counts} '
+            f'(expected {want})')
+    kernel_err = check_recorded_kernels(label, records)
+    del records
+    for i in range(3):
+        for name in ('loss', 'ce', 'pq_loss') + (('grad_norm',) if i == 0
+                                                 else ()):
+            require(rel(m_step[i][name], m_cpu[i][name]) <= 1e-5,
+                    f'{label} stepwise step {i} {name} {m_step[i][name]} vs '
+                    f'{m_cpu[i][name]}')
+    worst = {}
+    for k, w in grads_c.items():
+        scale = w.abs().max().item()
+        err = (grads_g[k] - w).abs().max().item()
+        worst[k] = err / scale if scale > 0 else err
+        require(err <= GRAD_REL_BOUND * scale, f'{label} grad {k}: err '
+                f'{err} vs {GRAD_REL_BOUND} x {scale}')
+    m_free, _ = run(trainer.create_train_state(cfg, to_dev(params, DEV)))
+    free_rel = [rel(a['loss'], b_['loss']) for a, b_ in zip(m_free, m_cpu)]
+    require(max(free_rel) <= FREE_REL_BOUND, f'{label} free-running losses '
+            f'{[m["loss"] for m in m_free]} vs '
+            f'{[m["loss"] for m in m_cpu]}')
+    terms_g, terms_c = m_step[0], m_cpu[0]
+    worst_leaf = max(worst, key=worst.get)
+    m_free = [m['loss'] for m in m_free]
+    out = dict(loss_card=terms_g['loss'], loss_cpu=terms_c['loss'],
+               grad_norm_card=m_step[0]['grad_norm'],
+               grad_norm_cpu=m_cpu[0]['grad_norm'],
+               stepwise_losses_card=[m['loss'] for m in m_step],
+               losses_cpu=[m['loss'] for m in m_cpu],
+               free_losses_card=m_free, free_rel=free_rel,
+               grad_rel_by_leaf=worst, kernel_max_err=kernel_err,
+               seconds=time.perf_counter() - t0)
+    log(f'  [{label}] loss {terms_g["loss"]:.7f} vs {terms_c["loss"]:.7f}; '
+        f'grad_norm {m_step[0]["grad_norm"]:.6f} vs '
+        f'{m_cpu[0]["grad_norm"]:.6f}; worst grad {worst[worst_leaf]:.3g} of '
+        f'its max ({worst_leaf}); stepwise losses {out["stepwise_losses_card"]}'
+        f' vs {out["losses_cpu"]}; free-running {m_free} (rel {free_rel}); '
+        f'{out["seconds"]:.1f} s')
+    log('    grad rel by leaf: ' + ', '.join(
+        f'{k} {v:.2g}' for k, v in sorted(worst.items(),
+                                         key=lambda kv: -kv[1])))
+    return out
+
+
+def train_run(label, argv, b, s, n_layers):
+    """cli.tune.main(argv) on the card, TRAIN_WARMUP + TRAIN_TIMED +
+    TRAIN_PROFILED steps: each step bracketed by CUDA events, the launch
+    counters zeroed after the warm-up and held exactly after the timed
+    steps (1 lse forward, 1 dq and 1 dk/dv a layer a step, nothing else),
+    peak memory over the timed steps, then the profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from spt_proto_tpu_torch.cli import tune
+    from spt_proto_tpu_torch.tuning import trainer
+    import tempfile
+    ws = wrappers()
+    rec = dict(events=[], losses=[])
+    make = trainer.make_train_step
+    first_profiled = TRAIN_WARMUP + TRAIN_TIMED
+    n_steps = first_profiled + TRAIN_PROFILED
+
+    def instrumented(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            i = state.step
+            if i == TRAIN_WARMUP:
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                for w in ws.values():
+                    w.launches = 0
+            if i == first_profiled:
+                sync()
+                rec['counts'] = {n: w.launches for n, w in ws.items()}
+                rec['peak'] = torch.cuda.max_memory_allocated()
+                rec['prof'] = profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+                rec['prof'].__enter__()
+                rec['window'] = [torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2)]
+                rec['window'][0].record()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step(state, batch)
+            ev[1].record()
+            rec['events'].append(ev)
+            rec['losses'].append(m['loss'].detach())
+            if i == n_steps - 1:
+                rec['window'][1].record()
+                sync()
+                rec['prof'].__exit__(None, None, None)
+            return state, m
+        return run
+
+    trainer.make_train_step = instrumented
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            tune.main(argv + ['--steps', str(n_steps), '--out',
+                              out_dir + '/tuned'])
+    finally:
+        trainer.make_train_step = make
+    timed = rec['events'][TRAIN_WARMUP:first_profiled]
+    step_ms = sum(e[0].elapsed_time(e[1]) for e in timed) / len(timed)
+    losses = [x.item() for x in rec['losses']]
+    want = {n: TRAIN_TIMED * n_layers if n in TRAIN_KERNELS else 0
+            for n in ws}
+    require(rec['counts'] == want,
+            f'{label} launches in {TRAIN_TIMED} steps: {rec["counts"]} '
+            f'(expected {want})')
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f'{label} losses {losses}')
+    prof = profile_summary(label, rec['prof'], rec['window'][0].elapsed_time(
+        rec['window'][1]) * 1e3)
+    in_situ = {}
+    for n, key in (('block_sparse_attention_lse', 'block_sparse_fwd_kernel'),
+                   ('block_sparse_attention_dq', 'block_sparse_dq_kernel'),
+                   ('block_sparse_attention_dkv', 'block_sparse_dkv_kernel')):
+        hits = [(t, c) for k, (t, c) in prof['by_kernel'].items() if key in k]
+        in_situ[n] = sum(t for t, _ in hits) / max(1, sum(c for _, c in hits))
+    res = dict(step_ms=step_ms, tok_s=b * s / step_ms * 1e3,
+               peak_mem_gb=rec['peak'] / 1e9,
+               busy_share=prof['busy_share'],
+               top=prof['top'], kernel_us_in_situ=in_situ, losses=losses,
+               launches=rec['counts'],
+               launches_per_step={n: c / TRAIN_TIMED
+                                  for n, c in rec['counts'].items()},
+               launches_per_prefill=dict.fromkeys(ws, 0))
+    log(f'  [{label}] {step_ms:.2f} ms/step = {res["tok_s"]:.0f} tok/s, '
+        f'peak {res["peak_mem_gb"]:.2f} GB, busy {prof["busy_share"]}, '
+        f'kernels in situ (us) {in_situ}; losses {losses}')
+    return res
+
+
+def phase_training():
+    from spt_proto_tpu_torch.config import llama_config, opt_config
+    parity = dict(
+        opt_125m=train_parity(
+            'parity OPT-125M 2 layers B=2 S=2048',
+            opt_config('125m', n_layers=2, sparse_coeff=4), 2, 2048),
+        llama_3_8b=train_parity(
+            'parity Llama-3-8B width 2 layers V=32000 B=1 S=1024',
+            llama_config('3-8b', n_layers=2, vocab_size=32000,
+                         sparse_coeff=2), 1, 1024))
+    base = ['--device', DEV, '--config', 'opt-125m', '--batch_size', str(B)]
+    runs = {
+        'train 125M f32 B=8 S=512': train_run(
+            'train 125M f32 B=8 S=512', base, B, 512, LAYERS),
+        'train 125M bf16 B=8 S=512': train_run(
+            'train 125M bf16 B=8 S=512', base + ['--dtype', 'bfloat16'], B,
+            512, LAYERS),
+        'train 125M bf16 B=8 S=2048': train_run(
+            'train 125M bf16 B=8 S=2048',
+            base + ['--dtype', 'bfloat16', '--seq_length', '2049'], B, 2048,
+            LAYERS)}
+    torch.cuda.empty_cache()
+    return dict(parity=parity, runs=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -2627,7 +3078,8 @@ KERNELS = [
     ('block_sparse_attention',
      'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:373',
-     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108'],
+     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108',
+      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:241'],
      'sparse int8-KV'),
     ('decode_attention_rows', 'spt_proto_tpu_torch/csrc/decode_attention.cu',
      'spt_proto_tpu/ops/pallas/decode_attention.py:883',
@@ -2658,6 +3110,23 @@ KERNELS = [
     ('decode_attention', 'spt_proto_tpu_torch/csrc/paged_attention.cu',
      'spt_proto_tpu/ops/pallas/decode_attention.py:156', [],
      'paged dense bf16-KV'),
+    # phase 9: the training kernels, counted in the f32 tune run
+    ('block_sparse_attention_lse',
+     'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
+     'spt_proto_tpu/ops/pallas/block_sparse_attention.py:102',
+     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108',
+      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:373'],
+     'train 125M f32 B=8 S=512'),
+    ('block_sparse_attention_dq',
+     'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
+     'spt_proto_tpu/ops/pallas/block_sparse_attention.py:416',
+     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:626'],
+     'train 125M f32 B=8 S=512'),
+    ('block_sparse_attention_dkv',
+     'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
+     'spt_proto_tpu/ops/pallas/block_sparse_attention.py:463',
+     ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:672'],
+     'train 125M f32 B=8 S=512'),
 ]
 OFF_MAIN_PATH = ('decode_attention',)
 
@@ -2710,8 +3179,12 @@ def main() -> int:
     stack = phase_serving_stack()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
+    log('phase 9: SPT fine-tuning, f32 parity and OPT-125M tune runs')
+    training = phase_training()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
     all_runs = {**serving['runs'], **llama['runs'], **spec['runs'],
-                **stack['runs']}
+                **stack['runs'], **training['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
@@ -2745,6 +3218,8 @@ def main() -> int:
         speculative=dict(runs={k: brief(r) for k, r in spec['runs'].items()}),
         serving_stack=dict(stack, runs={k: brief(r) for k, r
                                         in stack['runs'].items()}),
+        training=dict(training, runs={k: brief(r) for k, r
+                                      in training['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

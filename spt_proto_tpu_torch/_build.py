@@ -49,7 +49,8 @@ SIGNATURES = {
     'spt_int8_matmul': [_I] + [_P] * 4 + [_I] * 5 + [_P],
     'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
     'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],
-    'spt_block_sparse_fwd': [_I] + [_P] * 5 + [_I] * 6 + [_F, _F, _I, _P],
+    'spt_block_sparse_fwd': [_I] + [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
+    'spt_block_sparse_bwd': [_I] + [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
     'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     'spt_tile_pool_attention': [_I] + [_P] * 13 + [_I] * 7 + [_F, _F, _P],
 }

@@ -1,0 +1,163 @@
+"""SPT fine-tuning CLI (port of spt_proto_tpu/cli/tune.py, single device).
+
+    python -m spt_proto_tpu_torch.cli.tune --config opt-125m --steps 8 \\
+        --out .data/tuned
+
+Builds the named config's seeded random weights (`--config`, through the
+port's init_params) or loads a checkpoint (`--ckpt`, the JAX package's
+format), applies the upgrade stages (default lora,ffn,mha_v1,mha_v2), and
+trains with AdamW (lr 1e-4, weight decay 0.1, clip 1.0) on CE + 1e-2 * the
+PQ aux loss, printing a JSON line every 10 steps as the JAX CLI does. It
+saves the tuned checkpoint to --out (params.npz + config.json, which the
+JAX package loads), the delta against the base to --out-delta, and the
+train state to --out-trainstate; the last line is {"saved", "delta_params"}.
+On CUDA it attends through the block-sparse kernels (attn_impl='pallas').
+
+Without --data_root the batches are synthetic (numpy seed 0): rows of
+--seq_length tokens, so inputs and targets are seq_length - 1 = 512 long,
+the length the data path gives (the JAX CLI's synthetic rows are one token
+shorter). --data_root, a device mesh (--mesh_*, --fsdp, --ep) and
+--int8_base raise, naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument('--ckpt', type=str, default=None,
+                   help='checkpoint directory (config.json + params.npz)')
+    p.add_argument('--config', type=str, default='opt-125m',
+                   help='named config when no --ckpt (opt-125m, opt-1.3b, '
+                        'llama-7b, llama-3-8b, ..., tiny-opt): seeded random '
+                        'weights')
+    p.add_argument('--dtype', type=str, default='float32',
+                   choices=['float32', 'bfloat16'])
+    p.add_argument('--device', type=str, default='cuda')
+    p.add_argument('--data_root', type=str, default=None,
+                   help='dataset tree (the data slice); synthetic LM '
+                        'batches if omitted')
+    p.add_argument('--out', type=str, required=True)
+    p.add_argument('--d_lora', type=int, default=16)
+    p.add_argument('--steps', type=int, default=100)
+    p.add_argument('--lr', type=float, default=1e-4)
+    p.add_argument('--weight_decay', type=float, default=0.1)
+    p.add_argument('--seq_length', type=int, default=513)
+    p.add_argument('--batch_size', type=int, default=8)
+    p.add_argument('--accumulate', type=int, default=1,
+                   help='gradient-accumulation micro-batches per optimizer '
+                        'step; --batch_size stays the micro-batch size')
+    p.add_argument('--save_every', type=int, default=500)
+    p.add_argument('--resume', action='store_true',
+                   help='resume from the --out-trainstate train state')
+    p.add_argument('--remat', action='store_true')
+    for flag in ('--mesh_data', '--mesh_model'):
+        p.add_argument(flag, type=int, default=None)
+    p.add_argument('--mesh_pipe', type=int, default=1)
+    p.add_argument('--mesh_sp', type=int, default=1)
+    p.add_argument('--fsdp', action='store_true')
+    p.add_argument('--ep', action='store_true')
+    p.add_argument('--int8_base', action='store_true')
+    p.add_argument('--stages', type=str, default='lora,ffn,mha_v1,mha_v2',
+                   help='comma-separated upgrade stages to apply')
+    return p
+
+
+def _named_config(name: str):
+    """opt-<size>, llama-<size>, or tiny-opt / tiny-llama (the tests'
+    config)."""
+    from spt_proto_tpu_torch.config import (llama_config, opt_config,
+                                            tiny_config)
+    fam, size = name.split('-', 1)
+    if fam == 'tiny':
+        return tiny_config(size)
+    return opt_config(size) if fam == 'opt' else llama_config(size)
+
+
+def _check_ported(args) -> None:
+    if args.data_root:
+        raise NotImplementedError(
+            '--data_root (tokenized MMLU / FLAN batches through '
+            'AutoTokenizer.from_pretrained) comes with the data slice')
+    if (args.mesh_data or args.mesh_model or args.mesh_pipe > 1
+            or args.mesh_sp > 1 or args.fsdp or args.ep):
+        raise NotImplementedError(
+            'a device mesh (--mesh_*, --fsdp, --ep) comes with the '
+            'parallelism slice')
+    if args.int8_base:
+        raise NotImplementedError(
+            '--int8_base (frozen int8 base kernels) comes with the int8-base '
+            'slice')
+
+
+def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int):
+    """Endless random LM batches (numpy seed 0): inputs / targets of
+    seq_length - 1 tokens."""
+    import numpy as np
+    r = np.random.RandomState(0)
+    while True:
+        x = r.randint(0, vocab_size, size=(batch_size, seq_length)
+                      ).astype(np.int32)
+        yield {'inputs': x[:, :-1], 'targets': x[:, 1:]}
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    _check_ported(args)
+
+    import numpy as np
+    import torch
+
+    from spt_proto_tpu_torch.inference.bridge import resolve_device
+    from spt_proto_tpu_torch.tuning import surgery
+    from spt_proto_tpu_torch.tuning.trainer import train_loop
+    from spt_proto_tpu_torch.utils import checkpoint as ckpt_io
+
+    dev = resolve_device(args.device)
+    if args.ckpt:
+        cfg, params = ckpt_io.load_checkpoint(args.ckpt, dev)
+    else:
+        cfg = _named_config(args.config)
+        params = surgery.init_params(cfg, 0, dev)
+    cfg = cfg.replace(dtype=getattr(torch, args.dtype))
+    base_params = params
+    for i, stage in enumerate(s for s in args.stages.split(',') if s):
+        kw = {'d_lora': args.d_lora} if stage == 'lora' else {}
+        cfg, params = surgery.upgrade(cfg, params, stage, i + 1, **kw)
+    if args.remat:
+        cfg = cfg.replace(remat=True)
+    if dev.type == 'cuda':
+        cfg = cfg.replace(attn_impl='pallas')
+    cfg.validate()
+
+    batches = synthetic_batches(cfg.vocab_size, args.batch_size,
+                                args.seq_length)
+    if args.accumulate > 1:
+        def accumulated(src, a):
+            while True:
+                group = [next(src) for _ in range(a)]
+                yield {k: np.concatenate([g[k] for g in group])
+                       for k in group[0]}
+        batches = accumulated(batches, args.accumulate)
+
+    def log(i, m):
+        print(json.dumps({'step': i, **{k: round(v, 5)
+                                        for k, v in m.items()}}), flush=True)
+
+    params, history = train_loop(
+        cfg, params, batches, lr=args.lr, weight_decay=args.weight_decay,
+        max_steps=args.steps, log_every=10, log_fn=log,
+        accumulate=args.accumulate, checkpoint_dir=args.out + '-trainstate',
+        checkpoint_every=args.save_every, resume=args.resume)
+
+    ckpt_io.save_checkpoint(args.out, cfg, params)
+    n = ckpt_io.save_delta_checkpoint(args.out + '-delta', cfg, base_params,
+                                      params)
+    print(json.dumps({'saved': args.out, 'delta_params': int(n)}))
+    return params, history
+
+
+if __name__ == '__main__':
+    main()

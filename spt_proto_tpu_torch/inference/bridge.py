@@ -4,11 +4,15 @@
 jax.device_get) into the port's tree of tensors, keeping the paths and the
 stacked `blocks` layer axis; the parity tests always go through it.
 
+`params_to_numpy` is its inverse: a port tree back to numpy arrays that the
+JAX package takes.
+
 `init_params` builds a seeded tree with the same paths, shapes and init
-scales as the JAX package's surgery.init_params (OPT or LLaMA) followed by
-the mha_v1 and mha_v2 upgrades (for a sparse config). Its numbers differ
-from JAX's (a torch.Generator, not jax.random), so it serves runs where JAX
-is absent, such as chip_smoke.py on a GPU host without JAX.
+scales as the JAX package's surgery.init_params (OPT or LLaMA; LoRA factors,
+the routed FFN's router and the PQ codebook where the config has them).
+Its numbers differ from JAX's (a torch.Generator, not jax.random), so it
+serves runs where JAX is absent, such as chip_smoke.py and the tune CLI on
+a GPU host without JAX.
 """
 from __future__ import annotations
 
@@ -52,6 +56,14 @@ def params_from_numpy(tree: Any, device='cuda') -> Any:
     return _to_tensor(tree, dev)
 
 
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree of tensors -> the same tree of numpy arrays."""
+    from spt_proto_tpu_torch.utils.tree import to_numpy
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return to_numpy(tree)
+
+
 def _normal(g, shape, std, dtype, device):
     return torch.randn(shape, generator=g, dtype=torch.float32,
                        device=device).mul_(std).to(dtype)
@@ -69,15 +81,14 @@ def _lecun_normal(g, shape, dtype, device):
 
 
 def init_params(cfg: ModelConfig, seed: int, device='cuda') -> dict:
-    """Seeded param tree for `cfg` (OPT or LLaMA, MHA or GQA, dense FFN, no
-    LoRA), made on `device`. LLaMA has no learned positions and no biases,
-    RMSNorm scales only, and a gated FFN (gate, side, down); k and v are
-    kv_heads x d_head wide. A sparse_v1/v2 config gets the PQ codebook,
-    normal(1.0) of shape [L, n_sub, n_code, d_code]."""
-    if cfg.ffn == FFN_ROUTED or cfg.d_lora:
-        raise NotImplementedError(
-            'init_params covers a dense FFN and no LoRA; routed FFN and LoRA '
-            'come with the training slice')
+    """Seeded param tree for `cfg` (OPT or LLaMA, MHA or GQA), made on
+    `device`. LLaMA has no learned positions and no biases, RMSNorm scales
+    only, and a gated FFN (gate, side, down); k and v are kv_heads x d_head
+    wide. A sparse_v1/v2 config gets the PQ codebook, normal(1.0) of shape
+    [L, n_sub, n_code, d_code]. With d_lora every q/k/v/o, FFN and
+    embedding leaf gets LoRA factors (left normal(1.0) [in, r], right zeros
+    [out, r]); a routed FFN gets its router, a Dense(n_blocks) with a
+    lecun-normal kernel and a zero bias, beside the dense-layout FFN."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -104,7 +115,9 @@ def init_params(cfg: ModelConfig, seed: int, device='cuda') -> dict:
         mha['quantizer'] = {'codebook': _normal(
             g, (L, cfg.n_subspaces, cfg.n_codewords, cfg.d_codeword), 1.0,
             dt, dev)}
-    # draw order: q, k, v, o, codebook, embeddings, FFN, lm_head
+    # draw order: q, k, v, o, codebook, embeddings, FFN, lm_head, then the
+    # LoRA left factors (q, k, v, o, FFN, embeddings) and the router, so
+    # that a dense no-LoRA config draws what it always drew
     tree = {'embedding': {'embedding': _normal(g, (V, D), 0.02, dt, dev)}}
     if opt:
         tree['learned_pe'] = {'embedding': _normal(
@@ -116,4 +129,26 @@ def init_params(cfg: ModelConfig, seed: int, device='cuda') -> dict:
         'final_norm': norm(),
         'lm_head': {'kernel': _lecun_normal(g, (D, V), dt, dev)},
     })
+    if cfg.d_lora:
+        r = cfg.d_lora
+
+        def lora(leaf, key):
+            rows = leaf[key].shape[:-1]             # [L, in] or [V]
+            leaf['lora_left'] = _normal(g, (*rows, r), 1.0, dt, dev)
+            out = leaf[key].shape[-1]
+            lead = rows[:-1] if key == 'kernel' else ()
+            leaf['lora_right'] = torch.zeros((*lead, out, r), dtype=dt,
+                                             device=dev)
+        for name in ('q', 'k', 'v', 'o'):
+            lora(mha[name], 'kernel')
+        for leaf in ffn.values():
+            lora(leaf, 'kernel')
+        lora(tree['embedding'], 'embedding')
+        if opt:
+            lora(tree['learned_pe'], 'embedding')
+    if cfg.ffn == FFN_ROUTED:
+        n = cfg.n_ffn_blocks
+        ffn['router'] = {
+            'kernel': _lecun_normal(g, (L, D, n), dt, dev),
+            'bias': torch.zeros((L, n), dtype=dt, device=dev)}
     return tree

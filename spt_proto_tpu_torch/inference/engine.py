@@ -37,9 +37,11 @@ the context already cached, in plain PyTorch as the JAX engine writes it in
 jnp; the continuous-batching engine (inference/batching.py) splits long
 prompts and extends cached prefixes with it.
 
-Out of this port so far, and raising NotImplementedError with the slice
-that brings it: routed FFN (training slice), generate(mesh=...)
-(parallelism slice).
+A routed FFN (a checkpoint the SPT tuning made) runs the training layer's
+mask-dispatch forms (layers/feedforward.py). Out of this port so far, and
+raising NotImplementedError with the slice that brings it: ffn_impl='gmm'
+(grouped-matmul slice), int8 weights with a routed FFN (int8-base slice),
+generate(mesh=...) (parallelism slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -57,6 +59,7 @@ from spt_proto_tpu_torch.config import (ATTN_SPARSE_V2, FFN_ROUTED,
 from spt_proto_tpu_torch.inference.bridge import PE_OFFSET, resolve_device
 from spt_proto_tpu_torch.inference.weights import InferenceWeights
 from spt_proto_tpu_torch.layers.common import rope_cos_sin, rotate_half
+from spt_proto_tpu_torch.layers.transformer import make_ffn
 from spt_proto_tpu_torch.ops import pq as pq_ops
 from spt_proto_tpu_torch.ops.block_sparse import pq_tile_scores, select_tiles
 from spt_proto_tpu_torch.ops.block_sparse_attention import \
@@ -222,7 +225,11 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Dense FFN: ReLU (OPT) or gated SiLU, down(silu(gate x) * side x)
-    (LLaMA), in the serving dtype."""
+    (LLaMA), in the serving dtype; a routed FFN runs the training layer's
+    mask-dispatch forms (routed + LoRA keeps its factors: the 2 * prob
+    coeff scales only the frozen path)."""
+    if cfg.ffn == FFN_ROUTED:
+        return make_ffn(cfg, deterministic=True)(p, x)
     lead = x.shape[:-1]
     xf = x.reshape(-1, cfg.d_model)
     if cfg.ffn_gated:
@@ -241,6 +248,8 @@ def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
     and d_ff multiples of 128, and for int8 weights a d_ff tile of >= 128
     dividing d_ff."""
     xn = _norm(cfg, pn, x)
+    if cfg.ffn == FFN_ROUTED:             # the fused tails are dense only
+        return x + _ffn(cfg, p, xn)
     rows = x.numel() // cfg.d_model
     names = ('gate', 'side', 'down') if cfg.ffn_gated else ('fc1', 'fc2')
     quant = [isinstance(p[n]['kernel'], dict) for n in names]
@@ -301,8 +310,6 @@ def _layer(tree, i: int):
 
 def _require_slice(iw: InferenceWeights, cache: KVCache) -> None:
     cfg = iw.cfg
-    if cfg.ffn == FFN_ROUTED:
-        raise NotImplementedError('routed FFN comes with the training slice')
     if cache.k.device.type == 'cuda' and cfg.attn_impl != 'pallas':
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: on the GPU the port attends only "

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spt_proto_tpu_torch.config import ATTN_SPARSE_V2, FFN_ROUTED, ModelConfig
+from spt_proto_tpu_torch.config import ATTN_SPARSE_V2, ModelConfig
 from spt_proto_tpu_torch.inference.bridge import PE_OFFSET, resolve_device
 from spt_proto_tpu_torch.inference.engine import (TILE, KVCache, NEG_INF,
                                                   _apply_rope, _bd_of,
@@ -277,8 +277,6 @@ def paged_decode_step(iw: InferenceWeights, tokens: torch.Tensor,
     through the paged-attention kernel, sparse through
     paged_sparse_attention."""
     cfg = iw.cfg
-    if cfg.ffn == FFN_ROUTED:
-        raise NotImplementedError('routed FFN comes with the training slice')
     p = iw.params
     b = tokens.shape[0]
     dev = cache.k_pages.device

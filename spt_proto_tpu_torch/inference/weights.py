@@ -101,7 +101,8 @@ def _cast_to(dtype, device):
 def _require_int8_form(params: Any) -> None:
     if 'router' in params['blocks']['ffn']:
         raise NotImplementedError(
-            'int8 weights with a routed FFN come with the training slice')
+            'int8 weights with a routed FFN (the routed_ffn_*_int8 forms) '
+            'come with the int8-base slice')
 
 
 @dataclasses.dataclass

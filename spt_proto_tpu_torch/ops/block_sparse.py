@@ -97,7 +97,8 @@ def block_sparse_attention_ref(q: torch.Tensor, k: torch.Tensor,
         (sel[:, :, None, :, None] >= 0)
     scores = torch.where(valid, scores, NEG_INF)
     flat = scores.reshape(b, n_qt, block_q, n_sel * block_k)
-    flat = flat - flat.amax(-1, keepdim=True)
+    # the row max is a constant to autograd (JAX's stop_gradient)
+    flat = flat - flat.amax(-1, keepdim=True).detach()
     e = torch.exp(flat).reshape(scores.shape)
     e = torch.where(valid, e, 0.0)
     denom = e.sum(dim=(3, 4))[..., None, None].clamp(min=1e-9)

@@ -45,3 +45,38 @@ def pq_encode(z: torch.Tensor, codebook: torch.Tensor,
         return torch.argmin(cb_norm - 2.0 * dots, dim=-1).to(torch.int32)
     d = pq_distances(z, codebook, metric)
     return torch.argmin(d, dim=-1).to(torch.int32)
+
+
+def pq_decode(codes: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Codes -> centroid vectors [..., n_subspaces * d_codeword]."""
+    n_sub, n_code, d_code = codebook.shape
+    sub = torch.arange(n_sub, device=codes.device)
+    z_q = codebook[sub, codes.long()]                  # [..., n_sub, d_code]
+    return z_q.reshape(*codes.shape[:-1], n_sub * d_code)
+
+
+def pq_quantize(z: torch.Tensor, codebook: torch.Tensor,
+                metric: str = 'l1') -> torch.Tensor:
+    """Round-trip z -> nearest centroids."""
+    return pq_decode(pq_encode(z, codebook, metric), codebook)
+
+
+def pq_train(z: torch.Tensor, codebook: torch.Tensor,
+             metric: str = 'l1') -> tuple[torch.Tensor, torch.Tensor]:
+    """Training mode: (z_q, loss), loss = MSE(z_w, z_q) + MSE(z, z_q) with
+    z_w the inverse-distance mix softmax(-log d) @ codebook. Distances are
+    clamped at 1e-5 (and at 0 first for 'l2'); no stop-gradient: the
+    gradient reaches z and the codebook. Hard centroids are a one-hot
+    product (the argmin's lowest-index tie rule picks the row)."""
+    n_sub, n_code, d_code = codebook.shape
+    d = pq_distances(z, codebook, metric)              # [..., n_sub, n_code]
+    if metric == 'l2':
+        d = d.clamp(min=0.0)
+    idx = torch.argmin(d, dim=-1)
+    hard = torch.nn.functional.one_hot(idx, n_code).to(codebook.dtype)
+    z_q_flat = torch.einsum('...sc,scd->...sd', hard, codebook)
+    attn = torch.softmax(-torch.log(d.clamp(min=1e-5)), dim=-1)
+    z_w = torch.einsum('...sc,scd->...sd', attn, codebook)
+    zs = z.reshape(*z.shape[:-1], n_sub, d_code)
+    loss = ((z_w - z_q_flat) ** 2).mean() + ((zs - z_q_flat) ** 2).mean()
+    return z_q_flat.reshape(z.shape), loss

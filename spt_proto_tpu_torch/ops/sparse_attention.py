@@ -35,7 +35,8 @@ def sparse_masked_softmax(scores, idx):
     row = torch.arange(s, device=scores.device)[None, :, None]
     valid = idx <= row
     masked = torch.where(valid, scores, NEG_INF)
-    masked = masked - masked.amax(-1, keepdim=True)
+    # the row max is a constant to autograd (JAX's stop_gradient)
+    masked = masked - masked.amax(-1, keepdim=True).detach()
     e = torch.where(valid, torch.exp(masked), 0.0)
     denom = e.sum(-1, keepdim=True).clamp(min=1e-9)
     return e / denom

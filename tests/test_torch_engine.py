@@ -22,6 +22,7 @@ from spt_proto_tpu_torch import config as tcfg
 from spt_proto_tpu_torch.inference import bridge
 from spt_proto_tpu_torch.inference import engine as teng
 from spt_proto_tpu_torch.inference.weights import InferenceWeights as TIW
+from spt_proto_tpu_torch.tuning import surgery as surgery_port
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -178,3 +179,48 @@ def test_prefill_and_greedy_decode_match_jax(model, prompt):
                                    np.asarray(getattr(j_cache, name)),
                                    rtol=1e-5, atol=0, err_msg=name)
     np.testing.assert_array_equal(t_tokens, j_tokens)
+
+
+def test_routed_lora_model_decodes_as_jax():
+    """A checkpoint the SPT tuning made serves: tiny OPT after the four
+    stages (routed FFN + LoRA, whose factors stay unfolded so that the
+    2 * prob coeff scales only the frozen path; LoRA right factors random),
+    sparse over the int8 cache: prefill 512 + 8 greedy steps, the port's
+    tokens equal the JAX engine's; the paged step gives the contiguous
+    engine's tokens."""
+    from spt_proto_tpu_torch.inference import paged as tpaged
+    from spt_proto_tpu_torch.utils.tree import flatten, unflatten
+    tc = tcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
+                          vocab_size=256, max_length=MAX_LEN,
+                          pq_metric='l2', attn_impl='pallas')
+    params = surgery_port.init_params(tc, 0, 'cpu')
+    tc, params = surgery_port.full_upgrade(tc, params, 1, d_lora=4,
+                                           ffn_block_size=64)
+    tc = tc.replace(sparse_coeff=2)
+    flat = flatten(bridge.params_to_numpy(params))
+    r = np.random.RandomState(9)
+    for path in flat:
+        if 'lora_right' in path:
+            flat[path] = (r.randn(*flat[path].shape) * 0.1).astype(np.float32)
+    params = unflatten(flat)
+    kw = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)}
+    kw.update(dtype=jnp.float32, param_dtype=jnp.float32)
+    jc = jcfg.ModelConfig(**kw)
+    tokens = r.randint(1, 256, size=(B, 512)).astype(np.int32)
+    j_logits, _, j_tokens = _jax_run(jc, params, tokens)
+    t_logits, _, t_tokens = _port_run(jc, params, tokens)
+    np.testing.assert_allclose(t_logits, j_logits, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(t_tokens, j_tokens)
+    iw = TIW.from_params(tc, bridge.params_from_numpy(params, 'cpu'))
+    cache = tpaged.PagedKVCache.create(tc, B, 24, 64, MAX_LEN,
+                                       quantized=True, device='cpu')
+    cache.page_indices[:, :12] = torch.arange(24, dtype=torch.int32
+                                              ).reshape(B, 12)
+    logits, cache = tpaged.paged_prefill(iw, torch.from_numpy(tokens), cache)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    out = []
+    for _ in range(STEPS):
+        logits, cache = tpaged.paged_decode_step(iw, tok, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out.append(tok.numpy())
+    np.testing.assert_array_equal(np.stack(out, 1), t_tokens)

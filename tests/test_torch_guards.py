@@ -2,7 +2,6 @@
 the JAX package, its entry points default to CUDA and raise without it,
 and on CPU tensors every kernel wrapper runs its plain twin and launches
 nothing."""
-import dataclasses
 import subprocess
 import sys
 import types
@@ -37,7 +36,9 @@ WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tattn.decode_attention_rows, tffn.ffn_tail, tmm.int8_matmul,
             tlm.lm_head_argmax_int8, tffn.ffn_tail_int8, tffn.ffn_tail_gated,
             tffn.ffn_tail_gated_int8, tattn.verify_attention_rows,
-            tpa.paged_attention, tattn.decode_attention)
+            tpa.paged_attention, tattn.decode_attention,
+            tbsa.block_sparse_attention_lse, tbsa.block_sparse_attention_dq,
+            tbsa.block_sparse_attention_dkv)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -155,26 +156,41 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 
 def test_unported_forms_raise_not_implemented():
-    """What a later slice brings raises and names its slice: the routed FFN
-    (training slice), in init_params, the int8 weight build and the engine.
-    What earlier slices brought runs: a bf16/f32 KV cache, int8 weights,
-    and a tiny LLaMA GQA model that builds int8 weights (the triple_int8
-    form) and decodes a step on the CPU."""
+    """What a later slice brings raises and names its slice: int8 weights
+    with a routed FFN and int8_base (the int8-base slice), ffn_impl='gmm'
+    (the grouped-matmul slice), dense attention under attn_impl='pallas' on
+    a CUDA device (the flash-attention slice) and a training mesh (the
+    parallelism slice). What this and earlier slices brought runs: the
+    routed FFN with LoRA in init_params and the engine, a bf16/f32 KV
+    cache, int8 weights, and a tiny LLaMA GQA model that builds int8
+    weights (the triple_int8 form) and decodes a step on the CPU."""
+    from spt_proto_tpu_torch.layers.attention import check_flash_ported
+    from spt_proto_tpu_torch.models.decoder import DecoderLM
+    from spt_proto_tpu_torch.tuning import trainer
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
-    with pytest.raises(NotImplementedError, match='training slice'):
-        bridge.init_params(cfg.replace(ffn='routed'), seed=0, device='cpu')
-    router = {'kernel': torch.zeros(2, 128, 4)}
-    routed = {**params, 'blocks': {**params['blocks'], 'ffn': {
-        **params['blocks']['ffn'], 'router': router}}}
-    with pytest.raises(NotImplementedError, match='training slice'):
-        InferenceWeights.from_params(cfg, routed, quant='int8')
+    rcfg = cfg.replace(ffn='routed', ffn_block_size=64, d_lora=4)
+    routed = bridge.init_params(rcfg, seed=0, device='cpu')
+    assert routed['blocks']['ffn']['router']['kernel'].shape == (2, 128, 4)
+    with pytest.raises(NotImplementedError, match='int8-base slice'):
+        InferenceWeights.from_params(rcfg, routed, quant='int8')
+    with pytest.raises(NotImplementedError, match='int8-base slice'):
+        DecoderLM(rcfg.replace(int8_base=True), routed)
+    with pytest.raises(NotImplementedError, match='grouped-matmul'):
+        DecoderLM(rcfg.replace(ffn_impl='gmm'), routed)
+    with pytest.raises(NotImplementedError, match='flash-attention'):
+        check_flash_ported(cfg, 256, torch.device('cuda'), False)
+    check_flash_ported(cfg, 256, torch.device('cpu'), False)
+    with pytest.raises(NotImplementedError, match='parallelism slice'):
+        trainer.train_loop(rcfg, routed, [], mesh=object())
     cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
     tok = torch.zeros(1, dtype=torch.int32)
+    iw_r = InferenceWeights.from_params(rcfg, routed)
+    assert 'lora_left' in iw_r.params['blocks']['ffn']['fc1']
+    tok_r, cache_r = teng.decode_step_greedy(
+        iw_r, tok, teng.KVCache.create(rcfg, 1, 256, device='cpu'))
+    assert cache_r.length.tolist() == [1]
     iw = InferenceWeights.from_params(cfg, params)
-    bad = dataclasses.replace(iw, cfg=cfg.replace(ffn='routed'))
-    with pytest.raises(NotImplementedError, match='training slice'):
-        teng.decode_step_greedy(bad, tok, cache)
     tok, cache = teng.decode_step_greedy(iw, tok, cache)
     assert cache.length.tolist() == [1]
     int8_weights = InferenceWeights.from_params(cfg, params, quant='int8')
