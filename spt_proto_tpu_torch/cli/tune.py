@@ -12,12 +12,19 @@ saves the tuned checkpoint to --out (params.npz + config.json, which the
 JAX package loads), the delta against the base to --out-delta, and the
 train state to --out-trainstate; the last line is {"saved", "delta_params"}.
 On CUDA it attends through the block-sparse kernels (attn_impl='pallas').
+--int8_base is the QLoRA shape (surgery.split_int8_base, staged): the base
+q/k/v/o and FFN kernels become int8 frozen8 leaves that stay int8 through
+both passes (int8_matmul forward, int8_matmul_t backward); the saved
+checkpoint and delta are then the params without those kernels, with
+cfg.int8_base set, as the JAX CLI saves them. Training runs in place on
+the tree the CLI built (the delta's base keeps copies of the leaves it
+trains), so the card holds the base weights once.
 
 Without --data_root the batches are synthetic (numpy seed 0): rows of
 --seq_length tokens, so inputs and targets are seq_length - 1 = 512 long,
 the length the data path gives (the JAX CLI's synthetic rows are one token
-shorter). --data_root, a device mesh (--mesh_*, --fsdp, --ep) and
---int8_base raise, naming the slice that brings them.
+shorter). --data_root and a device mesh (--mesh_*, --fsdp, --ep) raise,
+naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -59,7 +66,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument('--mesh_sp', type=int, default=1)
     p.add_argument('--fsdp', action='store_true')
     p.add_argument('--ep', action='store_true')
-    p.add_argument('--int8_base', action='store_true')
+    p.add_argument('--int8_base', action='store_true',
+                   help='QLoRA-shape: freeze the base kernels as int8 '
+                        '(surgery.split_int8_base), streamed through the '
+                        'fused-dequant matmul in both passes')
     p.add_argument('--stages', type=str, default='lora,ffn,mha_v1,mha_v2',
                    help='comma-separated upgrade stages to apply')
     return p
@@ -86,10 +96,6 @@ def _check_ported(args) -> None:
         raise NotImplementedError(
             'a device mesh (--mesh_*, --fsdp, --ep) comes with the '
             'parallelism slice')
-    if args.int8_base:
-        raise NotImplementedError(
-            '--int8_base (frozen int8 base kernels) comes with the int8-base '
-            'slice')
 
 
 def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int):
@@ -112,8 +118,10 @@ def main(argv=None):
 
     from spt_proto_tpu_torch.inference.bridge import resolve_device
     from spt_proto_tpu_torch.tuning import surgery
+    from spt_proto_tpu_torch.tuning.partition import is_trainable_path
     from spt_proto_tpu_torch.tuning.trainer import train_loop
     from spt_proto_tpu_torch.utils import checkpoint as ckpt_io
+    from spt_proto_tpu_torch.utils.tree import flatten, unflatten
 
     dev = resolve_device(args.device)
     if args.ckpt:
@@ -130,7 +138,16 @@ def main(argv=None):
         cfg = cfg.replace(remat=True)
     if dev.type == 'cuda':
         cfg = cfg.replace(attn_impl='pallas')
+    frozen8 = None
+    if args.int8_base:
+        cfg, params, frozen8 = surgery.split_int8_base(cfg, params,
+                                                       staged=True)
     cfg.validate()
+    # the loop trains `params` in place: keep the base's own copy of every
+    # leaf it can move
+    base_params = unflatten({
+        k: v.detach().clone() if is_trainable_path(k) else v
+        for k, v in flatten(base_params).items()})
 
     batches = synthetic_batches(cfg.vocab_size, args.batch_size,
                                 args.seq_length)
@@ -150,7 +167,8 @@ def main(argv=None):
         cfg, params, batches, lr=args.lr, weight_decay=args.weight_decay,
         max_steps=args.steps, log_every=10, log_fn=log,
         accumulate=args.accumulate, checkpoint_dir=args.out + '-trainstate',
-        checkpoint_every=args.save_every, resume=args.resume)
+        checkpoint_every=args.save_every, resume=args.resume,
+        frozen8=frozen8)
 
     ckpt_io.save_checkpoint(args.out, cfg, params)
     n = ckpt_io.save_delta_checkpoint(args.out + '-delta', cfg, base_params,

@@ -85,4 +85,15 @@ __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
+// d += a b, one warp: a 16 x 16 bf16 tile (row-major fragments), b 16 x 8
+// (column-major: stored [n][k]), f32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 }  // namespace spt

@@ -526,12 +526,14 @@ __global__ void verify_attention_kernel(
     const T* __restrict__ vn, const int* __restrict__ cn,
     const int* __restrict__ tile_base, T* __restrict__ o, int KV, int GK,
     int KK, int D, int NTALL, int W, int TM, int PS, float scale,
-    float clamp) {
+    float clamp, int RC) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x;   // blockDim.x == PS
   const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const size_t bh = (size_t)b * KV + h;
-  const int GKP = (GK + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
+  // this CTA's query rows: [R0, R0 + NR) of the GK (one chunk: all)
+  const int R0 = blockIdx.z * RC, NR = min(RC, GK - R0);
+  const int GKP = (NR + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
   constexpr int kRot = 4 / (int)sizeof(T);
 
   // the tile buffer comes first so its 16-byte stores stay aligned; q is
@@ -540,18 +542,21 @@ __global__ void verify_attention_kernel(
   T* tile = reinterpret_cast<T*>(sm);                     // [D][PS]
   float* qT = sm + (size_t)D * PS * sizeof(T) / 4;        // [D][GKP]
   float* ev = qT + (size_t)D * GKP;      // [GKP][PS] lane max, then e
-  float* lp = ev + (size_t)GKP * PS;     // [GK][PS] partial sums of e
-  float* acc = lp + (size_t)GK * PS;     // [GK][D]
-  float* rmax = acc + (size_t)GK * D;    // [GKP]
+  float* lp = ev + (size_t)GKP * PS;     // [NR][PS] partial sums of e
+  float* acc = lp + (size_t)NR * PS;     // [NR][D]
+  float* rmax = acc + (size_t)NR * D;    // [GKP]
   float* rsum = rmax + GKP;              // [GKP]
   int* etile = reinterpret_cast<int*>(rsum + GKP);       // [TM]
   int* ebits = etile + TM;                               // [TM]
 
   // ---- append the block's K columns where they land in the write tiles
+  // (chunk 0 only: the other chunks of a split block take the new columns
+  // from kn / vn, see `overlay`, so no chunk reads a column mid-write)
   const int p = pos[b], base = tile_base[b];
   const int* tab = tables + bh * TM;
   const int w0 = max(tab[TM - 2], 0), w1 = max(tab[TM - 1], 0);
-  for (int i = tid; i < KK * D; i += blockDim.x) {
+  const bool writer = blockIdx.z == 0;
+  for (int i = tid; i < KK * D && writer; i += blockDim.x) {
     const int j = i / D, d = i % D;
     const int ti = base + (p + j) / PS, ci = (p + j) % PS;
     if ((ti == w0 || ti == w1) && ti < NTALL) {
@@ -560,7 +565,7 @@ __global__ void verify_attention_kernel(
       vc[at] = vn[(bh * D + d) * KK + j];
     }
   }
-  if (W > 1) {   // codes: the write tiles of head 0's row, as the TPU kernel
+  if (W > 1 && writer) {   // codes: head 0's write tiles, as the TPU kernel
     const int* tab0 = tables + (size_t)b * KV * TM;
     const int c0 = max(tab0[TM - 2], 0), c1 = max(tab0[TM - 1], 0);
     for (int i = tid; i < KK * W; i += blockDim.x) {
@@ -572,17 +577,29 @@ __global__ void verify_attention_kernel(
   }
   for (int i = tid; i < GKP * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
-    qT[d * GKP + r] = r < GK ? to_f(q[(bh * GK + r) * D + d]) : 0.f;
+    qT[d * GKP + r] = r < NR ? to_f(q[(bh * GK + R0 + r) * D + d]) : 0.f;
   }
   for (int e = tid; e < TM; e += blockDim.x) {
     const int t = tab[e], bits = selm[bh * TM + e];
     etile[e] = (t >= 0 && t < NTALL && bits != 0) ? t : -1;
     ebits[e] = bits;
   }
-  for (int r = 0; r < GKP; ++r) ev[r * PS + tid] = r < GK ? kNeg : 0.f;
-  for (int r = 0; r < GK; ++r) lp[r * PS + tid] = 0.f;
-  for (int i = tid; i < GK * D; i += blockDim.x) acc[i] = 0.f;
+  for (int r = 0; r < GKP; ++r) ev[r * PS + tid] = r < NR ? kNeg : 0.f;
+  for (int r = 0; r < NR; ++r) lp[r * PS + tid] = 0.f;
+  for (int i = tid; i < NR * D; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
+
+  // a chunk other than 0 puts the block's new columns of staged tile t
+  // into its shared copy, wherever chunk 0's append may not have landed
+  auto overlay = [&](const T* src, int t) {
+    if (writer || (t != w0 && t != w1)) return;   // uniform over the CTA
+    for (int i = tid; i < KK * D; i += blockDim.x) {
+      const int j = i / D, d = i % D;
+      if (base + (p + j) / PS == t && t < NTALL)
+        tile[d * PS + (p + j) % PS] = src[(bh * D + d) * KK + j];
+    }
+    __syncthreads();
+  };
 
   // scaled, clamped scores of rows [r0, r0 + 8) at this thread's lane of
   // the staged K tile
@@ -610,20 +627,21 @@ __global__ void verify_attention_kernel(
     if (t < 0) continue;              // the same for every thread
     stage_tile(tile, kc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
     __syncthreads();
+    overlay(kn, t);
     const int bits = ebits[e], gpos = (t - base) * PS + tid;
-    for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+    for (int r0 = 0; r0 < NR; r0 += kVerifyRows) {
       float s[kVerifyRows];
       scores(r0, s);
 #pragma unroll
       for (int u = 0; u < kVerifyRows; ++u) {
-        const int r = r0 + u, j = r % KK;
-        if (r < GK && ((bits >> j) & 1) && gpos <= p + j)
+        const int r = r0 + u, j = (R0 + r) % KK;
+        if (r < NR && ((bits >> j) & 1) && gpos <= p + j)
           ev[r * PS + tid] = fmaxf(ev[r * PS + tid], s[u]);
       }
     }
     __syncthreads();
   }
-  for (int r = warp; r < GK; r += nw) {
+  for (int r = warp; r < NR; r += nw) {
     float m = kNeg;
     for (int k = lane; k < PS; k += 32) m = fmaxf(m, ev[r * PS + k]);
     m = warp_max(m);
@@ -637,14 +655,15 @@ __global__ void verify_attention_kernel(
     if (t < 0) continue;
     stage_tile(tile, kc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
     __syncthreads();
+    overlay(kn, t);
     const int bits = ebits[e], gpos = (t - base) * PS + tid;
-    for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+    for (int r0 = 0; r0 < NR; r0 += kVerifyRows) {
       float s[kVerifyRows];
       scores(r0, s);
 #pragma unroll
       for (int u = 0; u < kVerifyRows; ++u) {
-        const int r = r0 + u, j = r % KK;
-        if (r >= GK) continue;
+        const int r = r0 + u, j = (R0 + r) % KK;
+        if (r >= NR) continue;
         float x = 0.f;
         if (((bits >> j) & 1) && gpos <= p + j) {
           x = expf(s[u] - rmax[r]);
@@ -656,13 +675,14 @@ __global__ void verify_attention_kernel(
     __syncthreads();
     stage_tile(tile, vc + (bh * NTALL + t) * D * PS, D * PS * (int)sizeof(T));
     __syncthreads();
+    overlay(vn, t);
     // o += e v: a thread per d, rows in chunks of 8 so each value is read
     // once a chunk; lanes in an order rotated by d, so the reads of a warp
     // fall in distinct shared-memory banks (ev's pad rows are 0)
     for (int d = tid; d < D; d += blockDim.x) {
       const T* vrow = tile + d * PS;
       const int rot = (kRot * d) % PS;
-      for (int r0 = 0; r0 < GK; r0 += kVerifyRows) {
+      for (int r0 = 0; r0 < NR; r0 += kVerifyRows) {
         float a[kVerifyRows];
 #pragma unroll
         for (int u = 0; u < kVerifyRows; ++u) a[u] = 0.f;
@@ -676,20 +696,21 @@ __global__ void verify_attention_kernel(
         }
 #pragma unroll
         for (int u = 0; u < kVerifyRows; ++u)
-          if (r0 + u < GK) acc[(r0 + u) * D + d] += a[u];
+          if (r0 + u < NR) acc[(r0 + u) * D + d] += a[u];
       }
     }
     __syncthreads();
   }
-  for (int r = warp; r < GK; r += nw) {
+  for (int r = warp; r < NR; r += nw) {
     float l = 0.f;
     for (int k = lane; k < PS; k += 32) l += lp[r * PS + k];
     l = warp_sum(l);
     if (lane == 0) rsum[r] = l;
   }
   __syncthreads();
-  for (int i = tid; i < GK * D; i += blockDim.x)
-    o[bh * GK * D + i] = from_f<T>(acc[i] / fmaxf(rsum[i / D], 1e-30f));
+  for (int i = tid; i < NR * D; i += blockDim.x)
+    o[(bh * GK + R0) * D + i] =
+        from_f<T>(acc[i] / fmaxf(rsum[i / D], 1e-30f));
 }
 
 template <typename T>
@@ -698,12 +719,14 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
                   const void* kn, const void* vn, const void* cn,
                   const void* tile_base, void* o, int B, int KV, int GK,
                   int KK, int D, int NTALL, int W, int TM, int PS,
-                  float scale, float clamp, cudaStream_t stream) {
-  const int GKP = (GK + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
+                  float scale, float clamp, int RC, cudaStream_t stream) {
+  // RC query rows a CTA: GK (one chunk), or fewer when the rows' buffers
+  // outgrow shared memory (ops/decode_attention.py verify_rows_per_cta)
+  const int GKP = (RC + kVerifyRows - 1) / kVerifyRows * kVerifyRows;
   // verify_attention_rows in ops/decode_attention.py computes the same
   const size_t smem = sizeof(T) * (size_t)D * PS +
                       sizeof(float) * ((size_t)D * GKP + (size_t)GKP * PS +
-                                       (size_t)GK * PS + (size_t)GK * D +
+                                       (size_t)RC * PS + (size_t)RC * D +
                                        2 * GKP) +
                       sizeof(int) * 2 * TM;
   if (smem > 48 * 1024) {
@@ -712,12 +735,12 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(KV, B);
+  dim3 grid(KV, B, (GK + RC - 1) / RC);
   verify_attention_kernel<T><<<grid, PS, smem, stream>>>(
       (const T*)q, (T*)kc, (T*)vc, (int*)cc, (const int*)tables,
       (const int*)selm, (const int*)pos, (const T*)kn, (const T*)vn,
       (const int*)cn, (const int*)tile_base, (T*)o, KV, GK, KK, D, NTALL, W,
-      TM, PS, scale, clamp);
+      TM, PS, scale, clamp, RC);
   return (int)cudaGetLastError();
 }
 
@@ -769,9 +792,10 @@ extern "C" int spt_verify_attention(
     const void* tables, const void* selm, const void* pos, const void* kn,
     const void* vn, const void* cn, const void* tile_base, void* o, int B,
     int KV, int GK, int KK, int D, int NTALL, int W, int TM, int PS,
-    float scale, float clamp, void* stream) {
+    float scale, float clamp, int RC, void* stream) {
   auto f = dtype == spt::kBF16 ? spt::launch_verify<__nv_bfloat16>
                                : spt::launch_verify<float>;
   return f(q, kc, vc, cc, tables, selm, pos, kn, vn, cn, tile_base, o, B, KV,
-           GK, KK, D, NTALL, W, TM, PS, scale, clamp, (cudaStream_t)stream);
+           GK, KK, D, NTALL, W, TM, PS, scale, clamp, RC,
+           (cudaStream_t)stream);
 }

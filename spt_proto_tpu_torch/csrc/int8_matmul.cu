@@ -120,15 +120,6 @@ __global__ void __launch_bounds__(kSkThreads) int8_matmul_skinny_kernel(
 constexpr int kTM = 64, kTN = 128, kTK = 128;
 constexpr int kTStride = kTK + 8;   // bf16 per shared row (conflict-free)
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256) int8_matmul_tiled_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ q,
@@ -252,6 +243,142 @@ int launch_int8_matmul(const void* x, const int8_t* q, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// int8_matmul_t: the transposed form, the dx of a frozen int8 weight
+//   out[m, k] = sum_n bf16(g[m, n] * scale[n]) * bf16(q[k, n])   (f32 sums)
+// g [M, N] f32/bf16, q [K, NP] int8 in its stored layout, scale [NS] f32
+// (columns n >= NS count 0), out [M, K] in g's dtype.
+//
+// Replaces the TPU kernel spt_proto_tpu/ops/pallas/int8_matmul.py
+// int8_matmul_t (_kernel_t), with its numerics: g scaled in f32 and rounded
+// to bf16, q converted to bf16 (exact), f32 products summed per 256-column
+// chunk of N (the TPU kernel's block_n), the chunk partials added to the
+// running sum in ascending order, one cast to g's dtype at the end.
+//
+// Bound on the H100: operations, 2 M K N bf16 products (LLaMA-7B's gate dx
+// at M = 2,048: 185 GFLOP, 187 us at 989 TFLOP/s); the int8 weight is read
+// once per 64-row block of g.
+//
+// Design: an "NT" product, the contraction index n contiguous in both g and
+// q, so q's tile is staged without a transpose. 64 x 128 output tiles
+// (rows of g x rows of q), 8 warps of 32 x 32; per 64-column step of n the
+// scaled g tile and the q tile are staged as bf16 in shared memory and
+// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) sums them into a
+// fresh fragment per 256-column chunk, then added to the running one. As
+// the forward tiled kernel: no cp.async pipeline, no TMA / wgmma yet.
+constexpr int kXM = 64, kXK = 128, kXN = 64;
+constexpr int kXChunk = 256;                // int8_matmul.py block_n
+constexpr int kXStride = kXN + 8;           // bf16 per shared row
+
+template <typename T>
+__global__ void __launch_bounds__(256) int8_matmul_t_kernel(
+    const T* __restrict__ g, const int8_t* __restrict__ q,
+    const float* __restrict__ scale, T* __restrict__ out, int M, int K,
+    int N, int NS, int NP) {
+  __shared__ __align__(16) __nv_bfloat16 gsm[kXM * kXStride];   // [m][n]
+  __shared__ __align__(16) __nv_bfloat16 qsm[kXK * kXStride];   // [k][n]
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const int wm = wid % 2, wk = wid / 2;          // warp tile 32 x 32
+  const int m0 = blockIdx.y * kXM, k0 = blockIdx.x * kXK;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int c0 = 0; c0 < N; c0 += kXChunk) {
+    float part[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    const int c1 = min(c0 + kXChunk, N);
+    for (int n0 = c0; n0 < c1; n0 += kXN) {
+      for (int i = tid; i < kXM * kXN; i += 256) {
+        const int r = i / kXN, c = i % kXN, n = n0 + c;
+        float v = 0.f;
+        if (m0 + r < M && n < c1)
+          v = to_f(g[(size_t)(m0 + r) * N + n]) * (n < NS ? scale[n] : 0.f);
+        gsm[r * kXStride + c] = __float2bfloat16(v);
+      }
+      // 16 int8 columns of one q row -> 16 bf16 at qsm[k][c..c+15]
+      for (int t = tid; t < kXK * (kXN / 16); t += 256) {
+        const int r = t / (kXN / 16), cg = t % (kXN / 16);
+        const int k = k0 + r, n = n0 + cg * 16;
+        int4 raw = make_int4(0, 0, 0, 0);
+        if (k < K && n < NP)
+          raw = *reinterpret_cast<const int4*>(q + (size_t)k * NP + n);
+        const int8_t* wb = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 16; j += 2)
+          *reinterpret_cast<__nv_bfloat162*>(qsm + r * kXStride + cg * 16 +
+                                             j) =
+              __floats2bfloat162_rn(to_f(wb[j]), to_f(wb[j + 1]));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kXN; kk += 16) {
+        uint32_t af[2][4], bf[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const __nv_bfloat16* ap =
+              gsm + (wm * 32 + i * 16 + gr) * kXStride + kk + tig * 2;
+          af[i][0] = *reinterpret_cast<const uint32_t*>(ap);
+          af[i][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * kXStride);
+          af[i][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+          af[i][3] =
+              *reinterpret_cast<const uint32_t*>(ap + 8 * kXStride + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const __nv_bfloat16* bp =
+              qsm + (wk * 32 + j * 8 + gr) * kXStride + kk + tig * 2;
+          bf[j][0] = *reinterpret_cast<const uint32_t*>(bp);
+          bf[j][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16_16816(part[i][j], af[i], bf[j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * 32 + i * 16 + gr + (e >= 2 ? 8 : 0);
+        const int col = k0 + wk * 32 + j * 8 + tig * 2 + (e & 1);
+        if (row < M && col < K)
+          out[(size_t)row * K + col] = from_f<T>(acc[i][j][e]);
+      }
+}
+
+template <typename T>
+int launch_int8_matmul_t(const void* g, const int8_t* q, const float* scale,
+                         void* out, int M, int K, int N, int NS, int NP,
+                         cudaStream_t stream) {
+  dim3 grid((K + kXK - 1) / kXK, (M + kXM - 1) / kXM);
+  int8_matmul_t_kernel<T><<<grid, 256, 0, stream>>>(
+      (const T*)g, q, scale, (T*)out, M, K, N, NS, NP);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace spt
 
 extern "C" int spt_int8_matmul(int dtype, const void* x, const void* q,
@@ -260,5 +387,14 @@ extern "C" int spt_int8_matmul(int dtype, const void* x, const void* q,
   auto f = dtype == spt::kBF16 ? spt::launch_int8_matmul<__nv_bfloat16>
                                : spt::launch_int8_matmul<float>;
   return f(x, (const int8_t*)q, (const float*)scale, out, M, K, N, NP, BK,
+           (cudaStream_t)stream);
+}
+
+extern "C" int spt_int8_matmul_t(int dtype, const void* g, const void* q,
+                                 const void* scale, void* out, int M, int K,
+                                 int N, int NS, int NP, void* stream) {
+  auto f = dtype == spt::kBF16 ? spt::launch_int8_matmul_t<__nv_bfloat16>
+                               : spt::launch_int8_matmul_t<float>;
+  return f(g, (const int8_t*)q, (const float*)scale, out, M, K, N, NS, NP,
            (cudaStream_t)stream);
 }

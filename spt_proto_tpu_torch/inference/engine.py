@@ -38,9 +38,13 @@ jnp; the continuous-batching engine (inference/batching.py) splits long
 prompts and extends cached prefixes with it.
 
 A routed FFN (a checkpoint the SPT tuning made) runs the training layer's
-mask-dispatch forms (layers/feedforward.py). Out of this port so far, and
-raising NotImplementedError with the slice that brings it: ffn_impl='gmm'
-(grouped-matmul slice), int8 weights with a routed FFN (int8-base slice),
+forms (layers/feedforward.py) on fp block views, w8 included (the int8
+builds keep a routed FFN's kernels fp, as JAX's do): the mask dispatch, or
+with ffn_impl='gmm' the grouped-matmul kernels (ops/gmm.py) once a call
+has at least 128 rows, as in the JAX engine, so a long prefill runs gmm and
+a decode step of a few slots the masked form; 'gather' serves masked, as
+the JAX engine does. Out of this port so far, and raising
+NotImplementedError with the slice that brings it: ffn_impl='ep' and
 generate(mesh=...) (parallelism slice).
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
@@ -226,9 +230,12 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Dense FFN: ReLU (OPT) or gated SiLU, down(silu(gate x) * side x)
     (LLaMA), in the serving dtype; a routed FFN runs the training layer's
-    mask-dispatch forms (routed + LoRA keeps its factors: the 2 * prob
-    coeff scales only the frozen path)."""
+    forms, masked or (ffn_impl='gmm', >= 128 rows) grouped-matmul (routed +
+    LoRA keeps its factors: the 2 * prob coeff scales only the frozen
+    path)."""
     if cfg.ffn == FFN_ROUTED:
+        if cfg.ffn_impl == 'gather':      # the JAX engine serves it masked
+            cfg = cfg.replace(ffn_impl='masked')
         return make_ffn(cfg, deterministic=True)(p, x)
     lead = x.shape[:-1]
     xf = x.reshape(-1, cfg.d_model)

@@ -8,7 +8,10 @@ int8 weight-only ({'q': N-padded int8, 'scale': true-width f32}), q/k/v
 fused into one column-packed [L, D, 3D] kernel for MHA; the staged build
 makes the same tree one leaf at a time on the target device. GQA keeps
 separate q / k / v (fp and int8, each part quantized on its own), as the
-JAX build does.
+JAX build does. A routed FFN (a tuned checkpoint) keeps its kernels fp in
+the int8 builds too, as block views need them (with its LoRA factors
+separate when cfg.d_lora, folded otherwise), and its router fp; attention
+and the lm_head are quantized as for a dense FFN.
 
 Param trees are nested dicts of tensors with the flax tree's paths, the
 per-layer leaves stacked on a leading [n_layers] axis under 'blocks'.
@@ -44,15 +47,20 @@ def fold_lora_embed(p: dict) -> dict:
     return out
 
 
-def quantize_int8(w: torch.Tensor, pad_to: int = 256) -> dict:
+def quantize_int8(w: torch.Tensor, pad_to: int = 256, *,
+                  jitted: bool = False) -> dict:
     """Per-output-channel (last axis) symmetric int8: w [..., K, N] ->
     {'q': [..., K, N_pad] int8 (N zero-padded to a multiple of pad_to),
     'scale': [..., 1, N] f32 at the TRUE width}.
 
     The scale and the division run in w's dtype, as the JAX package's eager
     build does (in bf16 the scale is a bf16 value stored as f32; computed
-    in f32 instead, q would land one step away)."""
-    scale = w.abs().amax(dim=-2, keepdim=True) / 127.0
+    in f32 instead, q would land one step away). jitted=True takes the
+    scale as max|w| * (1/127), as XLA compiles the JAX package's jitted
+    builds (split_int8_base): an ulp from the eager scale in some f32
+    columns."""
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    scale = amax * (1.0 / 127.0) if jitted else amax / 127.0
     scale = torch.clamp(scale, min=1e-8)
     q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
     pad = (-q.shape[-1]) % pad_to
@@ -98,13 +106,6 @@ def _cast_to(dtype, device):
     return fn
 
 
-def _require_int8_form(params: Any) -> None:
-    if 'router' in params['blocks']['ffn']:
-        raise NotImplementedError(
-            'int8 weights with a routed FFN (the routed_ffn_*_int8 forms) '
-            'come with the int8-base slice')
-
-
 @dataclasses.dataclass
 class InferenceWeights:
     cfg: ModelConfig
@@ -129,7 +130,6 @@ class InferenceWeights:
         src = next(_leaves(params)).device
         device = torch.device(device) if device is not None else src
         if quant == 'int8':
-            _require_int8_form(params)
             if staged is None:
                 staged = src.type == 'cpu' and device.type == 'cuda'
             if staged:
@@ -177,7 +177,8 @@ class InferenceWeights:
         _attach_pq_bd(out)
         if quant == 'int8':
             # the big per-layer GEMMs become int8 weight-only; biases,
-            # norms, embeddings and the codebook stay fp. For MHA q/k/v are
+            # norms, embeddings, the codebook and a routed FFN (its block
+            # views and router) stay fp. For MHA q/k/v are
             # quantized as ONE [L, D, 3D] kernel, columns [q|k|v]; GQA
             # quantizes each part on its own (the widths differ)
             mha = out['blocks']['mha']
@@ -194,7 +195,7 @@ class InferenceWeights:
                 for n in ('q', 'k', 'v'):
                     mha[n]['kernel'] = quantize_int8(mha[n]['kernel'])
             mha['o']['kernel'] = quantize_int8(mha['o']['kernel'])
-            for name in ffn_names:
+            for name in ffn_names if not routed else ():
                 out['blocks']['ffn'][name]['kernel'] = quantize_int8(
                     out['blocks']['ffn'][name]['kernel'])
             out['lm_head']['kernel'] = quantize_int8(out['lm_head']['kernel'])
@@ -253,8 +254,17 @@ class InferenceWeights:
                 small, dict(blocks['mha']['quantizer']))
         ffn_names = ('gate', 'side', 'down') if cfg.ffn_gated \
             else ('fc1', 'fc2')
+        routed = 'router' in blocks['ffn']
         for name in ffn_names:
-            b_out['ffn'][name] = quant_dense(blocks['ffn'][name])
+            leaf = blocks['ffn'][name]
+            if not routed:
+                b_out['ffn'][name] = quant_dense(leaf)
+            else:      # fp block views; LoRA separate: see from_params
+                b_out['ffn'][name] = _map(small, dict(leaf) if cfg.d_lora
+                                          else fold_lora(leaf))
+        if routed:
+            b_out['ffn']['router'] = _map(small,
+                                          dict(blocks['ffn']['router']))
         out['blocks'] = b_out
         out['final_norm'] = _map(small, dict(params['final_norm']))
         out['lm_head'] = quant_dense({'kernel': params['lm_head']['kernel']})

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from spt_proto_tpu_torch.ops.int8_matmul import int8_frozen_matmul
+
 
 def rope_cos_sin(positions: torch.Tensor, d_head: int, *,
                  base: float = 10000.0, dtype=torch.float32):
@@ -78,26 +80,30 @@ class LayerNorm(nn.Module):
         return ((xf - mu) * mul + p['bias'].float()).to(self.dtype)
 
 
-def int8_base_unported() -> NotImplementedError:
-    return NotImplementedError(
-        'int8_base (frozen int8 base kernels, int8_frozen_matmul) comes with '
-        'the int8-base slice')
-
-
 class LoRADense(nn.Module):
     """Dense layer with an optional additive LoRA adapter: params
     {'kernel' [in, out], 'bias' [out], 'lora_left' [in, r], 'lora_right'
     [out, r]}; y = x W + b + (x left) right^T in `dtype`. At init `right`
-    is zeros and `left` normal(1.0) (`tuning.surgery.init_params`)."""
+    is zeros and `left` normal(1.0) (`tuning.surgery.init_params`).
+
+    int8_base: the frozen kernel is the layer's frozen8 leaf {'q' [in,
+    out_pad] int8, 'scale' [1, out] f32} (DecoderLM puts it at
+    p['kernel']), applied by int8_frozen_matmul(x in `dtype`): int8 in both
+    passes, no gradient for it."""
 
     def __init__(self, dtype: torch.dtype, int8_base: bool = False):
         super().__init__()
-        if int8_base:
-            raise int8_base_unported()
-        self.dtype = dtype
+        self.dtype, self.int8_base = dtype, int8_base
 
     def forward(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        y = x @ p['kernel'].to(self.dtype)
+        if self.int8_base:
+            q8 = p.get('kernel')
+            if not isinstance(q8, dict):
+                raise ValueError('int8_base model applied without the frozen8 '
+                                 'tree (tuning.surgery.split_int8_base)')
+            y = int8_frozen_matmul(x.to(self.dtype), q8['q'], q8['scale'])
+        else:
+            y = x @ p['kernel'].to(self.dtype)
         if 'bias' in p:
             y = y + p['bias'].to(self.dtype)
         if 'lora_left' in p:

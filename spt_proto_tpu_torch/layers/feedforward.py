@@ -1,11 +1,17 @@
 """Feedforward layers: dense (OPT ReLU / LLaMA SwiGLU) and routed (port of
-spt_proto_tpu/layers/feedforward.py, its single-device mask-dispatch forms).
+spt_proto_tpu/layers/feedforward.py, its single-device forms).
 
 Storage keeps the dense layout ([d_model, d_ff] etc.) for dense and routed
 FFNs alike; the routed layers take block views at call time (contiguous
-d_ff slices are blocks). `ffn_impl` 'gmm' (stock megablox gmm), 'gather'
-and 'ep' (expert parallelism), `tp_overlap` and `int8_base` raise, each
-naming the slice that brings it.
+d_ff slices are blocks). The routed OPT FFN dispatches on `ffn_impl` as
+JAX does: 'gmm' runs the grouped-matmul forms once there are at least
+GMM_MIN_ROWS rows (else the masked ones), 'gather' the capacity dispatch
+(without LoRA), 'masked' the mask dispatch; the gated (LLaMA) FFN has the
+masked forms only. Under cfg.int8_base the frozen kernels arrive as frozen8
+leaves ({'q', 'scale'} at p[name]['kernel']) and every form is the masked
+one on int8_frozen_matmul ('masked' or 'gmm' only, as JAX asserts).
+`ffn_impl='ep'` (expert parallelism) and `tp_overlap` raise, naming the
+parallelism slice.
 """
 from __future__ import annotations
 
@@ -16,15 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from spt_proto_tpu_torch.config import ModelConfig
-from spt_proto_tpu_torch.layers.common import (LoRADense, dropout,
-                                               int8_base_unported)
+from spt_proto_tpu_torch.layers.common import LoRADense, dropout
 from spt_proto_tpu_torch.ops import routed_ffn as rops
 
-_UNPORTED_IMPLS = {
-    'gmm': 'the grouped-matmul (megablox gmm) slice',
-    'gather': 'the grouped-matmul (megablox gmm) slice',
-    'ep': 'the parallelism slice (expert parallelism)',
-}
+GMM_MIN_ROWS = 128      # JAX's gmm row tile: fewer rows run the masked form
 
 
 def _activation(cfg: ModelConfig):
@@ -32,16 +33,17 @@ def _activation(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig, routed: bool) -> None:
-    if cfg.int8_base:
-        raise int8_base_unported()
     if cfg.tp_overlap:
         raise NotImplementedError(
             'tp_overlap (ring collective matmuls) comes with the parallelism '
             'slice')
-    if routed and cfg.ffn_impl in _UNPORTED_IMPLS:
+    if routed and cfg.ffn_impl == 'ep':
         raise NotImplementedError(
-            f"ffn_impl={cfg.ffn_impl!r} comes with "
-            f'{_UNPORTED_IMPLS[cfg.ffn_impl]}')
+            "ffn_impl='ep' comes with the parallelism slice (expert "
+            'parallelism)')
+    if routed and cfg.int8_base and cfg.ffn_impl not in ('masked', 'gmm'):
+        raise ValueError('int8_base routed FFN uses the masked-dispatch form '
+                         f"(ffn_impl 'masked' or 'gmm', got {cfg.ffn_impl!r})")
 
 
 class Feedforward(nn.Module):
@@ -51,7 +53,7 @@ class Feedforward(nn.Module):
         super().__init__()
         _check_supported(cfg, routed=False)
         self.cfg, self.deterministic = cfg, deterministic
-        self.dense = LoRADense(cfg.dtype)
+        self.dense = LoRADense(cfg.dtype, cfg.int8_base)
 
     def forward(self, p: dict, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -69,7 +71,7 @@ class GatedFeedforward(nn.Module):
         super().__init__()
         _check_supported(cfg, routed=False)
         self.cfg = cfg
-        self.dense = LoRADense(cfg.dtype)
+        self.dense = LoRADense(cfg.dtype, cfg.int8_base)
 
     def forward(self, p: dict, x: torch.Tensor, generator=None):
         act = _activation(self.cfg)
@@ -118,19 +120,40 @@ class RoutedFeedforward(nn.Module):
         lead = x.shape[:-1]
         xf = x.reshape(-1, cfg.d_model)
         probs = _router_probs(cfg, p, xf)
-        v = {k: t.to(cfg.dtype) for k, t in
-             _block_views(cfg, p['fc1'], p['fc2']).items()}
-        b2 = p['fc2']['bias'].to(cfg.dtype)
+        cast = lambda t: t.to(cfg.dtype)
+        b2 = cast(p['fc2']['bias'])
         act = _activation(cfg)
         top_k = cfg.ffn_active_blocks
+        if cfg.int8_base:
+            # the flat int8 matmuls are the block einsums (ops/routed_ffn.py)
+            n, bs = cfg.n_ffn_blocks, cfg.ffn_block_size
+            q1, q2 = p['fc1']['kernel'], p['fc2']['kernel']
+            b1 = cast(p['fc1']['bias'].reshape(n, bs))
+            if cfg.d_lora:
+                r = cfg.d_lora
+                y = rops.routed_ffn_lora_int8(
+                    xf, probs, top_k, q1, b1, q2, b2,
+                    cast(p['fc1']['lora_left']),
+                    cast(p['fc1']['lora_right'].reshape(n, bs, r)),
+                    cast(p['fc2']['lora_left'].reshape(n, bs, r)),
+                    cast(p['fc2']['lora_right']), act)
+            else:
+                y = rops.routed_ffn_masked_int8(xf, probs, top_k, q1, b1, q2,
+                                                b2, act)
+            return y.reshape(*lead, cfg.d_model)
+        v = {k: cast(t) for k, t in
+             _block_views(cfg, p['fc1'], p['fc2']).items()}
+        use_gmm = cfg.ffn_impl == 'gmm' and xf.shape[0] >= GMM_MIN_ROWS
         if cfg.d_lora:
-            y = rops.routed_ffn_lora(
-                xf, probs, top_k, v['w1'], v['b1'], v['w2'], b2,
-                v['lora_left1'], v['lora_right1'], v['lora_left2'],
-                v['lora_right2'], act)
+            fn = rops.routed_ffn_lora_gmm if use_gmm else rops.routed_ffn_lora
+            y = fn(xf, probs, top_k, v['w1'], v['b1'], v['w2'], b2,
+                   v['lora_left1'], v['lora_right1'], v['lora_left2'],
+                   v['lora_right2'], act)
         else:
-            y = rops.routed_ffn_masked(xf, probs, top_k, v['w1'], v['b1'],
-                                       v['w2'], b2, act)
+            fn = (rops.routed_ffn_gmm if use_gmm else
+                  rops.routed_ffn_gather if cfg.ffn_impl == 'gather' else
+                  rops.routed_ffn_masked)
+            y = fn(xf, probs, top_k, v['w1'], v['b1'], v['w2'], b2, act)
         return y.reshape(*lead, cfg.d_model)
 
 
@@ -152,22 +175,30 @@ class RoutedGatedFeedforward(nn.Module):
         probs = _router_probs(cfg, p, xf)
         cast = lambda t: t.to(cfg.dtype)
         pg, ps, pd = p['gate'], p['side'], p['down']
+        act = _activation(cfg)
+        top_k = cfg.ffn_top_k or max(1, n // (2 if cfg.d_lora else 4))
+        r = cfg.d_lora
+        lora = (lambda: (
+            cast(pg['lora_left']), cast(pg['lora_right'].reshape(n, bs, r)),
+            cast(ps['lora_left']), cast(ps['lora_right'].reshape(n, bs, r)),
+            cast(pd['lora_left'].reshape(n, bs, r)),
+            cast(pd['lora_right'])))
+        if cfg.int8_base:
+            kernels = (pg['kernel'], ps['kernel'], pd['kernel'])
+            if cfg.d_lora:
+                y = rops.routed_ffn_gated_lora_int8(xf, probs, top_k,
+                                                    *kernels, *lora(), act)
+            else:
+                y = rops.routed_ffn_gated_masked_int8(xf, probs, top_k,
+                                                      *kernels, act, n)
+            return y.reshape(*lead, d)
         w_gate = cast(pg['kernel'].reshape(d, n, bs).permute(1, 0, 2))
         w_side = cast(ps['kernel'].reshape(d, n, bs).permute(1, 0, 2))
         w_down = cast(pd['kernel'].reshape(n, bs, d))
-        act = _activation(cfg)
         if cfg.d_lora:
-            r = cfg.d_lora
-            y = rops.routed_ffn_gated_lora(
-                xf, probs, cfg.ffn_top_k or max(1, n // 2), w_gate, w_side,
-                w_down, cast(pg['lora_left']),
-                cast(pg['lora_right'].reshape(n, bs, r)),
-                cast(ps['lora_left']),
-                cast(ps['lora_right'].reshape(n, bs, r)),
-                cast(pd['lora_left'].reshape(n, bs, r)),
-                cast(pd['lora_right']), act)
+            y = rops.routed_ffn_gated_lora(xf, probs, top_k, w_gate, w_side,
+                                           w_down, *lora(), act)
         else:
-            y = rops.routed_ffn_gated_masked(
-                xf, probs, cfg.ffn_top_k or max(1, n // 4), w_gate, w_side,
-                w_down, act)
+            y = rops.routed_ffn_gated_masked(xf, probs, top_k, w_gate,
+                                             w_side, w_down, act)
         return y.reshape(*lead, d)

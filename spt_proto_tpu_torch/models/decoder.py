@@ -8,6 +8,12 @@ layer i reads slice [i] of each stacked leaf, and its gradient flows back
 into the one stacked tensor. `bridge.params_from_numpy` maps a JAX tree one
 to one; `tree()` hands the parameters back as the nested dict.
 
+Under cfg.int8_base the frozen base kernels are not parameters: `frozen8`
+(tuning.surgery.split_int8_base: {'q' [L, K, N_pad] int8, 'scale' [L, 1,
+N] f32} at the kernels' paths) is held as buffers that never require grad
+and stay out of `tree()`, the optimizer and the checkpoints; each forward
+puts layer i's slice at its kernel's path, where LoRADense reads it.
+
 OPT adds learned positions at offset 2 and ends in LayerNorm; LLaMA has no
 learned positions (RoPE inside attention) and RMSNorm; both have an untied
 lm_head. cfg.remat (remat_policy 'full') recomputes each block in the
@@ -51,6 +57,36 @@ class ParamTree(nn.Module):
         return out
 
 
+class FrozenTree(nn.Module):
+    """A nested dict of tensors as buffers (not in the state dict): the
+    int8 base kernels of cfg.int8_base."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, FrozenTree(val))
+            else:
+                self.register_buffer(key, val, persistent=False)
+
+    def tree(self) -> dict:
+        out = {k: b for k, b in self._buffers.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def _merge(tree: dict, patch: dict) -> dict:
+    """`tree` with patch's leaves (dict leaves such as {'q', 'scale'}
+    included) set at their paths."""
+    out = dict(tree)
+    for key, val in patch.items():
+        if isinstance(val, dict) and isinstance(out.get(key), dict):
+            out[key] = _merge(out[key], val)
+        else:
+            out[key] = val
+    return out
+
+
 def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -59,9 +95,11 @@ def _layer(tree: dict, i: int) -> dict:
 class DecoderLM(nn.Module):
     """forward(tokens [B, S]) -> {'logits': [B, S, V], 'pq_loss': the sum
     of the layers' aux losses}. `trainable(path)` picks the leaves that
-    require grad (none by default)."""
+    require grad (none by default); `frozen8` holds the int8 base kernels
+    of an int8_base config."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
+                 frozen8: Optional[dict] = None,
                  deterministic: bool = True, train_quantizer: bool = False,
                  trainable: Callable[[str], bool] = lambda path: False):
         super().__init__()
@@ -73,6 +111,7 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.deterministic = deterministic
         self.params = ParamTree(params, trainable)
+        self.frozen8 = FrozenTree(frozen8 or {})
         self.embed = LoRAEmbed(cfg.dtype)
         self.block = TransformerBlock(cfg, deterministic, train_quantizer)
         self.final = make_norm(cfg)
@@ -106,7 +145,7 @@ class DecoderLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
         cfg = self.cfg
-        p = self.tree()
+        p = _merge(self.tree(), self.frozen8.tree())
         b, s = tokens.shape
         tokens = tokens.long()
         h = self.embed(p['embedding'], tokens)

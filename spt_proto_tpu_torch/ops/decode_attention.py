@@ -332,6 +332,36 @@ def _verify_write(k_cache, v_cache, c_cache, tables, pos, k_new, v_new,
             c_new[bi, :, :, ii].to(c_cache.dtype)
 
 
+def verify_smem(rows: int, d: int, ps: int, t_max: int, elem: int) -> int:
+    """Shared memory of a verify CTA over `rows` query rows
+    (csrc/decode_attention.cu launch_verify): a K/V tile, q [D][RP] f32
+    (rows padded to 8), e [RP][ps] and the partial sums [rows][ps], the
+    output accumulator [rows][D], row max and sum, the entry list."""
+    rp = -(-rows // 8) * 8
+    return d * ps * elem + 4 * (d * rp + rp * ps + rows * ps + rows * d
+                                + 2 * rp) + 8 * t_max
+
+
+def verify_rows_per_cta(gk: int, d: int, ps: int, t_max: int,
+                        elem: int) -> int:
+    """Query rows a verify CTA takes: all GK when their buffers fit
+    SMEM_LIMIT (one CTA per (slot, kv head), as before), else the G*K rows
+    split into the fewest equal chunks of a multiple of 8 rows that fit,
+    one CTA each (a third grid axis). Raises when not even 8 rows fit."""
+    if verify_smem(gk, d, ps, t_max, elem) <= SMEM_LIMIT:
+        return gk
+    fit = 0
+    while verify_smem(fit + 8, d, ps, t_max, elem) <= SMEM_LIMIT:
+        fit += 8
+    if fit == 0:
+        raise RuntimeError(
+            f'verify attention: {verify_smem(8, d, ps, t_max, elem)} B of '
+            f'shared memory for 8 query rows of d_head {d} and {ps}-token '
+            f'tiles exceeds the kernel envelope of {SMEM_LIMIT} B')
+    chunks = -(-gk // fit)
+    return -(-gk // chunks // 8) * 8 if chunks > 1 else gk
+
+
 def verify_attention_rows_ref(q, k_cache, v_cache, c_cache, tables,
                               sel_mask, pos, k_new, v_new, c_new,
                               tile_base=None, *, ps: int = 128,
@@ -392,7 +422,10 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     up to pos + j); pos [B] the lengths before the block; k_new / v_new
     [B, KV, D, K]; c_new [B, KV, w, K] (written only when w > 1);
     tile_base [B]. Returns (o [B, KV, G*K, D], k, v, codes), the caches
-    being the (updated) inputs."""
+    being the (updated) inputs. When the G*K rows' buffers outgrow one
+    CTA's shared memory the rows split into chunks, a CTA each
+    (verify_rows_per_cta): every chunk scores the whole table, chunk 0
+    appends the new columns and the others read them from k_new / v_new."""
     if not _build.on_cuda(q, k_cache, v_cache, c_cache, tables, sel_mask,
                           pos, k_new, v_new, c_new):
         return verify_attention_rows_ref(
@@ -417,17 +450,7 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     req(pos.shape == tile_base.shape == (b,), 'pos / tile_base [B]')
     req(ps % 32 == 0 and ps <= 1024 and (d * ps * q.element_size()) % 16 == 0,
         f'ps {ps} / d_head {d} outside the kernel envelope')
-    # one CTA's shared memory (csrc/decode_attention.cu launch_verify): a
-    # K/V tile, q [D][GKP] f32 (GK rows padded to 8), e [GKP][ps] and the
-    # partial sums [GK][ps], the output accumulator [GK][D], row max and
-    # sum, the entry list
-    gkp = -(-gk // 8) * 8
-    smem = d * ps * q.element_size() + 4 * (
-        d * gkp + gkp * ps + gk * ps + gk * d + 2 * gkp) + 8 * t_max
-    if smem > SMEM_LIMIT:
-        raise RuntimeError(
-            f'verify attention: {smem} B of shared memory for {gk} query rows '
-            f'of d_head {d} exceeds the kernel envelope of {SMEM_LIMIT} B')
+    rows = verify_rows_per_cta(gk, d, ps, t_max, q.element_size())
     ints = [a if a.dtype == torch.int32 else a.to(torch.int32)
             for a in (tables, sel_mask, pos, c_new, tile_base)]
     tables, sel_mask, pos_i, c_new_i, tile_base = ints
@@ -438,7 +461,7 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     p = _build.ptr
     err = _build.lib().spt_verify_attention(
         code, *[p(a) for a in args], p(o), b, kv, gk, kk, d, n_all, width,
-        t_max, ps, float(scale), float(clamp), _build.stream())
+        t_max, ps, float(scale), float(clamp), rows, _build.stream())
     _build.check(err, 'verify_attention_rows')
     verify_attention_rows.launches += 1
     return o, k_cache, v_cache, c_cache

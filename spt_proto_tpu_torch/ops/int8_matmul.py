@@ -11,6 +11,11 @@ the f32 products are summed in `block_k`-row chunks whose partial sums are
 added in ascending order. Because the scale is per output column it
 commutes with the K sum and is applied once: (acc * scale) cast to x's
 dtype. Columns past the scale's width (q's N padding) come out 0.
+
+`int8_matmul_t` is the transposed form (port of int8_matmul_t): dx =
+(g * scale) @ q^T with q read in its stored [K, N] layout, launching the
+same source's transposed kernel; `int8_frozen_matmul` pairs the two as a
+torch.autograd.Function for a frozen int8 base weight (cfg.int8_base).
 """
 from __future__ import annotations
 
@@ -86,3 +91,100 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the transposed form and the frozen-base autograd Function (int8_base)
+# ---------------------------------------------------------------------------
+
+T_BLOCK_N = 256     # the TPU kernel's contraction chunk (int8_matmul_t)
+
+
+def _scale_to(scale: torch.Tensor, n: int) -> torch.Tensor:
+    """The f32 per-column scale cut or zero-padded to width n."""
+    s = scale.reshape(-1).float()[:n]
+    return torch.nn.functional.pad(s, (0, n - s.numel()))
+
+
+def int8_matmul_t_ref(g: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Plain twin of int8_matmul_t with the TPU kernel's numerics
+    (int8_matmul.py _kernel_t): gs = bf16(f32(g) * scale), w = bf16(q),
+    f32 products over T_BLOCK_N-column chunks of N whose partials are added
+    in ascending order; columns past the scale's width count 0. g [..., N]
+    -> [..., K] in g's dtype."""
+    lead, n = g.shape[:-1], g.shape[-1]
+    k = q.shape[0]
+    gf = g.reshape(-1, n).float()
+    gs = (gf * _scale_to(scale, n)).to(torch.bfloat16).float()
+    w = q[:, :n].float()
+    acc = torch.zeros((gf.shape[0], k), dtype=torch.float32, device=g.device)
+    for n0 in range(0, n, T_BLOCK_N):
+        acc += gs[:, n0:n0 + T_BLOCK_N] @ w[:, n0:n0 + T_BLOCK_N].T
+    return acc.to(g.dtype).reshape(*lead, k)
+
+
+def int8_matmul_t(g: torch.Tensor, q: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """(g * scale) @ dequant(q)^T: g [..., N] (f32 or bf16, contiguous), q
+    [K, N_pad] int8 read in its stored layout, scale [N] f32 -> [..., K] in
+    g's dtype. The backward of a frozen int8 weight (dx) without a
+    transposed or dequantized copy of it."""
+    if not _build.on_cuda(g, q, scale):
+        return int8_matmul_t_ref(g, q, scale)
+    lead, n = g.shape[:-1], g.shape[-1]
+    k, n_pad = q.shape[0], q.shape[-1]
+    ns = scale.numel()
+    req = _build.require
+    code = _build.dtype_code(g)
+    req(q.dtype == torch.int8 and q.dim() == 2 and n <= n_pad,
+        f'q {tuple(q.shape)} {q.dtype} vs g {tuple(g.shape)}')
+    req(scale.dtype == torch.float32 and ns <= n_pad and n_pad % 16 == 0,
+        f'scale [{ns}] f32 and N_pad {n_pad} (a multiple of 16)')
+    req(g.is_contiguous() and q.is_contiguous() and scale.is_contiguous(),
+        'inputs must be contiguous')
+    req(q.data_ptr() % 16 == 0, 'q must be 16-byte aligned (vector loads)')
+    m = g.numel() // max(n, 1)
+    out = torch.empty((*lead, k), dtype=g.dtype, device=g.device)
+    if m == 0 or k == 0:
+        return out
+    p = _build.ptr
+    err = _build.lib().spt_int8_matmul_t(
+        code, p(g), p(q), p(scale), p(out), m, k, n, ns, n_pad,
+        _build.stream())
+    _build.check(err, 'int8_matmul_t')
+    int8_matmul_t.launches += 1
+    return out
+
+
+int8_matmul_t.launches = 0
+
+
+class Int8FrozenMatmul(torch.autograd.Function):
+    """x @ dequant(q) for a frozen int8 weight (port of int8_frozen_matmul's
+    custom_vjp): the forward is int8_matmul cut to the true width, the
+    backward int8_matmul_t over the same int8 tiles; q and scale get no
+    gradient. The cotangent arrives in x's dtype (the forward's output
+    dtype), as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        n = scale.numel()
+        return int8_matmul(x.contiguous(), q, scale)[..., :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = int8_matmul_t(g.contiguous(), q, scale)
+        return dx, None, None
+
+
+def int8_frozen_matmul(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ dequant(q [K, N_pad] int8, scale [N]) -> [..., N] in
+    x's dtype, differentiable in x only (QLoRA-shape training: the base
+    stays int8 through both passes)."""
+    return Int8FrozenMatmul.apply(x, q, scale.reshape(-1))

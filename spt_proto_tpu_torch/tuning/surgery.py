@@ -7,6 +7,10 @@ only the new leaves (LoRA factors, router, PQ codebook) take fresh values
 and every existing one is kept bit-exact (the same tensor). The port's
 `init_params` is torch-only (`inference.bridge.init_params`): the card host
 has no JAX.
+
+`split_int8_base` is the QLoRA-shape split of cfg.int8_base: the big
+frozen base kernels leave the param tree for a frozen8 tree of int8 +
+per-column scales.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from spt_proto_tpu_torch.config import (ATTN_DENSE, ATTN_SPARSE_V1,
                                         ATTN_SPARSE_V2, FFN_ROUTED,
                                         ModelConfig)
 from spt_proto_tpu_torch.inference import bridge
-from spt_proto_tpu_torch.utils.tree import flatten, overlay
+from spt_proto_tpu_torch.inference.weights import quantize_int8
+from spt_proto_tpu_torch.utils.tree import flatten, overlay, unflatten
 
 STAGES = ('lora', 'ffn', 'mha_v1', 'mha_v2')
 
@@ -41,9 +46,11 @@ def stage_config(cfg: ModelConfig, stage: str, *, d_lora: int = 16,
     raise ValueError(f'unknown stage {stage!r}')
 
 
-def init_params(cfg: ModelConfig, seed: int, device='cuda') -> Any:
-    """A seeded param tree for `cfg` on `device`."""
-    return bridge.init_params(cfg, seed, device)
+def init_params(cfg: ModelConfig, seed: int, device='cuda',
+                skip=None) -> Any:
+    """A seeded param tree for `cfg` on `device` (skip: see
+    bridge.init_params)."""
+    return bridge.init_params(cfg, seed, device, skip)
 
 
 def _tree_kind(cfg: ModelConfig) -> tuple:
@@ -66,8 +73,10 @@ def upgrade(cfg: ModelConfig, params: Any, stage: str, seed: int,
     new_cfg.validate()
     if flatten_paths_equal(cfg, new_cfg):
         return new_cfg, params
-    device = next(iter(flatten(params).values())).device
-    fresh = init_params(new_cfg, seed, device)
+    flat = flatten(params)
+    device = next(iter(flat.values())).device
+    # the existing big leaves are drawn but not kept: one tree on the device
+    fresh = init_params(new_cfg, seed, device, skip=flat.__contains__)
     missing = set(flatten(params)) - set(flatten(fresh))
     if missing:
         raise KeyError(f'upgrade {stage!r} would drop params: '
@@ -87,3 +96,37 @@ def full_upgrade(cfg: ModelConfig, params: Any, seed: int,
             kw['ffn_block_size'] = ffn_block_size
         cfg, params = upgrade(cfg, params, stage, seed + i, **kw)
     return cfg, params
+
+
+INT8_BASE_KERNELS = ('mha/q/kernel', 'mha/k/kernel', 'mha/v/kernel',
+                     'mha/o/kernel', 'ffn/fc1/kernel', 'ffn/fc2/kernel',
+                     'ffn/gate/kernel', 'ffn/side/kernel',
+                     'ffn/down/kernel')
+
+
+def split_int8_base(cfg: ModelConfig, params: Any,
+                    staged: bool = False) -> tuple[ModelConfig, Any, Any]:
+    """Move the frozen base kernels (attention q/k/v/o, the FFN matrices)
+    out of the param tree into a frozen8 tree of {'q' [L, K, N_pad] int8,
+    'scale' [L, 1, N] f32} at the same paths, each quantize_int8 of the
+    kernel in cfg.dtype (the scale as JAX's jitted split makes it).
+    Returns (cfg with int8_base=True, params without those kernels,
+    frozen8). Embeddings, lm_head, norms, biases, LoRA factors, router and
+    codebook stay in params.
+
+    Each kernel is quantized on its own device, one at a time. staged=True
+    also releases the fp kernel's storage right after, as the JAX
+    package's donated buffers are released, so a 7B tree is never whole on
+    the card beside its int8 copy. The caller's references to those
+    kernels are then empty: only the returned trees stay usable."""
+    keep, frozen = {}, {}
+    for path, leaf in flatten(params).items():
+        if not path.endswith(INT8_BASE_KERNELS):
+            keep[path] = leaf
+            continue
+        w = leaf.to(cfg.dtype)
+        frozen[path] = quantize_int8(w, jitted=True)
+        if staged:
+            del w
+            leaf.untyped_storage().resize_(0)
+    return cfg.replace(int8_base=True), unflatten(keep), unflatten(frozen)

@@ -8,11 +8,16 @@ in optax's form (g unchanged when norm < clip, else g / norm * clip);
 frozen leaves require no grad, so they get no update and no decay, as
 optax.multi_transform with set_to_zero gives. Loss = mean f32 cross
 entropy + 1e-2 * the PQ aux loss. The step updates the parameters in place
-(the model owns them); `train_loop` copies the caller's tree first.
+(the model owns them), so `train_loop` trains the caller's tree itself.
+
+Under cfg.int8_base the frozen int8 base kernels (frozen8, from
+tuning.surgery.split_int8_base) ride beside the params: the model holds
+them as buffers, and they are no leaf of the optimizer, the grad norm or
+the saved train state, as the JAX package passes them to the step as a
+separate argument.
 
 Not in this slice, and raising with the slice that brings it: a mesh,
-FSDP, pipeline (pp_micro) and context parallelism (the parallelism slice),
-and frozen int8 base kernels (frozen8, the int8-base slice).
+FSDP, pipeline (pp_micro) and context parallelism (the parallelism slice).
 """
 from __future__ import annotations
 
@@ -94,11 +99,13 @@ class TrainState:
 
 def create_train_state(cfg: ModelConfig, params: Any, *, lr: float = 1e-4,
                        weight_decay: float = 0.1, clip: float = 1.0,
-                       freeze_base: bool = True) -> TrainState:
+                       freeze_base: bool = True,
+                       frozen8: Optional[Any] = None) -> TrainState:
     """A DecoderLM over `params` (whose trainable leaves require grad) and
-    its optimizer."""
+    `frozen8` (int8_base), and its optimizer."""
     trainable = is_trainable_path if freeze_base else (lambda path: True)
-    model = DecoderLM(cfg, params, deterministic=cfg.p_dropout == 0.0,
+    model = DecoderLM(cfg, params, frozen8=frozen8,
+                      deterministic=cfg.p_dropout == 0.0,
                       trainable=trainable)
     tx = make_optimizer(model.tree(), lr=lr, weight_decay=weight_decay,
                         clip=clip, freeze_base=freeze_base)
@@ -124,18 +131,16 @@ def _to_device(batch: dict, device) -> dict:
 
 def make_train_step(cfg: ModelConfig, *, train_quantizer: bool = True,
                     aux_coeff: float = AUX_LOSS_COEFF,
-                    dropout_seed: int = 0, accumulate: int = 1,
-                    frozen8: Optional[Any] = None):
+                    dropout_seed: int = 0, accumulate: int = 1):
     """train_step(state, batch) -> (state, metrics): one optimizer update
     from batch = {'inputs' [B, S], 'targets' [B, S], optional 'mask'}
-    (numpy or tensors). Gradients reach the trainable leaves only.
+    (numpy or tensors). Gradients reach the trainable leaves only; the int8
+    base kernels (int8_base) are the ones the state's model holds.
     accumulate=A splits the batch into A micro-batches along dim 0 and
     applies one update with their mean gradient. metrics: 'ce', 'pq_loss',
     'loss' and 'grad_norm' (before clipping), 0-d f32 tensors. With
     p_dropout > 0 the masks draw from a generator seeded with
     dropout_seed + step."""
-    if frozen8 is not None:
-        raise _unported('frozen8 (int8 base kernels)', 'int8-base')
     use_dropout = cfg.p_dropout > 0.0
 
     def train_step(state: TrainState, batch: dict):
@@ -214,11 +219,6 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
     return template
 
 
-def _clone(params: Any) -> Any:
-    return unflatten({k: v.detach().clone()
-                      for k, v in flatten(params).items()})
-
-
 def train_loop(cfg: ModelConfig, params: Any, batches: Iterable[dict], *,
                lr: float = 1e-4, weight_decay: float = 0.1,
                max_steps: Optional[int] = None, log_every: int = 10,
@@ -230,20 +230,18 @@ def train_loop(cfg: ModelConfig, params: Any, batches: Iterable[dict], *,
                pp_micro: Optional[int] = None, accumulate: int = 1,
                frozen8: Optional[Any] = None) -> tuple[Any, list]:
     """Train on `batches` on the params' device; returns (params, history
-    of (step, metrics as floats) every log_every steps). The caller's
-    params stay untouched (the loop trains a copy). pq_train_every=K arms
-    the PQ aux loss on every K-th step only. The train state goes to
+    of (step, metrics as floats) every log_every steps). The loop trains
+    the caller's tensors in place (clone them first to keep them); frozen8
+    (int8_base) is never trained. pq_train_every=K arms the PQ aux loss on
+    every K-th step only. The train state goes to
     checkpoint_dir every checkpoint_every steps and at the end; resume
     restores it from there first."""
     if mesh is not None or fsdp or pp_micro is not None:
         raise _unported('a device mesh (FSDP, pipeline)', 'parallelism')
     if cfg.context_parallel:
         raise _unported('context parallelism', 'parallelism')
-    if frozen8 is not None:
-        raise _unported('frozen8 (int8 base kernels)', 'int8-base')
-    state = create_train_state(cfg, _clone(params), lr=lr,
-                               weight_decay=weight_decay,
-                               freeze_base=freeze_base)
+    state = create_train_state(cfg, params, lr=lr, weight_decay=weight_decay,
+                               freeze_base=freeze_base, frozen8=frozen8)
     if resume and checkpoint_dir is not None and os.path.exists(
             os.path.join(checkpoint_dir, TRAIN_STATE_FILE)):
         state = load_train_state(checkpoint_dir, state)

@@ -145,3 +145,63 @@ def test_decode_mode_matches_jax(models, mode):
             np.testing.assert_allclose(t_cache[name], j_cache[name],
                                        rtol=scale_tol, atol=0, err_msg=name)
     np.testing.assert_array_equal(t_tokens, j_tokens)
+
+
+def test_w8_routed_matches_jax():
+    """int8 weights (w8) over a routed + LoRA checkpoint: the int8 builds
+    keep the routed FFN's kernels fp (block views, LoRA separate) and its
+    router, and quantize q/k/v (packed) / o and the lm_head, as JAX's do;
+    the eager and staged port builds give one tree. Prefill + 8 greedy
+    steps over an f32 cache against the JAX engine: logits to the standing
+    w8 bound of 2e-2 (see test_decode_mode_matches_jax), tokens exact."""
+    from spt_proto_tpu_torch.utils.tree import flatten
+    base = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
+                            vocab_size=256, max_length=512).replace(
+        dtype=jnp.float32, attn_impl='pallas', decode_multislot=False)
+    params = surgery.init_params(base, jax.random.PRNGKey(0))
+    cfg, params = surgery.upgrade(base, params, 'lora', jax.random.PRNGKey(1),
+                                  d_lora=4)
+    cfg, params = surgery.upgrade(cfg, params, 'ffn', jax.random.PRNGKey(2),
+                                  ffn_block_size=64)
+    r = np.random.RandomState(3)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: (r.randn(*v.shape) * 0.1).astype(np.float32)
+        if 'lora_right' in jax.tree_util.keystr(p) else np.asarray(v),
+        jax.device_get(params))
+    tokens = np.random.RandomState(4).randint(1, 256, (B, 160)).astype(
+        np.int32)
+    jiw = JIW.from_params(cfg, jax.tree.map(jnp.asarray, params),
+                          quant='int8')
+    cache = jeng.KVCache.create(cfg, B, 512, dtype=jnp.float32)
+    j_logits, cache = jax.jit(jeng.prefill)(jiw, jnp.asarray(tokens), cache)
+    tok = jnp.argmax(j_logits[:, -1], -1).astype(jnp.int32)
+    step, j_tokens = jax.jit(jeng.decode_step_greedy), []
+    for _ in range(STEPS):
+        tok, cache = step(jiw, tok, cache)
+        j_tokens.append(np.asarray(tok))
+    tc = port_config(cfg)
+    trees = []
+    for staged in (False, True):
+        iw = TIW.from_params(tc, bridge.params_from_numpy(params, 'cpu'),
+                             quant='int8', staged=staged)
+        ffn = iw.params['blocks']['ffn']
+        assert ffn['fc1']['kernel'].dtype == torch.float32
+        assert 'lora_left' in ffn['fc1'] and 'router' in ffn
+        assert iw.params['blocks']['mha']['qkv']['kernel']['q'].dtype == \
+            torch.int8
+        assert iw.params['lm_head']['kernel']['q'].dtype == torch.int8
+        trees.append(flatten(iw.params))
+        cache = teng.KVCache.create(tc, B, 512, dtype=torch.float32,
+                                    device='cpu')
+        logits, cache = teng.prefill(iw, torch.from_numpy(tokens), cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        out = []
+        for _ in range(STEPS):
+            tok, cache = teng.decode_step_greedy(iw, tok, cache)
+            out.append(tok.numpy())
+        np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                                   atol=2e-2, rtol=0)
+        np.testing.assert_array_equal(np.stack(out, 1),
+                                      np.stack(j_tokens, 1))
+    assert trees[0].keys() == trees[1].keys()
+    assert all(torch.equal(trees[0][k], trees[1][k]) for k in trees[0])

@@ -21,6 +21,7 @@ from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import decode_front as tfront
 from spt_proto_tpu_torch.ops import ffn_tail as tffn
+from spt_proto_tpu_torch.ops import gmm as tgmm
 from spt_proto_tpu_torch.ops import int8_matmul as tmm
 from spt_proto_tpu_torch.ops import lm_head as tlm
 from spt_proto_tpu_torch.ops import paged_attention as tpa
@@ -38,7 +39,8 @@ WRAPPERS = (tfront.decode_front, tattn.decode_attention_rows_q,
             tffn.ffn_tail_gated_int8, tattn.verify_attention_rows,
             tpa.paged_attention, tattn.decode_attention,
             tbsa.block_sparse_attention_lse, tbsa.block_sparse_attention_dq,
-            tbsa.block_sparse_attention_dkv)
+            tbsa.block_sparse_attention_dkv, tmm.int8_matmul_t, tgmm.gmm,
+            tgmm.tgmm)
 
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
@@ -62,7 +64,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(out.stdout.split()[-1]) >= 20
     for name in ('inference/paged.py', 'inference/batching.py',
                  'inference/server.py', 'cli/serve.py',
-                 'ops/paged_attention.py'):
+                 'ops/paged_attention.py', 'ops/gmm.py', 'ops/routed_ffn.py',
+                 'ops/int8_matmul.py'):
         src = (REPO / 'spt_proto_tpu_torch' / name).read_text()
         assert 'import torch' in src or name == 'inference/server.py', name
         assert 'jax' not in src.replace('spt_proto_tpu_torch', ''), name
@@ -156,33 +159,47 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 
 def test_unported_forms_raise_not_implemented():
-    """What a later slice brings raises and names its slice: int8 weights
-    with a routed FFN and int8_base (the int8-base slice), ffn_impl='gmm'
-    (the grouped-matmul slice), dense attention under attn_impl='pallas' on
-    a CUDA device (the flash-attention slice) and a training mesh (the
-    parallelism slice). What this and earlier slices brought runs: the
-    routed FFN with LoRA in init_params and the engine, a bf16/f32 KV
+    """What a later slice brings raises and names its slice: ffn_impl='ep'
+    (expert parallelism) and a training mesh (the parallelism slice), dense
+    attention under attn_impl='pallas' on a CUDA device (the flash-attention
+    slice). What this and earlier slices brought runs, and no
+    NotImplementedError is left for it: int8 weights over a routed + LoRA
+    FFN (the FFN's block views stay fp), an int8_base model (with its
+    frozen8 tree; without it, a ValueError), ffn_impl 'gmm' and 'gather',
+    the routed FFN with LoRA in init_params and the engine, a bf16/f32 KV
     cache, int8 weights, and a tiny LLaMA GQA model that builds int8
     weights (the triple_int8 form) and decodes a step on the CPU."""
     from spt_proto_tpu_torch.layers.attention import check_flash_ported
     from spt_proto_tpu_torch.models.decoder import DecoderLM
-    from spt_proto_tpu_torch.tuning import trainer
+    from spt_proto_tpu_torch.tuning import surgery, trainer
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
     rcfg = cfg.replace(ffn='routed', ffn_block_size=64, d_lora=4)
     routed = bridge.init_params(rcfg, seed=0, device='cpu')
     assert routed['blocks']['ffn']['router']['kernel'].shape == (2, 128, 4)
-    with pytest.raises(NotImplementedError, match='int8-base slice'):
-        InferenceWeights.from_params(rcfg, routed, quant='int8')
-    with pytest.raises(NotImplementedError, match='int8-base slice'):
-        DecoderLM(rcfg.replace(int8_base=True), routed)
-    with pytest.raises(NotImplementedError, match='grouped-matmul'):
-        DecoderLM(rcfg.replace(ffn_impl='gmm'), routed)
+    tokens = torch.ones((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match='parallelism slice'):
+        DecoderLM(rcfg.replace(ffn_impl='ep'), routed)
+    for impl in ('gmm', 'gather', 'masked'):
+        out = DecoderLM(rcfg.replace(ffn_impl=impl), routed)(tokens)
+        assert out['logits'].shape == (1, 8, 256)
+    c8, small, frozen8 = surgery.split_int8_base(rcfg, routed)
+    assert DecoderLM(c8, small, frozen8=frozen8)(tokens)['logits'].shape == \
+        (1, 8, 256)
+    with pytest.raises(ValueError, match='frozen8'):
+        DecoderLM(c8, small)(tokens)
+    with pytest.raises(ValueError, match="'masked' or 'gmm'"):
+        DecoderLM(c8.replace(ffn_impl='gather'), small, frozen8=frozen8)
     with pytest.raises(NotImplementedError, match='flash-attention'):
         check_flash_ported(cfg, 256, torch.device('cuda'), False)
     check_flash_ported(cfg, 256, torch.device('cpu'), False)
     with pytest.raises(NotImplementedError, match='parallelism slice'):
         trainer.train_loop(rcfg, routed, [], mesh=object())
+    w8_routed = InferenceWeights.from_params(rcfg, routed, quant='int8')
+    tok_w8, _ = teng.decode_step_greedy(
+        w8_routed, torch.zeros(1, dtype=torch.int32),
+        teng.KVCache.create(rcfg, 1, 256, device='cpu'))
+    assert 0 <= int(tok_w8) < 256
     cache = teng.KVCache.create(cfg, 1, 256, device='cpu')
     tok = torch.zeros(1, dtype=torch.int32)
     iw_r = InferenceWeights.from_params(rcfg, routed)
@@ -288,10 +305,13 @@ def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
     """On the card a bf16/f32 cache verifies only through the kernel:
     verify_step(impl='jnp') there raises (checked on a cache that reports a
     CUDA device), and the int8 cache, which has no kernel, refuses
-    impl='kernel'. A query row count whose buffers outgrow the kernel's
-    shared memory raises RuntimeError naming the limit and never runs the
-    plain twin (CPU tensors reported as CUDA ones: the check comes before
-    the build)."""
+    impl='kernel'. Query rows whose buffers outgrow one CTA's shared memory
+    (G = 4 x K = 30 at d_head 128, K at the int32 bitfield's limit) no longer
+    raise: they split into chunks of rows, a CTA each, and a block that
+    fits still launches as one chunk. What lies past even one 8-row chunk
+    raises RuntimeError naming the limit and never runs the plain twin.
+    (CPU tensors reported as CUDA ones, and a stand-in for the library
+    that records the rows per CTA.)"""
     iw = InferenceWeights.from_params(
         _tiny_cfg(), bridge.init_params(_tiny_cfg(), seed=0, device='cpu'))
     card = types.SimpleNamespace(device=torch.device('cuda'))
@@ -304,16 +324,32 @@ def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
                                 device='cpu')
     with pytest.raises(ValueError, match='impl=jnp'):
         teng.verify_step(iw, block, cache, impl='kernel')
+    rows = []
     monkeypatch.setattr(tattn._build, 'on_cuda', lambda *ts: True)
-    b, kv, d, ps, kk, g = 1, 1, 128, 128, 30, 8
-    q = torch.zeros((b, kv, g * kk, d))
-    k = torch.zeros((b, kv, 4, d, ps))
-    codes = torch.zeros((b, kv, 4, 1, ps), dtype=torch.int32)
-    tables = torch.tensor([[[0, 1, 1]]], dtype=torch.int32)
-    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
+    monkeypatch.setattr(tattn._build, 'lib', lambda: types.SimpleNamespace(
+        spt_verify_attention=lambda *a: rows.append((a[15], a[-2])) or 0))
+    monkeypatch.setattr(tattn._build, 'stream', lambda: 0)
+
+    def launch(kk, g, d=128, ps=128, dtype=torch.float32):
+        b, kv = 1, 1
+        q = torch.zeros((b, kv, g * kk, d), dtype=dtype)
+        k = torch.zeros((b, kv, 4, d, ps), dtype=dtype)
+        codes = torch.zeros((b, kv, 4, 1, ps), dtype=torch.int32)
+        tables = torch.tensor([[[0, 1, 1]]], dtype=torch.int32)
         tattn.verify_attention_rows(
             q, k, k.clone(), codes, tables, torch.ones_like(tables),
-            torch.zeros((b,), dtype=torch.int32), torch.zeros((b, kv, d, kk)),
-            torch.zeros((b, kv, d, kk)),
-            torch.zeros((b, kv, 1, kk), dtype=torch.int32))
-    assert tattn.verify_attention_rows.launches == 0
+            torch.zeros((b,), dtype=torch.int32),
+            torch.zeros((b, kv, d, kk), dtype=dtype),
+            torch.zeros((b, kv, d, kk), dtype=dtype),
+            torch.zeros((b, kv, 1, kk), dtype=torch.int32), ps=ps)
+    tattn.verify_attention_rows.launches = 0
+    launch(5, 4)                                   # fits: one chunk
+    launch(30, 4, dtype=torch.bfloat16)            # 120 rows: 2 x 64
+    launch(30, 8)                                  # 240 rows: 4 x 64 (f32)
+    assert rows == [(20, 20), (120, 64), (240, 64)]
+    assert tattn.verify_attention_rows.launches == 3
+    assert tattn.verify_rows_per_cta(84, 128, 128, 40, 2) == 48
+    with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
+        launch(5, 1, ps=1024)
+    assert tattn.verify_attention_rows.launches == 3
+    tattn.verify_attention_rows.launches = 0

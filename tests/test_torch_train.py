@@ -146,6 +146,11 @@ def test_train_step_matches_jax(arch, kw):
         assert np.abs(got - w).max() <= 3 * 1e-4 + 1e-6, k
 
 
+def clone(params):
+    """A copy of a tree (train_loop trains the tensors it is given)."""
+    return unflatten({k: v.clone() for k, v in flatten(params).items()})
+
+
 def test_training_loss_decreases():
     """test_train_e2e.py's test_sparse_training_loss_decreases on the
     port: the full pipeline, 60 steps at lr 3e-3 on a learnable stream."""
@@ -163,7 +168,8 @@ def test_training_loss_decreases():
 def test_frozen_params_unchanged_lora_trained():
     """test_train_e2e.py's test_frozen_params_unchanged_lora_trained on the
     port: frozen leaves bit-exact after 10 steps at lr 1e-2, LoRA right
-    factors, routers and codebooks moved; the caller's tree untouched; the
+    factors, routers and codebooks moved; the loop trains the caller's
+    tensors in place (the returned leaves are the caller's storage); the
     eval step's ce and ppl on the tuned tree."""
     cfg = tcfg.tiny_config('opt', vocab_size=64)
     params = surgery.init_params(cfg, 0, 'cpu')
@@ -174,7 +180,8 @@ def test_frozen_params_unchanged_lora_trained():
                                   lr=1e-2, max_steps=10)
     after = flatten(tuned)
     for k, v in flatten(params).items():
-        assert torch.equal(v, before[k]), f'caller leaf {k} changed'
+        assert after[k].data_ptr() == v.data_ptr(), f'{k} not in place'
+        assert torch.equal(v, after[k]), k
     changed = {k for k in before if not torch.allclose(before[k], after[k])}
     for k in before:
         if not partition.is_trainable_path(k):
@@ -197,10 +204,11 @@ def test_train_state_resume_continues_exactly(tmp_path):
     cfg, params = tuned_tiny()
     params = bridge.params_from_numpy(params, 'cpu')
     stream = list(random_batches(64, 4))
-    full, _ = trainer.train_loop(cfg, params, stream, lr=1e-3)
+    full, _ = trainer.train_loop(cfg, clone(params), stream, lr=1e-3)
     d = str(tmp_path / 'state')
-    trainer.train_loop(cfg, params, stream[:2], lr=1e-3, checkpoint_dir=d)
-    resumed, _ = trainer.train_loop(cfg, params, stream[2:], lr=1e-3,
+    trainer.train_loop(cfg, clone(params), stream[:2], lr=1e-3,
+                       checkpoint_dir=d)
+    resumed, _ = trainer.train_loop(cfg, clone(params), stream[2:], lr=1e-3,
                                     checkpoint_dir=d, resume=True)
     for k, v in flatten(full).items():
         assert torch.equal(flatten(resumed)[k], v), k
@@ -214,7 +222,8 @@ def test_checkpoints_load_in_both_packages(tmp_path):
     tree."""
     cfg, params = tuned_tiny()
     base = bridge.params_from_numpy(params, 'cpu')
-    tuned, _ = trainer.train_loop(cfg, base, random_batches(64, 2), lr=1e-2)
+    tuned, _ = trainer.train_loop(cfg, clone(base), random_batches(64, 2),
+                                  lr=1e-2)
     tokens = np.random.RandomState(5).randint(0, 64, (2, 31)).astype(np.int32)
     port_logits = DecoderLM(cfg, tuned)(torch.from_numpy(tokens))['logits']
     tckpt.save_checkpoint(str(tmp_path / 'port'), cfg, tuned)
@@ -247,7 +256,8 @@ def test_checkpoints_load_in_both_packages(tmp_path):
 def test_tune_cli_two_steps(tmp_path, capsys):
     """cli.tune.main on the CPU at tiny-opt: 2 steps of the four-stage
     pipeline, the JSON lines, and a checkpoint the JAX package loads; the
-    unported flags raise naming their slices."""
+    unported flags raise naming their slices (--int8_base runs: see
+    test_torch_int8_base.py)."""
     out = str(tmp_path / 'tuned')
     argv = ['--device', 'cpu', '--config', 'tiny-opt', '--steps', '2',
             '--seq_length', '33', '--batch_size', '2', '--out', out]
@@ -260,7 +270,6 @@ def test_tune_cli_two_steps(tmp_path, capsys):
     assert jc.attention == 'sparse_v2' and jc.ffn == 'routed'
     assert jc.d_lora == 16 and 'router' in jp['blocks']['ffn']
     for flag, slice_ in (('--data_root=x', 'data slice'),
-                         ('--int8_base', 'int8-base slice'),
                          ('--fsdp', 'parallelism slice')):
         with pytest.raises(NotImplementedError, match=slice_):
             tune.main(argv + [flag])
