@@ -36,8 +36,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    gmm (the five grouped products of routed_ffn_lora_gmm's forward and
    dlhs at OPT-125M's tune shape: 8,192 sorted rows in 4 groups, one empty,
    LoRA rank 16) and tgmm (the two LoRA factors' gradients), and the verify
-   kernel at K = 30, G = 4 (120 rows: split across CTAs); time kernel,
-   twin and the one-call library equivalent where there is one;
+   kernel at K = 30, G = 4 (120 rows: split across CTAs); the flash-attention
+   forward (o, l, m), dq and dk/dv kernels at OPT-125M's training shape
+   ([8, 12, 512, 64], f32 and bf16), at S 2048 (bf16) and at LLaMA-7B's
+   width ([4, 32, 512, 128], f32 and bf16); time kernel, twin and the
+   one-call library equivalent where there is one (SDPA for flash
+   attention, checked against the twins first);
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
@@ -50,8 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    stepwise from the twins' state, codes and tables, each decision within
    one bf16 step of theirs); then, for both models, one speculative verify
    block against K sequential decode steps on the card and against the CPU
-   twins, and greedy generate_speculative (n-gram, and at OPT-125M the
-   model as its own draft) against greedy generate() on the card;
+   twins (the card's PQ codes taken from the twins', CodeTap), and greedy
+   generate_speculative (n-gram, and at OPT-125M the model as its own
+   draft) against greedy generate() on the card;
 4. the serving runs, OPT-125M in bf16, B=8, prompt 2048, max_len 2176, in
    bench.py's three decode modes (dense bf16-KV, sparse bf16-KV, sparse
    int8-KV), sparse int8-KV with the fused FFN tail, and with int8 weights
@@ -117,7 +122,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    gmm 8 and tgmm 2 a layer); step ms, tok/s, peak memory, busy, the
    kernels' time in situ; then w8 serving of a tuned (routed + LoRA)
    OPT-125M checkpoint against the CPU twins by phase 3's w8 rule;
-11. print the per-kernel JSON line, then the contract line
+11. dense and LoRA-stage training and forward (dense causal attention
+   through the flash-attention kernels): f32 parity of 3 train steps on the
+   card against the CPU twins by phase 9's rules (OPT-125M width, 2 layers,
+   B=2, S=2048 at stages lora,ffn,mha_v1 and at lora; Llama-3-8B width, 1
+   layer, vocabulary 32,000, B=1, S=1024, GQA, at lora,ffn,mha_v1), with
+   step 0 repeated under remat 'full' and 'dots' (gradients equal to the
+   no-remat ones, forwards counted twice); tuning.evaluate (f32 parity of
+   ppl and answers at 2 layers, then the card alone at full depth, bf16,
+   exact launch counts, tok/s); cli.tune.main at OPT-125M full depth, bf16,
+   B=8, S=512, stages lora,ffn,mha_v1, with and without --remat (exact
+   launch counts: 1 flash forward, 1 dq, 1 dk/dv a layer a step, forwards
+   twice under remat, no block-sparse launch); cli.profile.main at S 2048,
+   B=8, bf16: dense forward, and the dense, lora and sparse train steps
+   (step ms, tok/s, peak memory, exact launch counts);
+12. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -1519,6 +1538,117 @@ def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
     return res
 
 
+FLASH_KERNELS = ('flash_attention', 'flash_attention_dq',
+                 'flash_attention_dkv')
+# (B, H, S, d) of the flash-attention checks: OPT-125M's training shape (the
+# tune runs', B=8 x 12 heads, S 512), its S 2048 (the profile runs'), and
+# LLaMA-7B's width (32 heads of d 128) at B=4, S 512
+FLASH_SHAPES = {'opt-125m S=512': (B, HEADS, 512, DH),
+                'opt-125m S=2048': (B, HEADS, PROMPT, DH),
+                'llama-7b S=512': (B_7B, HEADS_LL, 512, DH_LL)}
+# SDPA, the library yardstick, against the twins: it rounds p and ds to
+# bf16 at other places than the stock kernel's numerics the twins follow,
+# so it is held to four bf16 steps of the largest entry (1e-5 in f32)
+SDPA_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-5}
+
+
+def check_flash(dtype, shape, timer=None):
+    """The flash-attention forward (o, l, m), dq and dk/dv kernels against
+    their twins on [B, H, S, d] causal, sm_scale d**-0.5: o, dq, dk, dv to
+    output_tolerance, l and m to the f32 bound; the backward twin from the
+    kernel's own o, l, m. With a timer: cold-L2 µs of each kernel, its
+    plain twin's, SDPA's (forward alone, and its backward through
+    torch.autograd.grad: the library yardstick, checked against the twins
+    first) and the bound: the causal forward needs 2 B H S^2 d FLOPs, the
+    backward 2.5x that as a pair (alone, dq's function needs 3 B H S^2 d,
+    dk/dv's 4); bytes of q, k, v, o, l, m (forward) and of q, k, v, do, l,
+    m, di and the kernel's outputs (dq; dk and dv)."""
+    from spt_proto_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+    b, h, s, d = shape
+    g = gen(SEED + 20)
+    q = randn(g, shape, dtype, std=2.0)
+    k = randn(g, shape, dtype, std=2.0)
+    v = randn(g, shape, dtype)
+    do = randn(g, shape, dtype)
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    o, l, m = fa.flash_attention_fwd(q, k, v, **kw)
+    o_w, l_w, m_w = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, l, m, do, di, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, l, m, do, di, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, l, m, do, **kw)
+    sync()
+    errs = {}
+    for name, got, w in (('o', o, o_w), ('l', l, l_w), ('m', m, m_w),
+                         ('dq', dq, want[0]), ('dk', dk, want[1]),
+                         ('dv', dv, want[2])):
+        tol = (tolerance(torch.float32) if name in ('l', 'm')
+               else output_tolerance(w, dtype))
+        errs[name] = max_err(got, w)
+        require(close(got, w, dtype, tol) and bool(torch.isfinite(got).all()),
+                f'flash attention {name} {dtype} {shape}: err {errs[name]} '
+                f'({tol_str(dtype, tol)})')
+    log(f'  flash {shape} {str(dtype):14s} max err ' + ', '.join(
+        f'{k_} {v_:.3g}' for k_, v_ in errs.items())
+        + ' (bf16: 2^-7 max|want|; l, m f32 bound)')
+    del o_w, l_w, m_w
+    res = {}
+    if timer is not None:
+        plain_fwd = timer.ms(lambda: fa.flash_attention_fwd_ref(q, k, v,
+                                                                **kw), reps=5)
+        plain_bwd = timer.ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, l, m, do, **kw), reps=5)
+        # the library yardstick: SDPA forward, and its backward alone
+        lo = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            scale=kw['sm_scale'])
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 scale=kw['sm_scale'])
+        lib_grads = torch.autograd.grad(lib_out, leaves, do,
+                                        retain_graph=True)
+        lib_err = [max_err(a, w) / w.float().abs().max().item()
+                   for a, w in zip((lo, *lib_grads), (o, *want))]
+        require(max(lib_err) <= SDPA_TOL[dtype], f'SDPA vs the twins '
+                f'{shape} {dtype}: rel errs {lib_err}')
+        lib_fwd = timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=kw['sm_scale']))
+        lib_bwd = timer.ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True))
+        del lo, lib_out, lib_grads, leaves
+        flops = 2 * b * h * s * s * d
+        rows = dict(
+            flash_attention=(
+                lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                max(errs['o'], errs['l'], errs['m']), nbytes(q, k, v, o, l, m),
+                flops, plain_fwd, lib_fwd),
+            flash_attention_dq=(
+                lambda: fa.flash_attention_dq(q, k, v, l, m, do, di, **kw),
+                errs['dq'], nbytes(q, k, v, do, l, m, di, dq), 1.5 * flops,
+                plain_bwd, lib_bwd),
+            flash_attention_dkv=(
+                lambda: fa.flash_attention_dkv(q, k, v, l, m, do, di, **kw),
+                max(errs['dk'], errs['dv']),
+                nbytes(q, k, v, do, l, m, di, dk, dv), 2 * flops, plain_bwd,
+                lib_bwd))
+        for name, (fn, err, n_b, n_o, plain, lib) in rows.items():
+            r = dict(max_abs_err=err, ms=timer.ms(fn), plain_ms=plain,
+                     library_ms=lib, library='scaled_dot_product_attention'
+                     + ('' if name == 'flash_attention'
+                        else ' backward (dq, dk, dv)'),
+                     library_rel_err=lib_err)
+            r['bound_ms'], r['bound_by'] = bound_ms(n_b, n_o, dtype)
+            log(f'    {name}:')
+            log_times(r)
+            res[name] = r
+        pair = bound_ms(nbytes(q, k, v, do, l, m, di, dq, dk, dv),
+                        2.5 * flops, dtype)[0]
+        both = sum(res[n]['ms'] for n in FLASH_KERNELS[1:])
+        log(f'    backward pair bound {pair * 1e3:.2f} us (2.5x the '
+            f'forward\'s FLOPs), dq + dk/dv {both * 1e3:.1f} us')
+    return res
+
+
 def phase_kernels(timer):
     """Phase 2; returns the bf16 (serving dtype) results by kernel."""
     res = {}
@@ -1557,6 +1687,12 @@ def phase_kernels(timer):
                  for name, (m_, k_, n_) in INT8_T_SHAPES.items()}
         r_gmm = check_gmm(dtype, t)
         r_tgmm = check_tgmm(dtype, t)
+        # the flash-attention kernels (dense / LoRA-stage training and
+        # forward): OPT-125M's training shape and LLaMA-7B's width in f32
+        # and bf16, S 2048 (the profile runs') in bf16
+        r_flash = {name: check_flash(dtype, shape, t)
+                   for name, shape in FLASH_SHAPES.items()
+                   if dtype == torch.bfloat16 or shape[2] == 512}
         r_head8 = check_lm_head_int8(dtype, D, t)
         r_head8_13 = check_lm_head_int8(dtype, D_13B, t)
         r_ffn8 = check_ffn(dtype, D, FF, t, int8=True)
@@ -1640,6 +1776,9 @@ def phase_kernels(timer):
                     k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
                 int8_matmul_t=dict(r_mmt['llama-7b gate/side dx'], **r_mmt),
                 gmm=r_gmm, tgmm=r_tgmm,
+                **{n: dict(r_flash['opt-125m S=512'][n], **{
+                    shape: r[n] for shape, r in r_flash.items()})
+                   for n in FLASH_KERNELS},
                 lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
                                          **r_head8_ll),
                 ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13),
@@ -2074,6 +2213,43 @@ def parity_modes(model, tokens, modes):
     return out
 
 
+class CodeTap:
+    """Gives the card's run the CPU twins' PQ codes. Inside `with tap:` the
+    engine's _encode_codes is wrapped: a call on CPU tensors (the twins'
+    run, taken first) records its codes; a call on CUDA tensors (the card's
+    run of the same calls, in the same order) computes its own, counts
+    where they differ from the record, and passes the twins' codes on, so
+    the card's tile selection and tables are the twins' too."""
+
+    def __init__(self):
+        self.rec = collections.deque()
+        self.codes = self.flips = 0
+
+    def __enter__(self):
+        from spt_proto_tpu_torch.inference import engine
+        self.engine, self.orig = engine, engine._encode_codes
+        engine._encode_codes = self
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._encode_codes = self.orig
+
+    def __call__(self, cfg, quantizer, x, bd=None):
+        out = self.orig(cfg, quantizer, x, bd=bd)
+        if x.device.type == 'cpu':
+            self.rec.append(out)
+            return out
+        twin = self.rec.popleft()
+        require(twin.shape == out.shape, f'codes {tuple(out.shape)} vs the '
+                f'twins\' {tuple(twin.shape)}')
+        self.codes += out.numel()
+        self.flips += int((out.cpu() != twin).sum())
+        return twin.to(out.device)
+
+    def done(self):
+        require(not self.rec, f'{len(self.rec)} twin encode calls unmatched')
+
+
 CACHE_FIELDS = ('k', 'v', 'codes', 'length', 'k_scale', 'v_scale')
 
 
@@ -2091,7 +2267,11 @@ def verify_parity(model, tokens, modes):
     verify_step against K sequential decode_step calls (the kernels of
     each: the verify kernel, or the plain path over an int8 cache, against
     the decode front and decode attention kernels); (b) the card's
-    verify_step against the CPU twins', each from its own prefill. Bounds:
+    verify_step against the CPU twins', each from its own prefill, with the
+    card's PQ codes taken from the twins' (CodeTap: a code an ulp of k or q
+    flips would select other tiles and part the logits by far more than
+    rounding; the card's own codes may differ from the twins' in <= 1e-3
+    of them, counted). Bounds:
     logits within 2e-3 (f32 sums of full-width rows in other orders; the
     JAX tests hold a tiny model to 5e-4 - 1e-3) or 2e-2 over an int8 cache
     (a new column whose projections differ by an ulp can land one int8 step
@@ -2124,13 +2304,19 @@ def verify_parity(model, tokens, modes):
         seq = torch.stack(seq, 1).cpu()
         blk, card = engine.verify_step(iw_gpu, block.to(DEV), card)
         blk = blk.cpu()
-        blk_cpu, _ = engine.verify_step(iw_cpu, block,
-                                        prefilled(iw_cpu, 'cpu'))
+        tap = CodeTap()
+        with tap:
+            blk_cpu, _ = engine.verify_step(iw_cpu, block,
+                                            prefilled(iw_cpu, 'cpu'))
+            blk_tap, _ = engine.verify_step(iw_gpu, block.to(DEV),
+                                            prefilled(iw_gpu, DEV))
+        tap.done()
+        blk_tap = blk_tap.cpu()
         sync()
         bound = 2e-2 if quantized else 2e-3
-        err_seq, err_cpu = max_err(blk, seq), max_err(blk, blk_cpu)
+        err_seq, err_cpu = max_err(blk, seq), max_err(blk_tap, blk_cpu)
         agree_seq = mismatch(blk.argmax(-1), seq.argmax(-1))
-        agree_cpu = mismatch(blk.argmax(-1), blk_cpu.argmax(-1))
+        agree_cpu = mismatch(blk_tap.argmax(-1), blk_cpu.argmax(-1))
         agree_seq, agree_cpu = 1 - agree_seq, 1 - agree_cpu
         cache_msg, cache_ok = [], True
         for f in ('k', 'v'):
@@ -2155,10 +2341,13 @@ def verify_parity(model, tokens, modes):
         cache_ok &= flips <= 1e-3 * n_new and torch.equal(card.length,
                                                           seq_cache.length)
         cache_msg.append(f'codes flipped {flips} of {n_new}')
+        cache_ok &= tap.flips <= 1e-3 * max(tap.codes, 1)
         msg = (f'verify vs {KK} decode steps: logits err {err_seq:.3g}, '
-               f'decisions {agree_seq}; card vs CPU twins: logits err '
-               f'{err_cpu:.3g}, decisions {agree_cpu} (bound {bound:g}, '
-               f'>= 0.995); caches {", ".join(cache_msg)}')
+               f'decisions {agree_seq}; card vs CPU twins (the twins\' '
+               f'codes; the card\'s own differ in {tap.flips} of '
+               f'{tap.codes}): logits err {err_cpu:.3g}, decisions '
+               f'{agree_cpu} (bound {bound:g}, >= 0.995); caches '
+               f'{", ".join(cache_msg)}')
         log(f'  {label:16s} f32 {model} verify K={KK}: {msg} '
             f'({time.perf_counter() - t0:.1f} s)')
         require(err_seq <= bound and err_cpu <= bound and agree_seq >= 0.995
@@ -2166,7 +2355,8 @@ def verify_parity(model, tokens, modes):
         out[label] = dict(logits_err_vs_decode=err_seq,
                           logits_err_vs_cpu=err_cpu,
                           agreement_vs_decode=agree_seq,
-                          agreement_vs_cpu=agree_cpu, code_flips=flips)
+                          agreement_vs_cpu=agree_cpu, code_flips=flips,
+                          card_code_flips_vs_cpu=tap.flips)
         del iw_gpu, card, seq_cache
     torch.cuda.empty_cache()
     return out
@@ -2229,6 +2419,8 @@ def wrappers():
     from spt_proto_tpu_torch.ops.ffn_tail import (ffn_tail, ffn_tail_gated,
                                                   ffn_tail_gated_int8,
                                                   ffn_tail_int8)
+    from spt_proto_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
     from spt_proto_tpu_torch.ops.gmm import gmm, tgmm
     from spt_proto_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_t
     from spt_proto_tpu_torch.ops.lm_head import (lm_head_argmax,
@@ -2249,7 +2441,10 @@ def wrappers():
                 block_sparse_attention_lse=block_sparse_attention_lse,
                 block_sparse_attention_dq=block_sparse_attention_dq,
                 block_sparse_attention_dkv=block_sparse_attention_dkv,
-                int8_matmul_t=int8_matmul_t, gmm=gmm, tgmm=tgmm)
+                int8_matmul_t=int8_matmul_t, gmm=gmm, tgmm=tgmm,
+                flash_attention=flash_attention_fwd,
+                flash_attention_dq=flash_attention_dq,
+                flash_attention_dkv=flash_attention_dkv)
 
 
 def expected_launches(iw, quantized):
@@ -3158,29 +3353,39 @@ FREE_REL_BOUND = 5e-3
 
 def record_attention(records):
     """Patch the lse forward and the backward of ops.block_sparse_attention
-    to keep each call's inputs and outputs (the autograd Function looks
-    both up in the module); returns the function that undoes it. The lse
-    wrapper counts its launches on the name it is reached by, the recorder
-    while patched: undo hands that count back."""
+    and the forward and backward of ops.flash_attention to keep each call's
+    inputs and outputs (the autograd Functions look both up in their
+    modules); returns the function that undoes it. A forward wrapper counts
+    its launches on the name it is reached by, the recorder while patched:
+    undo hands that count back."""
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
-    fwd, bwd = m.block_sparse_attention_lse, m.block_sparse_attention_bwd
+    from spt_proto_tpu_torch.ops import flash_attention as fa
+    patched = []
+    for mod, fwd_name, bwd_name, kind in (
+            (m, 'block_sparse_attention_lse', 'block_sparse_attention_bwd',
+             ''),
+            (fa, 'flash_attention_fwd', 'flash_attention_bwd', 'flash_')):
+        fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
 
-    def fwd_rec(q, k, v, sel, **kw):
-        o, lse = fwd(q, k, v, sel, **kw)
-        records.append(('fwd', (q, k, v, sel), kw, (o, lse)))
-        return o, lse
+        def fwd_rec(q, k, v, *a, _fwd=fwd, _kind=kind, **kw):
+            out = _fwd(q, k, v, *a, **kw)
+            records.append((_kind + 'fwd', (q, k, v, *a), kw, out))
+            return out
 
-    def bwd_rec(q, k, v, sel, o, lse, g, **kw):
-        out = bwd(q, k, v, sel, o, lse, g, **kw)
-        records.append(('bwd', (q, k, v, sel, o, lse, g), kw, out))
-        return out
-    fwd_rec.launches = 0
-    m.block_sparse_attention_lse, m.block_sparse_attention_bwd = \
-        fwd_rec, bwd_rec
+        def bwd_rec(*a, _bwd=bwd, _kind=kind, **kw):
+            out = _bwd(*a, **kw)
+            records.append((_kind + 'bwd', a, kw, out))
+            return out
+        fwd_rec.launches = 0
+        setattr(mod, fwd_name, fwd_rec)
+        setattr(mod, bwd_name, bwd_rec)
+        patched.append((mod, fwd_name, bwd_name, fwd, bwd, fwd_rec))
 
     def undo():
-        m.block_sparse_attention_lse, m.block_sparse_attention_bwd = fwd, bwd
-        fwd.launches += fwd_rec.launches
+        for mod, fwd_name, bwd_name, fwd, bwd, fwd_rec in patched:
+            setattr(mod, fwd_name, fwd)
+            setattr(mod, bwd_name, bwd)
+            fwd.launches += fwd_rec.launches
     return undo
 
 
@@ -3222,16 +3427,17 @@ def record_wrappers(names, records):
     return undo
 
 
-def train_launches(cfg, variant=None, remat=False):
+def train_launches(cfg, variant=None, remat=False, flash=False):
     """Kernel launches a layer a training step: the block-sparse lse
-    forward, dq and dk/dv; int8_base one int8_matmul (forward) and one
-    int8_matmul_t (dx) per frozen kernel (q/k/v/o and the FFN's 2 or 3);
+    forward, dq and dk/dv (flash: the flash-attention forward, dq and dk/dv,
+    the dense stages' attention); int8_base one int8_matmul (forward) and
+    one int8_matmul_t (dx) per frozen kernel (q/k/v/o and the FFN's 2 or 3);
     gmm 4 forward products of routed_ffn_lora_gmm and their 4 dlhs, and 2
     tgmm (the two LoRA factors' gradients; the frozen w1 / w2 get none).
     remat runs each block's forward twice: its launches count twice."""
     fwd = 2 if remat else 1
-    out = dict(block_sparse_attention_lse=fwd, block_sparse_attention_dq=1,
-               block_sparse_attention_dkv=1)
+    attn = FLASH_KERNELS if flash else TRAIN_KERNELS
+    out = dict(zip(attn, (fwd, 1, 1)))
     if variant == 'int8_base':
         n = 4 + (3 if cfg.ffn_gated else 2)
         out.update(int8_matmul=n * fwd, int8_matmul_t=n)
@@ -3298,6 +3504,7 @@ def check_recorded_kernels(label, records):
     absolute part scaled by the call's largest output. Returns the worst
     error by output."""
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    from spt_proto_tpu_torch.ops import flash_attention as fa
     worst = {}
     for kind, args, kw, got in records:
         tol = KERNEL_TOL
@@ -3310,6 +3517,12 @@ def check_recorded_kernels(label, records):
         elif kind == 'fwd':
             want = m.block_sparse_attention_lse_ref(*args, **kw)
             names = ('o', 'lse')
+        elif kind == 'flash_fwd':
+            want = fa.flash_attention_fwd_ref(*args, **kw)
+            names = ('flash o', 'flash l', 'flash m')
+        elif kind == 'flash_bwd':
+            want = fa.flash_attention_bwd_ref(*args, **kw)
+            names = ('flash dq', 'flash dk', 'flash dv')
         else:
             want = m.block_sparse_attention_bwd_ref(*args, **kw)
             names = ('dq', 'dk', 'dv')
@@ -3325,14 +3538,55 @@ def check_recorded_kernels(label, records):
     return worst
 
 
+# remat recomputes each block's forward in the backward ('full'), or all but
+# its matmul outputs ('dots'): the same operations on the same inputs, so
+# the gradients should equal the no-remat run's up to what a recomputed
+# kernel's summation order can change (none: every kernel and cuBLAS call
+# of the step is deterministic for fixed shapes)
+REMAT_REL_BOUND = 1e-6
+
+
+def remat_step0(label, cfg, params, batch, policy, grads_ref, variant, flash):
+    """Step 0 on the card under remat=True, remat_policy=policy from the
+    parity run's weights: the trainable gradients against grads_ref (the
+    card's no-remat step 0) to REMAT_REL_BOUND of each leaf's largest, the
+    launches of one step exactly (forwards twice a layer)."""
+    from spt_proto_tpu_torch.tuning import trainer
+    rcfg = cfg.replace(remat=True, remat_policy=policy)
+    grads = {}
+    state = trainer.create_train_state(rcfg, to_dev(params, DEV))
+    capture_grads(state, grads)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    trainer.make_train_step(rcfg)(state, batch)
+    sync()
+    per_layer = train_launches(cfg, variant, remat=True, flash=flash)
+    counts = {n: w.launches for n, w in ws.items()}
+    want = {n: cfg.n_layers * per_layer.get(n, 0) for n in ws}
+    require(counts == want, f'{label} remat {policy} launches {counts} '
+            f'(expected {want})')
+    worst = max((grads[k] - w).abs().max().item()
+                / max(w.abs().max().item(), 1e-30)
+                for k, w in grads_ref.items())
+    require(worst <= REMAT_REL_BOUND, f'{label} remat {policy}: worst grad '
+            f'{worst} of its max vs no remat (bound {REMAT_REL_BOUND})')
+    log(f'  [{label}] remat {policy!r} step 0 vs no remat on the card: worst '
+        f'grad {worst:.3g} of its max; launches a layer '
+        f'{ {n: c // cfg.n_layers for n, c in counts.items() if c} }')
+    del state
+    return dict(worst_grad_rel=worst, launches=counts)
+
+
 def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
                  grad_rel=GRAD_REL_BOUND, free_rel=FREE_REL_BOUND,
-                 plain_too=False):
+                 plain_too=False, stages=None, remat_policies=()):
     """f32 training on the card through the kernels against the CPU
     through the twins, from the same weights (the port's init_params, seed
-    0, then the four upgrade stages; variant 'int8_base' then splits the
-    base kernels into frozen8, 'gmm' sets ffn_impl='gmm') and batches
-    (numpy seed 0), 3 train steps each:
+    0, then the upgrade stages: all four, or `stages`, stage i drawing from
+    seed 1 + i; variant 'int8_base' then splits the base kernels into
+    frozen8, 'gmm' sets ffn_impl='gmm') and batches (numpy seed 0), 3 train
+    steps each:
     - stepwise: each card step starts from the CPU run's weights before
       that step; loss, ce and pq_loss to step_rel relative, step 0's
       grad_norm too, and step 0's gradients (before clipping) to grad_rel
@@ -3346,15 +3600,26 @@ def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
     - plain_too: the stepwise run once more with the variant's wrappers
       replaced by their twins on the card (no kernel of theirs), whose
       step-0 loss and gradients against the CPU's show how much of the
-      card-vs-CPU gap the kernels own (reported)."""
+      card-vs-CPU gap the kernels own (reported);
+    - remat_policies: step 0 once more on the card under remat=True with
+      each policy ('full', 'dots'), its gradients held to the card's
+      no-remat ones (REMAT_REL_BOUND of each leaf's largest) and its
+      forward launches counted twice a layer.
+    Before the mha_v2 stage the attention is dense: the flash-attention
+    kernels in place of the block-sparse ones."""
     from spt_proto_tpu_torch.tuning import surgery, trainer
     from spt_proto_tpu_torch.utils.tree import flatten
     t0 = time.perf_counter()
     params = surgery.init_params(cfg, SEED, 'cpu')
-    cfg, params = surgery.full_upgrade(cfg, params, SEED + 1)
+    if stages is None:
+        cfg, params = surgery.full_upgrade(cfg, params, SEED + 1)
+    else:
+        for i, stage in enumerate(stages):
+            cfg, params = surgery.upgrade(cfg, params, stage, SEED + 1 + i)
     cfg = cfg.replace(attn_impl='pallas', dtype=torch.float32)
     frozen8 = None
-    per_layer = train_launches(cfg, variant)
+    flash = cfg.attention != 'sparse_v2'
+    per_layer = train_launches(cfg, variant, flash=flash)
     if variant == 'gmm':
         cfg = cfg.replace(ffn_impl='gmm')
     elif variant == 'int8_base':
@@ -3368,7 +3633,8 @@ def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
         x = r.randint(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
         batches.append({'inputs': x[:, :-1], 'targets': x[:, 1:]})
     ws = wrappers()
-    rel = lambda a, b_: abs(a - b_) / abs(b_)
+    # pq_loss is 0 on both sides before the mha_v1 stage
+    rel = lambda a, b_: abs(a - b_) / abs(b_) if b_ else abs(a - b_)
     step = trainer.make_train_step(cfg)
 
     def run(state, stepwise_from=None, on_first=None, keep=False):
@@ -3420,6 +3686,9 @@ def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
     if plain_too:
         plain = plain_card_step0(label, state_on, run, before, m_cpu,
                                  grads_c, per_layer)
+    remat = {policy: remat_step0(label, cfg, params, batches[0], policy,
+                                 grads_g, variant, flash)
+             for policy in remat_policies}
     step_worst = 0.0
     for i in range(3):
         for name in ('loss', 'ce', 'pq_loss') + (('grad_norm',) if i == 0
@@ -3457,7 +3726,7 @@ def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
                free_losses_card=m_free, free_rel=free_rel,
                grad_rel_by_leaf=worst, kernel_max_err=kernel_err,
                stepwise_max_rel=step_worst, launches=counts,
-               vs_masked=vs_masked, plain_on_card=plain,
+               vs_masked=vs_masked, plain_on_card=plain, remat=remat,
                seconds=time.perf_counter() - t0)
     log(f'  [{label}] loss {terms_g["loss"]:.7f} vs {terms_c["loss"]:.7f}; '
         f'grad_norm {m_step[0]["grad_norm"]:.6f} vs '
@@ -3479,7 +3748,10 @@ IN_SITU = {
     'int8_matmul': lambda k: 'int8_matmul_tiled_kernel' in k,
     'int8_matmul_t': lambda k: 'int8_matmul_t_kernel' in k,
     'gmm': lambda k: 'gmm_kernel' in k and 'tgmm_kernel' not in k,
-    'tgmm': lambda k: 'tgmm_kernel' in k}
+    'tgmm': lambda k: 'tgmm_kernel' in k,
+    'flash_attention': lambda k: 'flash_fwd_kernel' in k,
+    'flash_attention_dq': lambda k: 'flash_dq_kernel' in k,
+    'flash_attention_dkv': lambda k: 'flash_dkv_kernel' in k}
 
 
 class _StopRun(Exception):
@@ -3715,6 +3987,198 @@ def phase_int8_gmm():
 
 
 # ---------------------------------------------------------------------------
+# phase 11: dense and LoRA-stage training and forward (the flash-attention
+# kernels), the evaluate loop and the profile CLI
+# ---------------------------------------------------------------------------
+
+DENSE_STAGES = ('lora', 'ffn', 'mha_v1')
+EVAL_B, EVAL_S = 8, 512
+PROFILE_ITERS = 5
+
+
+def mmlu_batches(vocab, n, b, s, seed):
+    """Synthetic batches shaped as data/datamodule.py gives them (numpy
+    seed): rows of random tokens, the mask 0 past a random length."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        row = r.randint(0, vocab, size=(b, s + 1)).astype(np.int32)
+        lengths = r.randint(3, s + 1, size=b).astype(np.int32)
+        mask = (np.arange(s)[None] < lengths[:, None] - 1).astype(np.int32)
+        out.append({'inputs': row[:, :-1], 'targets': row[:, 1:],
+                    'mask': mask, 'lengths': lengths})
+    return out
+
+
+def dense_stage_model(cfg, dtype, dev):
+    """cfg's seeded weights (seed 0) through the dense stages on `dev`."""
+    from spt_proto_tpu_torch.tuning import surgery
+    params = surgery.init_params(cfg, SEED, dev)
+    for i, stage in enumerate(DENSE_STAGES):
+        cfg, params = surgery.upgrade(cfg, params, stage, SEED + 1 + i)
+    return cfg.replace(attn_impl='pallas', dtype=dtype), params
+
+
+def evaluate_parity():
+    """tuning.evaluate at OPT-125M width, 2 layers, f32, stages
+    lora,ffn,mha_v1, 2 MMLU-shaped batches of B=4, S=512: the card
+    (flash kernels) against the CPU twins from the same weights: ppl to
+    1e-4 relative; the answers equal, or each differing one a near-tie
+    (the CPU's answer within 2^-7 max|logit| of the card's best, phase 3's
+    rule)."""
+    from spt_proto_tpu_torch.config import opt_config
+    from spt_proto_tpu_torch.tuning import evaluate
+    t0 = time.perf_counter()
+    cfg, params = dense_stage_model(opt_config('125m', n_layers=2),
+                                    torch.float32, 'cpu')
+    batches = mmlu_batches(cfg.vocab_size, 2, 4, EVAL_S, SEED + 21)
+    card_params = to_dev(params, DEV)
+    got = evaluate.evaluate(cfg, card_params, batches)
+    want = evaluate.evaluate(cfg, params, batches)
+    fwd_c = evaluate.make_forward(cfg, card_params)
+    fwd_t = evaluate.make_forward(cfg, params)
+    differ, worst_gap = 0, 0.0
+    for batch in batches:
+        pos = batch['lengths'].astype(np.int64) - 2
+        rows = np.arange(len(pos))
+        lc = fwd_c(batch['inputs'])[rows, pos].float().cpu()
+        lt = fwd_t(batch['inputs'])[rows, pos].float()
+        pc, pt = lc.argmax(-1), lt.argmax(-1)
+        for r in np.nonzero((pc != pt).numpy())[0]:
+            gap = (lc[r, pc[r]] - lc[r, pt[r]]).item()
+            differ += 1
+            worst_gap = max(worst_gap, gap / lc[r].abs().max().item())
+    rel = abs(got['ppl'] - want['ppl']) / want['ppl']
+    log(f'  [evaluate OPT-125M 2 layers f32] card ppl {got["ppl"]:.6f} vs '
+        f'CPU {want["ppl"]:.6f} (rel {rel:.3g}); accuracy {got["accuracy"]}'
+        f' vs {want["accuracy"]} over {got["n_examples"]}; differing '
+        f'answers {differ} (worst gap {worst_gap:.3g} of max|logit|); '
+        f'{time.perf_counter() - t0:.1f} s')
+    require(rel <= 1e-4 and got['n_examples'] == want['n_examples']
+            and worst_gap <= 2 ** -7
+            and (differ or got['accuracy'] == want['accuracy']),
+            f'evaluate parity: {got} vs {want}, {differ} differing answers, '
+            f'worst gap {worst_gap}')
+    del card_params, fwd_c
+    torch.cuda.empty_cache()
+    return dict(card=got, cpu=want, ppl_rel=rel, differing_answers=differ,
+                worst_gap=worst_gap)
+
+
+def evaluate_run():
+    """tuning.evaluate on the card at OPT-125M full depth, bf16, stages
+    lora,ffn,mha_v1, 4 batches of B=8, S=512: exactly one flash forward a
+    layer a batch (no backward kernel, no block-sparse one), tokens/s over
+    the loop (host clock, ending in a sync)."""
+    from spt_proto_tpu_torch.config import opt_config
+    from spt_proto_tpu_torch.tuning import evaluate
+    cfg, params = dense_stage_model(opt_config('125m'), torch.bfloat16, DEV)
+    batches = mmlu_batches(cfg.vocab_size, 4, EVAL_B, EVAL_S, SEED + 22)
+    evaluate.evaluate(cfg, params, batches[:1])           # warm-up
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = evaluate.evaluate(cfg, params, batches)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in ws.items()}
+    want = {n: (len(batches) * cfg.n_layers if n == 'flash_attention'
+                else 0) for n in ws}
+    require(counts == want and np.isfinite(res['ppl']),
+            f'evaluate run: launches {counts} (expected {want}), {res}')
+    tok_s = len(batches) * EVAL_B * EVAL_S / dt
+    log(f'  [evaluate OPT-125M bf16 B={EVAL_B} S={EVAL_S}] {len(batches)} '
+        f'batches in {dt * 1e3:.1f} ms = {tok_s:.0f} tok/s; {res}; flash '
+        f'forwards {counts["flash_attention"]}')
+    del params
+    torch.cuda.empty_cache()
+    return dict(seconds=dt, tok_s=tok_s, result=res, launches=counts)
+
+
+def profile_run(label, argv, per_iter):
+    """cli.profile.main(argv) on the card (OPT-125M full depth, bf16, B=8,
+    S 2048, PROFILE_ITERS timed after one warm-up): its JSON line, and the
+    kernel launches of the whole run held exactly to per_iter (launches a
+    layer an iteration) x layers x (1 + iters)."""
+    from spt_proto_tpu_torch.cli import profile
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    out = profile.main(['--device', DEV, '--config', 'opt-125m', '--dtype',
+                        'bfloat16', '--batch_size', str(B), '--seq_length',
+                        str(PROMPT), '--iters', str(PROFILE_ITERS)] + argv)
+    sync()
+    counts = {n: w.launches for n, w in ws.items()}
+    want = {n: per_iter.get(n, 0) * LAYERS * (1 + PROFILE_ITERS)
+            for n in ws}
+    require(counts == want, f'{label} launches {counts} (expected {want})')
+    peak = out['memory']['peak_bytes_in_use'] / 1e9
+    runs = LAYERS * (1 + PROFILE_ITERS)
+    log(f'  [{label}] {out["step_ms"]:.3f} ms/iter = '
+        f'{out["tokens_per_s"]:.0f} tok/s, peak {peak:.2f} GB, warm-up '
+        f'{out["compile_s"]} s; launches a layer an iteration '
+        f'{ {n: c // runs for n, c in counts.items() if c} }')
+    torch.cuda.empty_cache()
+    return dict(out, peak_gb=peak, launches=counts)
+
+
+def phase_dense():
+    """Phase 11: f32 parity of the dense-stage train step (flash kernels)
+    against the CPU twins (OPT-125M width at lora,ffn,mha_v1 and at lora,
+    Llama-3-8B width at lora,ffn,mha_v1), remat 'full' and 'dots' on the
+    first; tuning.evaluate (parity, then a full-depth bf16 run); cli.tune
+    at OPT-125M full depth, lora,ffn,mha_v1, bf16, with and without
+    --remat; cli.profile at S 2048: dense forward, dense / lora / sparse
+    train step."""
+    from spt_proto_tpu_torch.config import llama_config, opt_config
+    parity = dict(
+        opt_125m=train_parity(
+            'dense parity OPT-125M 2 layers B=2 S=2048 lora,ffn,mha_v1',
+            opt_config('125m', n_layers=2), 2, 2048, stages=DENSE_STAGES,
+            remat_policies=('full', 'dots')),
+        opt_125m_lora=train_parity(
+            'dense parity OPT-125M 2 layers B=2 S=2048 lora',
+            opt_config('125m', n_layers=2), 2, 2048, stages=('lora',)),
+        llama_3_8b=train_parity(
+            'dense parity Llama-3-8B width 1 layer V=32000 B=1 S=1024 '
+            'lora,ffn,mha_v1',
+            llama_config('3-8b', n_layers=1, vocab_size=32000), 1, 1024,
+            stages=DENSE_STAGES))
+    torch.cuda.empty_cache()
+    ev = dict(parity=evaluate_parity(), run=evaluate_run())
+    cfg = opt_config('125m')
+    base = ['--device', DEV, '--config', 'opt-125m', '--batch_size', str(B),
+            '--dtype', 'bfloat16', '--stages', ','.join(DENSE_STAGES)]
+    runs = {
+        'train 125M dense stages bf16 B=8 S=512': train_run(
+            'train 125M dense stages bf16 B=8 S=512', base, B, 512, LAYERS,
+            train_launches(cfg, flash=True)),
+        'train 125M dense stages bf16 B=8 S=512 remat': train_run(
+            'train 125M dense stages bf16 B=8 S=512 remat',
+            base + ['--remat'], B, 512, LAYERS,
+            train_launches(cfg, remat=True, flash=True))}
+    torch.cuda.empty_cache()
+    fwd = dict.fromkeys(FLASH_KERNELS[:1], 1)
+    step = dict.fromkeys(FLASH_KERNELS, 1)
+    profiles = {
+        'dense forward': profile_run('profile dense forward S=2048',
+                                     ['--tuning', 'dense'], fwd),
+        'dense backward': profile_run(
+            'profile dense backward S=2048',
+            ['--tuning', 'dense', '--backward'], step),
+        'lora backward': profile_run(
+            'profile lora backward S=2048',
+            ['--tuning', 'lora', '--backward'], step),
+        'sparse backward': profile_run(
+            'profile sparse backward S=2048',
+            ['--tuning', 'sparse', '--backward'],
+            dict.fromkeys(TRAIN_KERNELS, 1))}
+    return dict(parity=parity, evaluate=ev, runs=runs, profiles=profiles)
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel it replaces, others it also replaces, the
 # phase-4 or phase-6 run whose launch counts the kernel line reports)
@@ -3791,6 +4255,21 @@ KERNELS = [
      'jax/experimental/pallas/ops/tpu/megablox/gmm.py:573',
      ['jax/experimental/pallas/ops/tpu/megablox/ops.py:90'],
      'train 125M gmm bf16 B=8 S=512'),
+    # phase 11: the stock flash-attention kernel (dense causal attention
+    # under attn_impl='pallas', spt_proto_tpu/layers/attention.py:75)
+    ('flash_attention', 'spt_proto_tpu_torch/csrc/flash_attention.cu',
+     'jax/experimental/pallas/ops/tpu/flash_attention.py:758',
+     ['spt_proto_tpu/layers/attention.py:75',
+      'jax/experimental/pallas/ops/tpu/flash_attention.py:331'],
+     'train 125M dense stages bf16 B=8 S=512'),
+    ('flash_attention_dq', 'spt_proto_tpu_torch/csrc/flash_attention.cu',
+     'jax/experimental/pallas/ops/tpu/flash_attention.py:1456',
+     ['jax/experimental/pallas/ops/tpu/flash_attention.py:1146'],
+     'train 125M dense stages bf16 B=8 S=512'),
+    ('flash_attention_dkv', 'spt_proto_tpu_torch/csrc/flash_attention.cu',
+     'jax/experimental/pallas/ops/tpu/flash_attention.py:1121',
+     ['jax/experimental/pallas/ops/tpu/flash_attention.py:796'],
+     'train 125M dense stages bf16 B=8 S=512'),
 ]
 OFF_MAIN_PATH = ('decode_attention',)
 
@@ -3851,8 +4330,16 @@ def main() -> int:
     int8_gmm = phase_int8_gmm()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
+    log('phase 11: dense and LoRA-stage training and forward (flash '
+        'attention), evaluate, profile')
+    t11 = time.perf_counter()
+    dense = phase_dense()
+    log(f'  ({time.perf_counter() - t_start:.0f} s; phase 11 '
+        f'{time.perf_counter() - t11:.0f} s)')
+
     all_runs = {**serving['runs'], **llama['runs'], **spec['runs'],
-                **stack['runs'], **training['runs'], **int8_gmm['runs']}
+                **stack['runs'], **training['runs'], **int8_gmm['runs'],
+                **dense['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
@@ -3890,6 +4377,10 @@ def main() -> int:
                                       in training['runs'].items()}),
         int8_gmm_training=dict(int8_gmm, runs={k: brief(r) for k, r
                                                in int8_gmm['runs'].items()}),
+        dense_training=dict(dense, runs={k: brief(r) for k, r
+                                         in dense['runs'].items()},
+                            profiles={k: brief(r) for k, r
+                                      in dense['profiles'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

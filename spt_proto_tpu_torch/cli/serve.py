@@ -18,18 +18,7 @@ import argparse
 
 import torch
 
-from spt_proto_tpu_torch.config import llama_config, opt_config, tiny_config
-
-DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
-
-
-def model_config(name: str, **kw):
-    """A named config: opt-<size>, llama-<size> (the menus of config.py) or
-    tiny-opt / tiny-llama (test sizes)."""
-    fam, size = name.split('-', 1)
-    if fam == 'tiny':
-        return tiny_config(size, **kw)
-    return (opt_config if fam == 'opt' else llama_config)(size, **kw)
+from spt_proto_tpu_torch.cli.common import DTYPES, named_config
 
 
 def parser() -> argparse.ArgumentParser:
@@ -72,7 +61,7 @@ def build_server(args):
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
 
     dtype = DTYPES[args.dtype]
-    cfg = model_config(args.config, dtype=dtype, param_dtype=dtype)
+    cfg = named_config(args.config, dtype=dtype, param_dtype=dtype)
     cfg = cfg.replace(max_length=max(cfg.max_length, args.max_len))
     if torch.device(args.device).type == 'cuda':
         # on the GPU the port attends only through its kernels

@@ -11,7 +11,10 @@ PQ aux loss, printing a JSON line every 10 steps as the JAX CLI does. It
 saves the tuned checkpoint to --out (params.npz + config.json, which the
 JAX package loads), the delta against the base to --out-delta, and the
 train state to --out-trainstate; the last line is {"saved", "delta_params"}.
-On CUDA it attends through the block-sparse kernels (attn_impl='pallas').
+On CUDA it attends through the kernels (attn_impl='pallas'): the
+flash-attention forward, dq and dk/dv kernels at the dense stages (lora,
+ffn and the mha_v1 warm-up, e.g. --stages lora,ffn,mha_v1), the
+block-sparse ones once mha_v2 is applied.
 --int8_base is the QLoRA shape (surgery.split_int8_base, staged): the base
 q/k/v/o and FFN kernels become int8 frozen8 leaves that stay int8 through
 both passes (int8_matmul forward, int8_matmul_t backward); the saved
@@ -31,18 +34,14 @@ from __future__ import annotations
 import argparse
 import json
 
+from spt_proto_tpu_torch.cli.common import (add_model_args, apply_dtype,
+                                            load_or_init)
+from spt_proto_tpu_torch.inference.bridge import resolve_device
+
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument('--ckpt', type=str, default=None,
-                   help='checkpoint directory (config.json + params.npz)')
-    p.add_argument('--config', type=str, default='opt-125m',
-                   help='named config when no --ckpt (opt-125m, opt-1.3b, '
-                        'llama-7b, llama-3-8b, ..., tiny-opt): seeded random '
-                        'weights')
-    p.add_argument('--dtype', type=str, default='float32',
-                   choices=['float32', 'bfloat16'])
-    p.add_argument('--device', type=str, default='cuda')
+    add_model_args(p)
     p.add_argument('--data_root', type=str, default=None,
                    help='dataset tree (the data slice); synthetic LM '
                         'batches if omitted')
@@ -75,17 +74,6 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _named_config(name: str):
-    """opt-<size>, llama-<size>, or tiny-opt / tiny-llama (the tests'
-    config)."""
-    from spt_proto_tpu_torch.config import (llama_config, opt_config,
-                                            tiny_config)
-    fam, size = name.split('-', 1)
-    if fam == 'tiny':
-        return tiny_config(size)
-    return opt_config(size) if fam == 'opt' else llama_config(size)
-
-
 def _check_ported(args) -> None:
     if args.data_root:
         raise NotImplementedError(
@@ -114,9 +102,7 @@ def main(argv=None):
     _check_ported(args)
 
     import numpy as np
-    import torch
 
-    from spt_proto_tpu_torch.inference.bridge import resolve_device
     from spt_proto_tpu_torch.tuning import surgery
     from spt_proto_tpu_torch.tuning.partition import is_trainable_path
     from spt_proto_tpu_torch.tuning.trainer import train_loop
@@ -124,12 +110,8 @@ def main(argv=None):
     from spt_proto_tpu_torch.utils.tree import flatten, unflatten
 
     dev = resolve_device(args.device)
-    if args.ckpt:
-        cfg, params = ckpt_io.load_checkpoint(args.ckpt, dev)
-    else:
-        cfg = _named_config(args.config)
-        params = surgery.init_params(cfg, 0, dev)
-    cfg = cfg.replace(dtype=getattr(torch, args.dtype))
+    cfg, params = load_or_init(args)
+    cfg = apply_dtype(cfg, args)
     base_params = params
     for i, stage in enumerate(s for s in args.stages.split(',') if s):
         kw = {'d_lora': args.d_lora} if stage == 'lora' else {}

@@ -8,9 +8,11 @@ one density contract (keep ~1/sparse_coeff of the causal context a query):
 'ref' per-row top-k (ops.lookup + ops.sparse_attention), 'block' the plain
 block-sparse attention over PQ-selected tiles, and 'pallas' the
 differentiable block-sparse kernels (ops.block_sparse_attention, their
-plain twins on CPU tensors). On a CUDA tensor, dense and v1 attention under
-attn_impl='pallas' raise: JAX runs the stock TPU flash_attention there,
-which the flash-attention slice ports.
+plain twins on CPU tensors). Dense and v1 attention follow JAX's rule:
+under attn_impl='pallas' with S a multiple of 128 and no active dropout
+they run the flash-attention kernels (ops.flash_attention: [B, H, S, d],
+K/V repeated to n_heads first under GQA; the plain twins on CPU tensors),
+else the plain einsum path.
 """
 from __future__ import annotations
 
@@ -30,21 +32,9 @@ from spt_proto_tpu_torch.ops.block_sparse import (block_sparse_attention_ref,
                                                   select_tiles)
 from spt_proto_tpu_torch.ops.block_sparse_attention import \
     block_sparse_attention
+from spt_proto_tpu_torch.ops.flash_attention import flash_attention
 from spt_proto_tpu_torch.ops.lookup import pq_topk_indices
 from spt_proto_tpu_torch.ops.sparse_attention import sparse_attention
-
-
-def check_flash_ported(cfg: ModelConfig, s: int, device: torch.device,
-                       use_dropout: bool) -> None:
-    """Where JAX runs the stock TPU flash_attention (attn_impl 'pallas', S
-    a multiple of 128, no dropout), a CUDA device raises: that kernel comes
-    with the flash-attention slice, and no library call stands in for it."""
-    if (cfg.attn_impl == 'pallas' and s % 128 == 0 and not use_dropout
-            and device.type == 'cuda'):
-        raise NotImplementedError(
-            "dense attention under attn_impl='pallas' runs the stock "
-            'flash_attention kernel in JAX; it comes with the '
-            'flash-attention training slice')
 
 
 class MultiheadAttention(nn.Module):
@@ -65,12 +55,18 @@ class MultiheadAttention(nn.Module):
         self.quantizer = PQQuantizer(cfg.pq_metric)
 
     def _dense_attn(self, q, k, v, generator):
-        """[B, S, H, E] causal softmax attention."""
+        """[B, S, H, E] causal softmax attention: the flash kernels under
+        attn_impl='pallas' at S a multiple of 128 without active dropout,
+        else the plain path."""
         cfg = self.cfg
         s = q.shape[1]
         scale = cfg.d_head ** -0.5
         use_dropout = cfg.p_dropout > 0.0 and not self.deterministic
-        check_flash_ported(cfg, s, q.device, use_dropout)
+        if cfg.attn_impl == 'pallas' and s % 128 == 0 and not use_dropout:
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                sm_scale=scale)
+            return o.transpose(1, 2)
         scores = torch.einsum('bihe,bjhe->bhij', q, k)
         causal = torch.ones((s, s), dtype=torch.bool,
                             device=q.device).tril()

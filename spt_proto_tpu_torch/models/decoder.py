@@ -16,23 +16,41 @@ puts layer i's slice at its kernel's path, where LoRADense reads it.
 
 OPT adds learned positions at offset 2 and ends in LayerNorm; LLaMA has no
 learned positions (RoPE inside attention) and RMSNorm; both have an untied
-lm_head. cfg.remat (remat_policy 'full') recomputes each block in the
-backward (torch.utils.checkpoint, non-reentrant). Dropout (p_dropout > 0
-and deterministic=False) draws from the generator handed to forward.
+lm_head. cfg.remat recomputes each block in the backward
+(torch.utils.checkpoint, non-reentrant): remat_policy 'full' all of it,
+'dots' all but the matmul outputs, which it saves (JAX's
+checkpoint_policies.checkpoint_dots, through selective checkpointing; the
+flash-attention launch is no matmul the dispatcher sees, so it is
+recomputed, as JAX recomputes its pallas_call). Dropout (p_dropout > 0 and
+deterministic=False) draws from the generator handed to forward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from spt_proto_tpu_torch.config import ModelConfig
 from spt_proto_tpu_torch.layers.common import LoRAEmbed
 from spt_proto_tpu_torch.layers.transformer import TransformerBlock, make_norm
 
 PE_OFFSET = 2   # OPT's learned-position index offset
+REMAT_POLICIES = ('full', 'dots')
+
+# the matmuls LoRADense, the einsums and the lm_head lower to
+_aten = torch.ops.aten
+_DOTS = frozenset((_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                   _aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """remat_policy='dots': keep every matmul output, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class ParamTree(nn.Module):
@@ -103,11 +121,9 @@ class DecoderLM(nn.Module):
                  deterministic: bool = True, train_quantizer: bool = False,
                  trainable: Callable[[str], bool] = lambda path: False):
         super().__init__()
-        if cfg.remat and cfg.remat_policy != 'full':
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} (save the matmul "
-                "outputs) comes with a later slice; 'full' recomputes each "
-                'block')
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f'remat_policy {cfg.remat_policy!r} is not one '
+                             f'of {REMAT_POLICIES}')
         self.cfg = cfg
         self.deterministic = deterministic
         self.params = ParamTree(params, trainable)
@@ -139,7 +155,11 @@ class DecoderLM(nn.Module):
             if state is not None:
                 generator.set_state(state)
             return self.block(_layer(blocks, i), h_, generator)
-        return checkpoint(run, h, use_reentrant=False)
+        kw = {}
+        if self.cfg.remat_policy == 'dots':
+            kw['context_fn'] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(run, h, use_reentrant=False, **kw)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

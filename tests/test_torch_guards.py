@@ -160,17 +160,20 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 def test_unported_forms_raise_not_implemented():
     """What a later slice brings raises and names its slice: ffn_impl='ep'
-    (expert parallelism) and a training mesh (the parallelism slice), dense
-    attention under attn_impl='pallas' on a CUDA device (the flash-attention
-    slice). What this and earlier slices brought runs, and no
-    NotImplementedError is left for it: int8 weights over a routed + LoRA
+    (expert parallelism), a training mesh (the parallelism slice) and the
+    tune CLI's --data_root (the data slice). What this and earlier slices
+    brought runs, and no NotImplementedError is left for it: dense attention
+    under attn_impl='pallas' (the flash kernels; their twins here, a CUDA
+    tensor the kernel checks refuse only for a shape they do not take, such
+    as d_head 16), remat_policy='dots', int8 weights over a routed + LoRA
     FFN (the FFN's block views stay fp), an int8_base model (with its
     frozen8 tree; without it, a ValueError), ffn_impl 'gmm' and 'gather',
     the routed FFN with LoRA in init_params and the engine, a bf16/f32 KV
     cache, int8 weights, and a tiny LLaMA GQA model that builds int8
     weights (the triple_int8 form) and decodes a step on the CPU."""
-    from spt_proto_tpu_torch.layers.attention import check_flash_ported
+    from spt_proto_tpu_torch.cli import tune
     from spt_proto_tpu_torch.models.decoder import DecoderLM
+    from spt_proto_tpu_torch.ops import flash_attention as fa
     from spt_proto_tpu_torch.tuning import surgery, trainer
     cfg = _tiny_cfg()
     params = bridge.init_params(cfg, seed=0, device='cpu')
@@ -190,9 +193,19 @@ def test_unported_forms_raise_not_implemented():
         DecoderLM(c8, small)(tokens)
     with pytest.raises(ValueError, match="'masked' or 'gmm'"):
         DecoderLM(c8.replace(ffn_impl='gather'), small, frozen8=frozen8)
-    with pytest.raises(NotImplementedError, match='flash-attention'):
-        check_flash_ported(cfg, 256, torch.device('cuda'), False)
-    check_flash_ported(cfg, 256, torch.device('cpu'), False)
+    dense = cfg.replace(attention='dense')
+    dense_params = bridge.init_params(dense, seed=0, device='cpu')
+    assert DecoderLM(dense, dense_params)(torch.ones(
+        (1, 128), dtype=torch.int64))['logits'].shape == (1, 128, 256)
+    dots = dense.replace(remat=True, remat_policy='dots')
+    assert DecoderLM(dots, dense_params)(tokens)['logits'].shape == \
+        (1, 8, 256)
+    q = torch.zeros((1, 4, 128, 16))
+    with pytest.raises(ValueError, match='d_head 64 or 128'):
+        fa._check_kernel(q, q, q, True)
+    with pytest.raises(NotImplementedError, match='data slice'):
+        tune.main(['--device', 'cpu', '--config', 'tiny-opt', '--out',
+                   'unused', '--data_root', 'x'])
     with pytest.raises(NotImplementedError, match='parallelism slice'):
         trainer.train_loop(rcfg, routed, [], mesh=object())
     w8_routed = InferenceWeights.from_params(rcfg, routed, quant='int8')

@@ -8,8 +8,12 @@ DecoderLM + autograd: logits, pq_loss, the training loss (CE + 1e-2 pq)
 and the gradient of every trainable leaf, at tiny_config OPT and LLaMA
 GQA. Sparse_v2 runs 'ref' (per-row) at S = 31 and 'pallas' at S = 256 (the
 JAX kernels in interpret mode against the port's differentiable wrapper,
-whose CPU path runs the forward and backward twins).
+whose CPU path runs the forward and backward twins); the mha_v1 stage also
+runs 'pallas' at S = 128, the smallest length that takes the dense flash
+kernel (JAX's stock kernel forced into TPU interpret mode, the port's
+flash-attention twins).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -17,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from spt_proto_tpu import config as jcfg
 from spt_proto_tpu.models.decoder import DecoderLM as JDecoderLM
@@ -35,6 +40,7 @@ ARCHS = {'opt': dict(vocab_size=64),
 STAGE_CASES = [('lora', ('lora',), 31, 'ref'),
                ('ffn', ('lora', 'ffn'), 31, 'ref'),
                ('mha_v1', ('lora', 'ffn', 'mha_v1'), 31, 'ref'),
+               ('mha_v1-pallas', ('lora', 'ffn', 'mha_v1'), 128, 'pallas'),
                ('mha_v2-ref', surgery.STAGES, 31, 'ref'),
                ('mha_v2-pallas', surgery.STAGES, 256, 'pallas')]
 STAGE_KW = {'lora': dict(d_lora=4), 'ffn': dict(ffn_block_size=32)}
@@ -120,8 +126,14 @@ def test_decoder_matches_jax_at_every_stage(arch, name, stages, s, impl):
     r = np.random.RandomState(len(name) + s)
     seq = r.randint(0, cfg.vocab_size, size=(2, s + 1)).astype(np.int32)
     tokens, targets = seq[:, :-1], seq[:, 1:]
-    j_logits, j_pq, j_loss, j_grads = jax_loss_and_grads(cfg, params,
-                                                         tokens, targets)
+    # the stock flash kernel of dense attention runs on the TPU only unless
+    # forced into interpret mode (the block-sparse kernels choose it
+    # themselves off the TPU)
+    dense_flash = impl == 'pallas' and 'mha_v2' not in stages
+    with (pltpu.force_tpu_interpret_mode() if dense_flash
+          else contextlib.nullcontext()):
+        j_logits, j_pq, j_loss, j_grads = jax_loss_and_grads(
+            cfg, params, tokens, targets)
     t_logits, t_pq, t_loss, t_grads = port_loss_and_grads(cfg, params,
                                                           tokens, targets)
     np.testing.assert_allclose(t_logits, j_logits, rtol=0,
