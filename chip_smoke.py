@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from spt_proto_tpu_torch/csrc and print the build time;
+   kernels from spt_proto_tpu_torch/csrc and print the build time, and
+   beside the build compile csrc/flash_attention.cu once more with
+   -Xptxas -v to print the bf16 flash backward kernels' registers and
+   spills;
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
    decode front (with and without int8 KV quantization, with the stacked fp
@@ -38,10 +41,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    LoRA rank 16) and tgmm (the two LoRA factors' gradients), and the verify
    kernel at K = 30, G = 4 (120 rows: split across CTAs); the flash-attention
    forward (o, l, m), dq and dk/dv kernels at OPT-125M's training shape
-   ([8, 12, 512, 64], f32 and bf16), at S 2048 (bf16) and at LLaMA-7B's
-   width ([4, 32, 512, 128], f32 and bf16); time kernel, twin and the
-   one-call library equivalent where there is one (SDPA for flash
-   attention, checked against the twins first);
+   ([8, 12, 512, 64], f32 and bf16), at S 2048 (bf16), at LLaMA-7B's
+   width ([4, 32, 512, 128], f32 and bf16) and at S 128 and 384 at both
+   widths (bf16), from the layer's strided q, k, v and do, with each
+   kernel's TFLOP/s and the backward pair beside its bound and SDPA's;
+   time kernel, twin and the one-call library equivalent where there is
+   one (SDPA for flash attention, checked against the twins first);
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
@@ -146,6 +151,8 @@ from __future__ import annotations
 
 import collections
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +216,32 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
+
+def start_ptxas(source: str):
+    """nvcc -Xptxas -v on one kernel source (started beside the build)."""
+    from spt_proto_tpu_torch import _build
+    return subprocess.Popen(
+        [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+         '-Xptxas', '-v', '-c', str(_build.CSRC / source), '-o', os.devnull],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def log_ptxas(proc, pattern: str) -> None:
+    """Wait for start_ptxas' nvcc; log the stack, spill and register lines
+    of the entry functions whose mangled names match `pattern` (groups:
+    the kernel's name and its two int template arguments)."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        log(f'  nvcc -Xptxas -v failed:\n{out[-2000:]}')
+        return
+    name = None
+    for line in out.splitlines():
+        if 'Compiling entry function' in line:
+            m = re.search(pattern, line)
+            name = m and f'{m[1]}<{m[2]}, {m[3]}>'
+        elif name and ('spill' in line or 'registers' in line):
+            log(f'  ptxas {name}: {line.split(":")[-1].strip()}')
+
 
 class Timer:
     """Median device time of one call, each launch starting with a cold L2
@@ -1542,10 +1575,16 @@ FLASH_KERNELS = ('flash_attention', 'flash_attention_dq',
                  'flash_attention_dkv')
 # (B, H, S, d) of the flash-attention checks: OPT-125M's training shape (the
 # tune runs', B=8 x 12 heads, S 512), its S 2048 (the profile runs'), and
-# LLaMA-7B's width (32 heads of d 128) at B=4, S 512
+# LLaMA-7B's width (32 heads of d 128) at B=4, S 512; then bf16 edge shapes
+# at both widths: S 128 (one 128-row diagonal tile) and S 384 (an odd count
+# of 128-row tiles)
 FLASH_SHAPES = {'opt-125m S=512': (B, HEADS, 512, DH),
                 'opt-125m S=2048': (B, HEADS, PROMPT, DH),
-                'llama-7b S=512': (B_7B, HEADS_LL, 512, DH_LL)}
+                'llama-7b S=512': (B_7B, HEADS_LL, 512, DH_LL),
+                'opt-125m S=128': (B, HEADS, 128, DH),
+                'opt-125m S=384': (B, HEADS, 384, DH),
+                'llama-7b S=128': (B_7B, HEADS_LL, 128, DH_LL),
+                'llama-7b S=384': (B_7B, HEADS_LL, 384, DH_LL)}
 # SDPA, the library yardstick, against the twins: it rounds p and ds to
 # bf16 at other places than the stock kernel's numerics the twins follow,
 # so it is held to four bf16 steps of the largest entry (1e-5 in f32)
@@ -1554,23 +1593,24 @@ SDPA_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-5}
 
 def check_flash(dtype, shape, timer=None):
     """The flash-attention forward (o, l, m), dq and dk/dv kernels against
-    their twins on [B, H, S, d] causal, sm_scale d**-0.5: o, dq, dk, dv to
-    output_tolerance, l and m to the f32 bound; the backward twin from the
-    kernel's own o, l, m. With a timer: cold-L2 µs of each kernel, its
-    plain twin's, SDPA's (forward alone, and its backward through
+    their twins on [B, H, S, d] causal, sm_scale d**-0.5, q, k, v and do
+    given as the layer gives them ([B, S, H, d] tensors transposed: the
+    bf16 backward reads them in place): o, dq, dk, dv to output_tolerance,
+    l and m to the f32 bound; the backward twin from the kernel's own o, l,
+    m. With a timer: cold-L2 µs of each kernel and its achieved TFLOP/s,
+    its plain twin's µs, SDPA's (forward alone, and its backward through
     torch.autograd.grad: the library yardstick, checked against the twins
-    first) and the bound: the causal forward needs 2 B H S^2 d FLOPs, the
-    backward 2.5x that as a pair (alone, dq's function needs 3 B H S^2 d,
-    dk/dv's 4); bytes of q, k, v, o, l, m (forward) and of q, k, v, do, l,
-    m, di and the kernel's outputs (dq; dk and dv)."""
+    first) and the bound: the causal forward needs 2 B H S^2 d FLOPs; dq's
+    function 3 B H S^2 d and dk/dv's 4 (S and dP computed in both: the pair
+    3.5x the forward, a fused backward 2.5x); bytes of q, k, v, o, l, m
+    (forward) and of q, k, v, do, l, m, di and the kernel's outputs (dq; dk
+    and dv)."""
     from spt_proto_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
     b, h, s, d = shape
     g = gen(SEED + 20)
-    q = randn(g, shape, dtype, std=2.0)
-    k = randn(g, shape, dtype, std=2.0)
-    v = randn(g, shape, dtype)
-    do = randn(g, shape, dtype)
+    q, k, v, do = (randn(g, (b, s, h, d), dtype, std=std).transpose(1, 2)
+                   for std in (2.0, 2.0, 1.0, 1.0))
     kw = dict(causal=True, sm_scale=d ** -0.5)
     o, l, m = fa.flash_attention_fwd(q, k, v, **kw)
     o_w, l_w, m_w = fa.flash_attention_fwd_ref(q, k, v, **kw)
@@ -1638,14 +1678,25 @@ def check_flash(dtype, shape, timer=None):
                         else ' backward (dq, dk, dv)'),
                      library_rel_err=lib_err)
             r['bound_ms'], r['bound_by'] = bound_ms(n_b, n_o, dtype)
-            log(f'    {name}:')
+            r['tflops'] = n_o / r['ms'] / 1e9
+            log(f'    {name}: {r["tflops"]:.1f} TFLOP/s')
             log_times(r)
             res[name] = r
-        pair = bound_ms(nbytes(q, k, v, do, l, m, di, dq, dk, dv),
-                        2.5 * flops, dtype)[0]
         both = sum(res[n]['ms'] for n in FLASH_KERNELS[1:])
-        log(f'    backward pair bound {pair * 1e3:.2f} us (2.5x the '
-            f'forward\'s FLOPs), dq + dk/dv {both * 1e3:.1f} us')
+        pair = sum(res[n]['bound_ms'] for n in FLASH_KERNELS[1:])
+        fused = bound_ms(nbytes(q, k, v, do, l, m, di, dq, dk, dv),
+                         2.5 * flops, dtype)[0]
+        log(f'    backward pair {shape}: dq + dk/dv {both * 1e3:.1f} us, '
+            f'bound {pair * 1e3:.2f} us (3.5x the forward\'s FLOPs; a '
+            f'fused backward {fused * 1e3:.2f} us at 2.5x), SDPA backward '
+            f'{lib_bwd * 1e3:.1f} us ({both / lib_bwd:.2f}x)')
+        # the forward copies strided inputs: its kernel alone
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        r = res['flash_attention']
+        r['contiguous_inputs_ms'] = timer.ms(
+            lambda: fa.flash_attention_fwd(qc, kc, vc, **kw))
+        log(f'    flash_attention from contiguous inputs (no copies): '
+            f'{r["contiguous_inputs_ms"] * 1e3:.1f} us')
     return res
 
 
@@ -4291,7 +4342,13 @@ def main() -> int:
         f'{torch.cuda.get_device_name(0)}')
 
     log('phase 1: build')
-    log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
+    # registers and spills of the bf16 flash backward kernels, compiled
+    # once more with -Xptxas -v beside the build
+    ptxas = start_ptxas('flash_attention.cu')
+    try:
+        log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
+    finally:
+        log_ptxas(ptxas, r'(flash_d\w+_tc)ILi(\d+)ELi(\d+)E')
 
     log('phase 2: kernels vs plain twins')
     res = phase_kernels(Timer())

@@ -6,9 +6,11 @@
 // calls for every dense causal attention under attn_impl='pallas':
 //   flash_fwd_kernel  <- _flash_attention_kernel (:331, :342), launched by
 //                        _flash_attention_impl (:589, pallas_call :758)
-//   flash_dkv_kernel  <- _flash_attention_dkv_kernel (:796), launched by
+//   flash_dkv_kernel (f32), flash_dkv_kernel_tc (bf16)
+//                     <- _flash_attention_dkv_kernel (:796), launched by
 //                        _flash_attention_bwd_dkv (:941, pallas_call :1121)
-//   flash_dq_kernel   <- _flash_attention_dq_kernel (:1146), launched by
+//   flash_dq_kernel (f32), flash_dq_kernel_tc (bf16)
+//                     <- _flash_attention_dq_kernel (:1146), launched by
 //                        _flash_attention_bwd_dq (:1287, pallas_call :1456)
 // The stock kernel's block sizes (128 everywhere), its 128-lane broadcast
 // of l and m and its optional attention bias / segment ids / ds output are
@@ -25,28 +27,71 @@
 //   dk = ds^T q   (ds rounded to do's dtype, :918)
 //   dq = ds k     (ds rounded to k's dtype, :1258).
 //
-// Bound on the H100: at OPT-125M's training shape (8 x 12 heads, S 512,
-// d 64, bf16) the forward reads q, k, v and writes o, l, m: 6.3 MB, 1.9 us;
-// its causal products are 2 * 96 * 512^2 * 64 = 3.2 GFLOP, 3.3 us at the
-// bf16 tensor-core peak, so a tensor-core kernel would be compute-bound at
-// S >= 512 (the backward does 2.5x the products over 2x the bytes).
-// These kernels compute in f32 on the CUDA cores (67 TFLOP/s peak), the
-// structure of csrc/block_sparse_attention.cu with the causal walk in place
-// of a selection list; mma.sync / wgmma tiles come in a later change.
+// Bound on the H100 at OPT-125M's training shape (8 x 12 heads, S 512,
+// d 64, bf16): the forward reads q, k, v and writes o, l, m: 25.6 MB,
+// 7.6 us; its causal products are 2 * 96 * 512^2 * 64 = 3.2 GFLOP, 3.3 us
+// at the bf16 tensor-core peak (989 TFLOP/s); at S 2048 52 us of products
+// against 25 us of bytes. The backward pair does 3.5x the forward's
+// products (dq: S, dP and dS K; dk/dv: S, dP, P^T dO and dS^T Q, so S and
+// dP are computed twice) where one fused kernel with atomics on dq would
+// do 2.5x: at S 2048 its bound is 182 us of products (a fused backward's
+// 130 us). Every kernel here is compute-bound at S >= 512 in bf16.
 //
-// Design. Forward: one CTA per (batch*head, 64-query sub-tile); it walks
-// the 128-key tiles from 0 to the one holding its last row (tiles wholly
-// above the diagonal skipped, the stock's below_or_on_diag, :325), stages
-// K^T and V in shared memory as f32, and keeps m, l and the output rows in
-// registers (256 threads: 4 rows x 8 score columns and 4 x D/16 output
-// columns each); the P tile reuses the K^T buffer. dq: one CTA per
-// (batch*head, 64-query sub-tile), the same walk, S and dP micro-tiles in
-// registers, dS through the V^T buffer, dq accumulated in registers. dk/dv:
-// one CTA per (batch*head, 128-key tile), walking the query rows from the
-// tile's first row to S in chunks of 32 (rows before the tile see none of
-// it), dk and dv in registers (8 keys x D/16 columns a thread). Every output
-// element is written by one thread once: no atomics, runs are
-// deterministic.
+// The forward, and the backward in f32: the products in f32 on the CUDA
+// cores (67 TFLOP/s peak), the structure of csrc/block_sparse_attention.cu
+// with the causal walk in place of a selection list; the f32 backward sums
+// in cuBLAS SGEMM's order and is bit-equal to its twin. Forward: one CTA
+// per (batch*head, 64-query sub-tile); it walks the 128-key tiles from 0
+// to the one holding its last row (tiles wholly above the diagonal
+// skipped, the stock's below_or_on_diag, :325), stages K^T and V in shared
+// memory as f32, and keeps m, l and the output rows in registers (256
+// threads: 4 rows x 8 score columns and 4 x D/16 output columns each); the
+// P tile reuses the K^T buffer. f32 dq: one CTA per (batch*head, 64-query
+// sub-tile), the same walk, S and dP micro-tiles in registers, dS through
+// the V^T buffer. f32 dk/dv: one CTA per (batch*head, 128-key tile),
+// walking the query rows from the tile's first row to S in chunks of 32
+// (rows before the tile see none of it), dk and dv in registers.
+//
+// The bf16 backward (flash_dq_kernel_tc, flash_dkv_kernel_tc) runs every
+// product on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+// accumulators (common.cuh), operands read from shared memory by ldmatrix
+// (.trans for the operand read along its rows). mma.sync and not wgmma:
+// its fragments live in one warp's registers, so the repack of P and dS
+// from the accumulator layout into the A operand of the next product (two
+// n8 accumulator tiles are one k16 A fragment) is a register move, with no
+// shared-memory round trip and no warpgroup descriptors; wgmma is for a
+// later change. Tiles are bf16 in shared memory, rows padded by 8 elements
+// (16 B) so that the 8 row addresses of an ldmatrix fall in distinct
+// banks, filled by cp.async (16 B a thread, global to shared without
+// registers) into a ring of stages: the next tile's copy is in flight
+// while the current one is computed. q, k, v and do are read in place
+// through their (batch, head, row) strides, the layer's [B, S, H, d]
+// projections transposed: no contiguous copy.
+//   dq: one CTA per (batch*head, 64 query rows), 4 warps of 16 rows. Each
+// warp loads its Q and dO fragments into registers once, m, 1/l and di of
+// its thread's two rows too, and walks the 32-key tiles up to the diagonal
+// through a 2-stage K/V ring: S = Q K^T and dP = dO V^T, then P and dS in
+// registers, dS rounded to bf16 and repacked for dq += dS K (K through
+// ldmatrix.trans).
+//   dk/dv: one CTA per (batch*head, 64 keys), 4 warps of 16 keys; K and V
+// stay in shared memory. It walks the 32-row query tiles from its first
+// key to S through a 3-stage ring of Q, dO and the rows' 1/l, m, di: S^T =
+// K Q^T and dP^T = V dO^T leave P^T and dS^T in the accumulator layout,
+// repacked as the A operands of dV += P^T dO and dK += dS^T Q (dO and Q
+// through ldmatrix.trans).
+//   Registers bound them: at d 64 dq takes 128 a thread (4 CTAs an SM),
+// dk/dv 164 (3); at d 128 the f32 accumulators (dq 64 a thread, dk and dv
+// 128) bring both to ~245 (2 CTAs an SM), with no spills (nvcc -Xptxas
+// -v). Capping them lower spilled and ran slower.
+//   Only tiles that reach across the diagonal are masked, and a warp skips
+// a tile wholly on the masked side of its rows (its terms are zeros). Both
+// launch the longest walks first (the last query tiles, the first key
+// tiles). The sums run in the tensor cores' order, not the twin's: the
+// bf16 results agree with the twin within a bf16 step.
+//
+// Every output element is written once (the bf16 kernels stage a warp's
+// tile through its own shared rows for 16-byte stores): no atomics, runs
+// are deterministic.
 #include "common.cuh"
 
 #include <cfloat>
@@ -410,6 +455,371 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcPad = 8;     // bf16 elements of padding a shared row
+constexpr int kTcWarps = 4;   // warps a CTA, 16 query rows or keys each
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16 * kTcWarps;   // query rows (dq) / keys (dk/dv)
+constexpr int kDkvStages = 3;            // the dk/dv kernel's query-tile ring
+// keys a dq tile and query rows a dk/dv tile (at d 64, 64 of each took
+// 176 and 236 registers a thread, so 2 CTAs an SM, and ran 1.25x and
+// 1.16x slower: kernel_ab.py --flash)
+constexpr int kDqKeys = 32;
+constexpr int kDkvRows = 32;
+
+// element strides of a [B, H, S, D] operand whose d stride is 1
+struct Strides {
+  long long b, h, s;
+};
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *g;
+  const float *l, *m, *di;
+  bf16 *dq, *dk, *dv;
+  Strides sq, sk, sv, sg, sdq, sdk, sdv;
+  int H, S;
+  float scale;
+};
+
+__device__ __forceinline__ const bf16* head(const bf16* t, Strides st,
+                                            int b, int h) {
+  return t + b * st.b + h * st.h;
+}
+
+// rows [0, N) of a D-wide operand (row stride ss) into shared rows of
+// D + kTcPad elements, 16 B a copy, by the CTA's threads
+template <int D, int N>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long long ss) {
+  constexpr int kC = D / 8, kRow = D + kTcPad;
+  static_assert((N * kC) % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < N * kC / kTcThreads; ++it) {
+    const int i = it * kTcThreads + threadIdx.x, r = i / kC, c = i % kC;
+    cp_async16(dst + r * kRow + c * 8, src + r * ss + c * 8);
+  }
+}
+
+// a warp's f32 accumulator tile [16][D] as bf16 into rows [0, 16) of dst
+// (row stride ss): through the warp's own 16 shared rows, then 16-byte
+// stores
+template <int D>
+__device__ __forceinline__ void store_tile(bf16* dst, long long ss,
+                                           bf16* rows,
+                                           const float (&acc)[D / 8][4]) {
+  constexpr int kC = D / 8, kRow = D + kTcPad;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tig = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(rows + gr * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(rows + (gr + 8) * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * kC / 32; ++it) {
+    const int i = it * 32 + lane, r = i / kC, c = i % kC;
+    *reinterpret_cast<uint4*>(dst + r * ss + c * 8) =
+        *reinterpret_cast<const uint4*>(rows + r * kRow + c * 8);
+  }
+}
+
+// Shared-memory offset (elements) of this lane's ldmatrix row address:
+// an A operand [16 rows][16 k] at (r0, k0) of a row-major tile
+__device__ __forceinline__ int a_off(int r0, int k0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (r0 + (lane & 15)) * kRow + k0 + (lane >> 4) * 8;
+}
+
+// two n8 B operands [16 k][8 n] stored [n][k] (the contraction along the
+// row), n from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
+__device__ __forceinline__ int bt_off(int n0, int k0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * kRow + k0
+         + ((lane >> 3) & 1) * 8;
+}
+
+// two n8 B operands stored [k][n] (read with .trans), k from k0 and n
+// from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
+__device__ __forceinline__ int bn_off(int k0, int n0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow + n0
+         + (lane >> 4) * 8;
+}
+
+// accumulator tile nt's four values (rows gr, gr + 8; columns 2 tig, +1)
+// rounded to bf16 into the A operand of the next product: accumulator
+// tiles 2t and 2t + 1 are k16 step t
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], int nt,
+                                     const float* x) {
+  a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[0], x[1]);
+  a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
+template <int D, int kN>
+__global__ void __launch_bounds__(kTcThreads) flash_dq_kernel_tc(
+    const BwdArgs a) {
+  constexpr int kM = kTcRows, kRow = D + kTcPad, kNT = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kM][kRow] Q, then dq
+  bf16* gs = qs + kM * kRow;                  // [kM][kRow] dO
+  bf16* ring = gs + kM * kRow;                // [2][K, V][kN][kRow]
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kM;  // longest walks first
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const bf16* k = head(a.k, a.sk, b, h);
+  const bf16* v = head(a.v, a.sv, b, h);
+  const int n_tiles = (row0 + kM - 1) / kN + 1;
+
+  copy_rows<D, kM>(qs, head(a.q, a.sq, b, h) + row0 * a.sq.s, a.sq.s);
+  copy_rows<D, kM>(gs, head(a.g, a.sg, b, h) + row0 * a.sg.s, a.sg.s);
+  cp_async_commit();
+  auto load_kv = [&](int j) {
+    bf16* st = ring + (j & 1) * 2 * kN * kRow;
+    copy_rows<D, kN>(st, k + (long long)j * kN * a.sk.s, a.sk.s);
+    copy_rows<D, kN>(st + kN * kRow, v + (long long)j * kN * a.sv.s,
+                     a.sv.s);
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  const int wr0 = row0 + 16 * w;   // the warp's first row
+  float mr[2], il[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t r = (size_t)bh * a.S + wr0 + gr + 8 * i;
+    mr[i] = a.m[r];
+    il[i] = 1.f / a.l[r];
+    dr[i] = a.di[r];
+  }
+  cp_async_wait<1>();   // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldsm_x4(qf[kk], qs + a_off(16 * w, kk * 16, kRow));
+    ldsm_x4(gf[kk], gs + a_off(16 * w, kk * 16, kRow));
+  }
+
+  float acc[D / 8][4] = {};
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();   // key tile j has landed
+    __syncthreads();      // ... for every thread; tile j - 1 is read out
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    cp_async_commit();
+    const int col0 = j * kN;
+    if (col0 > wr0 + 15) continue;   // every key lies past the warp's rows
+    const bf16* ks = ring + (j & 1) * 2 * kN * kRow;
+    const bf16* vs = ks + kN * kRow;
+
+    float s[kNT][4] = {}, dp[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kN / 16; ++np) {
+        const int off = bt_off(np * 16, kk * 16, kRow);
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, ks + off);
+        ldsm_x4(vb, vs + off);
+        mma_bf16_16816(s[2 * np], qf[kk], kb);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], kb + 2);
+        mma_bf16_16816(dp[2 * np], gf[kk], vb);
+        mma_bf16_16816(dp[2 * np + 1], gf[kk], vb + 2);
+      }
+    }
+    const bool diag = col0 + kN - 1 > wr0;
+    uint32_t dsa[kN / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, r = wr0 + gr + 8 * i;
+        const int c = col0 + nt * 8 + tig * 2 + (e & 1);
+        const float x = logit(s[nt][e], a.scale, !diag || c <= r);
+        const float p = expf(x - mr[i]) * il[i];
+        ds[e] = (dp[nt][e] - dr[i]) * p * a.scale;
+      }
+      to_a<kNT>(dsa, nt, ds);
+    }
+#pragma unroll
+    for (int t = 0; t < kN / 16; ++t) {
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, ks + bn_off(t * 16, n2 * 16, kRow));
+        mma_bf16_16816(acc[2 * n2], dsa[t], kb);
+        mma_bf16_16816(acc[2 * n2 + 1], dsa[t], kb + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  bf16* dq = a.dq + b * a.sdq.b + h * a.sdq.h;
+  store_tile<D>(dq + (long long)wr0 * a.sdq.s, a.sdq.s, qs + 16 * w * kRow,
+                acc);
+}
+
+template <int D, int kQ>
+__global__ void __launch_bounds__(kTcThreads) flash_dkv_kernel_tc(
+    const BwdArgs a) {
+  constexpr int kK = kTcRows, kRow = D + kTcPad, kNT = kQ / 8;
+  constexpr int kStages = kDkvStages;
+  constexpr int kStage = 2 * kQ * kRow;   // elements of a stage's Q and dO
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [kK][kRow] K, then dk
+  bf16* vs = ks + kK * kRow;                  // [kK][kRow] V, then dv
+  bf16* ring = vs + kK * kRow;                // [kStages][Q, dO][kQ][kRow]
+  float* stats = reinterpret_cast<float*>(ring + kStages * kStage);
+                                              // [kStages][1/l, m, di][kQ]
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * kK;   // the first key tiles walk the most rows
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const bf16* q = head(a.q, a.sq, b, h);
+  const bf16* g = head(a.g, a.sg, b, h);
+  const size_t srow = (size_t)bh * a.S;
+  const int n_tiles = (a.S - k0) / kQ;   // rows before k0 see none of it
+
+  copy_rows<D, kK>(ks, head(a.k, a.sk, b, h) + k0 * a.sk.s, a.sk.s);
+  copy_rows<D, kK>(vs, head(a.v, a.sv, b, h) + k0 * a.sv.s, a.sv.s);
+  cp_async_commit();
+  auto load_q = [&](int j) {
+    const int r0 = k0 + j * kQ, st = j % kStages;
+    bf16* qs = ring + st * kStage;
+    copy_rows<D, kQ>(qs, q + (long long)r0 * a.sq.s, a.sq.s);
+    copy_rows<D, kQ>(qs + kQ * kRow, g + (long long)r0 * a.sg.s, a.sg.s);
+    // m and di by cp.async; 1/l computed once a row here (per score it cost
+    // 7% of the kernel at S 2048: kernel_ab.py --flash)
+    constexpr int kC = kQ / 4;   // 16-byte copies a statistic
+    if (threadIdx.x < 2 * kC) {
+      const int t = threadIdx.x / kC + 1, c = threadIdx.x % kC;
+      const float* src = t == 1 ? a.m : a.di;
+      cp_async16(stats + (st * 3 + t) * kQ + c * 4, src + srow + r0 + c * 4);
+    } else if (threadIdx.x < 2 * kC + kQ) {
+      const int i = threadIdx.x - 2 * kC;
+      stats[st * 3 * kQ + i] = __frcp_rn(a.l[srow + r0 + i]);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) load_q(j);
+    cp_async_commit();
+  }
+
+  const int wk0 = k0 + 16 * w;   // the warp's first key
+  float adk[D / 8][4] = {}, adv[D / 8][4] = {};
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();   // K, V and query tile j have landed
+    __syncthreads();                // ... for every thread; j - 1 read out
+    if (j + kStages - 1 < n_tiles) load_q(j + kStages - 1);
+    cp_async_commit();
+    const int r0 = k0 + j * kQ;
+    if (r0 + kQ - 1 < wk0) continue;   // every row lies before the keys
+    const int st = j % kStages;
+    const bf16* qs = ring + st * kStage;
+    const bf16* gs = qs + kQ * kRow;
+    const float* sil = stats + st * 3 * kQ;
+    const float* sm = sil + kQ;
+    const float* sd = sm + kQ;
+
+    float s[kNT][4] = {}, dp[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, ks + a_off(16 * w, kk * 16, kRow));
+      ldsm_x4(va, vs + a_off(16 * w, kk * 16, kRow));
+#pragma unroll
+      for (int np = 0; np < kQ / 16; ++np) {
+        const int off = bt_off(np * 16, kk * 16, kRow);
+        uint32_t qb[4], gb[4];
+        ldsm_x4(qb, qs + off);
+        ldsm_x4(gb, gs + off);
+        mma_bf16_16816(s[2 * np], ka, qb);
+        mma_bf16_16816(s[2 * np + 1], ka, qb + 2);
+        mma_bf16_16816(dp[2 * np], va, gb);
+        mma_bf16_16816(dp[2 * np + 1], va, gb + 2);
+      }
+    }
+    const bool diag = r0 < wk0 + 15;
+    uint32_t pa[kQ / 16][4], dsa[kQ / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = wk0 + gr + 8 * (e >> 1);
+        const int ql = nt * 8 + tig * 2 + (e & 1);
+        const float x = logit(s[nt][e], a.scale, !diag || key <= r0 + ql);
+        p[e] = expf(x - sm[ql]) * sil[ql];
+        ds[e] = (dp[nt][e] - sd[ql]) * p[e] * a.scale;
+      }
+      to_a<kNT>(pa, nt, p);
+      to_a<kNT>(dsa, nt, ds);
+    }
+#pragma unroll
+    for (int t = 0; t < kQ / 16; ++t) {
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        const int off = bn_off(t * 16, n2 * 16, kRow);
+        uint32_t gb[4], qb[4];
+        ldsm_x4_trans(gb, gs + off);
+        ldsm_x4_trans(qb, qs + off);
+        mma_bf16_16816(adv[2 * n2], pa[t], gb);
+        mma_bf16_16816(adv[2 * n2 + 1], pa[t], gb + 2);
+        mma_bf16_16816(adk[2 * n2], dsa[t], qb);
+        mma_bf16_16816(adk[2 * n2 + 1], dsa[t], qb + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  bf16* dk = a.dk + b * a.sdk.b + h * a.sdk.h;
+  bf16* dv = a.dv + b * a.sdv.b + h * a.sdv.h;
+  store_tile<D>(dk + (long long)wk0 * a.sdk.s, a.sdk.s, ks + 16 * w * kRow,
+                adk);
+  store_tile<D>(dv + (long long)wk0 * a.sdv.s, a.sdv.s, vs + 16 * w * kRow,
+                adv);
+}
+
+template <int D>
+int launch_bwd_tc(const BwdArgs& a, int BH, bool dq, bool dkv,
+                  cudaStream_t stream) {
+  constexpr int kN = kDqKeys, kQ = kDkvRows, kRow = D + kTcPad;
+  const dim3 grid(BH, a.S / kTcRows);
+  cudaError_t e;
+  if (dq) {
+    const size_t smem = sizeof(bf16) * (2 * kTcRows + 4 * kN) * kRow;
+    auto kern = flash_dq_kernel_tc<D, kN>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kTcThreads, smem, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (dkv) {
+    const size_t smem = sizeof(bf16) * (2 * kTcRows + kDkvStages * 2 * kQ)
+                        * kRow + sizeof(float) * kDkvStages * 3 * kQ;
+    auto kern = flash_dkv_kernel_tc<D, kQ>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kTcThreads, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* l, float* m, int BH, int S, float scale,
@@ -476,17 +886,39 @@ extern "C" int spt_flash_fwd(int dtype, const void* q, const void* k,
 }
 
 // The backward: dq when `dq` is not null, dk and dv when `dk` is not null.
-// `g` is the output gradient, l, m and di [BH, S] f32.
+// `g` is the output gradient, l, m and di [B*H, S] f32 contiguous.
+// `strides` holds the (batch, head, row) element strides of q, k, v, g,
+// dq, dk and dv (21 values; each operand's d stride is 1): bf16 reads and
+// writes them in place (16-byte aligned rows: the strides multiples of 8);
+// f32 takes contiguous [B, H, S, D] only and refuses other strides.
 extern "C" int spt_flash_bwd(int dtype, const void* q, const void* k,
                              const void* v, const void* g, const void* l,
                              const void* m, const void* di, void* dq,
-                             void* dk, void* dv, int BH, int S, int D,
-                             float scale, void* stream) {
+                             void* dk, void* dv, int B, int H, int S, int D,
+                             float scale, const long long* strides,
+                             void* stream) {
   using namespace spt::flash;
-  auto f = dtype == spt::kBF16
-               ? (D == 64 ? launch_bwd<__nv_bfloat16, 64>
-                          : launch_bwd<__nv_bfloat16, 128>)
-               : (D == 64 ? launch_bwd<float, 64> : launch_bwd<float, 128>);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == spt::kBF16) {
+    Strides s[7];
+    for (int i = 0; i < 7; ++i)
+      s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    const BwdArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v,
+                    (const bf16*)g, (const float*)l, (const float*)m,
+                    (const float*)di, (bf16*)dq, (bf16*)dk, (bf16*)dv,
+                    s[0], s[1], s[2], s[3], s[4], s[5], s[6], H, S, scale};
+    return D == 64 ? launch_bwd_tc<64>(a, B * H, dq != nullptr, dk != nullptr,
+                                       st)
+                   : launch_bwd_tc<128>(a, B * H, dq != nullptr,
+                                        dk != nullptr, st);
+  }
+  const void* ops[7] = {q, k, v, g, dq, dk, dv};
+  for (int i = 0; i < 7; ++i)
+    if (ops[i] != nullptr &&
+        (strides[3 * i] != (long long)H * S * D ||
+         strides[3 * i + 1] != (long long)S * D || strides[3 * i + 2] != D))
+      return (int)cudaErrorInvalidValue;
+  auto f = D == 64 ? launch_bwd<float, 64> : launch_bwd<float, 128>;
   return f(q, k, v, g, (const float*)l, (const float*)m, (const float*)di,
-           dq, dk, dv, BH, S, scale, (cudaStream_t)stream);
+           dq, dk, dv, B * H, S, scale, st);
 }

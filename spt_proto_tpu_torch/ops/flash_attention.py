@@ -16,10 +16,14 @@ tensors and runs the plain twin's math for CPU tensors:
   flash_attention_dkv  -> flash_attention_bwd_ref  (dq, dk, dv)
 The kernels take causal attention over S a multiple of 128 and d 64 or
 128, f32 or bf16; anything else raises on CUDA tensors, naming the shape.
-The wrappers copy q, k, v (and do) to contiguous [B*H, S, d] when they are
-strided views (the layer's [B, S, H, d] projections transposed).
+The bf16 backward reads q, k, v and do in place through their strides (the
+layer's [B, S, H, d] projections transposed) and writes dq, dk, dv in the
+same layout; the forward and the f32 backward copy strided inputs to
+contiguous [B, H, S, d].
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -125,15 +129,72 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(q.shape), l, m
 
 
-def _launch_bwd(shape, q, k, v, do, l, m, di, dq, dk, dv, sm_scale, name):
-    """q/k/v/do and the outputs contiguous [B*H, S, d]; l, m, di [B, H, S]
-    f32 contiguous."""
-    b, h, s, d = shape
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """q, k, v or do as the backward kernels read it: a bf16 [B, H, S, d]
+    view in place when its rows are 16-byte aligned runs (d stride 1, the
+    other strides multiples of 8 elements, a 16-byte aligned start); a
+    contiguous copy otherwise and in f32 (whose kernels take contiguous
+    [B, H, S, d])."""
+    if (t.dtype == torch.bfloat16 and t.stride(-1) == 1
+            and all(st % 8 == 0 for st in t.stride()[:-1]) and _aligned(t)):
+        return t
+    return t.contiguous()
+
+
+def _stat(t: torch.Tensor) -> torch.Tensor:
+    """l, m or di contiguous with a 16-byte aligned start (the dk/dv kernel
+    copies m and di 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if _aligned(t) else t.clone()
+
+
+def _bwd_operands(q, k, v, l, m, do, di, causal):
+    """The checked operands of both backward kernels: q, k, v, do as
+    `_operand` gives them, l, m, di as `_stat` does."""
+    _check_kernel(q, k, v, causal, l, m, di)
+    _build.require(do.shape == q.shape and do.dtype == q.dtype,
+                   f'do must match q: {tuple(do.shape)} {do.dtype}')
+    return ([_operand(t) for t in (q, k, v, do)]
+            + [_stat(t) for t in (l, m, di)])
+
+
+def _bwd_strides(*ts) -> list[int]:
+    """(batch, head, row) element strides of each [B, H, S, d] tensor, in
+    the order spt_flash_bwd takes them (q, k, v, do, dq, dk, dv)."""
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _launch_bwd(ops, dq, dk, dv, sm_scale, name):
+    """One spt_flash_bwd launch over `_bwd_operands`' ops: dq, or dk and
+    dv (the other outputs None)."""
+    q, k, v, do, l, m, di = ops
+    b, h, s, d = q.shape
+    outs = [q if t is None else t for t in (dq, dk, dv)]
+    strides = (ctypes.c_longlong * 21)(*_bwd_strides(q, k, v, do, *outs))
     p = _build.ptr
     err = _build.lib().spt_flash_bwd(
         _build.dtype_code(q), p(q), p(k), p(v), p(do), p(l), p(m), p(di),
-        p(dq), p(dk), p(dv), b * h, s, d, float(sm_scale), _build.stream())
+        p(dq), p(dk), p(dv), b, h, s, d, float(sm_scale), strides,
+        _build.stream())
     _build.check(err, name)
+
+
+def _dq(ops, sm_scale) -> torch.Tensor:
+    dq = torch.empty_like(ops[0])          # q's layout
+    _launch_bwd(ops, dq, None, None, sm_scale, 'flash_attention_dq')
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def _dkv(ops, sm_scale):
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    _launch_bwd(ops, None, dk, dv, sm_scale, 'flash_attention_dkv')
+    flash_attention_dkv.launches += 1
+    return dk, dv
 
 
 def flash_attention_dq(q, k, v, l, m, do, di, *, causal: bool = True,
@@ -143,14 +204,7 @@ def flash_attention_dq(q, k, v, l, m, do, di, *, causal: bool = True,
     _check(q, k, v)
     if not _build.on_cuda(q, k, v, l, m, do, di):
         return _bwd_plain(q, k, v, l, m, do, di, causal, sm_scale)[0]
-    _check_kernel(q, k, v, causal, l, m, di)
-    qf, kf, vf, gf = _flat(q), _flat(k), _flat(v), _flat(do)
-    dq = torch.empty_like(qf)
-    _launch_bwd(q.shape, qf, kf, vf, gf, l.contiguous(), m.contiguous(),
-                di.contiguous(), dq, None, None, sm_scale,
-                'flash_attention_dq')
-    flash_attention_dq.launches += 1
-    return dq.reshape(q.shape)
+    return _dq(_bwd_operands(q, k, v, l, m, do, di, causal), sm_scale)
 
 
 def flash_attention_dkv(q, k, v, l, m, do, di, *, causal: bool = True,
@@ -159,29 +213,21 @@ def flash_attention_dkv(q, k, v, l, m, do, di, *, causal: bool = True,
     _check(q, k, v)
     if not _build.on_cuda(q, k, v, l, m, do, di):
         return _bwd_plain(q, k, v, l, m, do, di, causal, sm_scale)[1:]
-    _check_kernel(q, k, v, causal, l, m, di)
-    qf, kf, vf, gf = _flat(q), _flat(k), _flat(v), _flat(do)
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    _launch_bwd(q.shape, qf, kf, vf, gf, l.contiguous(), m.contiguous(),
-                di.contiguous(), None, dk, dv, sm_scale,
-                'flash_attention_dkv')
-    flash_attention_dkv.launches += 1
-    return dk.reshape(k.shape), dv.reshape(v.shape)
+    return _dkv(_bwd_operands(q, k, v, l, m, do, di, causal), sm_scale)
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
                         sm_scale: float):
     """(dq, dk, dv) from the forward's saved tensors and the output
-    gradient: the two kernels for CUDA tensors, the plain twin (one pass)
-    for CPU ones."""
+    gradient: the two kernels for CUDA tensors (operands checked and
+    prepared once for both), the plain twin (one pass) for CPU ones."""
+    _check(q, k, v)
     if not _build.on_cuda(q, k, v, o, l, m, do):
         return flash_attention_bwd_ref(q, k, v, o, l, m, do, causal=causal,
                                        sm_scale=sm_scale)
     di = (o.float() * do.float()).sum(-1)              # [B, H, S] f32
-    kw = dict(causal=causal, sm_scale=sm_scale)
-    dq = flash_attention_dq(q, k, v, l, m, do, di, **kw)
-    dk, dv = flash_attention_dkv(q, k, v, l, m, do, di, **kw)
-    return dq, dk, dv
+    ops = _bwd_operands(q, k, v, l, m, do, di, causal)
+    return (_dq(ops, sm_scale), *_dkv(ops, sm_scale))
 
 
 class _FlashAttention(torch.autograd.Function):

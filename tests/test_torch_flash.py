@@ -4,11 +4,12 @@ The port's flash-attention twins (ops/flash_attention.py) against the stock
 TPU kernel (jax.experimental.pallas.ops.tpu.flash_attention, run in TPU
 interpret mode) at [1, 2, 256, d], d 64 and 128, causal, f32 and bf16:
 o, l and m, and dq / dk / dv against jax.grad of the stock kernel. Then
-what the slice runs around it: the autograd Function on CPU tensors against
-the twins, remat_policy='dots' against JAX's, tuning.evaluate against
-JAX's (its forward through the stock kernel in interpret mode), the
-profile CLI in its forward, train-step and decode modes, and the tune CLI
-at the dense stages.
+what the slice runs around it: the autograd Function and the backward
+wrappers (contiguous and strided inputs) on CPU tensors against the
+twins, remat_policy='dots' against JAX's, tuning.evaluate against JAX's
+(its forward through the stock kernel in interpret mode), the profile CLI
+in its forward, train-step and decode modes, and the tune CLI at the
+dense stages.
 """
 import json
 
@@ -95,8 +96,10 @@ def test_twins_match_stock_kernel(d, dtype):
 
 def test_autograd_function_and_wrappers_equal_the_twins():
     """On CPU tensors the autograd Function's output and gradients are the
-    twins' (bit for bit), the dq / dk/dv wrappers compute the backward
-    twin's, and no kernel launch is counted."""
+    twins' (bit for bit), the dq / dk/dv wrappers and flash_attention_bwd
+    compute the backward twin's, also from the layer's strided views, and
+    no kernel launch is counted; the bf16 backward kernels' operands are
+    such views in place, anything else a contiguous copy."""
     q, k, v, do = (torch.from_numpy(a) for a in inputs(64, seed=1))
     kw = dict(causal=True, sm_scale=0.125)
     launches = [w.launches for w in (fa.flash_attention_fwd,
@@ -115,6 +118,30 @@ def test_autograd_function_and_wrappers_equal_the_twins():
                        want[0])
     dk, dv = fa.flash_attention_dkv(q, k, v, l, m, do, di, **kw)
     assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    # the layer's operands: its [B, S, H, d] projections transposed
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v, do)]
+    qs, ks, vs, dos = views
+    assert not qs.is_contiguous()
+    assert torch.equal(fa.flash_attention_dq(qs, ks, vs, l, m, dos, di, **kw),
+                       want[0])
+    dk, dv = fa.flash_attention_dkv(qs, ks, vs, l, m, dos, di, **kw)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    for got, w in zip(fa.flash_attention_bwd(qs, ks, vs, o, l, m, dos, **kw),
+                      want):
+        assert torch.equal(got, w)
+    # what the backward kernels read: a bf16 view in place, with its
+    # (batch, head, row) strides; f32, a misaligned start or a broadcast d
+    # as a contiguous copy
+    bq = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._operand(bq) is bq
+    assert fa._bwd_strides(bq, q) == [256 * 2 * 64, 64, 128,
+                                      2 * 256 * 64, 256 * 64, 64]
+    odd = torch.zeros(256 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
+    for t in (qs, odd.view(1, 256, 2, 64).transpose(1, 2),
+              bq[..., :1].expand(bq.shape)):
+        assert fa._operand(t).is_contiguous() and torch.equal(
+            fa._operand(t), t)
     with torch.no_grad():
         assert torch.equal(fa.flash_attention(q, k, v, **kw), o)
     assert [w.launches for w in (fa.flash_attention_fwd,
