@@ -229,7 +229,7 @@ def start_ptxas(source: str):
 def log_ptxas(proc, pattern: str) -> None:
     """Wait for start_ptxas' nvcc; log the stack, spill and register lines
     of the entry functions whose mangled names match `pattern` (groups:
-    the kernel's name and its two int template arguments)."""
+    the kernel's name, then its template arguments)."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         log(f'  nvcc -Xptxas -v failed:\n{out[-2000:]}')
@@ -238,9 +238,17 @@ def log_ptxas(proc, pattern: str) -> None:
     for line in out.splitlines():
         if 'Compiling entry function' in line:
             m = re.search(pattern, line)
-            name = m and f'{m[1]}<{m[2]}, {m[3]}>'
+            name = m and f'{m[1]}<{", ".join(a for a in m.groups()[1:] if a)}>'
         elif name and ('spill' in line or 'registers' in line):
             log(f'  ptxas {name}: {line.split(":")[-1].strip()}')
+
+
+# sources and mangled-name patterns of the kernels whose registers phase 1
+# logs: flash_*_kernel_tc<D, tile, ...> and int8_matmul_t_kernel<T> (f: f32,
+# 13__nv_bfloat16: bf16)
+PTXAS_KERNELS = (
+    ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?'),
+    ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E'))
 
 
 class Timer:
@@ -1197,6 +1205,12 @@ INT8_T_SHAPES = {
     'llama-7b down dx': (2048, FF_7B, D_LL),
     'opt-125m fc1 dx': (4096, D, FF),
     'opt-125m fc2 dx': (4096, FF, D)}
+# untimed edge shapes across the kernel's tiles (128 rows of g, 256 rows of
+# q in bf16 and 128 in f32) and its 64 / 32-column steps: m and K past a
+# tile edge, N past a step and a 256 chunk, K whose rows of out are not
+# 16-byte runs
+INT8_T_EDGES = {'edge m130 k200 n264': (130, 200, 264),
+                'edge m37 k300 n200': (37, 300, 200)}
 
 
 def check_int8_matmul_t(dtype, m, k, n, timer=None):
@@ -1595,9 +1609,9 @@ def check_flash(dtype, shape, timer=None):
     """The flash-attention forward (o, l, m), dq and dk/dv kernels against
     their twins on [B, H, S, d] causal, sm_scale d**-0.5, q, k, v and do
     given as the layer gives them ([B, S, H, d] tensors transposed: the
-    bf16 backward reads them in place): o, dq, dk, dv to output_tolerance,
-    l and m to the f32 bound; the backward twin from the kernel's own o, l,
-    m. With a timer: cold-L2 µs of each kernel and its achieved TFLOP/s,
+    bf16 kernels read them in place, and the forward writes o in that
+    layout): o, dq, dk, dv to output_tolerance, l and m to the f32 bound;
+    the backward twin from the kernel's own o, l, m. With a timer: cold-L2 µs of each kernel and its achieved TFLOP/s,
     its plain twin's µs, SDPA's (forward alone, and its backward through
     torch.autograd.grad: the library yardstick, checked against the twins
     first) and the bound: the causal forward needs 2 B H S^2 d FLOPs; dq's
@@ -1614,6 +1628,9 @@ def check_flash(dtype, shape, timer=None):
     kw = dict(causal=True, sm_scale=d ** -0.5)
     o, l, m = fa.flash_attention_fwd(q, k, v, **kw)
     o_w, l_w, m_w = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    # bf16: o written in the layer's [B, S, H, d] layout, read in place
+    require(dtype != torch.bfloat16 or o.transpose(1, 2).is_contiguous(),
+            f'flash attention {shape}: o strides {o.stride()}')
     di = (o.float() * do.float()).sum(-1)
     dq = fa.flash_attention_dq(q, k, v, l, m, do, di, **kw)
     dk, dv = fa.flash_attention_dkv(q, k, v, l, m, do, di, **kw)
@@ -1690,7 +1707,8 @@ def check_flash(dtype, shape, timer=None):
             f'bound {pair * 1e3:.2f} us (3.5x the forward\'s FLOPs; a '
             f'fused backward {fused * 1e3:.2f} us at 2.5x), SDPA backward '
             f'{lib_bwd * 1e3:.1f} us ({both / lib_bwd:.2f}x)')
-        # the forward copies strided inputs: its kernel alone
+        # the forward from contiguous inputs: what the layer's strided
+        # views cost (in bf16 no copy; f32 copies them)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
         r = res['flash_attention']
         r['contiguous_inputs_ms'] = timer.ms(
@@ -1736,6 +1754,8 @@ def phase_kernels(timer):
         # the int8_base and grouped-matmul training kernels
         r_mmt = {name: check_int8_matmul_t(dtype, m_, k_, n_, t)
                  for name, (m_, k_, n_) in INT8_T_SHAPES.items()}
+        r_mmt.update({name: check_int8_matmul_t(dtype, m_, k_, n_)
+                      for name, (m_, k_, n_) in INT8_T_EDGES.items()})
         r_gmm = check_gmm(dtype, t)
         r_tgmm = check_tgmm(dtype, t)
         # the flash-attention kernels (dense / LoRA-stage training and
@@ -4148,25 +4168,36 @@ def evaluate_run():
     return dict(seconds=dt, tok_s=tok_s, result=res, launches=counts)
 
 
-def profile_run(label, argv, per_iter):
+def profile_run(label, argv, per_iter, trace=False):
     """cli.profile.main(argv) on the card (OPT-125M full depth, bf16, B=8,
     S 2048, PROFILE_ITERS timed after one warm-up): its JSON line, and the
     kernel launches of the whole run held exactly to per_iter (launches a
-    layer an iteration) x layers x (1 + iters)."""
+    layer an iteration) x layers x (1 + iters). With trace: --trace_dir
+    (a temporary directory) traces PROFILE_ITERS more iterations, whose
+    top device operations are logged."""
     from spt_proto_tpu_torch.cli import profile
+    import tempfile
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
-    out = profile.main(['--device', DEV, '--config', 'opt-125m', '--dtype',
-                        'bfloat16', '--batch_size', str(B), '--seq_length',
-                        str(PROMPT), '--iters', str(PROFILE_ITERS)] + argv)
+    iters = (1 + PROFILE_ITERS * (2 if trace else 1))
+    with tempfile.TemporaryDirectory() as trace_dir:
+        out = profile.main(
+            ['--device', DEV, '--config', 'opt-125m', '--dtype', 'bfloat16',
+             '--batch_size', str(B), '--seq_length', str(PROMPT), '--iters',
+             str(PROFILE_ITERS)] + argv
+            + (['--trace_dir', trace_dir] if trace else []))
     sync()
     counts = {n: w.launches for n, w in ws.items()}
-    want = {n: per_iter.get(n, 0) * LAYERS * (1 + PROFILE_ITERS)
-            for n in ws}
+    want = {n: per_iter.get(n, 0) * LAYERS * iters for n in ws}
     require(counts == want, f'{label} launches {counts} (expected {want})')
     peak = out['memory']['peak_bytes_in_use'] / 1e9
-    runs = LAYERS * (1 + PROFILE_ITERS)
+    runs = LAYERS * iters
+    if trace:
+        log(f'  [{label}] top device operations, µs and calls an '
+            f'iteration ({PROFILE_ITERS} traced):')
+        for name, us, calls in out['trace_top']:
+            log(f'    {us:10.1f} us {calls:7.1f}  {name}')
     log(f'  [{label}] {out["step_ms"]:.3f} ms/iter = '
         f'{out["tokens_per_s"]:.0f} tok/s, peak {peak:.2f} GB, warm-up '
         f'{out["compile_s"]} s; launches a layer an iteration '
@@ -4218,7 +4249,7 @@ def phase_dense():
                                      ['--tuning', 'dense'], fwd),
         'dense backward': profile_run(
             'profile dense backward S=2048',
-            ['--tuning', 'dense', '--backward'], step),
+            ['--tuning', 'dense', '--backward'], step, trace=True),
         'lora backward': profile_run(
             'profile lora backward S=2048',
             ['--tuning', 'lora', '--backward'], step),
@@ -4342,13 +4373,15 @@ def main() -> int:
         f'{torch.cuda.get_device_name(0)}')
 
     log('phase 1: build')
-    # registers and spills of the bf16 flash backward kernels, compiled
-    # once more with -Xptxas -v beside the build
-    ptxas = start_ptxas('flash_attention.cu')
+    # registers and spills of the tensor-core kernels (the bf16 flash
+    # forward and backward, int8_matmul_t), compiled once more with -Xptxas
+    # -v beside the build
+    ptxas = [(start_ptxas(src), pattern) for src, pattern in PTXAS_KERNELS]
     try:
         log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
     finally:
-        log_ptxas(ptxas, r'(flash_d\w+_tc)ILi(\d+)ELi(\d+)E')
+        for proc, pattern in ptxas:
+            log_ptxas(proc, pattern)
 
     log('phase 2: kernels vs plain twins')
     res = phase_kernels(Timer())

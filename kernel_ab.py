@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's OPT decode kernels, or with --flash its flash-attention
-kernels, from several checkouts, in turns, on one CUDA card.
+"""Time the port's OPT decode kernels, or its flash-attention or
+int8_matmul_t kernels, or end-to-end training steps, from several
+checkouts, in turns, on one CUDA card.
 
     python3 kernel_ab.py PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --flash PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --int8t PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --e2e PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -11,9 +14,14 @@ chip_smoke.py's Timer (cold L2, device time, bf16): decode_front (stacked
 fp QKV and packed int8 QKV, int8 KV), ffn_tail, ffn_tail_int8 and
 lm_head_argmax at OPT-125M serving shapes; or (--flash) the flash forward,
 dq and dk/dv at the checkout's chip_smoke.FLASH_SHAPES of S 512 and 2048,
-each checked against its twin first (check_flash). One JSON line per
-checkout. Two versions are compared only within one call, on one card, in
-turns.
+each checked against its twin first (check_flash); or (--int8t)
+int8_matmul_t at chip_smoke.INT8_T_SHAPES, each checked first
+(check_int8_matmul_t); or (--e2e) with chip_smoke's own runs: cli.profile
+at OPT-125M, B=8, S 2048, bf16 (dense forward, dense and lora train
+steps) and cli.tune's LLaMA-7B --int8_base step (bf16, B=4, S=512,
+--remat, phase 10's run), each with its peak memory and losses. One JSON
+line per checkout. Two versions are compared only within one call, on one
+card, in turns.
 """
 from __future__ import annotations
 
@@ -22,8 +30,38 @@ import os
 import subprocess
 import sys
 
+MODES = ('--flash', '--int8t', '--e2e')
 
-def one(root: str, flash: bool) -> dict:
+
+def e2e(cs) -> dict:
+    """Phase 11's profile runs and phase 10's LLaMA-7B int8_base tune run
+    (the checkout's own chip_smoke functions)."""
+    from spt_proto_tpu_torch.config import llama_config
+    out = {}
+    step = dict.fromkeys(cs.FLASH_KERNELS, 1)
+    for name, argv, per_iter in (
+            ('profile dense forward', ['--tuning', 'dense'],
+             dict.fromkeys(cs.FLASH_KERNELS[:1], 1)),
+            ('profile dense step', ['--tuning', 'dense', '--backward'], step),
+            ('profile lora step', ['--tuning', 'lora', '--backward'], step)):
+        r = cs.profile_run(f'{name} S=2048', argv, per_iter)
+        out[f'{name} ms'] = r['step_ms']
+        out[f'{name} peak GB'] = r['peak_gb']
+    ll = llama_config('7b')
+    argv = ['--device', cs.DEV, '--config', 'llama-7b', '--dtype',
+            'bfloat16', '--batch_size', str(cs.B_7B), '--lr', '1e-3',
+            '--remat', '--int8_base']
+    r = cs.train_run('llama-7b int8_base', argv, cs.B_7B, 512, ll.n_layers,
+                     cs.train_launches(ll, 'int8_base', remat=True),
+                     timed=6, stop_after=True)
+    out.update({'int8_base step ms': r['step_ms'],
+                'int8_base peak GB': r['peak_mem_gb'],
+                'int8_base losses': r['losses'],
+                'int8_base kernels in situ us': r['kernel_us_in_situ']})
+    return out
+
+
+def one(root: str, mode: str | None) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -31,18 +69,27 @@ def one(root: str, flash: bool) -> dict:
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     timer, bf = cs.Timer(), torch.bfloat16
-    if flash:
-        out = dict(tree=root)
+    out = dict(tree=root)
+    if mode == '--flash':
         for name, shape in cs.FLASH_SHAPES.items():
             if shape[2] in (512, 2048):
                 res = cs.check_flash(bf, shape, timer)
                 out.update({f'{name} {k} us': r['ms'] * 1e3
                             for k, r in res.items()})
+                out[f'{name} fwd from contiguous us'] = (
+                    res['flash_attention']['contiguous_inputs_ms'] * 1e3)
         return out
+    if mode == '--int8t':
+        for name, (m, k, n) in cs.INT8_T_SHAPES.items():
+            res = cs.check_int8_matmul_t(bf, m, k, n, timer)
+            out[f'{name} us'] = res['ms'] * 1e3
+        return out
+    if mode == '--e2e':
+        return dict(out, **e2e(cs))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']
-    return dict(tree=root, decode_front_us=front * 1e3,
+    return dict(out, decode_front_us=front * 1e3,
                 decode_front_packed_int8_us=front8 * 1e3,
                 ffn_tail_us=cs.check_ffn(bf, cs.D, cs.FF, timer)['ms'] * 1e3,
                 ffn_tail_int8_us=tail8 * 1e3,
@@ -51,10 +98,10 @@ def one(root: str, flash: bool) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    flash = bool(args) and args[0] == '--flash'
-    args = args[flash:]
+    mode = args[0] if args and args[0] in MODES else None
+    args = args[mode is not None:]
     if len(args) == 2 and args[0] == '--one':
-        print('AB ' + json.dumps(one(args[1], flash)), flush=True)
+        print('AB ' + json.dumps(one(args[1], mode)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available() or not args:
@@ -66,9 +113,8 @@ def main() -> int:
     print(smi, flush=True)
     for root in args:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              *(['--flash'] if flash else []), '--one',
-                              root], capture_output=True, text=True,
-                             timeout=600)
+                              *([mode] if mode else []), '--one', root],
+                             capture_output=True, text=True, timeout=900)
         lines = [ln for ln in out.stdout.splitlines() if ln.startswith('AB ')]
         if out.returncode != 0 or not lines:
             print(out.stdout[-2000:], out.stderr[-2000:], file=sys.stderr)

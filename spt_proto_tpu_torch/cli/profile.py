@@ -18,7 +18,9 @@ CUDA events (the host clock on the CPU, whose twins these numbers then
 time); the JSON line has the JAX CLI's keys, with compile_s the warm-up's
 seconds and memory from torch.cuda.memory_stats() (bytes_in_use, its peak
 since the CLI started, bytes_limit the card's memory; empty on the CPU).
---trace_dir writes a torch.profiler trace of one more timed loop.
+--trace_dir writes a torch.profiler trace of one more timed loop, and
+the JSON line then holds its top device operations (`trace_top`: name,
+device µs an iteration, calls an iteration; empty on the CPU).
 """
 from __future__ import annotations
 
@@ -129,6 +131,17 @@ def _decode_loops(cfg, params, args, dev):
     return decode, verify, kk
 
 
+def _device_top(prof, n: int, top: int = 15) -> list:
+    """The `top` device operations (kernels, copies, memsets) of a finished
+    profile of n iterations: [name, device µs an iteration, calls an
+    iteration], the longest first."""
+    from torch.autograd import DeviceType
+    rows = [(a.key, a.device_time_total / n, a.count / n)
+            for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return [[k[:120], round(t, 1), c] for k, t, c in rows[:top]]
+
+
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     if args.decode and args.backward:
@@ -199,6 +212,7 @@ def main(argv=None) -> dict:
                 'spec_ceiling_speedup': round(kk * dt / dt_blk, 2)}
     mem = _memory(dev)
 
+    traced = {}
     if args.trace_dir:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
@@ -208,6 +222,7 @@ def main(argv=None) -> dict:
             _sync(dev)
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir, 'trace.json'))
+        traced = {'trace_top': _device_top(prof, n)}
 
     out = {
         'config': args.config if not args.ckpt else args.ckpt,
@@ -221,7 +236,7 @@ def main(argv=None) -> dict:
         'memory': mem,
         'device': (torch.cuda.get_device_name(dev) if dev.type == 'cuda'
                    else 'cpu'),
-        **spec,
+        **spec, **traced,
     }
     print(json.dumps(out), flush=True)
     return out

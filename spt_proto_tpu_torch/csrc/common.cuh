@@ -137,9 +137,47 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// cp_async16 of the first `n` bytes (0 or 16) of src, the rest zero-filled:
+// src is not read when n is 0
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when `n` is 0 (src then not read)
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+}
+
 // wait until at most N of this thread's committed groups are in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared-memory offset (elements) of this lane's ldmatrix row address:
+// an A operand [16 rows][16 k] at (r0, k0) of a row-major tile
+__device__ __forceinline__ int a_off(int r0, int k0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (r0 + (lane & 15)) * kRow + k0 + (lane >> 4) * 8;
+}
+
+// two n8 B operands [16 k][8 n] stored [n][k] (the contraction along the
+// row), n from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
+__device__ __forceinline__ int bt_off(int n0, int k0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * kRow + k0
+         + ((lane >> 3) & 1) * 8;
+}
+
+// two n8 B operands stored [k][n] (read with .trans), k from k0 and n
+// from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
+__device__ __forceinline__ int bn_off(int k0, int n0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow + n0
+         + (lane >> 4) * 8;
 }
 
 }  // namespace spt

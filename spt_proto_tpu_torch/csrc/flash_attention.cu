@@ -4,7 +4,8 @@
 // Replaces the stock TPU kernel jax/experimental/pallas/ops/tpu/
 // flash_attention.py (jax 0.9.0), which spt_proto_tpu/layers/attention.py:75
 // calls for every dense causal attention under attn_impl='pallas':
-//   flash_fwd_kernel  <- _flash_attention_kernel (:331, :342), launched by
+//   flash_fwd_kernel (f32), flash_fwd_kernel_tc (bf16)
+//                     <- _flash_attention_kernel (:331, :342), launched by
 //                        _flash_attention_impl (:589, pallas_call :758)
 //   flash_dkv_kernel (f32), flash_dkv_kernel_tc (bf16)
 //                     <- _flash_attention_dkv_kernel (:796), launched by
@@ -37,10 +38,10 @@
 // do 2.5x: at S 2048 its bound is 182 us of products (a fused backward's
 // 130 us). Every kernel here is compute-bound at S >= 512 in bf16.
 //
-// The forward, and the backward in f32: the products in f32 on the CUDA
-// cores (67 TFLOP/s peak), the structure of csrc/block_sparse_attention.cu
-// with the causal walk in place of a selection list; the f32 backward sums
-// in cuBLAS SGEMM's order and is bit-equal to its twin. Forward: one CTA
+// f32: the products on the CUDA cores (67 TFLOP/s peak), the structure of
+// csrc/block_sparse_attention.cu with the causal walk in place of a
+// selection list; the f32 backward sums in cuBLAS SGEMM's order and is
+// bit-equal to its twin. Forward: one CTA
 // per (batch*head, 64-query sub-tile); it walks the 128-key tiles from 0
 // to the one holding its last row (tiles wholly above the diagonal
 // skipped, the stock's below_or_on_diag, :325), stages K^T and V in shared
@@ -52,8 +53,8 @@
 // walking the query rows from the tile's first row to S in chunks of 32
 // (rows before the tile see none of it), dk and dv in registers.
 //
-// The bf16 backward (flash_dq_kernel_tc, flash_dkv_kernel_tc) runs every
-// product on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+// bf16 (flash_fwd_kernel_tc, flash_dq_kernel_tc, flash_dkv_kernel_tc) runs
+// every product on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
 // accumulators (common.cuh), operands read from shared memory by ldmatrix
 // (.trans for the operand read along its rows). mma.sync and not wgmma:
 // its fragments live in one warp's registers, so the repack of P and dS
@@ -66,7 +67,18 @@
 // registers) into a ring of stages: the next tile's copy is in flight
 // while the current one is computed. q, k, v and do are read in place
 // through their (batch, head, row) strides, the layer's [B, S, H, d]
-// projections transposed: no contiguous copy.
+// projections transposed, and o, dq, dk, dv written in the same layout: no
+// contiguous copy.
+//   forward: one CTA per (batch*head, 64 query rows), 4 warps of 16 rows.
+// Each warp loads its Q fragments into registers once and walks the key
+// tiles (64 keys at d 64, 32 at d 128) from 0 up to the diagonal through a
+// 2-stage K/V ring: S = Q K^T, the row max and sum over the 4 lanes of a
+// quad (a thread holds rows gr and gr + 8), the O accumulators rescaled by
+// exp(m_old - m_new), p = exp(s - m) in f32 summed into l before it is
+// rounded to bf16 and repacked as the A operand of O += P V (V through
+// ldmatrix.trans); at the end o = O * (1 / l) through the warp's shared
+// rows, and l and m. Registers: 167 a thread at d 64, 168 at d 128 (its 64
+// f32 accumulators and 32 Q registers beside 32-key tiles), no spills.
 //   dq: one CTA per (batch*head, 64 query rows), 4 warps of 16 rows. Each
 // warp loads its Q and dO fragments into registers once, m, 1/l and di of
 // its thread's two rows too, and walks the 32-key tiles up to the diagonal
@@ -84,8 +96,8 @@
 // 128) bring both to ~245 (2 CTAs an SM), with no spills (nvcc -Xptxas
 // -v). Capping them lower spilled and ran slower.
 //   Only tiles that reach across the diagonal are masked, and a warp skips
-// a tile wholly on the masked side of its rows (its terms are zeros). Both
-// launch the longest walks first (the last query tiles, the first key
+// a tile wholly on the masked side of its rows (its terms are zeros). All
+// three launch the longest walks first (the last query tiles, the first key
 // tiles). The sums run in the tensor cores' order, not the twin's: the
 // bf16 results agree with the twin within a bf16 step.
 //
@@ -112,10 +124,11 @@ __device__ __forceinline__ float logit(float dot, float scale, bool valid) {
   return valid ? s : s + kMask;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ l_out,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ l_out,
     float* __restrict__ m_out, int S, float scale) {
   constexpr int DJ = D / 16;              // output columns per thread
   extern __shared__ __align__(16) float sm[];
@@ -128,7 +141,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   const size_t off = (size_t)bh * S * D;
 
   for (int i = tid; i < kSub * D; i += blockDim.x)
-    qs[i] = to_f(q[off + (size_t)row0 * D + i]);
+    qs[i] = q[off + (size_t)row0 * D + i];
 
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -143,8 +156,8 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
     __syncthreads();
     for (int i = tid; i < kBK * D; i += blockDim.x) {
       const int c = i / D, d = i % D;
-      kt[d * kPad + c] = to_f(k[off + (size_t)(col0 + c) * D + d]);
-      vs[i] = to_f(v[off + (size_t)col0 * D + i]);
+      kt[d * kPad + c] = k[off + (size_t)(col0 + c) * D + d];
+      vs[i] = v[off + (size_t)col0 * D + i];
     }
     __syncthreads();
 
@@ -184,7 +197,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
       for (int j = 0; j < 8; ++j) {
         const float p = expf(s[i][j] - mn);
         rs += p;
-        kt[(ty * 4 + i) * kPad + tx + 16 * j] = rt<T>(p);
+        kt[(ty * 4 + i) * kPad + tx + 16 * j] = p;
       }
       for (int o2 = 8; o2 > 0; o2 >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, o2);
@@ -214,7 +227,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
     const size_t r = (size_t)(row0 + ty * 4 + i);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      o[off + r * D + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+      o[off + r * D + tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0) {
       l_out[(size_t)bh * S + r] = l[i];
       m_out[(size_t)bh * S + r] = m[i];
@@ -222,12 +235,13 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ l_in, const float* __restrict__ m_in,
-    const float* __restrict__ di, T* __restrict__ dq, int S, float scale) {
+    const float* __restrict__ di, float* __restrict__ dq, int S,
+    float scale) {
   constexpr int DJ = D / 16;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                         // [kSub][D]
@@ -243,8 +257,8 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(
   const size_t off = (size_t)bh * S * D;
 
   for (int i = tid; i < kSub * D; i += blockDim.x) {
-    qs[i] = to_f(q[off + (size_t)row0 * D + i]);
-    gs[i] = to_f(g[off + (size_t)row0 * D + i]);
+    qs[i] = q[off + (size_t)row0 * D + i];
+    gs[i] = g[off + (size_t)row0 * D + i];
   }
   if (tid < kSub) {
     const size_t r = (size_t)bh * S + row0 + tid;
@@ -264,8 +278,8 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(
     for (int i = tid; i < kBK * D; i += blockDim.x) {
       const int c = i / D, d = i % D;
       const size_t src = off + (size_t)(col0 + c) * D + d;
-      kt[d * kPad + c] = to_f(k[src]);
-      vt[d * kPad + c] = to_f(v[src]);
+      kt[d * kPad + c] = k[src];
+      vt[d * kPad + c] = v[src];
     }
     __syncthreads();
 
@@ -303,8 +317,7 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(
       for (int j = 0; j < 8; ++j) {
         const float x = logit(s[i][j], scale, col0 + tx + 16 * j <= r);
         const float p = expf(x - ms[rl]) * il[rl];
-        vt[rl * kPad + tx + 16 * j] =
-            rt<T>((dp[i][j] - dis[rl]) * p * scale);
+        vt[rl * kPad + tx + 16 * j] = (dp[i][j] - dis[rl]) * p * scale;
       }
     }
     __syncthreads();
@@ -327,16 +340,17 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(
     const size_t r = (size_t)(row0 + ty * 4 + i);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dq[off + r * D + tx + 16 * j] = from_f<T>(acc[i][j]);
+      dq[off + r * D + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ l_in, const float* __restrict__ m_in,
-    const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ di, float* __restrict__ dk,
+    float* __restrict__ dv,
     int S, float scale) {
   constexpr int DJ = D / 16;
   extern __shared__ __align__(16) float sm[];
@@ -357,8 +371,8 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
   for (int i = tid; i < kBK * D; i += blockDim.x) {
     const int c = i / D, d = i % D;
     const size_t src = off + (size_t)(col0 + c) * D + d;
-    kt[d * kPad + c] = to_f(k[src]);
-    vt[d * kPad + c] = to_f(v[src]);
+    kt[d * kPad + c] = k[src];
+    vt[d * kPad + c] = v[src];
   }
 
   // keys ty * 8 + i, columns tx + 16 j
@@ -371,8 +385,8 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
   for (int r0 = col0; r0 < S; r0 += kR) {
     __syncthreads();
     for (int i = tid; i < kR * D; i += blockDim.x) {
-      qs[i] = to_f(q[off + (size_t)r0 * D + i]);
-      gs[i] = to_f(g[off + (size_t)r0 * D + i]);
+      qs[i] = q[off + (size_t)r0 * D + i];
+      gs[i] = g[off + (size_t)r0 * D + i];
     }
     if (tid < kR) {
       const size_t r = (size_t)bh * S + r0 + tid;
@@ -415,9 +429,8 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
       for (int j = 0; j < 8; ++j) {
         const float x = logit(s[i][j], scale, col0 + tx + 16 * j <= r0 + rl);
         const float p = expf(x - ms[rl]) * il[rl];
-        ps[rl * kPad + tx + 16 * j] = rt<T>(p);
-        dss[rl * kPad + tx + 16 * j] =
-            rt<T>((dp[i][j] - dis[rl]) * p * scale);
+        ps[rl * kPad + tx + 16 * j] = p;
+        dss[rl * kPad + tx + 16 * j] = (dp[i][j] - dis[rl]) * p * scale;
       }
     }
     __syncthreads();
@@ -449,8 +462,8 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
     const size_t c = (size_t)(col0 + ty * 8 + i);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[off + c * D + tx + 16 * j] = from_f<T>(adk[i][j]);
-      dv[off + c * D + tx + 16 * j] = from_f<T>(adv[i][j]);
+      dk[off + c * D + tx + 16 * j] = adk[i][j];
+      dv[off + c * D + tx + 16 * j] = adv[i][j];
     }
   }
 }
@@ -471,6 +484,11 @@ constexpr int kDkvStages = 3;            // the dk/dv kernel's query-tile ring
 // 1.16x slower: kernel_ab.py --flash)
 constexpr int kDqKeys = 32;
 constexpr int kDkvRows = 32;
+// keys a forward tile by d and the depth of its K/V ring (kernel_ab.py
+// --flash, H100: 64 keys at d 64, S 2048 281 us against 288 with 32; 32 at
+// d 128, S 512 59 us against 62 with 64; 3 stages no faster)
+template <int D> constexpr int kFwdKeys = D == 64 ? 64 : 32;
+constexpr int kFwdStages = 2;
 
 // element strides of a [B, H, S, D] operand whose d stride is 1
 struct Strides {
@@ -532,29 +550,6 @@ __device__ __forceinline__ void store_tile(bf16* dst, long long ss,
   }
 }
 
-// Shared-memory offset (elements) of this lane's ldmatrix row address:
-// an A operand [16 rows][16 k] at (r0, k0) of a row-major tile
-__device__ __forceinline__ int a_off(int r0, int k0, int kRow) {
-  const int lane = threadIdx.x & 31;
-  return (r0 + (lane & 15)) * kRow + k0 + (lane >> 4) * 8;
-}
-
-// two n8 B operands [16 k][8 n] stored [n][k] (the contraction along the
-// row), n from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
-__device__ __forceinline__ int bt_off(int n0, int k0, int kRow) {
-  const int lane = threadIdx.x & 31;
-  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * kRow + k0
-         + ((lane >> 3) & 1) * 8;
-}
-
-// two n8 B operands stored [k][n] (read with .trans), k from k0 and n
-// from n0: registers 0-1 for n0.., 2-3 for n0 + 8..
-__device__ __forceinline__ int bn_off(int k0, int n0, int kRow) {
-  const int lane = threadIdx.x & 31;
-  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow + n0
-         + (lane >> 4) * 8;
-}
-
 // accumulator tile nt's four values (rows gr, gr + 8; columns 2 tig, +1)
 // rounded to bf16 into the A operand of the next product: accumulator
 // tiles 2t and 2t + 1 are k16 step t
@@ -563,6 +558,163 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], int nt,
                                      const float* x) {
   a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[0], x[1]);
   a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
+struct FwdArgs {
+  const bf16 *q, *k, *v;
+  bf16* o;
+  float *l, *m;
+  Strides sq, sk, sv, so;
+  int H, S;
+  float scale;
+};
+
+// The bf16 forward: one CTA per (batch*head, 64 query rows), 4 warps of 16
+// rows; kN-key tiles of K and V walked in ascending order through a
+// kStages-deep cp.async ring (tile 0 holds col 0 <= row, so every m is
+// finite before a masked logit is seen)
+template <int D, int kN, int kStages>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
+    const FwdArgs a) {
+  constexpr int kM = kTcRows, kRow = D + kTcPad, kNT = kN / 8;
+  constexpr int kStage = 2 * kN * kRow;   // elements of a stage's K and V
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kM][kRow] Q, then o
+  bf16* ring = qs + kM * kRow;                // [kStages][K, V][kN][kRow]
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kM;  // longest walks first
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const bf16* k = head(a.k, a.sk, b, h);
+  const bf16* v = head(a.v, a.sv, b, h);
+  const int n_tiles = (row0 + kM - 1) / kN + 1;
+
+  copy_rows<D, kM>(qs, head(a.q, a.sq, b, h) + row0 * a.sq.s, a.sq.s);
+  cp_async_commit();
+  auto load_kv = [&](int j) {
+    bf16* st = ring + (j % kStages) * kStage;
+    copy_rows<D, kN>(st, k + (long long)j * kN * a.sk.s, a.sk.s);
+    copy_rows<D, kN>(st + kN * kRow, v + (long long)j * kN * a.sv.s,
+                     a.sv.s);
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) load_kv(j);
+    cp_async_commit();
+  }
+
+  const int wr0 = row0 + 16 * w;   // the warp's first row
+  cp_async_wait<kStages - 1>();    // Q has landed
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qf[kk], qs + a_off(16 * w, kk * 16, kRow));
+
+  // the thread's rows gr and gr + 8: running max, sum and output columns
+  float mr[2] = {-INFINITY, -INFINITY}, lr[2] = {0.f, 0.f};
+  float acc[D / 8][4] = {};
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();   // key tile j has landed
+    __syncthreads();                // ... for every thread; j - 1 read out
+    if (j + kStages - 1 < n_tiles) load_kv(j + kStages - 1);
+    cp_async_commit();
+    const int col0 = j * kN;
+    if (col0 > wr0 + 15) continue;   // every key lies past the warp's rows
+    const bf16* ks = ring + (j % kStages) * kStage;
+    const bf16* vs = ks + kN * kRow;
+
+    float s[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kN / 16; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + bt_off(np * 16, kk * 16, kRow));
+        mma_bf16_16816(s[2 * np], qf[kk], kb);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], kb + 2);
+      }
+    }
+    // logits (masked only on a tile that crosses the diagonal) and the new
+    // row max, over the 4 lanes of a quad
+    const bool diag = col0 + kN - 1 > wr0;
+    float mx[2] = {mr[0], mr[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, r = wr0 + gr + 8 * i;
+        const int c = col0 + nt * 8 + tig * 2 + (e & 1);
+        s[nt][e] = logit(s[nt][e], a.scale, !diag || c <= r);
+        mx[i] = fmaxf(mx[i], s[nt][e]);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(mr[i] - mx[i]);
+      mr[i] = mx[i];
+    }
+    // p = exp(s - m) in f32, summed before it is rounded to bf16 and
+    // repacked as the A operand of the PV product
+    uint32_t pa[kN / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[nt][e] - mx[e >> 1]);
+        rs[e >> 1] += p[e];
+      }
+      to_a<kNT>(pa, nt, p);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      lr[i] = alpha[i] * lr[i] + rs[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int t = 0; t < kN / 16; ++t) {
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs + bn_off(t * 16, n2 * 16, kRow));
+        mma_bf16_16816(acc[2 * n2], pa[t], vb);
+        mma_bf16_16816(acc[2 * n2 + 1], pa[t], vb + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  const float inv[2] = {1.f / lr[0], 1.f / lr[1]};
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    acc[nt][0] *= inv[0];
+    acc[nt][1] *= inv[0];
+    acc[nt][2] *= inv[1];
+    acc[nt][3] *= inv[1];
+  }
+  bf16* o = a.o + b * a.so.b + h * a.so.h;
+  store_tile<D>(o + (long long)wr0 * a.so.s, a.so.s, qs + 16 * w * kRow,
+                acc);
+  if (tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const size_t r = (size_t)bh * a.S + wr0 + gr + 8 * i;
+      a.l[r] = lr[i];
+      a.m[r] = mr[i];
+    }
+  }
 }
 
 template <int D, int kN>
@@ -820,21 +972,35 @@ int launch_bwd_tc(const BwdArgs& a, int BH, bool dq, bool dkv,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+int launch_fwd_tc(const FwdArgs& a, int BH, cudaStream_t stream) {
+  constexpr int kN = kFwdKeys<D>, kRow = D + kTcPad;
+  const size_t smem =
+      sizeof(bf16) * (kTcRows + kFwdStages * 2 * kN) * kRow;
+  auto kern = flash_fwd_kernel_tc<D, kN, kFwdStages>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(BH, a.S / kTcRows), kTcThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* l, float* m, int BH, int S, float scale,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kSub * D + D * kPad + kBK * D);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_kernel<T, D><<<dim3(S / kSub, BH), 256, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, l, m, S, scale);
+  flash_fwd_kernel<D><<<dim3(S / kSub, BH), 256, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, l, m, S,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g,
                const float* l, const float* m, const float* di, void* dq,
                void* dk, void* dv, int BH, int S, float scale,
@@ -843,26 +1009,26 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
   if (dq != nullptr) {
     const size_t smem =
         sizeof(float) * (2 * kSub * D + 2 * D * kPad + 3 * kSub);
-    e = cudaFuncSetAttribute(flash_dq_kernel<T, D>,
+    e = cudaFuncSetAttribute(flash_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_dq_kernel<T, D><<<dim3(S / kSub, BH), 256, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)g, l, m, di,
-        (T*)dq, S, scale);
+    flash_dq_kernel<D><<<dim3(S / kSub, BH), 256, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)g, l,
+        m, di, (float*)dq, S, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (dk != nullptr) {
     const size_t smem = sizeof(float) *
         (2 * D * kPad + 2 * kR * D + 2 * kR * kPad + 3 * kR);
-    e = cudaFuncSetAttribute(flash_dkv_kernel<T, D>,
+    e = cudaFuncSetAttribute(flash_dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_dkv_kernel<T, D><<<dim3(S / kBK, BH), 256, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)g, l, m, di,
-        (T*)dk, (T*)dv, S, scale);
+    flash_dkv_kernel<D><<<dim3(S / kBK, BH), 256, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)g, l,
+        m, di, (float*)dk, (float*)dv, S, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -870,19 +1036,33 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
 }  // namespace flash
 }  // namespace spt
 
-// q, k, v, o [BH, S, D] contiguous, D 64 or 128, S a multiple of 128,
-// causal; l and m [BH, S] f32.
+// The forward: o, and l and m [B*H, S] f32 contiguous; D 64 or 128, S a
+// multiple of 128, causal. `strides` holds the (batch, head, row) element
+// strides of q, k, v and o (12 values; each d stride is 1): bf16 reads and
+// writes them in place (16-byte aligned rows: the strides multiples of 8);
+// f32 takes contiguous [B, H, S, D] only and refuses other strides.
 extern "C" int spt_flash_fwd(int dtype, const void* q, const void* k,
-                             const void* v, void* o, void* l, void* m,
-                             int BH, int S, int D, float scale,
-                             void* stream) {
+                             const void* v, void* o, void* l, void* m, int B,
+                             int H, int S, int D, float scale,
+                             const long long* strides, void* stream) {
   using namespace spt::flash;
-  auto f = dtype == spt::kBF16
-               ? (D == 64 ? launch_fwd<__nv_bfloat16, 64>
-                          : launch_fwd<__nv_bfloat16, 128>)
-               : (D == 64 ? launch_fwd<float, 64> : launch_fwd<float, 128>);
-  return f(q, k, v, o, (float*)l, (float*)m, BH, S, scale,
-           (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == spt::kBF16) {
+    Strides s[4];
+    for (int i = 0; i < 4; ++i)
+      s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    const FwdArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v,
+                    (bf16*)o, (float*)l, (float*)m, s[0], s[1], s[2], s[3],
+                    H, S, scale};
+    return D == 64 ? launch_fwd_tc<64>(a, B * H, st)
+                   : launch_fwd_tc<128>(a, B * H, st);
+  }
+  for (int i = 0; i < 4; ++i)
+    if (strides[3 * i] != (long long)H * S * D ||
+        strides[3 * i + 1] != (long long)S * D || strides[3 * i + 2] != D)
+      return (int)cudaErrorInvalidValue;
+  auto f = D == 64 ? launch_fwd<64> : launch_fwd<128>;
+  return f(q, k, v, o, (float*)l, (float*)m, B * H, S, scale, st);
 }
 
 // The backward: dq when `dq` is not null, dk and dv when `dk` is not null.
@@ -918,7 +1098,7 @@ extern "C" int spt_flash_bwd(int dtype, const void* q, const void* k,
         (strides[3 * i] != (long long)H * S * D ||
          strides[3 * i + 1] != (long long)S * D || strides[3 * i + 2] != D))
       return (int)cudaErrorInvalidValue;
-  auto f = D == 64 ? launch_bwd<float, 64> : launch_bwd<float, 128>;
+  auto f = D == 64 ? launch_bwd<64> : launch_bwd<128>;
   return f(q, k, v, g, (const float*)l, (const float*)m, (const float*)di,
            dq, dk, dv, B * H, S, scale, st);
 }

@@ -246,8 +246,8 @@ int launch_int8_matmul(const void* x, const int8_t* q, const float* scale,
 // ---------------------------------------------------------------------------
 // int8_matmul_t: the transposed form, the dx of a frozen int8 weight
 //   out[m, k] = sum_n bf16(g[m, n] * scale[n]) * bf16(q[k, n])   (f32 sums)
-// g [M, N] f32/bf16, q [K, NP] int8 in its stored layout, scale [NS] f32
-// (columns n >= NS count 0), out [M, K] in g's dtype.
+// g [M, N] f32/bf16 (rows 16-byte aligned), q [K, NP] int8 in its stored
+// layout, scale [NS] f32 (columns n >= NS count 0), out [M, K] in g's dtype.
 //
 // Replaces the TPU kernel spt_proto_tpu/ops/pallas/int8_matmul.py
 // int8_matmul_t (_kernel_t), with its numerics: g scaled in f32 and rounded
@@ -257,124 +257,295 @@ int launch_int8_matmul(const void* x, const int8_t* q, const float* scale,
 //
 // Bound on the H100: operations, 2 M K N bf16 products (LLaMA-7B's gate dx
 // at M = 2,048: 185 GFLOP, 187 us at 989 TFLOP/s); the int8 weight is read
-// once per 64-row block of g.
+// once per 128-row block of g, mostly from L2.
 //
 // Design: an "NT" product, the contraction index n contiguous in both g and
-// q, so q's tile is staged without a transpose. 64 x 128 output tiles
-// (rows of g x rows of q), 8 warps of 32 x 32; per 64-column step of n the
-// scaled g tile and the q tile are staged as bf16 in shared memory and
-// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) sums them into a
-// fresh fragment per 256-column chunk, then added to the running one. As
-// the forward tiled kernel: no cp.async pipeline, no TMA / wgmma yet.
-constexpr int kXM = 64, kXK = 128, kXN = 64;
-constexpr int kXChunk = 256;                // int8_matmul.py block_n
-constexpr int kXStride = kXN + 8;           // bf16 per shared row
+// q, so both tiles are copied as they are stored. CTA output tiles of 128
+// rows of g x kK rows of q, 8 warps of 64 x kK / 4 with f32 accumulators
+// in registers (one CTA an SM). A cp.async ring walks n in kN-column steps;
+// a stage holds the raw g tile (g's dtype), the raw int8 q tile and the
+// scale slice, zero-filled past M, K, N and NS. Each landed stage is
+// converted in shared memory into bf16 operand tiles (g * scale rounded to
+// bf16; int8 -> bf16, exact, by a byte permute) in one of two buffers while
+// the warps run mma.sync m16n8k16 from ldmatrix on the other, in pieces
+// between the step's k16 products: one __syncthreads a step. The output
+// tile is staged through shared memory for 16-byte stores. Two
+// configurations by g's dtype:
+// - bf16 (the training path): kK 256, so a column of the tile costs
+//   128 x 2 + 256 bytes of copies for 2 x 128 x 256 products, and warp
+//   tiles of 64 x 64; the f32 sums run over all of N in one fragment. The
+//   TPU kernel's 256-column chunk partials would double the accumulators;
+//   without them the f32 sums part from the twin's by up to 7.4e-5 (the
+//   f32 case below), far inside a bf16 step of the output.
+// - f32: kK 128, warp tiles 64 x 32, and the chunk partials kept (a fresh
+//   fragment per 256 columns added to the running one, as the twin): one
+//   fragment over all of N parted from the twin by up to 7.4e-5 at
+//   LLaMA-7B's gate shape, past the f32 bound (1e-5 + 1e-5 |x|).
+constexpr int kXM = 128;             // CTA tile rows of g
+constexpr int kXChunk = 256;         // int8_matmul.py block_n
+constexpr int kXThreads = 256;       // 8 warps, 2 x 4
+
+template <typename T> struct XCfg;
+template <> struct XCfg<__nv_bfloat16> {   // shared memory 210 KB
+  static constexpr int kK = 256, kN = 64, kStages = 3;
+  static constexpr bool kChunked = false;
+};
+template <> struct XCfg<float> {           // shared memory 123 KB
+  static constexpr int kK = 128, kN = 32, kStages = 4;
+  static constexpr bool kChunked = true;
+};
+
+// byte layout of the kernel's dynamic shared memory
+template <typename T>
+struct XSmem {
+  static constexpr int kK = XCfg<T>::kK, kN = XCfg<T>::kN;
+  static constexpr int kStages = XCfg<T>::kStages;
+  static constexpr int kRow = kN + 8;   // bf16 a converted row (ldmatrix
+                                        // addresses in distinct banks)
+  static constexpr int kOutRow = kK + 8;   // elements a staged output row
+  static constexpr int kG = kXM * kN * (int)sizeof(T);   // raw g tile
+  static constexpr int kQ = kK * kN;                      // raw q tile
+  static constexpr int kStage = kG + kQ + kN * 4;         // + scale slice
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kConv = (kXM + kK) * kRow;         // bf16, a buffer
+  static constexpr int kMain = kRing + 2 * kConv * 2;
+  static constexpr int kOut = kXM * kOutRow * (int)sizeof(T);
+  static constexpr int kBytes = kMain > kOut ? kMain : kOut;
+  static_assert(kXChunk % kN == 0, "whole steps a chunk");
+};
+
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x, x[2 * i + 1] = f.y;
+  }
+}
+
+// four int8 (one word) -> two bf16x2, exactly: byte b becomes the f32
+// 2^23 + (b ^ 0x80), less 2^23 + 128, an integer of at most 8 bits whose
+// upper half is its bf16
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t* out) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+        8388736.f);
+  out[0] = __byte_perm(f[0], f[1], 0x7632);
+  out[1] = __byte_perm(f[2], f[3], 0x7632);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <bool kFirst, typename A>
+__device__ __forceinline__ A& pick(A& a, A& b) {
+  if constexpr (kFirst) return a;
+  else return b;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(256) int8_matmul_t_kernel(
+__global__ void __launch_bounds__(kXThreads) int8_matmul_t_kernel(
     const T* __restrict__ g, const int8_t* __restrict__ q,
     const float* __restrict__ scale, T* __restrict__ out, int M, int K,
     int N, int NS, int NP) {
-  __shared__ __align__(16) __nv_bfloat16 gsm[kXM * kXStride];   // [m][n]
-  __shared__ __align__(16) __nv_bfloat16 qsm[kXK * kXStride];   // [k][n]
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  using L = XSmem<T>;
+  using bf16 = __nv_bfloat16;
+  constexpr int kXK = L::kK, kN = L::kN, kStages = L::kStages;
+  constexpr int kRow = L::kRow, kXOut = L::kOutRow;
+  constexpr int kWK = kXK / 4, kNT = kWK / 8;   // warp tile 64 x kWK
+  constexpr int kGC = 16 / sizeof(T);   // g elements a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* conv = reinterpret_cast<bf16*>(smem + L::kRing);
+                                        // [2][g, q][kXM + kXK][kRow]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int gr = lane >> 2, tig = lane & 3;
-  const int wm = wid % 2, wk = wid / 2;          // warp tile 32 x 32
+  const int wm = w & 1, wk = w >> 1;
   const int m0 = blockIdx.y * kXM, k0 = blockIdx.x * kXK;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int n_steps = (N + kN - 1) / kN;
 
-  for (int c0 = 0; c0 < N; c0 += kXChunk) {
-    float part[2][4][4];
+  auto load = [&](int j) {
+    unsigned char* st = smem + (j % kStages) * L::kStage;
+    const int n0 = j * kN;
+    constexpr int kGRow = kN / kGC, kQRow = kN / 16;
+    static_assert(kXM * kGRow % kXThreads == 0 &&
+                  kXK * kQRow % kXThreads == 0, "whole copies a thread");
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int it = 0; it < kXM * kGRow / kXThreads; ++it) {
+      const int i = it * kXThreads + tid, r = i / kGRow;
+      const int c = (i % kGRow) * kGC;
+      const bool ok = m0 + r < M && n0 + c < N;   // N % kGC == 0
+      cp_async16_zfill(st + (r * kN + c) * sizeof(T),
+                       ok ? g + (size_t)(m0 + r) * N + n0 + c : g,
+                       ok ? 16 : 0);
+    }
+    // a 16-column run starting before N ends inside NP (NP % 16 == 0)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int it = 0; it < kXK * kQRow / kXThreads; ++it) {
+      const int i = it * kXThreads + tid, r = i / kQRow;
+      const int c = (i % kQRow) * 16;
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async16_zfill(st + L::kG + r * kN + c,
+                       ok ? q + (size_t)(k0 + r) * NP + n0 + c : q,
+                       ok ? 16 : 0);
+    }
+    if (tid < kN) {
+      const bool ok = n0 + tid < NS;
+      cp_async4_zfill(st + L::kG + L::kQ + tid * 4,
+                      ok ? scale + n0 + tid : scale, ok ? 4 : 0);
+    }
+  };
+
+  // converts piece `piece` of stage j: the copies it of each loop with
+  // it % (kN / 16) == part, so that a step's conversion interleaves with
+  // its k16 products
+  auto convert = [&](int j, int piece) {
+    const unsigned char* st = smem + (j % kStages) * L::kStage;
+    const T* gs = reinterpret_cast<const T*>(st);
+    const int8_t* qs = reinterpret_cast<const int8_t*>(st + L::kG);
+    const float* ss = reinterpret_cast<const float*>(st + L::kG + L::kQ);
+    bf16* gb = conv + (j & 1) * L::kConv;
+    bf16* qb = gb + kXM * kRow;
+    constexpr int kG8 = kN / 8, kQ16 = kN / 16;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-    const int c1 = min(c0 + kXChunk, N);
-    for (int n0 = c0; n0 < c1; n0 += kXN) {
-      for (int i = tid; i < kXM * kXN; i += 256) {
-        const int r = i / kXN, c = i % kXN, n = n0 + c;
-        float v = 0.f;
-        if (m0 + r < M && n < c1)
-          v = to_f(g[(size_t)(m0 + r) * N + n]) * (n < NS ? scale[n] : 0.f);
-        gsm[r * kXStride + c] = __float2bfloat16(v);
-      }
-      // 16 int8 columns of one q row -> 16 bf16 at qsm[k][c..c+15]
-      for (int t = tid; t < kXK * (kXN / 16); t += 256) {
-        const int r = t / (kXN / 16), cg = t % (kXN / 16);
-        const int k = k0 + r, n = n0 + cg * 16;
-        int4 raw = make_int4(0, 0, 0, 0);
-        if (k < K && n < NP)
-          raw = *reinterpret_cast<const int4*>(q + (size_t)k * NP + n);
-        const int8_t* wb = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 16; j += 2)
-          *reinterpret_cast<__nv_bfloat162*>(qsm + r * kXStride + cg * 16 +
-                                             j) =
-              __floats2bfloat162_rn(to_f(wb[j]), to_f(wb[j + 1]));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kXN; kk += 16) {
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* ap =
-              gsm + (wm * 32 + i * 16 + gr) * kXStride + kk + tig * 2;
-          af[i][0] = *reinterpret_cast<const uint32_t*>(ap);
-          af[i][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * kXStride);
-          af[i][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-          af[i][3] =
-              *reinterpret_cast<const uint32_t*>(ap + 8 * kXStride + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat16* bp =
-              qsm + (wk * 32 + j * 8 + gr) * kXStride + kk + tig * 2;
-          bf[j][0] = *reinterpret_cast<const uint32_t*>(bp);
-          bf[j][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_bf16_16816(part[i][j], af[i], bf[j]);
-      }
-      __syncthreads();
+    for (int it = 0; it < kXM * kG8 / kXThreads; ++it) {
+      if (it % (kN / 16) != piece) continue;
+      const int i = it * kXThreads + tid, r = i / kG8, c = (i % kG8) * 8;
+      float x[8], sc[8];
+      load8(gs + r * kN + c, x);
+      load8(ss + c, sc);
+      uint4 pk;
+      pk.x = pack_bf16(x[0] * sc[0], x[1] * sc[1]);
+      pk.y = pack_bf16(x[2] * sc[2], x[3] * sc[3]);
+      pk.z = pack_bf16(x[4] * sc[4], x[5] * sc[5]);
+      pk.w = pack_bf16(x[6] * sc[6], x[7] * sc[7]);
+      *reinterpret_cast<uint4*>(gb + r * kRow + c) = pk;
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int it = 0; it < kXK * kQ16 / kXThreads; ++it) {
+      if (it % (kN / 16) != piece) continue;
+      const int i = it * kXThreads + tid, r = i / kQ16, c = (i % kQ16) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(qs + r * kN + c);
+      uint32_t b[8];
+      i8x4_to_bf16(raw.x, b);
+      i8x4_to_bf16(raw.y, b + 2);
+      i8x4_to_bf16(raw.z, b + 4);
+      i8x4_to_bf16(raw.w, b + 6);
+      *reinterpret_cast<uint4*>(qb + r * kRow + c) =
+          make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(qb + r * kRow + c + 8) =
+          make_uint4(b[4], b[5], b[6], b[7]);
+    }
+  };
+
+  // the running sums and, chunked, the current chunk's
+  float acc[4][kNT][4] = {}, part[4][kNT][4] = {};
+  auto& sum = pick<XCfg<T>::kChunked>(part, acc);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  for (int j = 0; j < kStages; ++j) {
+    if (j < n_steps) load(j);
+    cp_async_commit();
   }
+  cp_async_wait<kStages - 1>();   // stage 0 has landed
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int kk = 0; kk < kN / 16; ++kk) convert(0, kk);
+  for (int j = 0; j < n_steps; ++j) {
+    cp_async_wait<kStages - 2>();   // stage j + 1 has landed
+    __syncthreads();   // ... for every thread; stage j converted, j - 1's
+                       // buffer and stage j's ring slot read out
+    if (j + kStages < n_steps) load(j + kStages);
+    cp_async_commit();
+    const bf16* gb = conv + (j & 1) * L::kConv;
+    const bf16* qb = gb + kXM * kRow;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      if (j + 1 < n_steps) convert(j + 1, kk);
+      uint32_t af[4][4], bq[kNT / 2][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + i * 16 + gr + (e >= 2 ? 8 : 0);
-        const int col = k0 + wk * 32 + j * 8 + tig * 2 + (e & 1);
-        if (row < M && col < K)
-          out[(size_t)row * K + col] = from_f<T>(acc[i][j][e]);
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(af[i], gb + a_off(wm * 64 + i * 16, kk * 16, kRow));
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np)
+        ldsm_x4(bq[np], qb + bt_off(wk * kWK + np * 16, kk * 16, kRow));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          mma_bf16_16816(sum[i][2 * np], af[i], bq[np]);
+          mma_bf16_16816(sum[i][2 * np + 1], af[i], bq[np] + 2);
+        }
+    }
+    if constexpr (XCfg<T>::kChunked) {
+      if ((j + 1) % (kXChunk / kN) == 0 || j + 1 == n_steps) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jn = 0; jn < kNT; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][jn][e] += part[i][jn][e];
+              part[i][jn][e] = 0.f;
+            }
       }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring and the buffers
+  T* os = reinterpret_cast<T*>(smem);   // [kXM][kXOut]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jn = 0; jn < kNT; ++jn) {
+      const int r = wm * 64 + i * 16 + gr, c = wk * kWK + jn * 8 + tig * 2;
+      store2(os + r * kXOut + c, acc[i][jn][0], acc[i][jn][1]);
+      store2(os + (r + 8) * kXOut + c, acc[i][jn][2], acc[i][jn][3]);
+    }
+  __syncthreads();
+  constexpr int kE = 16 / sizeof(T), kCR = kXK / kE;   // copies a row
+  const bool vec = K % kE == 0;   // out's rows 16-byte aligned
+  for (int i = tid; i < kXM * kCR; i += kXThreads) {
+    const int r = i / kCR, c = (i % kCR) * kE;
+    const int row = m0 + r, col = k0 + c;
+    if (row >= M || col >= K) continue;
+    T* dst = out + (size_t)row * K + col;
+    const T* src = os + r * kXOut + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kE && col + e < K; ++e) dst[e] = src[e];
+    }
+  }
 }
 
 template <typename T>
 int launch_int8_matmul_t(const void* g, const int8_t* q, const float* scale,
                          void* out, int M, int K, int N, int NS, int NP,
                          cudaStream_t stream) {
+  constexpr int smem = XSmem<T>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      int8_matmul_t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int kXK = XCfg<T>::kK;
   dim3 grid((K + kXK - 1) / kXK, (M + kXM - 1) / kXM);
-  int8_matmul_t_kernel<T><<<grid, 256, 0, stream>>>(
+  int8_matmul_t_kernel<T><<<grid, kXThreads, smem, stream>>>(
       (const T*)g, q, scale, (T*)out, M, K, N, NS, NP);
   return (int)cudaGetLastError();
 }

@@ -16,10 +16,11 @@ tensors and runs the plain twin's math for CPU tensors:
   flash_attention_dkv  -> flash_attention_bwd_ref  (dq, dk, dv)
 The kernels take causal attention over S a multiple of 128 and d 64 or
 128, f32 or bf16; anything else raises on CUDA tensors, naming the shape.
-The bf16 backward reads q, k, v and do in place through their strides (the
-layer's [B, S, H, d] projections transposed) and writes dq, dk, dv in the
-same layout; the forward and the f32 backward copy strided inputs to
-contiguous [B, H, S, d].
+In bf16 the kernels read q, k, v and do in place through their strides
+(the layer's [B, S, H, d] projections transposed) and write o, dq, dk, dv
+in the same layout; o is allocated [B, S, H, d] and returned as its
+[B, H, S, d] view, so the layer's transpose back and reshape copy nothing.
+The f32 kernels copy strided inputs to contiguous [B, H, S, d].
 """
 from __future__ import annotations
 
@@ -89,11 +90,6 @@ def _check(q, k, v):
                          f'{tuple(v.shape)}')
 
 
-def _flat(t: torch.Tensor) -> torch.Tensor:
-    """[B, H, S, d] -> contiguous [B*H, S, d] (a copy for a strided view)."""
-    return t.reshape(-1, *t.shape[2:]).contiguous()
-
-
 def _check_kernel(q, k, v, causal, *rest):
     """What the CUDA kernels take; raises otherwise."""
     req = _build.require
@@ -115,18 +111,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_ref(q, k, v, causal=causal,
                                        sm_scale=sm_scale)
     _check_kernel(q, k, v, causal)
+    q, k, v, o = _fwd_operands(q, k, v)
     b, h, s, d = q.shape
-    qf, kf, vf = _flat(q), _flat(k), _flat(v)
-    o = torch.empty_like(qf)
     l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
+    strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, o))
     p = _build.ptr
     err = _build.lib().spt_flash_fwd(
-        _build.dtype_code(q), p(qf), p(kf), p(vf), p(o), p(l), p(m), b * h,
-        s, d, float(sm_scale), _build.stream())
+        _build.dtype_code(q), p(q), p(k), p(v), p(o), p(l), p(m), b, h, s, d,
+        float(sm_scale), strides, _build.stream())
     _build.check(err, 'flash_attention')
     flash_attention_fwd.launches += 1
-    return o.reshape(q.shape), l, m
+    return o, l, m
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -134,7 +130,7 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
-    """q, k, v or do as the backward kernels read it: a bf16 [B, H, S, d]
+    """q, k, v or do as the kernels read it: a bf16 [B, H, S, d]
     view in place when its rows are 16-byte aligned runs (d stride 1, the
     other strides multiples of 8 elements, a 16-byte aligned start); a
     contiguous copy otherwise and in f32 (whose kernels take contiguous
@@ -143,6 +139,18 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
             and all(st % 8 == 0 for st in t.stride()[:-1]) and _aligned(t)):
         return t
     return t.contiguous()
+
+
+def _fwd_operands(q, k, v):
+    """(q, k, v, o) as the forward kernel takes them: q, k, v as `_operand`
+    gives them; o empty, in bf16 the [B, H, S, d] view of a [B, S, H, d]
+    tensor (the layer's layout), in f32 contiguous [B, H, S, d]."""
+    q, k, v = (_operand(t) for t in (q, k, v))
+    if q.dtype != torch.bfloat16:
+        return q, k, v, torch.empty_like(q)
+    b, h, s, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    return q, k, v, o.transpose(1, 2)
 
 
 def _stat(t: torch.Tensor) -> torch.Tensor:
@@ -162,9 +170,10 @@ def _bwd_operands(q, k, v, l, m, do, di, causal):
             + [_stat(t) for t in (l, m, di)])
 
 
-def _bwd_strides(*ts) -> list[int]:
+def _strides(*ts) -> list[int]:
     """(batch, head, row) element strides of each [B, H, S, d] tensor, in
-    the order spt_flash_bwd takes them (q, k, v, do, dq, dk, dv)."""
+    the order spt_flash_fwd (q, k, v, o) and spt_flash_bwd (q, k, v, do,
+    dq, dk, dv) take them."""
     return [st for t in ts for st in t.stride()[:3]]
 
 
@@ -174,7 +183,7 @@ def _launch_bwd(ops, dq, dk, dv, sm_scale, name):
     q, k, v, do, l, m, di = ops
     b, h, s, d = q.shape
     outs = [q if t is None else t for t in (dq, dk, dv)]
-    strides = (ctypes.c_longlong * 21)(*_bwd_strides(q, k, v, do, *outs))
+    strides = (ctypes.c_longlong * 21)(*_strides(q, k, v, do, *outs))
     p = _build.ptr
     err = _build.lib().spt_flash_bwd(
         _build.dtype_code(q), p(q), p(k), p(v), p(do), p(l), p(m), p(di),

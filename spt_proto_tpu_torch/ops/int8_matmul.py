@@ -129,7 +129,9 @@ def int8_matmul_t(g: torch.Tensor, q: torch.Tensor,
     """(g * scale) @ dequant(q)^T: g [..., N] (f32 or bf16, contiguous), q
     [K, N_pad] int8 read in its stored layout, scale [N] f32 -> [..., K] in
     g's dtype. The backward of a frozen int8 weight (dx) without a
-    transposed or dequantized copy of it."""
+    transposed or dequantized copy of it. The kernel copies g, q and the
+    scale 16 / 4 bytes at a time: g's rows must be 16-byte aligned runs
+    (N * itemsize a multiple of 16, an aligned start), q 16-byte aligned."""
     if not _build.on_cuda(g, q, scale):
         return int8_matmul_t_ref(g, q, scale)
     lead, n = g.shape[:-1], g.shape[-1]
@@ -143,7 +145,10 @@ def int8_matmul_t(g: torch.Tensor, q: torch.Tensor,
         f'scale [{ns}] f32 and N_pad {n_pad} (a multiple of 16)')
     req(g.is_contiguous() and q.is_contiguous() and scale.is_contiguous(),
         'inputs must be contiguous')
-    req(q.data_ptr() % 16 == 0, 'q must be 16-byte aligned (vector loads)')
+    req(q.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+        and n * g.element_size() % 16 == 0,
+        f'q and the rows of g [..., {n}] {g.dtype} must be 16-byte aligned '
+        f'(16-byte copies)')
     m = g.numel() // max(n, 1)
     out = torch.empty((*lead, k), dtype=g.dtype, device=g.device)
     if m == 0 or k == 0:

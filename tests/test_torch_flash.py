@@ -96,10 +96,11 @@ def test_twins_match_stock_kernel(d, dtype):
 
 def test_autograd_function_and_wrappers_equal_the_twins():
     """On CPU tensors the autograd Function's output and gradients are the
-    twins' (bit for bit), the dq / dk/dv wrappers and flash_attention_bwd
-    compute the backward twin's, also from the layer's strided views, and
-    no kernel launch is counted; the bf16 backward kernels' operands are
-    such views in place, anything else a contiguous copy."""
+    twins' (bit for bit), flash_attention_fwd, the dq / dk/dv wrappers and
+    flash_attention_bwd compute the twins', also from the layer's strided
+    views, and no kernel launch is counted; the bf16 kernels' operands are
+    such views in place and o is written in the layer's [B, S, H, d]
+    layout, anything else (f32) a contiguous copy and a contiguous o."""
     q, k, v, do = (torch.from_numpy(a) for a in inputs(64, seed=1))
     kw = dict(causal=True, sm_scale=0.125)
     launches = [w.launches for w in (fa.flash_attention_fwd,
@@ -123,6 +124,8 @@ def test_autograd_function_and_wrappers_equal_the_twins():
              for t in (q, k, v, do)]
     qs, ks, vs, dos = views
     assert not qs.is_contiguous()
+    for got, w in zip(fa.flash_attention_fwd(qs, ks, vs, **kw), (o, l, m)):
+        assert torch.equal(got, w)
     assert torch.equal(fa.flash_attention_dq(qs, ks, vs, l, m, dos, di, **kw),
                        want[0])
     dk, dv = fa.flash_attention_dkv(qs, ks, vs, l, m, dos, di, **kw)
@@ -130,13 +133,22 @@ def test_autograd_function_and_wrappers_equal_the_twins():
     for got, w in zip(fa.flash_attention_bwd(qs, ks, vs, o, l, m, dos, **kw),
                       want):
         assert torch.equal(got, w)
-    # what the backward kernels read: a bf16 view in place, with its
-    # (batch, head, row) strides; f32, a misaligned start or a broadcast d
-    # as a contiguous copy
+    # what the kernels read: a bf16 view in place, with its (batch, head,
+    # row) strides; f32, a misaligned start or a broadcast d as a
+    # contiguous copy
     bq = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
     assert fa._operand(bq) is bq
-    assert fa._bwd_strides(bq, q) == [256 * 2 * 64, 64, 128,
-                                      2 * 256 * 64, 256 * 64, 64]
+    assert fa._strides(bq, q) == [256 * 2 * 64, 64, 128,
+                                  2 * 256 * 64, 256 * 64, 64]
+    # the forward: bf16 views in place and o the [B, H, S, d] view of a
+    # [B, S, H, d] tensor; f32 contiguous copies and a contiguous o
+    *ins, bo = fa._fwd_operands(bq, bq, bq)
+    assert all(t is bq for t in ins)
+    assert bo.shape == bq.shape and bo.stride() == bq.stride()
+    *ins, fo = fa._fwd_operands(qs, ks, vs)
+    assert all(t.is_contiguous() and torch.equal(t, w)
+               for t, w in zip(ins, (q, k, v)))
+    assert fo.shape == q.shape and fo.is_contiguous()
     odd = torch.zeros(256 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
     for t in (qs, odd.view(1, 256, 2, 64).transpose(1, 2),
               bq[..., :1].expand(bq.shape)):
@@ -241,12 +253,16 @@ PROFILE_KEYS = {'config', 'tuning', 'mode', 'batch', 'seq', 'compile_s',
     ('dense', [], 'forward'), ('dense', ['--backward'], 'train_step'),
     ('lora', [], 'forward'), ('lora', ['--backward'], 'train_step'),
     ('sparse', ['--decode', '--quantized_kv', '--spec_k', '2'], 'decode')])
-def test_profile_cli_on_the_cpu(tuning, flags, mode, capsys):
+def test_profile_cli_on_the_cpu(tuning, flags, mode, capsys, tmp_path):
     """cli.profile.main on the CPU twins at tiny-opt, S 128: the JSON line
     with the JAX CLI's keys, its mode and a positive step time (decode:
-    the speculative block's keys too)."""
+    the speculative block's keys too); the dense train step also with
+    --trace_dir: the trace written, no device operations in it."""
     argv = ['--device', 'cpu', '--config', 'tiny-opt', '--seq_length',
             '128', '--batch_size', '2', '--iters', '2', '--tuning', tuning]
+    traced = tuning == 'dense' and mode == 'train_step'
+    if traced:
+        flags = flags + ['--trace_dir', str(tmp_path)]
     out = profile.main(argv + flags)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == out and PROFILE_KEYS <= set(line)
@@ -254,6 +270,8 @@ def test_profile_cli_on_the_cpu(tuning, flags, mode, capsys):
     assert line['seq'] == 128 and line['step_ms'] > 0
     assert line['memory'] == {}
     assert ('spec_block_ms' in line) == (mode == 'decode')
+    assert line.get('trace_top') == ([] if traced else None)
+    assert (tmp_path / 'trace.json').exists() == traced
 
 
 def test_tune_cli_dense_stages(tmp_path, capsys):

@@ -60,8 +60,9 @@ def int8_weight(r, k, n):
 
 
 # (m, K, N): K and N off the 128 / 256 tiles; N spans one and three 256
-# chunks; the scale is narrower than q (N_pad)
-T_SHAPES = [(37, 300, 200), (70, 96, 600)]
+# chunks; the scale is narrower than q (N_pad); m 130, K 200, N 264 cross
+# the CUDA kernel's 128-row tiles and its 32 / 64-column steps
+T_SHAPES = [(37, 300, 200), (70, 96, 600), (130, 200, 264)]
 
 
 @pytest.mark.parametrize('shape', T_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
