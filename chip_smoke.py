@@ -20,7 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    2048, sparse tables) and over an int8 cache (sparse tables, and dense
    supertiles of 4 through one table row; and both at Llama-3-8B's G = 4),
    the lm_head argmax (fp, and int8 at OPT-125M and OPT-1.3B widths; both
-   at d 4096 over 128,256 and 32,000 tokens), block-sparse prefill
+   at d 4096 over 128,256 and 32,000 tokens; and both at LLaMA-13B's d
+   5120 over OPT's ragged 50,272 tokens at B 1, 4, 8, 13 and 40, on
+   random inputs and on integer-valued ones whose planted winners and ties
+   -- across CTA tiles, warps, lanes and one thread's columns, in the
+   ragged last tile, in the last true column against larger int8 pad
+   columns -- the ids must match exactly), block-sparse prefill
    attention (d_head 64 and 128, at S=2048 and with off-diagonal and -1
    entries at S=4096, sparse_coeff 4), the fused FFN tail (fp and int8) at
    OPT-125M and OPT-1.3B widths, the gated tails (fp and int8) at LLaMA-7B
@@ -244,11 +249,12 @@ def log_ptxas(proc, pattern: str) -> None:
 
 
 # sources and mangled-name patterns of the kernels whose registers phase 1
-# logs: flash_*_kernel_tc<D, tile, ...> and int8_matmul_t_kernel<T> (f: f32,
-# 13__nv_bfloat16: bf16)
+# logs: flash_*_kernel_tc<D, tile, ...>, int8_matmul_t_kernel<T> (f: f32,
+# 13__nv_bfloat16: bf16) and lm_head_tc_kernel<W, NG> (a: int8)
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?'),
-    ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E'))
+    ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E'),
+    ('lm_head.cu', r'(lm_head_tc_kernel)I(a|13__nv_bfloat16)Li(\d)E'))
 
 
 class Timer:
@@ -1134,12 +1140,21 @@ def chosen_logit_gap(logits, ids, dtype):
     return gap, logits.abs().max(-1).values * rel, rel
 
 
-def check_lm_head(dtype, timer=None, d=D, vocab=VOCAB):
-    """lm_head_argmax vs its twin: x [B, d] @ w [d, vocab] (OPT-125M's head,
+def head_rate(res, n_bytes) -> None:
+    """The bytes a timed head call must move over its time: GB/s, and the
+    share of the 3.35 TB/s line; logged."""
+    res['gb_s'] = n_bytes / res['ms'] / 1e6
+    res['hbm_share'] = res['gb_s'] * 1e9 / HBM_BYTES_PER_S
+    log(f'      {res["gb_s"]:.0f} GB/s = {res["hbm_share"]:.3f} of '
+        f'{HBM_BYTES_PER_S / 1e12:g} TB/s')
+
+
+def check_lm_head(dtype, timer=None, d=D, vocab=VOCAB, b=B):
+    """lm_head_argmax vs its twin: x [b, d] @ w [d, vocab] (OPT-125M's head,
     or LLaMA's at d 4096 with the 128,256 or the 32,000 vocabulary)."""
     from spt_proto_tpu_torch.ops import lm_head as m
     g = gen(SEED + 3)
-    x = randn(g, (B, d), dtype)
+    x = randn(g, (b, d), dtype)
     w = randn(g, (d, vocab), dtype, std=d ** -0.5)
     got = m.lm_head_argmax(x, w)
     want = m.lm_head_argmax_ref(x, w)
@@ -1147,7 +1162,7 @@ def check_lm_head(dtype, timer=None, d=D, vocab=VOCAB):
     logits = (x.float() @ w.float()).to(dtype).float()
     gap, step, rel = chosen_logit_gap(logits, got, dtype)
     err = gap.max().item()
-    label = f'lm_head_argmax d={d} V={vocab}'
+    label = f'lm_head_argmax B={b} d={d} V={vocab}'
     require(bool((gap <= step).all()) and got.dtype == torch.int32,
             f'{label} {dtype}: ids {got.tolist()} vs {want.tolist()}')
     log(f'  {label} {str(dtype):14s} ids equal: '
@@ -1159,8 +1174,84 @@ def check_lm_head(dtype, timer=None, d=D, vocab=VOCAB):
         res['plain_ms'] = timer.ms(lambda: m.lm_head_argmax_ref(x, w))
         res['library_ms'] = timer.ms(lambda: torch.argmax(x @ w, -1))
         res['bound_ms'], res['bound_by'] = bound_ms(
-            nbytes(x, w, got), 2 * B * d * vocab, dtype)
+            nbytes(x, w, got), 2 * b * d * vocab, dtype)
         log_times(res)
+        head_rate(res, nbytes(x, w, got))
+    return res
+
+
+# the heads' edge cases: LLaMA-13B's d_model (config.py, the widest the
+# repo configures) over OPT's vocabulary (50,272: the last 128-column tile
+# is ragged), at B 1, 4, 8, 13 (a ragged n8 group) and 40 (row groups of 16)
+HEAD_EDGE_D, HEAD_EDGE_B = 5120, (1, 4, 8, 13, 40)
+
+
+def head_edge_inputs(dtype, int8):
+    """Integer-valued x [40, d] and head [d, V] (int8: {'q' [d, V padded to
+    256], 'scale' [1, V] of powers of two}) with planted winners, so that
+    every logit is exact and planted ties are real ties. Returns (x, w,
+    {row: the id that must win})."""
+    v = VOCAB
+    g = gen(SEED + 12)
+    x = torch.randint(-3, 4, (max(HEAD_EDGE_B), HEAD_EDGE_D), generator=g,
+                      device=DEV).float()
+    v_pad = -(-v // 256) * 256 if int8 else v
+    w = torch.randint(-3, 4, (HEAD_EDGE_D, v_pad), generator=g,
+                      device=DEV).float()
+    plant = {0: (300, 700),        # a tie across two CTA tiles
+             1: (v - 1,),          # the last true column (ragged tile)
+             2: (1030, 1100),      # a tie inside one tile, two warps
+             3: (2049, 2057),      # one fragment: a thread's rows g, g + 8
+             4: (2050, 2051),      # one fragment: int8's columns 2c, 2c + 1
+             9: (40000, 45000),    # the second n8 group, across tiles
+             12: (50200, 50201),   # the ragged last tile, one fragment
+             35: (600, 601)}       # the third row group of 16
+    for r, cols in plant.items():
+        for c in cols:
+            w[:, c] = 20 * x[r]
+    want = {r: min(cols) for r, cols in plant.items()}
+    x = x.to(dtype)
+    if not int8:
+        return x, w.to(dtype), want
+    w[:, v:] = 40 * x[1].float()[:, None]   # pad columns: row 1 wins if read
+    scale = 2.0 ** torch.randint(-7, -4, (1, v), generator=g, device=DEV)
+    for cols in plant.values():
+        scale[0, list(cols)] = 2.0 ** -6
+    return x, {'q': w.to(torch.int8), 'scale': scale.float()}, want
+
+
+def check_lm_head_edges(dtype):
+    """Both heads on head_edge_inputs at every HEAD_EDGE_B: the ids must
+    equal the twin's and the planted winners exactly; then random inputs
+    at the same shapes by the chosen-logit rule (untimed). Returns, by
+    head, the planted rows and the random inputs' largest chosen-logit
+    gap."""
+    from spt_proto_tpu_torch.ops import lm_head as m
+    res = {}
+    for int8 in (False, True):
+        fn, ref = ((m.lm_head_argmax_int8, m.lm_head_argmax_int8_ref) if int8
+                   else (m.lm_head_argmax, m.lm_head_argmax_ref))
+        x, w, plant = head_edge_inputs(dtype, int8)
+        for b in HEAD_EDGE_B:
+            got = fn(x[:b].contiguous(), w)
+            want = ref(x[:b].contiguous(), w)
+            sync()
+            planted = {r: got[r].item() for r in plant if r < b}
+            require(torch.equal(got, want) and all(
+                planted[r] == plant[r] for r in planted),
+                f'{fn.__name__} {dtype} B={b} planted ties: ids '
+                f'{got.tolist()} vs twin {want.tolist()}; planted rows '
+                f'{planted} vs {plant}')
+        log(f'  {fn.__name__} {str(dtype):14s} planted ties / ragged tile '
+            f'/ pad columns, d={HEAD_EDGE_D} V={VOCAB}, B '
+            f'{list(HEAD_EDGE_B)}: ids equal to the twin and the plants')
+        del x, w
+        errs = [(check_lm_head_int8(dtype, HEAD_EDGE_D, b=b) if int8
+                 else check_lm_head(dtype, d=HEAD_EDGE_D, b=b))['max_abs_err']
+                for b in HEAD_EDGE_B]
+        res[fn.__name__] = {f'edges d={HEAD_EDGE_D} V={VOCAB}': dict(
+            batch_sizes=list(HEAD_EDGE_B), planted=plant,
+            random_max_abs_err=max(errs))}
     return res
 
 
@@ -1392,13 +1483,13 @@ def check_tgmm(dtype, timer=None):
     return dict(res['lora_left2 grad tgmm(h, g_hl)'], **res)
 
 
-def check_lm_head_int8(dtype, d, timer=None, vocab=VOCAB):
+def check_lm_head_int8(dtype, d, timer=None, vocab=VOCAB, b=B):
     """lm_head_argmax_int8 vs its twin over the int8 head [d, vocab padded
     to 256] with the true vocab (OPT's 50,272, or LLaMA's 128,256 and
     32,000)."""
     from spt_proto_tpu_torch.ops import lm_head as m
     g = gen(SEED + 8)
-    x = randn(g, (B, d), dtype)
+    x = randn(g, (b, d), dtype)
     wq = int8_weight(g, d, vocab, dtype)
     got = m.lm_head_argmax_int8(x, wq)
     want = m.lm_head_argmax_int8_ref(x, wq)
@@ -1406,7 +1497,7 @@ def check_lm_head_int8(dtype, d, timer=None, vocab=VOCAB):
     logits = m.int8_head_logits(x, wq['q'], wq['scale'])
     gap, step, rel = chosen_logit_gap(logits, got, dtype)
     err = gap.max().item()
-    label = f'lm_head_argmax_int8 d={d} V={vocab}'
+    label = f'lm_head_argmax_int8 B={b} d={d} V={vocab}'
     require(bool((gap <= step).all()) and got.dtype == torch.int32
             and bool((got < vocab).all()),
             f'{label} {dtype}: ids {got.tolist()} vs {want.tolist()}')
@@ -1423,8 +1514,9 @@ def check_lm_head_int8(dtype, d, timer=None, vocab=VOCAB):
         del w_dq
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(x, wq['q'][:, :vocab], wq['scale'], got),
-            2 * B * d * vocab, torch.bfloat16)
+            2 * b * d * vocab, torch.bfloat16)
         log_times(res)
+        head_rate(res, nbytes(x, wq['q'][:, :vocab], wq['scale'], got))
     return res
 
 
@@ -1796,6 +1888,7 @@ def phase_kernels(timer):
             dtype, t, D_LL, v) for v in (VOCAB_38B, VOCAB_7B)}
         r_head8_ll = {f'llama d={D_LL} V={v}': check_lm_head_int8(
             dtype, D_LL, t, v) for v in (VOCAB_38B, VOCAB_7B)}
+        r_edges = check_lm_head_edges(dtype)
         r_bsa_ll = check_block_sparse(dtype, PROMPT, 8, t, B * HEADS_LL,
                                       DH_LL, N_SUB_LL)
         check_block_sparse(dtype, 2 * PROMPT, 4, None, HEADS_LL, DH_LL,
@@ -1834,7 +1927,8 @@ def phase_kernels(timer):
                     gqa_llama_3_8b_dense_96_tiles=r_walk[True]),
                 paged_attention=dict(r_paged['opt-125m fp'], **r_paged),
                 decode_attention=r_pool,
-                lm_head_argmax=dict(r_head, **r_head_ll),
+                lm_head_argmax=dict(r_head, **r_head_ll,
+                                    **r_edges['lm_head_argmax']),
                 block_sparse_attention=dict(r_bsa, llama_d_head_128=r_bsa_ll),
                 **r_train,
                 decode_attention_rows=dict(
@@ -1851,7 +1945,8 @@ def phase_kernels(timer):
                     shape: r[n] for shape, r in r_flash.items()})
                    for n in FLASH_KERNELS},
                 lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
-                                         **r_head8_ll),
+                                         **r_head8_ll,
+                                         **r_edges['lm_head_argmax_int8']),
                 ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13),
                 verify_attention_rows=dict(r_ver['opt-125m union'],
                                            **r_ver),
@@ -4374,8 +4469,8 @@ def main() -> int:
 
     log('phase 1: build')
     # registers and spills of the tensor-core kernels (the bf16 flash
-    # forward and backward, int8_matmul_t), compiled once more with -Xptxas
-    # -v beside the build
+    # forward and backward, int8_matmul_t, the bf16 heads), compiled once
+    # more with -Xptxas -v beside the build
     ptxas = [(start_ptxas(src), pattern) for src, pattern in PTXAS_KERNELS]
     try:
         log(f'  kernels built and loaded in {_build.build_timed():.1f} s')

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's OPT decode kernels, or its flash-attention or
-int8_matmul_t kernels, or end-to-end training steps, from several
-checkouts, in turns, on one CUDA card.
+int8_matmul_t kernels, or its greedy heads and LLaMA decode steps, or
+end-to-end training steps, from several checkouts, in turns, on one CUDA
+card.
 
     python3 kernel_ab.py PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --flash PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --int8t PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --head PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --e2e PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
@@ -16,7 +18,14 @@ lm_head_argmax at OPT-125M serving shapes; or (--flash) the flash forward,
 dq and dk/dv at the checkout's chip_smoke.FLASH_SHAPES of S 512 and 2048,
 each checked against its twin first (check_flash); or (--int8t)
 int8_matmul_t at chip_smoke.INT8_T_SHAPES, each checked first
-(check_int8_matmul_t); or (--e2e) with chip_smoke's own runs: cli.profile
+(check_int8_matmul_t); or (--head) lm_head_argmax and lm_head_argmax_int8
+at HEAD_SHAPES (B=8), each checked first (check_lm_head /
+check_lm_head_int8) and timed beside argmax(x @ W), also from a clean L2
+(clean_timer), then phase 6's decode steps (serving_run, LLAMA_LAYERS
+deep, prompt 2048, 32 steps): Llama-3-8B B=8 dense bf16-KV, sparse
+int8-KV fp and w8, LLaMA-7B w8 B=4, with ms a step, peak memory and,
+from a profiled 4-step window, the head's and decode_front's device time
+a step; or (--e2e) with chip_smoke's own runs: cli.profile
 at OPT-125M, B=8, S 2048, bf16 (dense forward, dense and lora train
 steps) and cli.tune's LLaMA-7B --int8_base step (bf16, B=4, S=512,
 --remat, phase 10's run), each with its peak memory and losses. One JSON
@@ -30,7 +39,16 @@ import os
 import subprocess
 import sys
 
-MODES = ('--flash', '--int8t', '--e2e')
+MODES = ('--flash', '--int8t', '--head', '--e2e')
+# the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
+# LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
+# 4096 (V 128,256), OPT-1.3B and OPT-125M
+HEAD_SHAPES = (('lm_head_argmax', 4096, 128256),
+               ('lm_head_argmax', 4096, 32000),
+               ('lm_head_argmax', 768, 50272),
+               ('lm_head_argmax_int8', 4096, 128256),
+               ('lm_head_argmax_int8', 2048, 50272),
+               ('lm_head_argmax_int8', 768, 50272))
 
 
 def e2e(cs) -> dict:
@@ -61,6 +79,81 @@ def e2e(cs) -> dict:
     return out
 
 
+class CleanFlush:
+    """A Timer flush that rewrites its 128 MB (which leaves the L2 full of
+    dirty lines that the timed call would write back) and then reads
+    another 128 MB, so that the call finds a cold and clean L2."""
+
+    def __init__(self, flush, other):
+        self.flush, self.other = flush, other
+
+    def zero_(self):
+        self.flush.zero_()
+        self.other.sum()
+
+
+def clean_timer(cs):
+    """chip_smoke's Timer with a CleanFlush."""
+    import torch
+    t = cs.Timer()
+    t.flush = CleanFlush(t.flush, torch.ones(cs.L2_FLUSH_BYTES // 4,
+                                             device=cs.DEV))
+    return t
+
+
+def head(cs, timer) -> dict:
+    """The heads at HEAD_SHAPES, then phase 6's decode steps."""
+    import torch
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        for name, d, v in HEAD_SHAPES:
+            r = (cs.check_lm_head_int8(bf, d, t, v) if name.endswith('int8')
+                 else cs.check_lm_head(bf, t, d, v))
+            out[f'{name} d={d} V={v}{tag} us'] = r['ms'] * 1e3
+            out[f'{name} d={d} V={v}{tag} library us'] = r['library_ms'] * 1e3
+    del t
+    torch.cuda.empty_cache()
+
+    def per_step(prof, key):
+        return sum(t for k, (t, _) in prof['by_kernel'].items()
+                   if key in k) / 4
+
+    for model, b, runs in (
+            ('3-8b', cs.B, (('dense bf16-KV', True, False, None),
+                            ('sparse int8-KV', False, True, None),
+                            ('sparse int8-KV w8', False, True, 'int8'))),
+            ('7b', cs.B_7B, (('sparse int8-KV w8', False, True, 'int8'),))):
+        cfg = cs.llama_cfg(model, cs.MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS)
+        params = init_params(cfg, cs.SEED, device=cs.DEV)
+        tokens = torch.randint(1, cfg.vocab_size, (b, cs.LLAMA_PROMPT),
+                               generator=cs.gen(cs.SEED), device=cs.DEV)
+        for mode, dense, quantized, quant in runs:
+            label = f'{model} B={b} {mode}'
+            iw = InferenceWeights.from_params(
+                cs.llama_cfg(model, cs.MAX_LEN, bf, dense=True,
+                             n_layers=cs.LLAMA_LAYERS) if dense else cfg,
+                cs.dense_params(params) if dense else params, quant=quant)
+            r = cs.serving_run(label, iw, tokens, cs.MAX_LEN, cs.LLAMA_STEPS,
+                               quantized)
+            prof = r['decode_profile']
+            out[f'{label} ms/step'] = r['decode_ms'] / cs.LLAMA_STEPS
+            out[f'{label} peak GB'] = r['peak_mem_gb']
+            out[f'{label} head us/step'] = per_step(prof, 'lm_head')
+            out[f'{label} head reduce us/step'] = per_step(prof,
+                                                           'lm_head_reduce')
+            out[f'{label} decode_front us/step'] = per_step(prof,
+                                                            'decode_front')
+            out[f'{label} busy'] = prof['busy_share']
+            del iw
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def one(root: str, mode: str | None) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -84,6 +177,8 @@ def one(root: str, mode: str | None) -> dict:
             res = cs.check_int8_matmul_t(bf, m, k, n, timer)
             out[f'{name} us'] = res['ms'] * 1e3
         return out
+    if mode == '--head':
+        return dict(out, **head(cs, timer))
     if mode == '--e2e':
         return dict(out, **e2e(cs))
     front = cs.check_front(bf, timer)[0]['ms']

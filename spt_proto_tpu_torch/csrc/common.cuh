@@ -145,6 +145,14 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
 }
 
+// cp_async16_zfill with a hint to fetch the 256-byte L2 sector group: for
+// weight streams whose neighbouring copies read the rest of it
+__device__ __forceinline__ void cp_async16_zfill_l2(void* dst, const void* src,
+                                                    int n) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+}
+
 // 4 bytes global -> shared, zero-filled when `n` is 0 (src then not read)
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
                                                 int n) {

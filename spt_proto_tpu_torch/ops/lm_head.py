@@ -16,7 +16,24 @@ import torch
 from spt_proto_tpu_torch import _build
 from spt_proto_tpu_torch.ops.int8_matmul import SKINNY_M, int8_dot
 
-HEAD_TILE = 128   # vocabulary columns per CTA (csrc/lm_head.cu kHeadTile)
+HEAD_TILE = 128   # the narrowest CTA tile (csrc/lm_head.cu kHeadTile, f32):
+                  # sizes the per-tile partials of either kernel
+F32_MAX_D = 6400  # the f32 kernel's x staging: 8 x d x 4 bytes <= 200 KB
+
+
+def _check_layout(x: torch.Tensor, w: torch.Tensor) -> None:
+    """What the kernels take beyond shapes and dtypes: in f32 d <= F32_MAX_D
+    (x staged at full width); in bf16 16-byte aligned rows and bases of x
+    and w (the weight stream's copies)."""
+    d = x.shape[1]
+    if x.dtype == torch.float32:
+        _build.require(d <= F32_MAX_D, f'd_model {d} too wide for the f32 '
+                       f'kernel (at most {F32_MAX_D})')
+        return
+    _build.require(d % 8 == 0 and w.shape[1] * w.element_size() % 16 == 0
+                   and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                   f'x [{x.shape[0]}, {d}] and w [{d}, {w.shape[1]}] '
+                   f'{w.dtype} need 16-byte aligned rows')
 
 
 def lm_head_argmax_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -36,7 +53,7 @@ def lm_head_argmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                    f'{x.dtype}')
     _build.require(x.is_contiguous() and w.is_contiguous(),
                    'inputs must be contiguous')
-    _build.require(8 * d * 4 <= 200 * 1024, f'd_model {d} too wide')
+    _check_layout(x, w)
     code = _build.dtype_code(x)
     n_tiles = -(-v // HEAD_TILE)
     pval = torch.empty((n_tiles, b), dtype=torch.float32, device=x.device)
@@ -94,7 +111,7 @@ def lm_head_argmax_int8(x: torch.Tensor, wq: dict) -> torch.Tensor:
         f'{tuple(x.shape)}')
     req(x.is_contiguous() and q.is_contiguous() and scale.is_contiguous(),
         'inputs must be contiguous')
-    req(8 * d * 4 <= 200 * 1024, f'd_model {d} too wide')
+    _check_layout(x, q)
     code = _build.dtype_code(x)
     n_tiles = -(-v // HEAD_TILE)
     pval = torch.empty((n_tiles, b), dtype=torch.float32, device=x.device)
