@@ -41,9 +41,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels over a dense Llama-3-8B table of 96 tiles (12,288 tokens: the
    two-pass walk); the int8_base backward's int8_matmul_t (dx at LLaMA-7B's
    q/o, gate/side and down, m 2,048, and OPT-125M's fc1 / fc2, m 4,096),
-   gmm (the five grouped products of routed_ffn_lora_gmm's forward and
-   dlhs at OPT-125M's tune shape: 8,192 sorted rows in 4 groups, one empty,
-   LoRA rank 16) and tgmm (the two LoRA factors' gradients), and the verify
+   gmm (the eight grouped products a layer of routed_ffn_lora_gmm runs,
+   forward and dlhs, at OPT-125M's tune shape: 8,192 sorted rows in 4
+   groups, one empty, LoRA rank 16, each on the kernel and tile shape the
+   wrapper's rule picks, plus off-path shapes for every tile shape, rows
+   past the groups and the CUDA-core kernel) and tgmm (the two LoRA
+   factors' gradients, w1's full-width gradient, off-path shapes), and the verify
    kernel at K = 30, G = 4 (120 rows: split across CTAs); the flash-attention
    forward (o, l, m), dq and dk/dv kernels at OPT-125M's training shape
    ([8, 12, 512, 64], f32 and bf16), at S 2048 (bf16), at LLaMA-7B's
@@ -129,8 +132,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (lr 1e-3, --remat) with and without --int8_base, and at OPT-125M's tune
    defaults with ffn_impl='gmm' (exact launch counts: int8_matmul and
    int8_matmul_t a frozen kernel a layer, twice the forward's under remat;
-   gmm 8 and tgmm 2 a layer); step ms, tok/s, peak memory, busy, the
-   kernels' time in situ; then w8 serving of a tuned (routed + LoRA)
+   gmm 8 and tgmm 2 a layer; every gmm / tgmm call of the gmm run's first
+   warm-up step held against its twin at phase 2's bf16 bound, and its
+   profile showing only the tensor-core gmm / tgmm kernels); step ms,
+   tok/s, peak memory, busy, the kernels' time in situ; then w8 serving of a tuned (routed + LoRA)
    OPT-125M checkpoint against the CPU twins by phase 3's w8 rule;
 11. dense and LoRA-stage training and forward (dense causal attention
    through the flash-attention kernels): f32 parity of 3 train steps on the
@@ -250,11 +255,13 @@ def log_ptxas(proc, pattern: str) -> None:
 
 # sources and mangled-name patterns of the kernels whose registers phase 1
 # logs: flash_*_kernel_tc<D, tile, ...>, int8_matmul_t_kernel<T> (f: f32,
-# 13__nv_bfloat16: bf16) and lm_head_tc_kernel<W, NG> (a: int8)
+# 13__nv_bfloat16: bf16), lm_head_tc_kernel<W, NG> (a: int8) and
+# gmm_tc_kernel<Tile, KMAJ> / tgmm_tc_kernel<Tile>
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?'),
     ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E'),
-    ('lm_head.cu', r'(lm_head_tc_kernel)I(a|13__nv_bfloat16)Li(\d)E'))
+    ('lm_head.cu', r'(lm_head_tc_kernel)I(a|13__nv_bfloat16)Li(\d)E'),
+    ('gmm.cu', r'(t?gmm_tc_kernel)INS_\d+([A-Za-z0-9]+?)E(?:Lb([01])E)?'))
 
 
 class Timer:
@@ -1337,10 +1344,12 @@ def check_int8_matmul_t(dtype, m, k, n, timer=None):
 
 # gmm / tgmm at OPT-125M's tune shape (ffn_impl='gmm'): B=8 x S=512 tokens
 # x top 2 of 4 blocks = 8,192 sorted rows, d_model 768, blocks of 768, LoRA
-# rank 16; group sizes with an empty group and boundaries inside 64-row
-# tiles
+# rank 16; group sizes with an empty group and boundaries (3000, 5900)
+# inside a row tile of every kernel (gmm_boundaries_inside_tiles)
 GMM_SIZES = (3000, 0, 2900, 2292)
 GMM_R = 16
+# an edge case's groups: rows 890-999 lie past every group (zeros)
+GMM_SIZES_SHORT, GMM_M_SHORT = (300, 0, 400, 190), 1000
 
 
 def grouped_mm_library(a, b, sizes, want, one_group):
@@ -1389,72 +1398,173 @@ def gmm_operands(dtype, g_):
         g=randn(g_, (m, D), dtype), g_r=randn(g_, (m, GMM_R), dtype))
 
 
-def check_gmm(dtype, timer=None):
-    """gmm vs its twin at the tune shape: the four forward products of
-    routed_ffn_lora_gmm (x @ w1 through the strided block view, h @ w2,
-    xl @ lora_right1^T with transpose_rhs, h @ lora_left2) and the
-    backward's dlhs of w1 (transpose_rhs on the view); the kernel line
-    reports x @ w1. f32 to 1e-5, bf16 one bf16 step."""
+def gmm_edge_operands(dtype, g_):
+    """Shapes off the main path, one for each tile shape and rhs layout
+    the main path does not take, a ragged one, rows past every group, and
+    one the wrapper sends to the CUDA-core kernel: {name: (lhs, rhs,
+    transpose_rhs, sizes)}."""
+    m, n_blk = sum(GMM_SIZES), len(GMM_SIZES)
+    sizes = torch.tensor(GMM_SIZES, dtype=torch.int32, device=DEV)
+    short = torch.tensor(GMM_SIZES_SHORT, dtype=torch.int32, device=DEV)
+    x_short = randn(g_, (GMM_M_SHORT, D), dtype)
+    return {
+        'n 32 k-major': (randn(g_, (m, D), dtype),
+                         randn(g_, (n_blk, 32, D), dtype, std=D ** -0.5),
+                         True, sizes),
+        'k 16 n-major': (randn(g_, (m, GMM_R), dtype),
+                         randn(g_, (n_blk, GMM_R, D), dtype), False, sizes),
+        'ragged k 200 n 136': (randn(g_, (m, 200), dtype),
+                               randn(g_, (n_blk, 200, 136), dtype,
+                                     std=200 ** -0.5), False, sizes),
+        'rows past the groups (wide)': (
+            x_short, randn(g_, (n_blk, D, D), dtype, std=D ** -0.5), False,
+            short),
+        'rows past the groups (n 16)': (
+            x_short, randn(g_, (n_blk, D, GMM_R), dtype, std=D ** -0.5),
+            False, short),
+        'k 100 (cuda-core)': (randn(g_, (m, 100), dtype),
+                              randn(g_, (n_blk, 100, 200), dtype,
+                                    std=0.1), False, sizes)}
+
+
+def gmm_boundaries_inside_tiles():
+    """GMM_SIZES' group boundaries lie inside a row tile of every kernel
+    (gmm's BM: 64 narrow, 96 wide, 128 thin, csrc/gmm.cu; tgmm's R at the
+    tune shape), so that the checks take the straddling-tile path."""
     from spt_proto_tpu_torch.ops import gmm as mm
+    ends = np.cumsum(GMM_SIZES)[:-1]
+    m = sum(GMM_SIZES)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [64, 96, 128] + [mm.tgmm_plan(m, D, n, len(GMM_SIZES), n_sm)[1]
+                        for n in (GMM_R, 32)]
+    require(all(e % r for e in ends for r in rows),
+            f'group ends {ends} must lie inside row tiles of {rows}')
+
+
+def check_gmm(dtype, timer=None):
+    """gmm vs its twin at the tune shape: the eight products a layer of
+    routed_ffn_lora_gmm runs (x @ w1 through the strided block view, h @
+    w2, xl @ lora_right1^T with transpose_rhs, h @ lora_left2, and the
+    backward's four dlhs), each on the kernel the wrapper's rule picks
+    (bf16: the tensor-core tiles; f32: the CUDA-core kernel), timed; then
+    gmm_edge_operands, untimed. The kernel line reports x @ w1. f32 to
+    1e-5, bf16 one bf16 step."""
+    from spt_proto_tpu_torch.ops import gmm as mm
+    gmm_boundaries_inside_tiles()
     o = gmm_operands(dtype, gen(SEED + 14))
     sizes = o['sizes']
+    bf = dtype == torch.bfloat16
     cases = {
-        'x @ w1 (block view)': (o['x'], o['w1'], False),
-        'h @ w2': (o['x'], o['w2'], False),
-        'xl @ lora_right1^T (r 16)': (o['xl'], o['lr1'], True),
-        'h @ lora_left2 (n 16)': (o['x'], o['ll2'], False),
-        'dlhs g @ w1^T': (o['g'], o['w1'], True)}
+        'x @ w1 (block view)': (o['x'], o['w1'], False, 'wide'),
+        'h @ w2': (o['x'], o['w2'], False, 'wide'),
+        'xl @ lora_right1^T (r 16)': (o['xl'], o['lr1'], True,
+                                      'thin k-major'),
+        'h @ lora_left2 (n 16)': (o['x'], o['ll2'], False, 'narrow16'),
+        'dlhs g @ w1^T': (o['g'], o['w1'], True, 'wide k-major'),
+        'dlhs g @ w2^T': (o['g'], o['w2'], True, 'wide k-major'),
+        # lora_right1's layout [4, 768, 16], with the 768^-0.5 scale of
+        # the other 768-deep products' right operands (lr1's 16^-0.5 puts
+        # its f32 outputs at ~7, past the f32 bound's 1e-5 absolute part)
+        'dlhs g_h @ lora_right1 (n 16)': (o['g'], o['ll2'], False,
+                                          'narrow16'),
+        'dlhs g_hl @ lora_left2^T (k 16)': (o['g_r'], o['ll2'], True,
+                                            'thin k-major')}
+    edges = gmm_edge_operands(dtype, gen(SEED + 18))
+    edge_routes = {'n 32 k-major': 'narrow32 k-major', 'k 16 n-major': 'thin',
+                   'ragged k 200 n 136': 'wide',
+                   'rows past the groups (wide)': 'wide',
+                   'rows past the groups (n 16)': 'narrow16',
+                   'k 100 (cuda-core)': 'cuda-core'}
+    runs = [(name, lhs, rhs, t, sizes, route, True)
+            for name, (lhs, rhs, t, route) in cases.items()]
+    runs += [(name, lhs, rhs, t, sz, edge_routes[name], False)
+             for name, (lhs, rhs, t, sz) in edges.items()]
     res = {}
-    for name, (lhs, rhs, t) in cases.items():
-        got = mm.gmm(lhs, rhs, sizes, transpose_rhs=t)
-        want = mm.gmm_ref(lhs, rhs, sizes, transpose_rhs=t)
+    for name, lhs, rhs, t, sz, route, timed in runs:
+        route = route if bf else 'cuda-core'
+        got_route = mm.gmm_route(lhs, rhs, transpose_rhs=t)
+        require(got_route == route,
+                f'gmm {name} {dtype}: route {got_route}, expected {route}')
+        got = mm.gmm(lhs, rhs, sz, transpose_rhs=t)
+        want = mm.gmm_ref(lhs, rhs, sz, transpose_rhs=t)
         sync()
         err = max_err(got, want)
         require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
                 f'gmm {name} {dtype}: err {err}')
         log(f'  gmm {name} {tuple(lhs.shape)} x {tuple(rhs.shape)} '
-            f'{str(dtype):14s} max err {err:.3g} ({tol_str(dtype)}); groups '
-            f'{GMM_SIZES}')
-        r = dict(max_abs_err=err)
-        if timer is not None:
-            r['ms'] = timer.ms(lambda: mm.gmm(lhs, rhs, sizes,
+            f'{str(dtype):14s} [{route}] max err {err:.3g} '
+            f'({tol_str(dtype)}); groups {tuple(sz.tolist())}')
+        r = dict(max_abs_err=err, route=route)
+        if timer is not None and timed:
+            r['ms'] = timer.ms(lambda: mm.gmm(lhs, rhs, sz,
                                               transpose_rhs=t))
             r['plain_ms'] = timer.ms(lambda: mm.gmm_ref(
-                lhs, rhs, sizes, transpose_rhs=t), reps=5)
+                lhs, rhs, sz, transpose_rhs=t), reps=5)
             lib, fn = grouped_mm_library(
-                lhs, rhs.transpose(1, 2) if t else rhs, sizes, want,
+                lhs, rhs.transpose(1, 2) if t else rhs, sz, want,
                 lambda a, b, lo, hi, g: a[lo:hi] @ b[g])
             r['library_ms'], r['library'] = timer.ms(fn), lib
             n = got.shape[1]
             r['bound_ms'], r['bound_by'] = bound_ms(
-                nbytes(lhs, rhs, sizes, got),
+                nbytes(lhs, rhs, sz, got),
                 2 * lhs.shape[0] * lhs.shape[1] * n, dtype)
             log_times(r)
             log(f'      library: {lib}')
         res[name] = r
+        del got, want
     return dict(res['x @ w1 (block view)'], **res)
+
+
+def tgmm_route(lhs, rhs, sizes) -> str:
+    """The kernels tgmm launches: 'wide' / 'narrow16' / 'narrow32' with
+    the row tile R ('whole groups' when R >= m), or 'cuda-core'."""
+    from spt_proto_tpu_torch.ops import gmm as mm
+    if not mm.tgmm_takes_tc(lhs, rhs):
+        return 'cuda-core'
+    m = lhs.shape[0]
+    tile, rows, _, _ = mm.tgmm_plan(
+        m, lhs.shape[1], rhs.shape[1], sizes.shape[0],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f'{mm.TILE_NAMES[tile]} '
+            + ('whole groups' if rows >= m else f'R {rows}'))
 
 
 def check_tgmm(dtype, timer=None):
     """tgmm vs its twin at the tune shape: the two LoRA factors' gradients
     of routed_ffn_lora_gmm, lora_left2's tgmm(h, g_hl) [4, 768, 16] (the
-    kernel line's) and lora_right1's tgmm(g_h, xl) [4, 768, 16]; the empty
-    group must come out zero. The library yardstick is torch._grouped_mm
-    with the offsets along the contraction (lhs^T [k, m] x rhs [m, n]),
-    else a per-group torch.matmul loop (lhs[rows]^T @ rhs[rows]), labelled
-    as such. Each output sums ~3,000
+    kernel line's) and lora_right1's tgmm(g_h, xl) [4, 768, 16], and w1's
+    full-width gradient tgmm(x, g_h) [4, 768, 768] (a trained base),
+    timed; then, untimed, n 32, rows past every group and k 100 (the
+    CUDA-core kernel). The empty group must come out zero. The library
+    yardstick is torch._grouped_mm with the offsets along the contraction
+    (lhs^T [k, m] x rhs [m, n]), else a per-group torch.matmul loop
+    (lhs[rows]^T @ rhs[rows]), labelled as such. Each output sums ~3,000
     rows, in another order than the twin's: entries near 0 carry the
     rounding of the largest, so f32 is held to 1e-5 of the output's
     largest entry (+ 1e-5 relative); bf16 inputs as `tolerance`."""
     from spt_proto_tpu_torch.ops import gmm as mm
     o = gmm_operands(dtype, gen(SEED + 15))
     sizes = o['sizes']
-    cases = {'lora_left2 grad tgmm(h, g_hl)': (o['x'], o['g_r']),
-             'lora_right1 grad tgmm(g_h, xl)': (o['g'], o['xl'])}
+    g_ = gen(SEED + 19)
+    m = sum(GMM_SIZES)
+    short = torch.tensor(GMM_SIZES_SHORT, dtype=torch.int32, device=DEV)
+    runs = [('lora_left2 grad tgmm(h, g_hl)', o['x'], o['g_r'], sizes, True),
+            ('lora_right1 grad tgmm(g_h, xl)', o['g'], o['xl'], sizes, True),
+            ('w1 grad (full width) tgmm(x, g_h)', o['x'], o['g'], sizes,
+             True),
+            ('n 32', o['x'], randn(g_, (m, 32), dtype), sizes, False),
+            ('rows past the groups', randn(g_, (GMM_M_SHORT, D), dtype),
+             randn(g_, (GMM_M_SHORT, GMM_R), dtype), short, False),
+            ('k 100 (cuda-core)', randn(g_, (m, 100), dtype), o['g_r'],
+             sizes, False)]
     res = {}
-    for name, (lhs, rhs) in cases.items():
-        got = mm.tgmm(lhs, rhs, sizes)
-        want = mm.tgmm_ref(lhs, rhs, sizes)
+    for name, lhs, rhs, sz, timed in runs:
+        route = tgmm_route(lhs, rhs, sz)
+        require((route == 'cuda-core')
+                == (dtype == torch.float32 or name.endswith('(cuda-core)')),
+                f'tgmm {name} {dtype}: route {route}')
+        got = mm.tgmm(lhs, rhs, sz)
+        want = mm.tgmm_ref(lhs, rhs, sz)
         sync()
         err = max_err(got, want)
         tol = ((1e-5 * want.abs().max().item(), 1e-5)
@@ -1463,23 +1573,24 @@ def check_tgmm(dtype, timer=None):
                 f'tgmm {name} {dtype}: err {err}, empty group zero: '
                 f'{not bool(got[1].any())}')
         log(f'  tgmm {name} {tuple(lhs.shape)} x {tuple(rhs.shape)} '
-            f'{str(dtype):14s} max err {err:.3g} ({tol_str(dtype, tol)}); '
-            'empty group zero')
-        r = dict(max_abs_err=err)
-        if timer is not None:
-            r['ms'] = timer.ms(lambda: mm.tgmm(lhs, rhs, sizes))
-            r['plain_ms'] = timer.ms(lambda: mm.tgmm_ref(lhs, rhs, sizes),
+            f'{str(dtype):14s} [{route}] max err {err:.3g} '
+            f'({tol_str(dtype, tol)}); empty group zero')
+        r = dict(max_abs_err=err, route=route)
+        if timer is not None and timed:
+            r['ms'] = timer.ms(lambda: mm.tgmm(lhs, rhs, sz))
+            r['plain_ms'] = timer.ms(lambda: mm.tgmm_ref(lhs, rhs, sz),
                                      reps=5)
             lib, fn = grouped_mm_library(
-                lhs.T, rhs, sizes, want,
+                lhs.T, rhs, sz, want,
                 lambda a, b, lo, hi, g: a[:, lo:hi] @ b[lo:hi])
             r['library_ms'], r['library'] = timer.ms(fn), lib
             r['bound_ms'], r['bound_by'] = bound_ms(
-                nbytes(lhs, rhs, sizes, got),
+                nbytes(lhs, rhs, sz, got),
                 2 * lhs.shape[0] * lhs.shape[1] * rhs.shape[1], dtype)
             log_times(r)
             log(f'      library: {lib}')
         res[name] = r
+        del got, want
     return dict(res['lora_left2 grad tgmm(h, g_hl)'], **res)
 
 
@@ -3663,10 +3774,16 @@ def gmm_vs_masked(label, cfg, params, batch, m_gmm, grads_gmm):
     return dict(loss_rel=e_loss, worst_grad_rel=worst)
 
 
-def check_recorded_kernels(label, records):
+# phase 2's bf16 bound for outputs (output_tolerance): one bf16 step of the
+# call's largest output + one step relative
+BF16_OUTPUT_TOL = (2 ** -7, 2 ** -7)
+
+
+def check_recorded_kernels(label, records, wrapper_tol=KERNEL_TOL):
     """The kernels' outputs of a training pass against their twins on the
     same CUDA tensors (the run's own q, k, v, selection and output
-    gradient), f32: KERNEL_TOL, for the int8 and grouped matmuls with its
+    gradient), f32: KERNEL_TOL, for the int8 and grouped matmuls (and
+    bf16 runs' grouped matmuls, wrapper_tol BF16_OUTPUT_TOL) with its
     absolute part scaled by the call's largest output. Returns the worst
     error by output."""
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
@@ -3679,7 +3796,8 @@ def check_recorded_kernels(label, records):
             # f32 sums whose terms cancel (the LoRA left factors are
             # normal(1.0)): an entry near 0 carries the rounding of the
             # largest terms, so the bound scales with the call's largest
-            tol = (KERNEL_TOL[0] * want[0].abs().max().item(), KERNEL_TOL[1])
+            tol = (wrapper_tol[0] * want[0].float().abs().max().item(),
+                   wrapper_tol[1])
         elif kind == 'fwd':
             want = m.block_sparse_attention_lse_ref(*args, **kw)
             names = ('o', 'lse')
@@ -3906,18 +4024,26 @@ def train_parity(label, cfg, b, s, variant=None, step_rel=1e-5,
     return out
 
 
-# profiler kernel names of the training kernels (in situ µs)
+# profiler kernel names of the training kernels (in situ µs): a wrapper's
+# kernels, timed together, a call counted once (tgmm: the kernel and its
+# reduce, counted by the first)
 IN_SITU = {
     'block_sparse_attention_lse': lambda k: 'block_sparse_fwd_kernel' in k,
     'block_sparse_attention_dq': lambda k: 'block_sparse_dq_kernel' in k,
     'block_sparse_attention_dkv': lambda k: 'block_sparse_dkv_kernel' in k,
     'int8_matmul': lambda k: 'int8_matmul_tiled_kernel' in k,
     'int8_matmul_t': lambda k: 'int8_matmul_t_kernel' in k,
-    'gmm': lambda k: 'gmm_kernel' in k and 'tgmm_kernel' not in k,
-    'tgmm': lambda k: 'tgmm_kernel' in k,
+    'gmm': lambda k: 'gmm_' in k and 'tgmm_' not in k,
+    'tgmm': lambda k: 'tgmm_' in k,
     'flash_attention': lambda k: 'flash_fwd_kernel' in k,
     'flash_attention_dq': lambda k: 'flash_dq_kernel' in k,
     'flash_attention_dkv': lambda k: 'flash_dkv_kernel' in k}
+# kernels of IN_SITU that are not counted as calls
+IN_SITU_UNCOUNTED = ('tgmm_reduce_kernel',)
+# the bf16 training kernels of the grouped matmuls (phase 10's gmm run
+# must launch no other)
+GMM_TC_KERNELS = {'gmm': ('gmm_tc_kernel',),
+                  'tgmm': ('tgmm_tc_kernel', 'tgmm_reduce_kernel')}
 
 
 class _StopRun(Exception):
@@ -3926,7 +4052,7 @@ class _StopRun(Exception):
 
 
 def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
-              cfg_patch=None, stop_after=False):
+              cfg_patch=None, stop_after=False, check_first=()):
     """cli.tune.main(argv) on the card, TRAIN_WARMUP + `timed` +
     TRAIN_PROFILED steps: each step bracketed by CUDA events, the launch
     counters zeroed after the warm-up and held exactly after the timed
@@ -3935,7 +4061,10 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
     the profiled steps. cfg_patch changes the config the CLI hands its
     training loop (ffn_impl='gmm': the CLI has no flag for it, as JAX's
     has none); stop_after ends the run after the profiled steps, before
-    the CLI writes its checkpoints."""
+    the CLI writes its checkpoints; check_first names wrappers (of
+    WRAPPER_TWINS) whose every call in the first warm-up step is held
+    against its twin on the same tensors (check_recorded_kernels at
+    BF16_OUTPUT_TOL)."""
     from torch.profiler import ProfilerActivity, profile
     from spt_proto_tpu_torch.cli import tune
     from spt_proto_tpu_torch.tuning import trainer
@@ -3969,7 +4098,20 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
                 rec['window'][0].record()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            state, m = step(state, batch)
+            if i == 0 and check_first:
+                records = []
+                undo = record_wrappers(check_first, records)
+                try:
+                    state, m = step(state, batch)
+                finally:
+                    undo()
+                rec['first_step_check'] = dict(
+                    calls=dict(collections.Counter(r[0] for r in records)),
+                    worst=check_recorded_kernels(label, records,
+                                                 BF16_OUTPUT_TOL))
+                del records
+            else:
+                state, m = step(state, batch)
             ev[1].record()
             rec['events'].append(ev)
             rec['losses'].append(m['loss'].detach())
@@ -4005,15 +4147,20 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
             f'{label} losses {losses}')
     prof = profile_summary(label, rec['prof'], rec['window'][0].elapsed_time(
         rec['window'][1]) * 1e3)
-    in_situ = {}
+    in_situ, in_situ_names = {}, {}
     for n in per_layer:
-        hits = [(t, c) for k, (t, c) in prof['by_kernel'].items()
+        hits = [(k, t, c) for k, (t, c) in prof['by_kernel'].items()
                 if IN_SITU[n](k)]
-        in_situ[n] = sum(t for t, _ in hits) / max(1, sum(c for _, c in hits))
+        calls = sum(c for k, _, c in hits
+                    if not any(u in k for u in IN_SITU_UNCOUNTED))
+        in_situ[n] = sum(t for _, t, _ in hits) / max(1, calls)
+        in_situ_names[n] = {k: dict(us=t / c, calls=c) for k, t, c in hits}
     res = dict(step_ms=step_ms, tok_s=b * s / step_ms * 1e3,
                peak_mem_gb=rec['peak'] / 1e9,
                busy_share=prof['busy_share'],
-               top=prof['top'], kernel_us_in_situ=in_situ, losses=losses,
+               top=prof['top'], kernel_us_in_situ=in_situ,
+               kernel_names_in_situ=in_situ_names, losses=losses,
+               first_step_check=rec.get('first_step_check'),
                launches=rec['counts'],
                launches_per_step={n: c / timed
                                   for n, c in rec['counts'].items()},
@@ -4138,10 +4285,20 @@ def phase_int8_gmm():
     torch.cuda.empty_cache()
     base = ['--device', DEV, '--config', 'opt-125m', '--batch_size', str(B),
             '--dtype', 'bfloat16']
-    runs['train 125M gmm bf16 B=8 S=512'] = train_run(
-        'train 125M gmm bf16 B=8 S=512', base, B, 512, LAYERS,
-        train_launches(opt_config('125m'), 'gmm'),
-        cfg_patch=lambda c: c.replace(ffn_impl='gmm'))
+    per_layer = train_launches(opt_config('125m'), 'gmm')
+    gmm_run = runs['train 125M gmm bf16 B=8 S=512'] = train_run(
+        'train 125M gmm bf16 B=8 S=512', base, B, 512, LAYERS, per_layer,
+        cfg_patch=lambda c: c.replace(ffn_impl='gmm'),
+        check_first=('gmm', 'tgmm'))
+    calls = {n: LAYERS * per_layer[n] for n in GMM_TC_KERNELS}
+    checked = gmm_run['first_step_check']['calls']
+    require(checked == calls, f'first step checked {checked} calls '
+            f'(expected {calls})')
+    for n, kernels in GMM_TC_KERNELS.items():
+        names = sorted(gmm_run['kernel_names_in_situ'][n])
+        require(names and all(any(k in name for k in kernels)
+                              for name in names),
+                f'bf16 {n} launched {names}: only {kernels} expected')
     i8, fp = (runs['train llama-7b int8_base bf16 B=4 S=512'],
               runs['train llama-7b bf16 B=4 S=512'])
     log(f'  LLaMA-7B int8_base vs bf16 base: {i8["step_ms"]:.2f} vs '

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the port's OPT decode kernels, or its flash-attention or
 int8_matmul_t kernels, or its greedy heads and LLaMA decode steps, or
-end-to-end training steps, from several checkouts, in turns, on one CUDA
-card.
+end-to-end training steps, or its grouped matmuls and the gmm tune step,
+from several checkouts, in turns, on one CUDA card.
 
     python3 kernel_ab.py PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --flash PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --int8t PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --head PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --e2e PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --gmm PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -28,7 +29,13 @@ from a profiled 4-step window, the head's and decode_front's device time
 a step; or (--e2e) with chip_smoke's own runs: cli.profile
 at OPT-125M, B=8, S 2048, bf16 (dense forward, dense and lora train
 steps) and cli.tune's LLaMA-7B --int8_base step (bf16, B=4, S=512,
---remat, phase 10's run), each with its peak memory and losses. One JSON
+--remat, phase 10's run), each with its peak memory and losses; or (--gmm)
+the grouped matmuls at OPT-125M's tune shape, each product of
+check_gmm / check_tgmm checked against its twin first and timed beside
+torch._grouped_mm, from a cold L2 and a clean one (clean_timer), then
+phase 10's OPT-125M gmm tune run (bf16, tune
+defaults, ffn_impl='gmm') with its step ms, peak memory and the in-situ us
+of gmm and tgmm (kernel + reduce) a call. One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
 """
@@ -39,7 +46,7 @@ import os
 import subprocess
 import sys
 
-MODES = ('--flash', '--int8t', '--head', '--e2e')
+MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -76,6 +83,41 @@ def e2e(cs) -> dict:
                 'int8_base peak GB': r['peak_mem_gb'],
                 'int8_base losses': r['losses'],
                 'int8_base kernels in situ us': r['kernel_us_in_situ']})
+    return out
+
+
+def gmm(cs, timer) -> dict:
+    """check_gmm / check_tgmm (bf16, timed), then phase 10's OPT-125M gmm
+    tune run."""
+    import torch
+    from spt_proto_tpu_torch.config import opt_config
+    bf = torch.bfloat16
+    out = {}
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        for name, res in (('gmm', cs.check_gmm(bf, t)),
+                          ('tgmm', cs.check_tgmm(bf, t))):
+            for case, r in res.items():
+                if isinstance(r, dict) and 'ms' in r:
+                    out[f'{name} {case}{tag} us'] = r['ms'] * 1e3
+                    out[f'{name} {case}{tag} library us'] = (
+                        r['library_ms'] * 1e3)
+                    out[f'{name} {case} bound us'] = r['bound_ms'] * 1e3
+    del t
+    torch.cuda.empty_cache()
+    argv = ['--device', cs.DEV, '--config', 'opt-125m', '--batch_size',
+            str(cs.B), '--dtype', 'bfloat16']
+    r = cs.train_run('train 125M gmm bf16 B=8 S=512', argv, cs.B, 512,
+                     cs.LAYERS, cs.train_launches(opt_config('125m'), 'gmm'),
+                     cfg_patch=lambda c: c.replace(ffn_impl='gmm'))
+    out.update({'gmm tune step ms': r['step_ms'],
+                'gmm tune peak GB': r['peak_mem_gb'],
+                'gmm tune busy': r['busy_share'],
+                'gmm tune losses': r['losses'],
+                'gmm tune kernels in situ us': {
+                    k: r['kernel_us_in_situ'][k] for k in ('gmm', 'tgmm')},
+                'gmm tune by kernel in situ': {
+                    k: r.get('kernel_names_in_situ', {}).get(k)
+                    for k in ('gmm', 'tgmm')}})
     return out
 
 
@@ -181,6 +223,8 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **head(cs, timer))
     if mode == '--e2e':
         return dict(out, **e2e(cs))
+    if mode == '--gmm':
+        return dict(out, **gmm(cs, timer))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']

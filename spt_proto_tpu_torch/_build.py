@@ -56,6 +56,8 @@ SIGNATURES = {
     'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     'spt_gmm': [_I, _I] + [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P],
     'spt_tgmm': [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    'spt_gmm_tc': [_I, _I] + [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P],
+    'spt_tgmm_tc': [_I] + [_P] * 5 + [_I] * 5 + [_P],
     'spt_tile_pool_attention': [_I] + [_P] * 13 + [_I] * 7 + [_F, _F, _P],
     'spt_flash_fwd': [_I] + [_P] * 6 + [_I] * 4 + [_F, _P, _P],
     'spt_flash_bwd': [_I] + [_P] * 10 + [_I] * 4 + [_F, _P, _P],

@@ -188,4 +188,12 @@ __device__ __forceinline__ int bn_off(int k0, int n0, int kRow) {
          + (lane >> 4) * 8;
 }
 
+// an A operand [16 m][16 k] at (m0, k0) of a tile stored [k][m] (the
+// contraction along the rows; read with .trans)
+__device__ __forceinline__ int at_off(int m0, int k0, int kRow) {
+  const int lane = threadIdx.x & 31;
+  return (k0 + (lane & 7) + (lane >> 4) * 8) * kRow + m0
+         + ((lane >> 3) & 1) * 8;
+}
+
 }  // namespace spt

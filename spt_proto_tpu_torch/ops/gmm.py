@@ -21,8 +21,23 @@ read back to the host.
 
 The wrappers launch csrc/gmm.cu for CUDA tensors and run the plain twins
 (`gmm_ref`, `tgmm_ref`, a loop over the groups) for CPU tensors. Both sum
-in f32 (bf16 inputs multiply exactly); megablox sums in 128-wide tiles of
-k, the kernels in 32-wide ones.
+in f32 (bf16 inputs multiply exactly) and round once; only the order of
+the sums differs (megablox's 128-wide tiles of k, the kernels' 16-wide
+steps).
+
+Which kernel, by dtype and shape alone:
+- gmm with bf16 lhs, rhs and output, k and n multiples of 8, rhs
+  N-contiguous (stride 1 along n, the k and group strides multiples of 8)
+  or K-contiguous (stride 1 along k, the n and group strides multiples of
+  8), lhs and rhs 16-byte aligned: the tensor-core `gmm_tc_kernel`, its
+  tile shape by `gmm_tile(k, n)`: narrow for n <= 16 / 32, thin for k <=
+  32, wide otherwise;
+- tgmm with bf16 inputs, k and n multiples of 8, both 16-byte aligned: the
+  tensor-core `tgmm_tc_kernel` + `tgmm_reduce_kernel`, tile shape and row
+  split by `tgmm_plan`;
+- everything else (f32; an f32 output from bf16 inputs; other shapes,
+  strides or alignments): the CUDA-core / 32-bit-load kernels `gmm_kernel`
+  and `tgmm_kernel`.
 """
 from __future__ import annotations
 
@@ -31,6 +46,20 @@ from typing import Optional
 import torch
 
 from spt_proto_tpu_torch import _build
+
+# tile shapes of the tensor-core kernels: the codes of csrc/gmm.cu's
+# spt_gmm_tc (GmmWide, GmmNarrow16, GmmNarrow32, GmmThin) and spt_tgmm_tc
+# (TgmmWide, TgmmNarrow16, TgmmNarrow32)
+WIDE, NARROW16, NARROW32, THIN = 0, 1, 2, 3
+TILE_NAMES = ('wide', 'narrow16', 'narrow32', 'thin')
+# tgmm's (k tile, n tile, rows a step) by tile code (csrc/gmm.cu Tgmm*)
+TGMM_TILES = {WIDE: (128, 64, 32), NARROW16: (64, 16, 64),
+              NARROW32: (64, 32, 64)}
+# tgmm's row split: the grid aims at this many CTAs an SM (one wave of the
+# narrow tiles), or takes whole groups when the (k, n) tiles of the groups
+# give at least TGMM_WHOLE_GROUPS an SM by themselves
+TGMM_CTAS_PER_SM = 3
+TGMM_WHOLE_GROUPS = 2
 
 
 def _bounds(group_sizes: torch.Tensor, m: int):
@@ -76,6 +105,81 @@ def _check_sizes(group_sizes: torch.Tensor, n_groups: int) -> None:
                    f'{tuple(group_sizes.shape)} {group_sizes.dtype}')
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gmm_tile(k: int, n: int) -> int:
+    """The tensor-core gmm's tile shape for depth k and width n: narrow N
+    (64-row tiles n wide, so that ~132 CTAs stream lhs once), thin K (one
+    stage of 128 x 128 tiles: bound by writing the output), else wide
+    (96 x 128 tiles through a 3-stage ring)."""
+    if n <= 16:
+        return NARROW16
+    if n <= 32:
+        return NARROW32
+    return THIN if k <= 32 else WIDE
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def gmm_route(lhs: torch.Tensor, rhs: torch.Tensor, *,
+              transpose_rhs: bool = False,
+              out_dtype: Optional[torch.dtype] = None) -> str:
+    """The kernel gmm launches for these operands (the module docstring's
+    rule): 'wide', 'narrow16', 'narrow32' or 'thin' with ' k-major' for a
+    K-contiguous rhs (the tensor-core kernel), or 'cuda-core'."""
+    kmaj = _tc_layout(lhs, rhs, transpose_rhs, out_dtype or lhs.dtype)
+    if kmaj is None:
+        return 'cuda-core'
+    kd, n = lhs.shape[1], rhs.shape[1 if transpose_rhs else 2]
+    return TILE_NAMES[gmm_tile(kd, n)] + (' k-major' if kmaj else '')
+
+
+def _tc_layout(lhs, rhs, transpose_rhs, out_dtype) -> Optional[bool]:
+    """Whether the tensor-core gmm's rhs is K-contiguous (True) or
+    N-contiguous (False); None when the call is not one it takes."""
+    s0, s1, s2 = rhs.stride()
+    sk, sn = (s2, s1) if transpose_rhs else (s1, s2)
+    kd, n = lhs.shape[1], rhs.shape[1 if transpose_rhs else 2]
+    if (lhs.dtype != torch.bfloat16 or rhs.dtype != torch.bfloat16
+            or out_dtype != torch.bfloat16 or kd % 8 or n % 8
+            or (s0 % 8 and rhs.shape[0] > 1) or not _aligned(lhs, rhs)):
+        return None
+    if sn == 1 and sk % 8 == 0:
+        return False
+    if sk == 1 and sn % 8 == 0:
+        return True
+    return None
+
+
+def tgmm_plan(m: int, k: int, n: int, n_groups: int, n_sm: int):
+    """(tile, rows R of a row tile, row tiles, workspace tiles) of the
+    tensor-core tgmm: R splits the contraction so that the (row tile, k
+    tile, n tile) grid gives TGMM_CTAS_PER_SM CTAs an SM, or is a whole
+    group (R >= m: each group one tile, written directly, no workspace)
+    when the groups' (k, n) tiles alone give TGMM_WHOLE_GROUPS an SM."""
+    tile = NARROW16 if n <= 16 else NARROW32 if n <= 32 else WIDE
+    bk, bn, br = TGMM_TILES[tile]
+    n_kn = _cdiv(k, bk) * _cdiv(n, bn)
+    if n_kn * n_groups >= TGMM_WHOLE_GROUPS * n_sm:
+        rows = _cdiv(max(m, 1), br) * br
+    else:
+        rows = max(br, _cdiv(_cdiv(m * n_kn, TGMM_CTAS_PER_SM * n_sm), br)
+                   * br)
+    tiles = _cdiv(m, rows) + n_groups
+    return tile, rows, tiles, 0 if rows >= m else tiles
+
+
+def tgmm_takes_tc(lhs: torch.Tensor, rhs: torch.Tensor) -> bool:
+    """Whether tgmm launches the tensor-core kernels for these operands."""
+    return (lhs.dtype == torch.bfloat16 and rhs.dtype == torch.bfloat16
+            and lhs.shape[1] % 8 == 0 and rhs.shape[1] % 8 == 0
+            and _aligned(lhs, rhs))
+
+
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         transpose_rhs: bool = False,
         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -103,14 +207,22 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         n, k_rhs, sk, sn = rhs.shape[2], rhs.shape[1], s1, s2
     req(k_rhs == kd, f'rhs {tuple(rhs.shape)} vs lhs {tuple(lhs.shape)} '
         f'(transpose_rhs={transpose_rhs})')
-    out = torch.zeros((m, n), dtype=out_dtype, device=lhs.device)
     if m == 0 or n == 0 or kd == 0:
-        return out
+        return torch.zeros((m, n), dtype=out_dtype, device=lhs.device)
     p = _build.ptr
-    err = _build.lib().spt_gmm(
-        code, int(out_dtype == torch.float32 and lhs.dtype != out_dtype),
-        p(lhs), p(rhs), p(group_sizes), p(out), m, kd, n, n_groups, s0, sk,
-        sn, _build.stream())
+    kmaj = _tc_layout(lhs, rhs, transpose_rhs, out_dtype)
+    if kmaj is None:
+        out = torch.zeros((m, n), dtype=out_dtype, device=lhs.device)
+        err = _build.lib().spt_gmm(
+            code, int(out_dtype == torch.float32 and lhs.dtype != out_dtype),
+            p(lhs), p(rhs), p(group_sizes), p(out), m, kd, n, n_groups, s0,
+            sk, sn, _build.stream())
+    else:
+        # every row is written: rows past the groups are zeroed in-kernel
+        out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+        err = _build.lib().spt_gmm_tc(
+            gmm_tile(kd, n), int(kmaj), p(lhs), p(rhs), p(group_sizes),
+            p(out), m, kd, n, n_groups, s0, sk, sn, _build.stream())
     _build.check(err, 'gmm')
     gmm.launches += 1
     return out
@@ -143,8 +255,19 @@ def tgmm(lhs: torch.Tensor, rhs: torch.Tensor,
     if out.numel() == 0:
         return out
     p = _build.ptr
-    err = _build.lib().spt_tgmm(code, p(lhs), p(rhs), p(group_sizes), p(out),
-                                m, kd, n, n_groups, _build.stream())
+    if tgmm_takes_tc(lhs, rhs):
+        n_sm = torch.cuda.get_device_properties(
+            lhs.device).multi_processor_count
+        tile, rows, _, ws_tiles = tgmm_plan(m, kd, n, n_groups, n_sm)
+        ws = torch.empty((ws_tiles, kd, n), dtype=torch.float32,
+                         device=lhs.device)
+        err = _build.lib().spt_tgmm_tc(
+            tile, p(lhs), p(rhs), p(group_sizes), p(out), p(ws), m, kd, n,
+            n_groups, rows, _build.stream())
+    else:
+        err = _build.lib().spt_tgmm(code, p(lhs), p(rhs), p(group_sizes),
+                                    p(out), m, kd, n, n_groups,
+                                    _build.stream())
     _build.check(err, 'tgmm')
     tgmm.launches += 1
     return out

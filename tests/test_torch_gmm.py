@@ -234,3 +234,75 @@ def test_engine_prefill_with_gmm_matches_jax():
     assert calls == [192] * cfg.n_layers     # prefill only
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
+
+
+# The wrapper's choice of kernel, tile shape and tgmm row split at OPT-125M's
+# tune shape (8,192 sorted rows, d_model 768, 4 blocks of 768, LoRA rank
+# 16): pure Python on CPU tensors of the layer's shapes and strides (the
+# kernels themselves run only on the card, in chip_smoke.py phase 2).
+def _tune_operands(dtype=torch.bfloat16):
+    m, d, n_blk, r = 8192, 768, 4, 16
+    fc1 = torch.empty((d, n_blk * d), dtype=dtype)
+    return dict(x=torch.empty((m, d), dtype=dtype),
+                xl=torch.empty((m, r), dtype=dtype),
+                w1=fc1.reshape(d, n_blk, d).permute(1, 0, 2),
+                w2=torch.empty((n_blk, d, d), dtype=dtype),
+                lr1=torch.empty((n_blk, d, r), dtype=dtype),
+                ll2=torch.empty((n_blk * d, r), dtype=dtype).reshape(
+                    n_blk, d, r))
+
+
+ROUTES = [('x', 'w1', False, 'wide'), ('x', 'w2', False, 'wide'),
+          ('xl', 'lr1', True, 'thin k-major'), ('x', 'll2', False, 'narrow16'),
+          ('x', 'w1', True, 'wide k-major'), ('x', 'w2', True, 'wide k-major'),
+          ('x', 'lr1', False, 'narrow16'), ('xl', 'll2', True, 'thin k-major')]
+
+
+@pytest.mark.parametrize('lhs,rhs,transpose_rhs,route', ROUTES,
+                         ids=lambda v: str(v))
+def test_gmm_route_at_tune_shape(lhs, rhs, transpose_rhs, route):
+    """The eight products a layer of routed_ffn_lora_gmm runs (forward and
+    dlhs) go to the tensor-core kernel in bf16, to the CUDA-core one in
+    f32."""
+    o = _tune_operands()
+    assert tgmm.gmm_route(o[lhs], o[rhs],
+                          transpose_rhs=transpose_rhs) == route
+    o32 = _tune_operands(torch.float32)
+    assert tgmm.gmm_route(o32[lhs], o32[rhs],
+                          transpose_rhs=transpose_rhs) == 'cuda-core'
+
+
+def test_gmm_route_off_the_rule():
+    """Shapes the tensor-core kernel does not take: k or n not a multiple
+    of 8, an rhs not 16-byte aligned, an f32 output from bf16 inputs."""
+    bf = torch.bfloat16
+    x = torch.empty((64, 768), dtype=bf)
+    assert tgmm.gmm_route(torch.empty((64, 100), dtype=bf),
+                          torch.empty((4, 100, 200), dtype=bf)) == 'cuda-core'
+    assert tgmm.gmm_route(x, torch.empty((4, 768, 20), dtype=bf)) == \
+        'cuda-core'
+    shifted = torch.empty(4 * 768 * 16 + 1, dtype=bf)[1:].view(4, 768, 16)
+    assert tgmm.gmm_route(x, shifted) == 'cuda-core'
+    assert tgmm.gmm_route(x, torch.empty((4, 768, 16), dtype=bf),
+                          out_dtype=torch.float32) == 'cuda-core'
+    assert tgmm.gmm_route(x, torch.empty((4, 768, 32), dtype=bf)) == \
+        'narrow32'
+
+
+@pytest.mark.parametrize('m,k,n,plan', [
+    # both LoRA gradients: R 256, 36 row tiles x 12 k tiles = 432 CTAs,
+    # a 1.8 MB workspace
+    (8192, 768, 16, (tgmm.NARROW16, 256, 36, 36)),
+    (8192, 768, 32, (tgmm.NARROW32, 256, 36, 36)),
+    # w1's full-width gradient: whole groups, no workspace
+    (8192, 768, 768, (tgmm.WIDE, 8192, 5, 0)),
+    (1000, 768, 16, (tgmm.NARROW16, 64, 20, 20)),
+    (0, 768, 16, (tgmm.NARROW16, 64, 4, 0))], ids=str)
+def test_tgmm_plan(m, k, n, plan):
+    assert tgmm.tgmm_plan(m, k, n, 4, 132) == plan
+    bk, bn, _ = tgmm.TGMM_TILES[plan[0]]
+    ctas = plan[2] * -(-k // bk) * -(-n // bn)
+    assert m < 8192 or ctas >= 2 * 132
+    assert plan[3] * k * n * 4 <= 4 << 20      # workspace <= 4 MB
+    assert tgmm.tgmm_takes_tc(torch.empty((m, k), dtype=torch.bfloat16),
+                              torch.empty((m, n), dtype=torch.bfloat16))
