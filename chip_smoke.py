@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from spt_proto_tpu_torch/csrc and print the build time, and
-   beside the build compile csrc/flash_attention.cu once more with
-   -Xptxas -v to print the bf16 flash backward kernels' registers and
-   spills;
+   beside the build compile the tensor-core kernels' sources once more
+   with -Xptxas -v to print their registers and spills (the int8_matmul
+   wgmma and weight-stream kernels and the FFN-tail streams must spill
+   nothing);
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
    decode front (with and without int8 KV quantization, with the stacked fp
@@ -29,9 +30,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention (d_head 64 and 128, at S=2048 and with off-diagonal and -1
    entries at S=4096, sparse_coeff 4), the fused FFN tail (fp and int8) at
    OPT-125M and OPT-1.3B widths, the gated tails (fp and int8) at LLaMA-7B
-   and Llama-3-8B widths, m = 4 and 8, and the int8 matmul at the decode
-   shapes (o and qkv of OPT-125M and OPT-1.3B; o and k / v of LLaMA) and
-   two prefill shapes (m = 16,384: fc1 of OPT-125M, Llama-3-8B's gate),
+   and Llama-3-8B widths, m = 4 and 8, and in bf16 the four tails at m =
+   1, 9, 17, 64, 65 and 256 and the int8 forms' padded strides, and the
+   int8 matmul at the decode shapes (o and qkv of OPT-125M and OPT-1.3B; o
+   and k / v of LLaMA) and two prefill shapes (m = 16,384: fc1 of
+   OPT-125M, Llama-3-8B's gate), plus edges (m 63 / 64 / 65 / 130 / 1,000,
+   q wider than the scale and off the 128-column tile, K off the k-step,
+   and the CUDA-core kernels' cases: K % 8, an unaligned x), each case on
+   the kernel its wrapper's rule names (asserted),
    the speculative block verify (OPT-125M and Llama-3-8B, union and
    dense tables at max_len 2304, one block across a tile boundary), the
    paged-attention kernel (OPT-125M and Llama-3-8B's G = 4 at B=8, context
@@ -85,7 +91,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    second, prefill ms and peak memory: Llama-3-8B at B=8 dense bf16-KV,
    sparse int8-KV, sparse int8-KV with the fused gated tail and sparse
    int8-KV w8, then LLaMA-7B sparse int8-KV w8 at B=4 (bench_ladder.py's
-   llama-7b rung), each model freed before the next is built; and, while
+   llama-7b rung; in both w8 runs the first int8_matmul call on each kernel,
+   wgmma in the prefill and the weight stream in the steps, and the first
+   gated int8 tail are held against their twins on their own tensors at
+   the bf16 bound), each model freed before the next is built; and, while
    Llama-3-8B is loaded, its speculative serving run (as in phase 7) and
    a paged dense bf16-KV serving run through the continuous batching
    engine on phase 8's traffic;
@@ -134,9 +143,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8_matmul_t a frozen kernel a layer, twice the forward's under remat;
    gmm 8 and tgmm 2 a layer; every gmm / tgmm call of the gmm run's first
    warm-up step held against its twin at phase 2's bf16 bound, and its
-   profile showing only the tensor-core gmm / tgmm kernels); step ms,
-   tok/s, peak memory, busy, the kernels' time in situ; then w8 serving of a tuned (routed + LoRA)
-   OPT-125M checkpoint against the CPU twins by phase 3's w8 rule;
+   profile showing only the tensor-core gmm / tgmm kernels; the int8_base
+   run's first int8_matmul call, the wgmma kernel, held likewise); step
+   ms, tok/s, peak memory, busy, the kernels' time in situ; then w8
+   serving of a tuned (routed + LoRA) OPT-125M checkpoint against the CPU
+   twins by phase 3's w8 rule;
 11. dense and LoRA-stage training and forward (dense causal attention
    through the flash-attention kernels): f32 parity of 3 train steps on the
    card against the CPU twins by phase 9's rules (OPT-125M width, 2 layers,
@@ -236,32 +247,46 @@ def start_ptxas(source: str):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def log_ptxas(proc, pattern: str) -> None:
+def log_ptxas(proc, pattern: str, no_spills: bool = False) -> list[str]:
     """Wait for start_ptxas' nvcc; log the stack, spill and register lines
     of the entry functions whose mangled names match `pattern` (groups:
-    the kernel's name, then its template arguments)."""
+    the kernel's name, then its template arguments). Returns the names of
+    the matched kernels that spill, which no_spills makes an error."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         log(f'  nvcc -Xptxas -v failed:\n{out[-2000:]}')
-        return
-    name = None
+        require(not no_spills, 'nvcc -Xptxas -v failed')
+        return []
+    name, spilled = None, []
     for line in out.splitlines():
         if 'Compiling entry function' in line:
             m = re.search(pattern, line)
             name = m and f'{m[1]}<{", ".join(a for a in m.groups()[1:] if a)}>'
         elif name and ('spill' in line or 'registers' in line):
             log(f'  ptxas {name}: {line.split(":")[-1].strip()}')
+            if re.search(r'[1-9]\d* bytes spill', line):
+                spilled.append(name)
+    require(not (no_spills and spilled), f'kernels spill: {spilled}')
+    return spilled
 
 
 # sources and mangled-name patterns of the kernels whose registers phase 1
 # logs: flash_*_kernel_tc<D, tile, ...>, int8_matmul_t_kernel<T> (f: f32,
 # 13__nv_bfloat16: bf16), lm_head_tc_kernel<W, NG> (a: int8) and
-# gmm_tc_kernel<Tile, KMAJ> / tgmm_tc_kernel<Tile>
+# gmm_tc_kernel<Tile, KMAJ> / tgmm_tc_kernel<Tile>; and, required to spill
+# nothing, int8_matmul_wgmma_kernel<BN>, int8_matmul_stream_kernel<NG, S>,
+# ffn_up_kernel<W, GATED, NG, S> and ffn_down_kernel<W, NG, S>
 PTXAS_KERNELS = (
-    ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?'),
-    ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E'),
-    ('lm_head.cu', r'(lm_head_tc_kernel)I(a|13__nv_bfloat16)Li(\d)E'),
-    ('gmm.cu', r'(t?gmm_tc_kernel)INS_\d+([A-Za-z0-9]+?)E(?:Lb([01])E)?'))
+    ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?',
+     False),
+    ('int8_matmul.cu', r'(int8_matmul_t_kernel)I(f|13__nv_bfloat16)E', False),
+    ('lm_head.cu', r'(lm_head_tc_kernel)I(a|13__nv_bfloat16)Li(\d)E', False),
+    ('gmm.cu', r'(t?gmm_tc_kernel)INS_\d+([A-Za-z0-9]+?)E(?:Lb([01])E)?',
+     False),
+    ('int8_matmul.cu', r'(int8_matmul_(?:wgmma|stream)_kernel)ILi(\d+)E'
+     r'(?:Li(\d)E)?', True),
+    ('ffn_tail.cu', r'(ffn_(?:up|down)_kernel)I(a|13__nv_bfloat16)'
+     r'(?:Lb([01])E)?Li(\d)ELi(\d)E', True))
 
 
 class Timer:
@@ -723,10 +748,11 @@ def check_rows(dtype, mode, front_out, timer=None):
 
 def check_ffn(dtype, d, f, timer=None, int8=False, gated=False, m_rows=B):
     """ffn_tail / ffn_tail_int8, or (gated=True, LLaMA) ffn_tail_gated /
-    ffn_tail_gated_int8, vs its twin at (m_rows, d, d_ff); the engine's
-    unfused torch sequence (over dequantized weights for int8) is timed
-    beside it for reference (no single PyTorch call computes the
-    function)."""
+    ffn_tail_gated_int8, vs its twin at (m_rows, d, d_ff), on the kernels
+    the wrapper's rule names (ffn_tail_plan: bf16 the tensor-core streams,
+    f32 the CUDA-core pair); the engine's unfused torch sequence (over
+    dequantized weights for int8) is timed beside it for reference (no
+    single PyTorch call computes the function)."""
     from spt_proto_tpu_torch.ops import ffn_tail as m
     g = gen(SEED + (9 if int8 else 6) + (10 if gated else 0))
     x, res_ = randn(g, (m_rows, d), dtype), randn(g, (m_rows, d), dtype)
@@ -754,15 +780,19 @@ def check_ffn(dtype, d, f, timer=None, int8=False, gated=False, m_rows=B):
         ws = [w1, w2]
         n_w = 2
     name = fn.__name__
+    route = m.ffn_tail_plan(m_rows, d, f, dtype, gated=gated,
+                            int8=int8)['route']
+    require(route == ('tc' if dtype == torch.bfloat16 else 'cuda_core'),
+            f'{name} m={m_rows} d={d} f={f} {dtype}: route {route}')
     got = fn(*args)
     want = ref(*args)
     sync()
     err = max_err(got, want)
     require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
             f'{name} m={m_rows} d={d} f={f} {dtype}: err {err}')
-    log(f'  {name} m={m_rows} d={d} f={f} {str(dtype):14s} max err '
-        f'{err:.3g} ({tol_str(dtype)})')
-    res = dict(max_abs_err=err)
+    log(f'  {name} m={m_rows} d={d} f={f} {str(dtype):14s} [{route}] max '
+        f'err {err:.3g} ({tol_str(dtype)})')
+    res = dict(max_abs_err=err, route=route)
     if timer is not None:
         res['ms'] = timer.ms(lambda: fn(*args))
         res['plain_ms'] = timer.ms(lambda: ref(*args))
@@ -778,6 +808,26 @@ def check_ffn(dtype, d, f, timer=None, int8=False, gated=False, m_rows=B):
             nbytes(*args, got), n_w * 2 * m_rows * d * f, dtype)
         res['library_ms'] = None
         log_times(res)
+    return res
+
+
+# untimed bf16 tail edges: m from one row past the row groups of a warp
+# (9, 17), around the tile rules (64, 65) to MAX_ROWS (256), for each form
+# at OPT-125M's and LLaMA-7B's widths, and the int8 forms' padded strides
+# (D 640 and d_ff 2,944: q1 [640, 3072], q2 [2944, 768])
+FFN_EDGE_ROWS = (1, 9, 17, 64, 65, 256)
+
+
+def check_ffn_edges(dtype):
+    res = {}
+    for gated, d, f in ((False, D, FF), (True, D_LL, FF_7B)):
+        for int8 in (False, True):
+            for m_rows in FFN_EDGE_ROWS:
+                res[int8, gated, f'edge d={d} m={m_rows}'] = check_ffn(
+                    dtype, d, f, int8=int8, gated=gated, m_rows=m_rows)
+            if int8:
+                res[int8, gated, 'edge padded d=640 f=2944'] = check_ffn(
+                    dtype, 640, 2944, int8=True, gated=gated)
     return res
 
 
@@ -1262,23 +1312,48 @@ def check_lm_head_edges(dtype):
     return res
 
 
-def check_int8_matmul(dtype, m, k, n, timer=None):
-    """int8_matmul vs its twin: x [m, k] @ an int8 [k, n] weight. m = 8 is
-    the decode regime (the skinny weight-stream kernel), m = 16,384 prefill
-    (the tiled mma.sync kernel)."""
+def int8_route(x, q):
+    """The kernel int8_matmul runs for these operands (its wrapper's rule,
+    ops/int8_matmul.py int8_matmul_plan)."""
+    from spt_proto_tpu_torch.ops import int8_matmul as mm
+    k = x.shape[-1]
+    return mm.int8_matmul_plan(x.numel() // k, k, q.shape[-1], x.dtype,
+                               x.data_ptr() % 16 == 0)['route']
+
+
+def check_int8_matmul(dtype, m, k, n, timer=None, route=None, n_pad=None,
+                      offset=0):
+    """int8_matmul vs its twin: x [m, k] @ an int8 [k, n] weight. bf16 takes
+    the tensor-core kernels (m < 64: the weight stream, m >= 64: wgmma),
+    f32 the CUDA-core ones; `route` asserts the wrapper's choice. n_pad
+    (a multiple of 16) cuts the quantized weight to q [k, n_pad] and its
+    scale to n (off the quantizer's 256 padding); offset > 0 hands the
+    kernel an x whose data starts `offset` elements into its buffer
+    (unaligned)."""
     from spt_proto_tpu_torch.ops import int8_matmul as mm
     g = gen(SEED + 7)
-    wq = int8_weight(g, k, n, dtype)
-    x = randn(g, (m, k), dtype)
+    if n_pad is None:
+        wq = int8_weight(g, k, n, dtype)
+    else:   # the quantizer's weight cut to [k, n_pad], its scale to n
+        wq = int8_weight(g, k, n_pad, dtype)
+        wq = dict(q=wq['q'][:, :n_pad].contiguous(),
+                  scale=wq['scale'][:, :n].contiguous())
+    buf = randn(g, (m * k + offset,), dtype)
+    x = buf[offset:].view(m, k)
+    got_route = int8_route(x, wq['q'])
+    require(route is None or got_route == route,
+            f'int8_matmul m={m} k={k} n={n}: route {got_route}, expected '
+            f'{route}')
     got = mm.int8_matmul(x, wq['q'], wq['scale'])
     want = mm.int8_matmul_ref(x, wq['q'], wq['scale'])
     sync()
     err = max_err(got, want)
     require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
             f'int8_matmul m={m} k={k} n={n} {dtype}: err {err}')
-    log(f'  int8_matmul m={m} k={k} n={n} {str(dtype):14s} max err '
-        f'{err:.3g} ({tol_str(dtype)})')
-    res = dict(max_abs_err=err)
+    log(f'  int8_matmul m={m} k={k} n={n}{f" np={n_pad}" if n_pad else ""}'
+        f'{f" x+{offset}" if offset else ""} {str(dtype):14s} '
+        f'[{got_route}] max err {err:.3g} ({tol_str(dtype)})')
+    res = dict(max_abs_err=err, route=got_route)
     if timer is not None:
         res['ms'] = timer.ms(lambda: mm.int8_matmul(x, wq['q'], wq['scale']))
         res['plain_ms'] = timer.ms(
@@ -1290,6 +1365,36 @@ def check_int8_matmul(dtype, m, k, n, timer=None):
             nbytes(x, wq, got), 2 * m * k * n, torch.bfloat16)
         log_times(res)
     return res
+
+
+# untimed int8_matmul shapes across the kernels' rules and tiles: m either
+# side of SKINNY_M (63 / 64) and past the wgmma CTA's rows (65, 130, 1,000),
+# q's width past the scale's (N < NP) and off the 128-column CTA tile, K off
+# the 64-row k-step, and the CUDA-core kernels' cases: K % 8 != 0 and x
+# unaligned (bf16), f32. (name: (m, k, n, n_pad, x offset, bf16 route);
+# n_pad None: q at the quantizer's own 256-column padding)
+INT8_MATMUL_EDGES = {
+    'edge m63': (63, 1000, 700, 768, 0, 'stream'),
+    'edge m64': (64, 1000, 700, 768, 0, 'wgmma'),
+    'edge m65 np272': (65, 256, 260, 272, 0, 'wgmma'),
+    'edge m130 k200': (130, 200, 300, 400, 0, 'wgmma'),
+    'edge m1000 k4104': (1000, 4104, 1000, 1024, 0, 'wgmma'),
+    'edge m1000 k4104 n1000': (1000, 4104, 1000, None, 0, 'wgmma'),
+    'edge m9 np272 k200': (9, 200, 260, 272, 0, 'stream'),
+    'edge m1 k4104': (1, 4104, 4096, 4096, 0, 'stream'),
+    'edge k100 (K % 8)': (70, 100, 256, 256, 0, 'cuda_core'),
+    'edge m8 k100 (K % 8)': (8, 100, 256, 256, 0, 'cuda_core'),
+    'edge x unaligned': (96, 256, 256, 256, 1, 'cuda_core'),
+    'edge m8 x unaligned': (8, 256, 256, 256, 1, 'cuda_core')}
+
+
+def check_int8_matmul_edges(dtype):
+    """INT8_MATMUL_EDGES against the twin, each on the route the rule
+    states (f32: always the CUDA-core kernels)."""
+    return {name: check_int8_matmul(
+        dtype, m_, k_, n_, n_pad=np_, offset=off,
+        route=route if dtype == torch.bfloat16 else 'cuda_core')
+        for name, (m_, k_, n_, np_, off, route) in INT8_MATMUL_EDGES.items()}
 
 
 # (m, K, N) of int8_matmul_t on the int8_base training path: dx = g [m, N]
@@ -1952,8 +2057,11 @@ def phase_kernels(timer):
         # int8 weight-only serving (w8)
         r_front8, _ = check_front(dtype, t, packed=True)
         r_front8_bf, _ = check_front(dtype, t, quantized=False, packed=True)
-        r_mm = {name: check_int8_matmul(dtype, m_, k_, n_, t)
-                for name, (m_, k_, n_) in INT8_MATMUL_SHAPES.items()}
+        r_mm = {name: check_int8_matmul(
+            dtype, m_, k_, n_, t, route='cuda_core' if dtype == torch.float32
+            else 'stream' if m_ < 64 else 'wgmma')
+            for name, (m_, k_, n_) in INT8_MATMUL_SHAPES.items()}
+        r_mm.update(check_int8_matmul_edges(dtype))
         # the int8_base and grouped-matmul training kernels
         r_mmt = {name: check_int8_matmul_t(dtype, m_, k_, n_, t)
                  for name, (m_, k_, n_) in INT8_T_SHAPES.items()}
@@ -1985,6 +2093,15 @@ def phase_kernels(timer):
                     r_gated[int8, f'{name} m={m_rows}'] = check_ffn(
                         dtype, D_LL, f, t, int8=int8, gated=True,
                         m_rows=m_rows)
+        r_ffn_edges = (check_ffn_edges(dtype) if dtype == torch.bfloat16
+                       else {})
+        for (int8, gated_, name), r in r_ffn_edges.items():
+            if gated_:
+                r_gated[int8, name] = r
+        r_ffn8_edges = {name: r for (int8, gated_, name), r
+                        in r_ffn_edges.items() if int8 and not gated_}
+        r_ffn_fp_edges = {name: r for (int8, gated_, name), r
+                          in r_ffn_edges.items() if not int8 and not gated_}
         gated = {n: {k[1]: r for k, r in r_gated.items() if k[0] == int8}
                  for n, int8 in (('ffn_tail_gated', False),
                                  ('ffn_tail_gated_int8', True))}
@@ -2047,7 +2164,7 @@ def phase_kernels(timer):
                     gqa_llama_3_8b_sparse=r_gqa[False, False],
                     gqa_llama_3_8b_dense=r_gqa[False, True],
                     gqa_llama_3_8b_dense_96_tiles=r_walk[False]),
-                ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13),
+                ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13, **r_ffn_fp_edges),
                 int8_matmul=dict(r_mm['decode o 125m'], **{
                     k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
                 int8_matmul_t=dict(r_mmt['llama-7b gate/side dx'], **r_mmt),
@@ -2058,7 +2175,8 @@ def phase_kernels(timer):
                 lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
                                          **r_head8_ll,
                                          **r_edges['lm_head_argmax_int8']),
-                ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13),
+                ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13,
+                                   **r_ffn8_edges),
                 verify_attention_rows=dict(r_ver['opt-125m union'],
                                            **r_ver),
                 # the kernel line reports Llama-3-8B at m = 8 (its run)
@@ -2758,10 +2876,14 @@ def expected_launches(iw, quantized):
     return prefill, step
 
 
-def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
+def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
+                check_first=()):
     """Prefill + `steps` greedy steps: the launch counters are zeroed just
     before the timed run and read after its prefill and after its decode
-    loop, and must equal the mode's expected counts exactly."""
+    loop, and must equal the mode's expected counts exactly. check_first
+    names wrappers (of WRAPPER_TWINS) whose first call of each form in the
+    warm-up run (prefill and two steps) is held against its twin on that
+    call's own tensors at the bf16 output bound (check_recorded_kernels)."""
     from spt_proto_tpu_torch.inference import engine
     cfg = iw.cfg
     b = tokens.shape[0]
@@ -2788,7 +2910,18 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
             events[2].record()
         return logits, torch.stack(out, 1), cache, at_prefill
 
-    run(2)                                   # warm-up
+    records = []
+    undo = record_wrappers(check_first, records, first_only=True,
+                           modules=(engine,))
+    try:
+        run(2)                               # warm-up
+    finally:
+        undo()
+    first_check = (dict(forms=[r[1][1] for r in records],
+                        worst=check_recorded_kernels(label, records,
+                                                     BF16_OUTPUT_TOL))
+                   if check_first else None)
+    del records
     sync()
     torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
@@ -2819,7 +2952,8 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True):
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=total, launches_per_prefill=prefill_counts,
                launches_per_step={n: c / steps
-                                  for n, c in decode_counts.items()})
+                                  for n, c in decode_counts.items()},
+               first_call_check=first_check)
     log(f'  [{label}] launches: prefill {prefill_counts}; {steps} decode '
         f'steps {decode_counts}')
     log(f'  [{label}] prefill {prefill_ms:.2f} ms = '
@@ -3104,6 +3238,9 @@ LLAMA_PROMPT, LLAMA_STEPS = 2048, 32
 LLAMA_LAYERS = 16
 
 
+W8_FIRST_CHECK = ('int8_matmul', 'ffn_tail_gated_int8')
+
+
 def phase_llama():
     """bf16 LLaMA at full width and LLAMA_LAYERS deep, prompt 2048, max_len
     2176, 32 steps, random weights made on the card: Llama-3-8B at B=8 dense
@@ -3117,8 +3254,19 @@ def phase_llama():
 
     def run(label, cfg, params, tokens, quantized, quant=None):
         iw = InferenceWeights.from_params(cfg, params, quant=quant)
-        runs[label] = serving_run(label, iw, tokens, MAX_LEN, LLAMA_STEPS,
-                                  quantized)
+        # w8: the first int8_matmul of each kernel (wgmma in the prefill,
+        # the weight stream in the steps) and the first gated int8 tail on
+        # their own tensors
+        check = W8_FIRST_CHECK if quant == 'int8' else ()
+        runs[label] = r = serving_run(label, iw, tokens, MAX_LEN,
+                                      LLAMA_STEPS, quantized,
+                                      check_first=check)
+        if check:
+            forms = r['first_call_check']['forms']
+            require(sum('wgmma' in f for f in forms) == 1
+                    and sum('stream' in f for f in forms) == 1
+                    and sum("'tc'" in f for f in forms) == 1,
+                    f'{label}: first calls checked {forms}')
         del iw
         torch.cuda.empty_cache()
 
@@ -3672,18 +3820,49 @@ WRAPPER_TWINS = {
     'int8_matmul_t': ('spt_proto_tpu_torch.ops.int8_matmul',
                       'int8_matmul_t_ref'),
     'gmm': ('spt_proto_tpu_torch.ops.gmm', 'gmm_ref'),
-    'tgmm': ('spt_proto_tpu_torch.ops.gmm', 'tgmm_ref')}
+    'tgmm': ('spt_proto_tpu_torch.ops.gmm', 'tgmm_ref'),
+    'ffn_tail_int8': ('spt_proto_tpu_torch.ops.ffn_tail',
+                      'ffn_tail_int8_ref'),
+    'ffn_tail_gated_int8': ('spt_proto_tpu_torch.ops.ffn_tail',
+                            'ffn_tail_gated_int8_ref')}
 
 
-def record_wrappers(names, records):
-    """Patch the named wrappers in their modules to hold each call's output
-    against the twin on the same tensors at once (autograd may accumulate
-    into a gradient buffer later), keeping (name, None, None, error) in
-    records; returns the function that undoes it. A wrapper counts its
-    launches on the name it is reached by, the recorder while patched: undo
-    hands that count back."""
+def call_form(name, args, by_shape=False):
+    """A wrapper call's form: its name and the kernels its rule picks for
+    these operands (int8_matmul_plan, ffn_tail_plan; by_shape: and the
+    operands' shapes), or for other wrappers its operands' shapes."""
+    from spt_proto_tpu_torch.ops import ffn_tail, int8_matmul as mm
+    x, plan = args[0], None
+    if name == 'int8_matmul':
+        k = x.shape[-1]
+        plan = mm.int8_matmul_plan(x.numel() // k, k, args[1].shape[-1],
+                                   x.dtype, x.data_ptr() % 16 == 0)
+    elif name.startswith('ffn_tail'):
+        w = args[2]
+        f = w['scale'].numel() if isinstance(w, dict) else w.shape[1]
+        plan = ffn_tail.ffn_tail_plan(x.shape[0], x.shape[1], f, x.dtype,
+                                      gated='gated' in name,
+                                      int8=name.endswith('int8'))
+    if by_shape or plan is None:
+        shapes = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                       for a in args if not isinstance(a, dict))
+        plan = shapes if plan is None else (plan, shapes)
+    return name, repr(plan)
+
+
+def record_wrappers(names, records, first_only=False, modules=(),
+                    by_shape=False):
+    """Patch the named wrappers in their modules (and under the same names in
+    `modules`, which imported them: the engine) to hold each call's output
+    against the twin on the same tensors at once (autograd may accumulate into
+    a gradient buffer later), keeping (name, form, None, (output, twin's)) in
+    records (call_form: the wrapper and the kernels its rule picks, by_shape:
+    and the operands' shapes); first_only holds only the first
+    call of each form. Returns the function that undoes it. A
+    wrapper counts its launches on the name it is reached by, the recorder
+    while patched: undo hands that count back."""
     import importlib
-    patched = []
+    patched, seen = [], set()
     for name in names:
         mod_name, twin = WRAPPER_TWINS[name]
         mod = importlib.import_module(mod_name)
@@ -3691,16 +3870,29 @@ def record_wrappers(names, records):
 
         def rec(*a, _orig=orig, _name=name, _twin=getattr(mod, twin), **kw):
             out = _orig(*a, **kw)
-            records.append((_name, None, None, (out, _twin(*a, **kw))))
+            form = None
+            form = call_form(_name, a, by_shape)
+            if first_only:
+                if form in seen:
+                    return out
+                seen.add(form)
+            records.append((_name, form, None, (out, _twin(*a, **kw))))
             return out
         rec.launches = 0
-        setattr(mod, name, rec)
-        patched.append((mod, name, orig, rec))
+        for m in (mod, *modules):
+            if getattr(m, name, None) is orig:
+                setattr(m, name, rec)
+                patched.append((m, name, orig))
+        patched.append((None, name, orig, rec))
 
     def undo():
-        for mod, name, orig, rec in patched:
-            setattr(mod, name, orig)
-            orig.launches += rec.launches
+        for entry in patched:
+            if entry[0] is None:
+                _, name, orig, rec = entry
+                orig.launches += rec.launches
+            else:
+                m, name, orig = entry
+                setattr(m, name, orig)
     return undo
 
 
@@ -4031,7 +4223,8 @@ IN_SITU = {
     'block_sparse_attention_lse': lambda k: 'block_sparse_fwd_kernel' in k,
     'block_sparse_attention_dq': lambda k: 'block_sparse_dq_kernel' in k,
     'block_sparse_attention_dkv': lambda k: 'block_sparse_dkv_kernel' in k,
-    'int8_matmul': lambda k: 'int8_matmul_tiled_kernel' in k,
+    'int8_matmul': lambda k: ('int8_matmul_' in k
+                              and 'int8_matmul_t_kernel' not in k),
     'int8_matmul_t': lambda k: 'int8_matmul_t_kernel' in k,
     'gmm': lambda k: 'gmm_' in k and 'tgmm_' not in k,
     'tgmm': lambda k: 'tgmm_' in k,
@@ -4039,7 +4232,7 @@ IN_SITU = {
     'flash_attention_dq': lambda k: 'flash_dq_kernel' in k,
     'flash_attention_dkv': lambda k: 'flash_dkv_kernel' in k}
 # kernels of IN_SITU that are not counted as calls
-IN_SITU_UNCOUNTED = ('tgmm_reduce_kernel',)
+IN_SITU_UNCOUNTED = ('tgmm_reduce_kernel', 'int8_matmul_reduce_kernel')
 # the bf16 training kernels of the grouped matmuls (phase 10's gmm run
 # must launch no other)
 GMM_TC_KERNELS = {'gmm': ('gmm_tc_kernel',),
@@ -4052,7 +4245,8 @@ class _StopRun(Exception):
 
 
 def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
-              cfg_patch=None, stop_after=False, check_first=()):
+              cfg_patch=None, stop_after=False, check_first=(),
+              first_only=False, loss_slack=0.0):
     """cli.tune.main(argv) on the card, TRAIN_WARMUP + `timed` +
     TRAIN_PROFILED steps: each step bracketed by CUDA events, the launch
     counters zeroed after the warm-up and held exactly after the timed
@@ -4062,9 +4256,11 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
     training loop (ffn_impl='gmm': the CLI has no flag for it, as JAX's
     has none); stop_after ends the run after the profiled steps, before
     the CLI writes its checkpoints; check_first names wrappers (of
-    WRAPPER_TWINS) whose every call in the first warm-up step is held
+    WRAPPER_TWINS) whose every call in the first warm-up step (first_only:
+    the first call of each kernel and operand shape, call_form) is held
     against its twin on the same tensors (check_recorded_kernels at
-    BF16_OUTPUT_TOL)."""
+    BF16_OUTPUT_TOL); the last loss must come out below the first plus
+    loss_slack."""
     from torch.profiler import ProfilerActivity, profile
     from spt_proto_tpu_torch.cli import tune
     from spt_proto_tpu_torch.tuning import trainer
@@ -4100,13 +4296,15 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
             ev[0].record()
             if i == 0 and check_first:
                 records = []
-                undo = record_wrappers(check_first, records)
+                undo = record_wrappers(check_first, records, first_only,
+                                       by_shape=first_only)
                 try:
                     state, m = step(state, batch)
                 finally:
                     undo()
                 rec['first_step_check'] = dict(
                     calls=dict(collections.Counter(r[0] for r in records)),
+                    forms=[r[1][1] for r in records if r[1]],
                     worst=check_recorded_kernels(label, records,
                                                  BF16_OUTPUT_TOL))
                 del records
@@ -4143,8 +4341,8 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
     require(rec['counts'] == want,
             f'{label} launches in {timed} steps: {rec["counts"]} '
             f'(expected {want})')
-    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
-            f'{label} losses {losses}')
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0] + loss_slack,
+            f'{label} losses {losses} (slack {loss_slack})')
     prof = profile_summary(label, rec['prof'], rec['window'][0].elapsed_time(
         rec['window'][1]) * 1e3)
     in_situ, in_situ_names = {}, {}
@@ -4237,6 +4435,18 @@ def w8_routed_parity():
 INT8_STEP_REL = 5e-3
 INT8_GRAD_REL = 0.25
 INT8_FREE_REL = FREE_REL_BOUND
+# The LLaMA-7B int8_base tune run (bf16, lr 1e-3) first rises for ~5 steps
+# and then falls, and whether its 10th loss comes out below its first
+# depends on the order of int8_matmul's f32 sums. Measured on an H100 80GB
+# HBM3 at 700 W (kernel_ab.py --int8-losses), 10th minus 1st loss on the
+# synthetic data of numpy seeds 0 / 1 / 2: the wgmma kernel +0.021 /
+# -0.195 / -0.296, the CUDA-core kernels -0.296 / -0.049 / -0.072, the
+# plain twin -0.117 / +0.025 / -0.301; on one seed the three 10th losses
+# span up to 0.29 (seed 0: 11.501 / 11.669 / 11.791), and every
+# int8_matmul call of steps 0, 5 and 9 stayed within the bf16 bound of the
+# twin. So the run's last loss is held below its first plus that spread: a
+# run that diverges fails, one whose summation order moves it does not.
+INT8_BASE_LOSS_SPREAD = 0.3
 
 
 def phase_int8_gmm():
@@ -4274,10 +4484,21 @@ def phase_int8_gmm():
     b7 = ['--device', DEV, '--config', 'llama-7b', '--dtype', 'bfloat16',
           '--batch_size', str(B_7B), '--lr', '1e-3', '--remat']
     runs = {}
-    runs['train llama-7b int8_base bf16 B=4 S=512'] = train_run(
+    # every int8_matmul call of the first step (the wgmma kernel: q/k/v/o,
+    # gate/side, down, and the --remat recompute) held against its twin on
+    # its own tensors; the last of the 10 losses held below the first plus
+    # INT8_BASE_LOSS_SPREAD
+    per_layer = train_launches(ll, 'int8_base', remat=True)
+    i8 = runs['train llama-7b int8_base bf16 B=4 S=512'] = train_run(
         'train llama-7b int8_base bf16 B=4 S=512', b7 + ['--int8_base'],
-        B_7B, 512, ll.n_layers, train_launches(ll, 'int8_base', remat=True),
-        timed=6, stop_after=True)
+        B_7B, 512, ll.n_layers, per_layer, timed=6, stop_after=True,
+        check_first=('int8_matmul',), loss_slack=INT8_BASE_LOSS_SPREAD)
+    check = i8['first_step_check']
+    require(check['calls'] == {'int8_matmul': ll.n_layers
+                               * per_layer['int8_matmul']}
+            and all('wgmma' in f for f in check['forms']),
+            f'int8_base first step: calls checked {check["calls"]}, forms '
+            f'{sorted(set(check["forms"]))}')
     torch.cuda.empty_cache()
     runs['train llama-7b bf16 B=4 S=512'] = train_run(
         'train llama-7b bf16 B=4 S=512', b7, B_7B, 512, ll.n_layers,
@@ -4626,14 +4847,16 @@ def main() -> int:
 
     log('phase 1: build')
     # registers and spills of the tensor-core kernels (the bf16 flash
-    # forward and backward, int8_matmul_t, the bf16 heads), compiled once
-    # more with -Xptxas -v beside the build
-    ptxas = [(start_ptxas(src), pattern) for src, pattern in PTXAS_KERNELS]
+    # forward and backward, int8_matmul_t, the bf16 heads, gmm / tgmm, and
+    # the int8_matmul and FFN-tail kernels, which must not spill), compiled
+    # once more with -Xptxas -v beside the build
+    ptxas = [(start_ptxas(src), pattern, no_spills)
+             for src, pattern, no_spills in PTXAS_KERNELS]
     try:
         log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
     finally:
-        for proc, pattern in ptxas:
-            log_ptxas(proc, pattern)
+        for proc, pattern, no_spills in ptxas:
+            log_ptxas(proc, pattern, no_spills)
 
     log('phase 2: kernels vs plain twins')
     res = phase_kernels(Timer())

@@ -10,6 +10,9 @@ from several checkouts, in turns, on one CUDA card.
     python3 kernel_ab.py --head PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --e2e PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --gmm PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --int8 PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --int8-sweep CHECKOUT
+    python3 kernel_ab.py --int8-losses CHECKOUT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -35,7 +38,22 @@ check_gmm / check_tgmm checked against its twin first and timed beside
 torch._grouped_mm, from a cold L2 and a clean one (clean_timer), then
 phase 10's OPT-125M gmm tune run (bf16, tune
 defaults, ffn_impl='gmm') with its step ms, peak memory and the in-situ us
-of gmm and tgmm (kernel + reduce) a call. One JSON
+of gmm and tgmm (kernel + reduce) a call; or (--int8) int8_matmul at
+chip_smoke.INT8_MATMUL_SHAPES beside x @ w_dq and the four fused FFN tails
+at phase 2's check_ffn shapes beside the unfused torch sequence, each
+checked against its twin first, from a cold and a clean L2, then phase 6's
+Llama-3-8B B=8 and LLaMA-7B B=4 sparse int8-KV w8 serving runs (decode ms
+a step, prefill ms, peak memory, and from profiled windows the in-situ us
+a call of int8_matmul in the prefill and in the steps and of the gated
+int8 tail) and phase 10's LLaMA-7B int8_base tune step (ms, peak memory,
+int8_matmul in situ); or (--int8-sweep) the tile, ring and split choices
+of the tensor-core int8 and tail kernels at their heaviest decode and
+prefill shapes, each variant checked against the twin and timed (cold L2,
+and per kernel from the profiler), and the LLaMA-7B int8_base losses with
+int8_matmul's plain twin in place of its kernel; or (--int8-losses)
+phase 10's LLaMA-7B int8_base run on three synthetic-data seeds, each
+with int8_matmul's forward on the wgmma kernel, the CUDA-core kernels and
+the plain twin (int8_losses). One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
 """
@@ -46,7 +64,8 @@ import os
 import subprocess
 import sys
 
-MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm')
+MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm', '--int8',
+         '--int8-sweep', '--int8-losses')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -196,6 +215,319 @@ def head(cs, timer) -> dict:
     return out
 
 
+def int8_kernels(cs, timer) -> dict:
+    """int8_matmul and the four fused FFN tails, cold and clean L2."""
+    import torch
+    bf = torch.bfloat16
+    # (form, d, d_ff, gated, int8, m): phase 2's check_ffn shapes
+    tails = [(n, d, f, False, int8, cs.B)
+             for n, d, f in (('opt-125m', cs.D, cs.FF),
+                             ('opt-1.3b', cs.D_13B, cs.FF_13B))
+             for int8 in (False, True)]
+    tails += [(n, cs.D_LL, f, True, int8, m)
+              for n, f in (('llama-3-8b', cs.FF_38B), ('llama-7b', cs.FF_7B))
+              for int8 in (False, True) for m in (cs.B, cs.B_7B)]
+    out = {}
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        for name, (m, k, n) in cs.INT8_MATMUL_SHAPES.items():
+            r = cs.check_int8_matmul(bf, m, k, n, t)
+            out[f'int8_matmul {name}{tag} us'] = r['ms'] * 1e3
+            out[f'int8_matmul {name}{tag} library us'] = r['library_ms'] * 1e3
+            out[f'int8_matmul {name} bound us'] = r['bound_ms'] * 1e3
+        for name, d, f, gated, int8, m in tails:
+            r = cs.check_ffn(bf, d, f, t, int8=int8, gated=gated, m_rows=m)
+            key = (f'{"gated " if gated else ""}tail{" int8" if int8 else ""}'
+                   f' {name} m={m}')
+            out[f'{key}{tag} us'] = r['ms'] * 1e3
+            out[f'{key}{tag} unfused us'] = r['unfused_ms'] * 1e3
+            out[f'{key} bound us'] = r['bound_ms'] * 1e3
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def in_situ(by_kernel, names, call_names) -> float | None:
+    """Device us a call of the kernels matching `names` in a profile's
+    by_kernel, calls counted on those matching `call_names`."""
+    t = sum(v for k, (v, _) in by_kernel.items()
+            if any(n in k for n in names))
+    calls = sum(c for k, (_, c) in by_kernel.items()
+                if any(n in k for n in call_names))
+    return t / calls if calls else None
+
+
+# kernel names of int8_matmul and of the fused tails in either checkout
+# (the CUDA-core kernels before, the tensor-core ones after), and the
+# kernels whose count is the number of calls
+INT8_NAMES = (('int8_matmul_skinny', 'int8_matmul_tiled', 'int8_matmul_wgmma',
+               'int8_matmul_stream', 'int8_matmul_reduce'),
+              ('int8_matmul_skinny', 'int8_matmul_tiled', 'int8_matmul_wgmma',
+               'int8_matmul_stream'))
+TAIL_NAMES = (('ffn_partial', 'ffn_up', 'ffn_act', 'ffn_down', 'ffn_reduce'),
+              ('ffn_partial', 'ffn_up'))
+
+
+def int8_runs(cs) -> dict:
+    """Phase 6's w8 serving runs and phase 10's int8_base tune step."""
+    import torch
+    from spt_proto_tpu_torch.config import llama_config
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    for model, b in (('3-8b', cs.B), ('7b', cs.B_7B)):
+        cfg = cs.llama_cfg(model, cs.MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS)
+        params = init_params(cfg, cs.SEED, device=cs.DEV)
+        tokens = torch.randint(1, cfg.vocab_size, (b, cs.LLAMA_PROMPT),
+                               generator=cs.gen(cs.SEED), device=cs.DEV)
+        iw = InferenceWeights.from_params(cfg, params, quant='int8')
+        del params
+        label = f'{model} B={b} sparse int8-KV w8'
+        r = cs.serving_run(label, iw, tokens, cs.MAX_LEN, cs.LLAMA_STEPS,
+                           True)
+        prof = r['decode_profile']['by_kernel']
+        out[f'{label} ms/step'] = r['decode_ms'] / cs.LLAMA_STEPS
+        out[f'{label} prefill ms'] = r['prefill_ms']
+        out[f'{label} peak GB'] = r['peak_mem_gb']
+        out[f'{label} busy'] = r['decode_profile']['busy_share']
+        out[f'{label} int8_matmul step us a call'] = in_situ(prof,
+                                                             *INT8_NAMES)
+        out[f'{label} tail us a call'] = in_situ(prof, *TAIL_NAMES)
+
+        def prefill():
+            cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
+                                          quantized=True, device=cs.DEV)
+            engine.prefill(iw, tokens, cache)
+        pp = cs.device_profile(f'{label}: prefill', prefill)['by_kernel']
+        out[f'{label} int8_matmul prefill us a call'] = in_situ(pp,
+                                                                *INT8_NAMES)
+        del iw
+        torch.cuda.empty_cache()
+    ll = llama_config('7b')
+    argv = ['--device', cs.DEV, '--config', 'llama-7b', '--dtype',
+            'bfloat16', '--batch_size', str(cs.B_7B), '--lr', '1e-3',
+            '--remat', '--int8_base']
+    r = cs.train_run('llama-7b int8_base', argv, cs.B_7B, 512, ll.n_layers,
+                     cs.train_launches(ll, 'int8_base', remat=True),
+                     timed=6, stop_after=True)
+    out.update({'int8_base step ms': r['step_ms'],
+                'int8_base peak GB': r['peak_mem_gb'],
+                'int8_base losses': r['losses'],
+                'int8_base int8_matmul us a call': in_situ(
+                    {k: (v['us'] * v['calls'], v['calls']) for k, v in
+                     r['kernel_names_in_situ']['int8_matmul'].items()},
+                    *INT8_NAMES)})
+    return out
+
+
+def by_kernel(cs, fn, reps=10) -> dict:
+    """Device us a call of each spt kernel fn launches (the profiler over
+    reps calls, each after chip_smoke's L2 flush)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    timer = cs.Timer()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {a.key.split('(')[0].removeprefix('void ').split('<')[0]:
+            a.device_time_total / reps for a in prof.key_averages()
+            if 'spt::' in a.key}
+
+
+def int8_sweep(cs, timer) -> dict:
+    """The plan choices of int8_matmul (wgmma BN, beside x @ w_dq; the
+    stream's K slices) and of the tails (the up product's tile, ring and K
+    split, the down product's d_ff split) around the rules' picks, each
+    variant checked against its twin, cold-L2 us and per-kernel us; then
+    10 int8_base steps (phase 10's run) with int8_matmul's plain twin as
+    the forward."""
+    import torch
+    from spt_proto_tpu_torch.config import llama_config
+    from spt_proto_tpu_torch.ops import ffn_tail as ft
+    from spt_proto_tpu_torch.ops import int8_matmul as mm
+    bf = torch.bfloat16
+    out = {}
+
+    def variants(module, name, fn, want, plans):
+        rule = getattr(module, name)
+        try:
+            for tag, plan in plans:
+                setattr(module, name, lambda *a, _p=plan, **k: _p)
+                got = fn()
+                torch.cuda.synchronize()
+                ok = cs.close(got, want, bf)
+                out[f'{tag} ok'] = ok
+                out[f'{tag} us'] = timer.ms(fn) * 1e3
+                out[f'{tag} by kernel us'] = by_kernel(cs, fn)
+        finally:
+            setattr(module, name, rule)
+
+    for m, k, n in ((64, 4096, 4096), (512, 4096, 4096), (1024, 4096, 4096),
+                    (2048, 4096, 11008), (16384, 4096, 14336)):
+        g = cs.gen(cs.SEED + 7)
+        wq = cs.int8_weight(g, k, n, bf)
+        x = cs.randn(g, (m, k), bf)
+        variants(mm, 'int8_matmul_plan',
+                 lambda: mm.int8_matmul(x, wq['q'], wq['scale']),
+                 mm.int8_matmul_ref(x, wq['q'], wq['scale']),
+                 [(f'wgmma {m}x{k}x{n} bn={bn}', dict(route='wgmma', bn=bn))
+                  for bn in (128, 256)])
+        w_dq = cs.dequant(wq, bf)
+        out[f'wgmma {m}x{k}x{n} library us'] = timer.ms(lambda: x @ w_dq) * 1e3
+        del w_dq
+    for m, k, n in ((8, 4096, 4096), (8, 2048, 2048), (8, 768, 768)):
+        g = cs.gen(cs.SEED + 7)
+        wq = cs.int8_weight(g, k, n, bf)
+        x = cs.randn(g, (m, k), bf)
+        variants(mm, 'int8_matmul_plan',
+                 lambda: mm.int8_matmul(x, wq['q'], wq['scale']),
+                 mm.int8_matmul_ref(x, wq['q'], wq['scale']),
+                 [(f'stream {m}x{k}x{n} kslice={ks}',
+                   dict(route='stream', cw=8, ng=1, stages=4, kslice=ks,
+                        slices=-(-k // ks)))
+                  for ks in (128, 256, 512, 1024) if ks <= k])
+    for int8 in (False, True):
+        d, f = cs.D_LL, cs.FF_38B
+        g = cs.gen(cs.SEED + 16)
+        x, res = cs.randn(g, (cs.B, d), bf), cs.randn(g, (cs.B, d), bf)
+        shapes = ((d, f), (d, f), (f, d))
+        ws = ([cs.int8_weight(g, a, b, bf) for a, b in shapes] if int8 else
+              [cs.randn(g, s_, bf, std=s_[0] ** -0.5) for s_ in shapes])
+        fn = ft.ffn_tail_gated_int8 if int8 else ft.ffn_tail_gated
+        ref = ft.ffn_tail_gated_int8_ref if int8 else ft.ffn_tail_gated_ref
+        rule = ft.ffn_tail_plan(cs.B, d, f, bf, gated=True, int8=int8)
+        out[f'gated{" int8" if int8 else ""} rule'] = rule
+
+        def split(kk, ns):
+            ks = -(-(-(-kk // ns)) // 64) * 64
+            return dict(kslice=ks, slices=-(-kk // ks))
+        plans = [(f'gated{" int8" if int8 else ""} up cw={cw} S={st} '
+                  f'ns={ns}', dict(rule, up=dict(
+                      cw=cw, ng=1, stages=st, **split(d, ns))))
+                 for cw in (8, 4) for st in (4, 3) for ns in (1, 2, 3)]
+        plans += [(f'gated{" int8" if int8 else ""} down ns={ns}',
+                   dict(rule, down=dict(rule['down'], **split(f, ns))))
+                  for ns in (4, 7, 8, 9, 16)]
+        variants(ft, 'ffn_tail_plan', lambda: fn(x, res, *ws),
+                 ref(x, res, *ws), plans)
+        del ws
+        torch.cuda.empty_cache()
+    ll = llama_config('7b')
+    argv = ['--device', cs.DEV, '--config', 'llama-7b', '--dtype',
+            'bfloat16', '--batch_size', str(cs.B_7B), '--lr', '1e-3',
+            '--remat', '--int8_base']
+    kernel = mm.int8_matmul
+    mm.int8_matmul = mm.int8_matmul_ref
+    try:
+        r = cs.train_run('llama-7b int8_base, plain int8_matmul', argv,
+                         cs.B_7B, 512, ll.n_layers,
+                         dict(cs.train_launches(ll, 'int8_base', remat=True),
+                              int8_matmul=0), timed=6, stop_after=True)
+    finally:
+        mm.int8_matmul = kernel
+    out['int8_base plain int8_matmul losses'] = r['losses']
+    return out
+
+
+# the synthetic-data seeds of --int8-losses (0: the tune CLI's own batches)
+# and the steps whose every int8_matmul call its first run holds against the
+# twin (0: the first, 5: the loss's peak, 9: the last)
+LOSS_SEEDS = (0, 1, 2)
+LOSS_CHECK_STEPS = (0, 5, 9)
+
+
+def int8_losses(cs) -> dict:
+    """Phase 10's LLaMA-7B int8_base tune run (10 steps, lr 1e-3, --remat)
+    on the synthetic batches of each LOSS_SEEDS numpy seed, with
+    int8_matmul's forward on the wgmma kernel (its rule), on the CUDA-core
+    kernels (the rule forced to route 'cuda_core') and as its plain twin:
+    the losses of each run. The first run (wgmma, seed 0) also holds every
+    int8_matmul call of LOSS_CHECK_STEPS, the --remat recompute included,
+    against the twin on the call's own tensors (BF16_OUTPUT_TOL, its
+    absolute part scaled by the call's largest output)."""
+    import numpy as np
+    import torch
+    from spt_proto_tpu_torch.cli import tune
+    from spt_proto_tpu_torch.config import llama_config
+    from spt_proto_tpu_torch.ops import int8_matmul as mm
+    ll = llama_config('7b')
+    argv = ['--device', cs.DEV, '--config', 'llama-7b', '--dtype',
+            'bfloat16', '--batch_size', str(cs.B_7B), '--lr', '1e-3',
+            '--remat', '--int8_base']
+    per_layer = cs.train_launches(ll, 'int8_base', remat=True)
+    per_step = ll.n_layers * per_layer['int8_matmul']
+    kernel, rule, batches = mm.int8_matmul, mm.int8_matmul_plan, \
+        tune.synthetic_batches
+    checked = {}
+
+    def seeded(seed):
+        def gen_batches(vocab_size, batch_size, seq_length):
+            r = np.random.RandomState(seed)
+            while True:
+                x = r.randint(0, vocab_size, size=(batch_size, seq_length)
+                              ).astype(np.int32)
+                yield {'inputs': x[:, :-1], 'targets': x[:, 1:]}
+        return gen_batches
+
+    def checking(x, q, scale):
+        i = checking.calls
+        checking.calls += 1
+        out = kernel(x, q, scale)    # counts its launch on `checking`
+        step = i // per_step
+        if step in LOSS_CHECK_STEPS:
+            want = mm.int8_matmul_ref(x, q, scale)
+            tol = (cs.BF16_OUTPUT_TOL[0] * want.float().abs().max().item(),
+                   cs.BF16_OUTPUT_TOL[1])
+            err = (out.float() - want.float()).abs()
+            ratio = (err / (tol[0] + tol[1] * want.float().abs())).max()
+            c = checked.setdefault(f'step {step}', dict(
+                calls=0, worst_of_bound=0.0, forms=set()))
+            c['calls'] += 1
+            c['worst_of_bound'] = max(c['worst_of_bound'], ratio.item())
+            c['forms'].add(cs.call_form('int8_matmul', (x, q))[1])
+        return out
+    checking.calls = checking.launches = 0
+
+    out = {}
+    forwards = (('wgmma', None, None), ('cuda_core', None,
+                                        dict(route='cuda_core')),
+                ('twin', mm.int8_matmul_ref, None))
+    for seed in LOSS_SEEDS:
+        for name, fn, plan in forwards:
+            first = seed == LOSS_SEEDS[0] and name == 'wgmma'
+            tune.synthetic_batches = seeded(seed)
+            mm.int8_matmul = checking if first else fn or kernel
+            if plan is not None:
+                mm.int8_matmul_plan = lambda *a, _p=plan, **k: _p
+            try:
+                r = cs.train_run(
+                    f'llama-7b int8_base seed {seed} {name}', argv, cs.B_7B,
+                    512, ll.n_layers, dict(per_layer, int8_matmul=0)
+                    if name == 'twin' else per_layer, timed=6,
+                    stop_after=True, loss_slack=float('inf'))
+            finally:
+                mm.int8_matmul, mm.int8_matmul_plan = kernel, rule
+                tune.synthetic_batches = batches
+            losses = r['losses']
+            out[f'seed {seed} {name} losses'] = losses
+            out[f'seed {seed} {name} last below first'] = (losses[-1]
+                                                           < losses[0])
+            torch.cuda.empty_cache()
+    for c in checked.values():
+        c['forms'] = sorted(c['forms'])
+    out['wgmma seed 0 every call vs twin'] = checked
+    out['every checked call within the bound'] = all(
+        c['worst_of_bound'] <= 1 and c['calls'] == per_step
+        for c in checked.values()) and len(checked) == len(LOSS_CHECK_STEPS)
+    return out
+
+
 def one(root: str, mode: str | None) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -225,6 +557,12 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **e2e(cs))
     if mode == '--gmm':
         return dict(out, **gmm(cs, timer))
+    if mode == '--int8':
+        return dict(out, **int8_kernels(cs, timer), **int8_runs(cs))
+    if mode == '--int8-sweep':
+        return dict(out, **int8_sweep(cs, timer))
+    if mode == '--int8-losses':
+        return dict(out, **int8_losses(cs))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']
@@ -253,7 +591,8 @@ def main() -> int:
     for root in args:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               *([mode] if mode else []), '--one', root],
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True,
+                             timeout=2400 if mode == '--int8-losses' else 900)
         lines = [ln for ln in out.stdout.splitlines() if ln.startswith('AB ')]
         if out.returncode != 0 or not lines:
             print(out.stdout[-2000:], out.stderr[-2000:], file=sys.stderr)

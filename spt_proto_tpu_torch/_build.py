@@ -49,6 +49,8 @@ SIGNATURES = {
     'spt_ffn_tail_gated_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],
     'spt_int8_matmul': [_I] + [_P] * 4 + [_I] * 5 + [_P],
     'spt_int8_matmul_t': [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    'spt_int8_matmul_tc': [_P] * 5 + [_I] * 9 + [_P],
+    'spt_ffn_tail_tc': [_I] + [_P] * 13 + [_I] * 13 + [_P],
     'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
     'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],
     'spt_block_sparse_fwd': [_I] + [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],

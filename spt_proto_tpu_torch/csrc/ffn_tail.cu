@@ -20,22 +20,47 @@
 //
 // Design: the TPU kernels walk d_ff tiles in order and carry an f32
 // accumulator across grid steps; CTAs run in no order, so the work splits
-// in two launches. ffn_partial_kernel: one CTA per (d_ff slice of FT
-// columns, block of 8 rows) computes the slice's hidden values in f32 (K
-// split over thread groups, summed in a fixed order): h = relu(x @ w1 (*
-// s1) + b1), or for the gated form h = silu(x @ wg (* sg)) * (x @ ws (*
-// ss)), both products read in one pass over K. Then it computes that
-// slice's f32 contribution h @ w2[slice, :] to all D outputs (unscaled for
-// int8 weights) and stores it as a partial [slice, m, D]. The reduce kernel
-// adds the partials in slice order, so the result does not change from run
-// to run (no atomics), and casts to x's dtype once: the fp forms seed the
-// sum with res (+ b2), the int8 forms sum the partials and then take res
-// (+ b2) + sum * s2 (the TPU kernels' order). int8 weights are read with
-// their padded row strides (LD1 = F_pad, LD2 = D_pad); only the true F and
-// D columns are touched.
+// into launches.
+//
+// bf16 (the serving dtype): tensor-core weight streams (csrc/weight_stream
+// .cuh, the greedy head's design), each weight read from device memory once
+// whatever m is (all of x's rows ride in one CTA's B operand, in row
+// groups; narrower column tiles for larger m):
+// - ffn_up_kernel: h = relu(x @ w1 (* s1) + b1), or silu(x @ wg (* sg)) *
+//   (x @ ws (* ss)) with both weights streamed side by side; W^T is the A
+//   operand (int8 widened to bf16 in registers), x's rows B, f32 sums (bf16
+//   x bf16 and int8 x bf16 products are exact). h stays f32 in value: it is
+//   written as two bf16 terms, hi = bf16(h) and lo = bf16(h - hi) [m][F]
+//   (relative residual ~2^-16), so that the down product can take it as a
+//   tensor-core operand without a bf16 rounding of h. Where d_ff alone
+//   gives few CTAs (int8 rows are half the bytes), K splits into ordered
+//   slices whose f32 sums ffn_act_kernel adds in slice order before the
+//   activation.
+// - ffn_down_kernel: out = h @ w2 with W2^T as A and hi, lo as two B
+//   operands (twice the mma count; the work is far below the tensor-core
+//   line). A CTA owns a slice of D and walks d_ff in ascending order; where
+//   D alone gives too few CTAs, d_ff splits into ordered slices whose f32
+//   partials [slice, m, D] ffn_reduce_kernel adds in slice order. One slice
+//   writes the output itself: res (+ b2) + sum for the fp forms, res (+ b2)
+//   + sum * s2 for the int8 forms (the unscaled sum over d_ff, then s2).
+// The tiles, row groups, ring depth and splits come from ops/ffn_tail.py
+// ffn_tail_plan (sweeps on the H100 in PERF.md). No atomics: the same
+// result every run.
+//
+// f32 (the parity dtype) keeps the CUDA-core pair: ffn_partial_kernel, one
+// CTA per (d_ff slice of FT columns, block of 8 rows), computes the slice's
+// hidden values in f32 (K split over thread groups, summed in a fixed
+// order) and the slice's f32 contribution h @ w2[slice, :] to all D
+// outputs, stored as a partial [slice, m, D]; ffn_reduce_kernel adds the
+// partials in slice order (no atomics) and casts once: the fp forms seed
+// the sum with res (+ b2), the int8 forms sum the partials and then take
+// res (+ b2) + sum * s2 (the TPU kernels' order). int8 weights are read
+// with their padded row strides (LD1 = F_pad, LD2 = D_pad); only the true
+// F and D columns are used.
 #include <type_traits>
 
 #include "common.cuh"
+#include "weight_stream.cuh"
 
 namespace spt {
 
@@ -199,6 +224,226 @@ int launch_ffn_tail(const void* x, const void* res, const void* w1,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core weight streams
+// ---------------------------------------------------------------------------
+using bf16_t = __nv_bfloat16;
+
+// the hidden value of one d_ff lane from its unscaled sums: g (the gate,
+// or fc1) and sv (the side, gated only), as the TPU kernels order it
+template <bool GATED, bool INT8>
+__device__ __forceinline__ float ffn_hidden(float g, float sv, int col,
+                                            const float* __restrict__ s1,
+                                            const float* __restrict__ s3,
+                                            const bf16_t* __restrict__ b1) {
+  if constexpr (INT8) g *= s1[col];
+  if constexpr (GATED) {
+    if constexpr (INT8) sv *= s3[col];
+    // silu(g) = g * sigmoid(g), the sigmoid as 1 / (1 + exp(-g))
+    return g * (1.f / (1.f + expf(-g))) * sv;
+  } else {
+    return fmaxf(g + to_f(b1[col]), 0.f);
+  }
+}
+
+__device__ __forceinline__ void store_hi_lo(float h, bf16_t* hi, bf16_t* lo,
+                                            size_t o) {
+  const bf16_t hh = __float2bfloat16(h);
+  hi[o] = hh;
+  lo[o] = __float2bfloat16(h - to_f(hh));
+}
+
+// the CTA's columns of d_ff over its K slice (blockIdx.y): W is the gate
+// (w[0]) and the side (w[1]) when GATED, else fc1 with bias b1. One slice
+// writes h as hi + lo; several write their unscaled f32 sums [slice][NW]
+// [m][F] to part for ffn_act_kernel.
+template <typename W, bool GATED, int NG, int S>
+__global__ void __launch_bounds__(kWsThreads) ffn_up_kernel(
+    WsArgs<W, GATED ? 2 : 1, 1> a, const float* __restrict__ s1,
+    const float* __restrict__ s3, const bf16_t* __restrict__ b1,
+    bf16_t* __restrict__ hi, bf16_t* __restrict__ lo,
+    float* __restrict__ part, int F) {
+  constexpr int NW = GATED ? 2 : 1;
+  constexpr bool kInt8 = std::is_same<W, int8_t>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float acc[NW][NG][4] = {};
+  ws_mainloop<W, NW, 1, NG, S>(a, smem, acc);
+  const int wid = threadIdx.x >> 5, ctile = wid % a.cw;
+  const int rs = wid / a.cw, nrs = 8 / a.cw, ngt = (a.m + 7) / 8;
+  const int c0 = blockIdx.x * 16 * a.cw;
+  const size_t mf = (size_t)a.m * F;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int ng = rs + i * nrs;
+    if (ng >= ngt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = ws_row(ng, e), col = c0 + ws_col<W>(ctile, e);
+      if (row >= a.m || col >= F) continue;
+      const size_t o = (size_t)row * F + col;
+      if (gridDim.y > 1) {
+#pragma unroll
+        for (int nw = 0; nw < NW; ++nw)
+          part[(blockIdx.y * NW + nw) * mf + o] = acc[nw][i][e];
+        continue;
+      }
+      store_hi_lo(ffn_hidden<GATED, kInt8>(acc[0][i][e], acc[NW - 1][i][e],
+                                           col, s1, s3, b1),
+                  hi, lo, o);
+    }
+  }
+}
+
+// the up product's K-slice sums added in slice order, then the hidden value
+// as hi + lo
+template <bool GATED, bool INT8>
+__global__ void ffn_act_kernel(const float* __restrict__ part, int ns,
+                               const float* __restrict__ s1,
+                               const float* __restrict__ s3,
+                               const bf16_t* __restrict__ b1,
+                               bf16_t* __restrict__ hi,
+                               bf16_t* __restrict__ lo, int M, int F) {
+  constexpr int NW = GATED ? 2 : 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * F) return;
+  const size_t mf = (size_t)M * F;
+  float g = 0.f, sv = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    g += part[s * NW * mf + i];
+    if constexpr (GATED) sv += part[(s * NW + 1) * mf + i];
+  }
+  store_hi_lo(ffn_hidden<GATED, INT8>(g, sv, i % F, s1, s3, b1), hi, lo, i);
+}
+
+// out = seed + h @ w2 over the CTA's columns of D and its slice of d_ff
+// (blockIdx.y); several slices write f32 partials for ffn_reduce_kernel
+template <typename W, int NG, int S>
+__global__ void __launch_bounds__(kWsThreads) ffn_down_kernel(
+    WsArgs<W, 1, 2> a, const bf16_t* __restrict__ res,
+    const bf16_t* __restrict__ b2, const float* __restrict__ s2,
+    bf16_t* __restrict__ out, float* __restrict__ part, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float acc[1][NG][4] = {};
+  ws_mainloop<W, 1, 2, NG, S>(a, smem, acc);
+  const int wid = threadIdx.x >> 5, ctile = wid % a.cw;
+  const int rs = wid / a.cw, nrs = 8 / a.cw, ngt = (a.m + 7) / 8;
+  const int c0 = blockIdx.x * 16 * a.cw;
+  const bool split = gridDim.y > 1;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int ng = rs + i * nrs;
+    if (ng >= ngt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = ws_row(ng, e), col = c0 + ws_col<W>(ctile, e);
+      if (row >= a.m || col >= D) continue;
+      const size_t o = (size_t)row * D + col;
+      if (split) {
+        part[(size_t)blockIdx.y * a.m * D + o] = acc[0][i][e];
+        continue;
+      }
+      const float seed = b2 == nullptr ? to_f(res[o])
+                                       : to_f(res[o]) + to_f(b2[col]);
+      out[o] = __float2bfloat16(s2 == nullptr ? seed + acc[0][i][e]
+                                              : seed + acc[0][i][e] * s2[col]);
+    }
+  }
+}
+
+// kernel pointers by (NG, S): S = 4 with NG 1, 2 or 4, S = 3 (wide stages:
+// two CTAs an SM) with NG 1, S = 2 (wide m) with NG 4
+template <typename W, bool GATED>
+auto up_kernel(int ng, int s) -> decltype(&ffn_up_kernel<W, GATED, 1, 4>) {
+  if (s == 3) return ng == 1 ? &ffn_up_kernel<W, GATED, 1, 3> : nullptr;
+  if (s == 2) return ng == 4 ? &ffn_up_kernel<W, GATED, 4, 2> : nullptr;
+  if (s != 4) return nullptr;
+  return ng == 1 ? &ffn_up_kernel<W, GATED, 1, 4>
+         : ng == 2 ? &ffn_up_kernel<W, GATED, 2, 4>
+         : ng == 4 ? &ffn_up_kernel<W, GATED, 4, 4> : nullptr;
+}
+
+template <typename W>
+auto down_kernel(int ng, int s) -> decltype(&ffn_down_kernel<W, 1, 4>) {
+  if (s == 3) return ng == 1 ? &ffn_down_kernel<W, 1, 3> : nullptr;
+  if (s == 2) return ng == 4 ? &ffn_down_kernel<W, 4, 2> : nullptr;
+  if (s != 4) return nullptr;
+  return ng == 1 ? &ffn_down_kernel<W, 1, 4>
+         : ng == 2 ? &ffn_down_kernel<W, 2, 4>
+         : ng == 4 ? &ffn_down_kernel<W, 4, 4> : nullptr;
+}
+
+constexpr int kMaxSmem = 232448;   // the H100's opt-in limit a block
+
+// a (cw, NG) pair covers m rows: 8 / cw row sets of NG n8 groups
+inline bool ws_covers(int m, int cw, int ng) {
+  return (cw == 1 || cw == 2 || cw == 4 || cw == 8) &&
+         ((m + 7) / 8 + 8 / cw - 1) / (8 / cw) <= ng;
+}
+
+template <typename W, bool GATED>
+int launch_ffn_tc(const void* x, const void* res, const void* w1,
+                  const float* s1, const void* b1, const void* w3,
+                  const float* s3, const void* w2, const float* s2,
+                  const void* b2, bf16_t* hbuf, float* work, void* out,
+                  int M, int D, int F, int LD1, int LD2, int up_cw,
+                  int up_ng, int up_s, int up_kslice, int dn_cw, int dn_ng,
+                  int dn_s, int dn_kslice, cudaStream_t stream) {
+  constexpr int NW = GATED ? 2 : 1;
+  constexpr bool kInt8 = std::is_same<W, int8_t>::value;
+  auto up = up_kernel<W, GATED>(up_ng, up_s);
+  auto down = down_kernel<W>(dn_ng, dn_s);
+  const int up_smem = up_s * ws_stage_bytes<W, NW, 1>(up_cw, M);
+  const int dn_smem = dn_s * ws_stage_bytes<W, 1, 2>(dn_cw, M);
+  const int up_ns = up_kslice > 0 ? (D + up_kslice - 1) / up_kslice : 0;
+  const int dn_ns = dn_kslice > 0 ? (F + dn_kslice - 1) / dn_kslice : 0;
+  if (up == nullptr || down == nullptr || !ws_covers(M, up_cw, up_ng) ||
+      !ws_covers(M, dn_cw, dn_ng) || up_ns == 0 || dn_ns == 0 ||
+      up_kslice % kWsK != 0 || dn_kslice % kWsK != 0 ||
+      up_smem > kMaxSmem || dn_smem > kMaxSmem || D % 8 != 0 ||
+      F % 8 != 0 || ((up_ns > 1 || dn_ns > 1) && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  WsArgs<W, NW, 1> ua;
+  ua.w[0] = (const W*)w1;
+  if constexpr (GATED) ua.w[1] = (const W*)w3;
+  ua.x[0] = (const bf16_t*)x;
+  ua.ldw = LD1, ua.ldx = D, ua.m = M, ua.K = D, ua.cw = up_cw;
+  ua.kslice = up_kslice;
+  bf16_t* hi = hbuf;
+  bf16_t* lo = hbuf + (size_t)M * F;
+  cudaError_t e = cudaFuncSetAttribute(
+      up, cudaFuncAttributeMaxDynamicSharedMemorySize, up_smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 ugrid((F + 16 * up_cw - 1) / (16 * up_cw), up_ns);
+  up<<<ugrid, kWsThreads, up_smem, stream>>>(
+      ua, s1, s3, (const bf16_t*)b1, hi, lo, work, F);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (up_ns > 1) {   // the slices' sums, then h (work is free after)
+    ffn_act_kernel<GATED, kInt8><<<(M * F + 255) / 256, 256, 0, stream>>>(
+        work, up_ns, s1, s3, (const bf16_t*)b1, hi, lo, M, F);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  WsArgs<W, 1, 2> da;
+  da.w[0] = (const W*)w2;
+  da.x[0] = hi, da.x[1] = lo;
+  da.ldw = LD2, da.ldx = F, da.m = M, da.K = F, da.cw = dn_cw;
+  da.kslice = dn_kslice;
+  e = cudaFuncSetAttribute(down, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dn_smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((D + 16 * dn_cw - 1) / (16 * dn_cw), dn_ns);
+  down<<<grid, kWsThreads, dn_smem, stream>>>(
+      da, (const bf16_t*)res, (const bf16_t*)b2, s2, (bf16_t*)out, work, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dn_ns == 1) return (int)e;
+  ffn_reduce_kernel<bf16_t><<<(M * D + 255) / 256, 256, 0, stream>>>(
+      work, (const bf16_t*)res, (const bf16_t*)b2, s2, (bf16_t*)out, M, D,
+      dn_ns);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace spt
 
 extern "C" int spt_ffn_tail(int dtype, const void* x, const void* res,
@@ -248,4 +493,30 @@ extern "C" int spt_ffn_tail_gated_int8(
   return f(x, res, wgq, (const float*)sg, nullptr, wsq, (const float*)ss,
            wdq, (const float*)sd, nullptr, (float*)part, out, M, D, F, LD1,
            LD2, FT, (cudaStream_t)stream);
+}
+
+// bf16, the tensor-core streams. form: 0 ffn_tail, 1 ffn_tail_int8, 2
+// ffn_tail_gated, 3 ffn_tail_gated_int8 (w1 / w3 the gate / side there; s*
+// null for the fp forms, b* null for the gated ones). hbuf [2][M][F] bf16
+// (h as hi, lo); work f32 scratch for the split products' partials, the up
+// product's [D / up_kslice][1 or 2][M][F] and then the down product's
+// [F / dn_kslice][M][D] (null when neither splits). The plan (cw, NG,
+// stages, slice of each product) is ops/ffn_tail.py ffn_tail_plan's.
+extern "C" int spt_ffn_tail_tc(
+    int form, const void* x, const void* res, const void* w1, const void* s1,
+    const void* b1, const void* w3, const void* s3, const void* w2,
+    const void* s2, const void* b2, void* hbuf, void* work, void* out, int M,
+    int D, int F, int LD1, int LD2, int up_cw, int up_ng, int up_s,
+    int up_kslice, int dn_cw, int dn_ng, int dn_s, int dn_kslice,
+    void* stream) {
+  using spt::bf16_t;
+  auto f = form == 0 ? spt::launch_ffn_tc<bf16_t, false>
+           : form == 1 ? spt::launch_ffn_tc<int8_t, false>
+           : form == 2 ? spt::launch_ffn_tc<bf16_t, true>
+           : form == 3 ? spt::launch_ffn_tc<int8_t, true> : nullptr;
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f(x, res, w1, (const float*)s1, b1, w3, (const float*)s3, w2,
+           (const float*)s2, b2, (spt::bf16_t*)hbuf, (float*)work, out, M, D,
+           F, LD1, LD2, up_cw, up_ng, up_s, up_kslice, dn_cw, dn_ng, dn_s,
+           dn_kslice, (cudaStream_t)stream);
 }

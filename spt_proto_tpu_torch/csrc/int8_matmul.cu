@@ -15,21 +15,48 @@
 // 12.6 MB, 3.8 us). Prefill (M = B x S = 16,384): operations, 2 M K N bf16
 // products (OPT-125M fc1 77 GFLOP, 78 us at 989 TFLOP/s).
 //
-// Design, two kernels behind one entry point:
-// - skinny M (< 64), int8_matmul_skinny_kernel: a weight stream. Each CTA
-//   owns 32 output columns for a block of 8 rows; its 256 threads are 2
-//   column groups of 16 (one 16-byte load of 16 int8 columns per K row)
-//   by 128 K-lanes. Per chunk the x rows are staged bf16-rounded in shared
-//   memory, each thread sums its rows of the chunk in registers, the
-//   K-lanes of a warp are added with shuffles and the 8 warps in a fixed
-//   order, and that chunk partial is added to the thread's running sum.
-// - large M, int8_matmul_tiled_kernel: 64 x 128 output tiles, 8 warps of
-//   32 x 32, per 128-row chunk the x tile is staged as bf16 and the int8
-//   tile converted to bf16 (exact) in shared memory, and warp-level
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate) sums the chunk into a
-//   fresh fragment that is then added to the running one. No cp.async
-//   pipeline, no TMA / wgmma yet: right first, fast in a later change.
+// Design: bf16 x (the serving and int8_base dtype) runs the tensor-core
+// kernels of spt_int8_matmul_tc, f32 x and shapes off their rule (K % 8,
+// 16-byte alignment; ops/int8_matmul.py int8_matmul_plan) the CUDA-core
+// kernels of spt_int8_matmul:
+// - m >= 64, int8_matmul_wgmma_kernel<BN>: out^T = q^T x^T on wgmma. A CTA
+//   owns 128 weight columns x BN rows of x (128 or 256). One producer warp
+//   keeps a 4-stage mbarrier ring of TMA loads in flight: the x tile
+//   [BN][64] bf16 and the int8 q tile [64][128], both in the 128-byte
+//   swizzle, q at half the bytes of bf16. Two consumer warpgroups (64
+//   weight columns each, setmaxnreg 232 / producer 40) read their int8
+//   A operand with ldmatrix.trans and widen it to bf16 pairs in registers
+//   (i8_pairs_to_bf16), and x is B from shared memory through a K-major
+//   descriptor: wgmma m64nBNk16, f32 accumulators in registers over all of
+//   K (no chunk partials: the bf16 output's step hides the order). The
+//   epilogue scales each column (an accumulator row), casts, and stages the
+//   tile through shared memory for 16-byte stores; columns n >= N are 0.
+//   A grouped raster (8 row tiles a column step) keeps a wave's x rows and
+//   weight columns in L2.
+// - m < 64, int8_matmul_stream_kernel<NG, S>: the tensor-core weight stream
+//   of csrc/weight_stream.cuh (the greedy head's design): W^T as A through
+//   ldmatrix.trans + i8_pairs_to_bf16, x's rows as B, a cp.async ring of
+//   64-row K chunks. N alone gives few CTAs (768-14,336 columns, 128 a
+//   CTA), so K splits into ordered slices (blockIdx.y) whose f32 partials
+//   int8_matmul_reduce_kernel adds in slice order, then scales and casts:
+//   no atomics, the same result every run. One slice writes the output
+//   directly (scale, cast, 16-byte stores through shared memory).
+// - f32, int8_matmul_skinny_kernel (m < 64): a weight stream on the CUDA
+//   cores. Each CTA owns 32 output columns for a block of 8 rows; its 256
+//   threads are 2 column groups of 16 (one 16-byte load of 16 int8 columns
+//   per K row) by 128 K-lanes. Per chunk the x rows are staged bf16-rounded
+//   in shared memory, each thread sums its rows of the chunk in registers,
+//   the K-lanes of a warp are added with shuffles and the 8 warps in a
+//   fixed order, and that chunk partial is added to the thread's running
+//   sum: the TPU kernel's chunk partials, which the f32 bound needs.
+// - f32, int8_matmul_tiled_kernel (m >= 64): 64 x 128 output tiles, 8
+//   warps of 32 x 32, per 128-row chunk the x tile staged as bf16 and the
+//   int8 tile converted to bf16 (exact) in shared memory, mma.sync m16n8k16
+//   summing the chunk into a fresh fragment added to the running one.
+#include <cuda.h>   // CUtensorMap (its encoder is fetched at run time)
+
 #include "common.cuh"
+#include "weight_stream.cuh"
 
 namespace spt {
 
@@ -240,6 +267,323 @@ int launch_int8_matmul(const void* x, const int8_t* q, const float* scale,
   dim3 grid((NP + kTN - 1) / kTN, (M + kTM - 1) / kTM);
   int8_matmul_tiled_kernel<T><<<grid, 256, smem, stream>>>(
       (const T*)x, q, scale, (T*)out, M, K, N, NP);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16, m >= 64: wgmma with the int8 A operand widened in registers
+// ---------------------------------------------------------------------------
+constexpr int kGwCols = 128;     // weight columns a CTA (2 warpgroups x 64)
+constexpr int kGwK = 64;         // K a stage: one 128-byte row of x
+constexpr int kGwStages = 4;
+constexpr int kGwThreads = 384;  // consumer warpgroups 0-1, producer 2
+constexpr int kGwGroup = 8;      // row tiles a raster group
+
+template <int BN>
+struct GwSmem {
+  static constexpr int kX = BN * kGwK * 2;        // [BN][64] bf16
+  static constexpr int kQ = kGwK * kGwCols;       // [64][128] int8
+  static constexpr int kStage = kX + kQ;          // 1,024-byte multiples
+  static constexpr int kRing = kGwStages * kStage;
+  static constexpr int kOutRow = 64 + 8;          // a staged output row of
+                                                  // a warpgroup (bf16)
+  static constexpr int kOut = 2 * BN * kOutRow * 2;
+  static constexpr int kBytes = kRing + 2 * kGwStages * 8 + 1024;
+  static_assert(kOut <= kRing && kX % 1024 == 0, "layout");
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (BN == 128) wgmma_m64n128k16_rs(d, a, desc);
+  else wgmma_m64n256k16_rs(d, a, desc);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kGwThreads, 1) int8_matmul_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tmap_x,
+    const __grid_constant__ CUtensorMap tmap_q,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+    int M, int K, int N, int NP) {
+  using L = GwSmem<BN>;
+  extern __shared__ unsigned char smraw[];
+  // the swizzled tiles want 1,024-byte alignment
+  unsigned char* smem = smraw + ((1024 - (smem_addr(smraw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kRing);
+  uint64_t* empty = full + kGwStages;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  // grouped raster: kGwGroup row tiles for each column tile in turn
+  const int ntm = (M + BN - 1) / BN, ntn = (NP + kGwCols - 1) / kGwCols;
+  const int per_group = kGwGroup * ntn, pid = blockIdx.x;
+  const int first = pid / per_group * kGwGroup;
+  const int gm = min(kGwGroup, ntm - first), idx = pid % per_group;
+  const int m0 = (first + idx % gm) * BN, n0 = idx / gm * kGwCols;
+  const int nk = (K + kGwK - 1) / kGwK;
+  if (tid == 0) {
+    for (int s = 0; s < kGwStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);      // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wid >= 8) {
+    // producer warpgroup: one thread issues the TMA loads
+    setmaxnreg_dec<40>();
+    if (wid == 8 && lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kGwStages;
+        if (kt >= kGwStages) mbar_wait(empty + s, (kt / kGwStages - 1) & 1);
+        unsigned char* st = smem + s * L::kStage;
+        mbar_expect_tx(full + s, L::kStage);
+        tma_load_2d(st, &tmap_x, full + s, kt * kGwK, m0);
+        tma_load_2d(st + L::kX, &tmap_q, full + s, n0, kt * kGwK);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = wid >> 2, wl = wid & 3, g = lane >> 2, t4 = lane & 3;
+    const int chunk = wg * 4 + wl;   // the warp's 16 columns: a 16-byte
+                                     // chunk of the 128-byte q rows
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kGwStages;
+      mbar_wait(full + s, (kt / kGwStages) & 1);
+      __syncwarp();
+      const unsigned char* st = smem + s * L::kStage;
+      const unsigned char* qs = st + L::kX;
+      // A: int8 pairs by ldmatrix.trans (matrices k 0-7, .., 24-31 of the
+      // warp's 16 columns; the swizzle moves chunk c of row k to c ^ k % 8)
+      uint32_t af[4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 32 * h + lane;
+        uint32_t raw[4];
+        ldsm_x4_trans(raw, qs + k * kGwCols + ((chunk ^ (k & 7)) << 4));
+        i8_pairs_to_bf16(raw[0], af[2 * h]);
+        i8_pairs_to_bf16(raw[1], af[2 * h] + 2);
+        i8_pairs_to_bf16(raw[2], af[2 * h + 1]);
+        i8_pairs_to_bf16(raw[3], af[2 * h + 1] + 2);
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+      wgmma_fence();
+      const uint64_t desc = wgmma_desc_k128(st);
+#pragma unroll
+      for (int kk = 0; kk < kGwK / 16; ++kk)
+        wgmma_rs<BN>(acc, af[kk], desc + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    // epilogue: accumulator (A row g / g + 8 = column 2g / 2g + 1 of the
+    // warp's 16, x row 8j + 2 t4 + e % 2) * scale, cast, staged per
+    // warpgroup [BN][64] through the ring, then 16-byte stores
+    bar_sync(1, 256);   // both warpgroups are done with the ring
+    __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem) +
+                        wg * BN * L::kOutRow;
+    const int lc = wl * 16 + 2 * g, col = n0 + wg * 64 + lc;
+    const float s0 = col < N ? scale[col] : 0.f;
+    const float s1 = col + 1 < N ? scale[col + 1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int r = 8 * j + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(os + r * L::kOutRow + lc) =
+          __floats2bfloat162_rn(acc[4 * j] * s0, acc[4 * j + 2] * s1);
+      *reinterpret_cast<__nv_bfloat162*>(os + (r + 1) * L::kOutRow + lc) =
+          __floats2bfloat162_rn(acc[4 * j + 1] * s0, acc[4 * j + 3] * s1);
+    }
+    bar_sync(2 + wg, 128);
+    for (int i = tid & 127; i < BN * 8; i += 128) {
+      const int r = i >> 3, c = (i & 7) * 8;
+      const int row = m0 + r, cc = n0 + wg * 64 + c;
+      if (row < M && cc < NP)
+        *reinterpret_cast<uint4*>(out + (size_t)row * NP + cc) =
+            *reinterpret_cast<const uint4*>(os + r * L::kOutRow + c);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (the library links no libcuda)
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a 2-d tensor map [rows][cols] (cols innermost, row stride ld elements)
+// with a box of [box_rows][box_cols], 128-byte swizzle
+static bool encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                      int elem_bytes, const void* base, int rows, int cols,
+                      int ld, int box_rows, int box_cols) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dim, stride, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_int8_matmul_wgmma(const void* x, const int8_t* q,
+                             const float* scale, void* out, int M, int K,
+                             int N, int NP, cudaStream_t stream) {
+  using L = GwSmem<BN>;
+  CUtensorMap tx, tq;
+  if (!encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, K, BN,
+                 kGwK) ||
+      !encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, NP, NP, kGwK,
+                 kGwCols))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      int8_matmul_wgmma_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((M + BN - 1) / BN) * ((NP + kGwCols - 1) / kGwCols);
+  int8_matmul_wgmma_kernel<BN><<<tiles, kGwThreads, L::kBytes, stream>>>(
+      tx, tq, scale, (__nv_bfloat16*)out, M, K, N, NP);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16, m < 64: the tensor-core weight stream, K split into ordered slices
+// ---------------------------------------------------------------------------
+using I8Stream = WsArgs<int8_t, 1, 1>;
+
+template <int NG, int S>
+__global__ void __launch_bounds__(kWsThreads) int8_matmul_stream_kernel(
+    I8Stream a, const float* __restrict__ scale,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part, int N,
+    int NP) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float acc[1][NG][4] = {};
+  ws_mainloop<int8_t, 1, 1, NG, S>(a, smem, acc);
+  const int wid = threadIdx.x >> 5, ctile = wid % a.cw;
+  const int rs = wid / a.cw, nrs = 8 / a.cw, ngt = (a.m + 7) / 8;
+  const int C = 16 * a.cw, c0 = blockIdx.x * C;
+  const int lc = ws_col<int8_t>(ctile, 0), col = c0 + lc;  // and col + 1
+  if (gridDim.y > 1) {
+    // a K slice: its f32 partial, added in slice order by the reduce
+    float* p = part + (size_t)blockIdx.y * a.m * NP;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int ng = rs + i * nrs;
+      if (ng >= ngt) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = ws_row(ng, e);
+        if (row < a.m && col < NP)
+          *reinterpret_cast<float2*>(p + (size_t)row * NP + col) =
+              make_float2(acc[0][i][e], acc[0][i][e + 2]);
+      }
+    }
+    return;
+  }
+  // one slice: scale, cast, 16-byte stores through shared memory
+  __syncthreads();
+  const int orow = C + 8;
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);
+  const float s0 = col < N ? scale[col] : 0.f;
+  const float s1 = col + 1 < N ? scale[col + 1] : 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int ng = rs + i * nrs;
+    if (ng >= ngt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<__nv_bfloat162*>(os + ws_row(ng, e) * orow + lc) =
+          __floats2bfloat162_rn(acc[0][i][e] * s0, acc[0][i][e + 2] * s1);
+  }
+  __syncthreads();
+  const int cc = C / 8;
+  for (int i = threadIdx.x; i < 8 * ngt * cc; i += kWsThreads) {
+    const int r = i / cc, c = (i % cc) * 8;
+    if (r < a.m && c0 + c < NP)
+      *reinterpret_cast<uint4*>(out + (size_t)r * NP + c0 + c) =
+          *reinterpret_cast<const uint4*>(os + r * orow + c);
+  }
+}
+
+// the K slices' partials [ns][M][NP] added in slice order, scaled and cast
+__global__ void int8_matmul_reduce_kernel(const float* __restrict__ part,
+                                          const float* __restrict__ scale,
+                                          __nv_bfloat16* __restrict__ out,
+                                          int M, int N, int NP, int ns) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * NP) return;
+  const int col = i % NP;
+  float a = 0.f;
+  for (int s = 0; s < ns; ++s) a += part[(size_t)s * M * NP + i];
+  out[i] = __float2bfloat16(a * (col < N ? scale[col] : 0.f));
+}
+
+// kernel pointers by NG; the ring is 4 stages deep (ops/weight_stream.py
+// ring: m < 64 rows of x and one int8 weight never take another depth)
+static auto stream_kernel(int ng, int s)
+    -> decltype(&int8_matmul_stream_kernel<1, 4>) {
+  if (s != 4) return nullptr;
+  return ng == 1 ? &int8_matmul_stream_kernel<1, 4>
+         : ng == 2 ? &int8_matmul_stream_kernel<2, 4>
+         : ng == 4 ? &int8_matmul_stream_kernel<4, 4> : nullptr;
+}
+
+int launch_int8_matmul_stream(const void* x, const int8_t* q,
+                              const float* scale, void* out, float* part,
+                              int M, int K, int N, int NP, int cw, int ng,
+                              int stages, int kslice, cudaStream_t stream) {
+  const int ngt = (M + 7) / 8;
+  auto kernel = stream_kernel(ng, stages);
+  if (kernel == nullptr || (cw != 1 && cw != 2 && cw != 4 && cw != 8) ||
+      (ngt + 8 / cw - 1) / (8 / cw) > ng || kslice <= 0 ||
+      kslice % kWsK != 0)
+    return (int)cudaErrorInvalidValue;
+  I8Stream a;
+  a.w[0] = q;
+  a.x[0] = (const __nv_bfloat16*)x;
+  a.ldw = NP, a.ldx = K, a.m = M, a.K = K, a.cw = cw, a.kslice = kslice;
+  const int ns = (K + kslice - 1) / kslice;
+  if (ns > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = stages * ws_stage_bytes<int8_t, 1, 1>(cw, M);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((NP + 16 * cw - 1) / (16 * cw), ns);
+  kernel<<<grid, kWsThreads, smem, stream>>>(
+      a, scale, (__nv_bfloat16*)out, part, N, NP);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ns == 1) return (int)e;
+  int8_matmul_reduce_kernel<<<(M * NP + 255) / 256, 256, 0, stream>>>(
+      part, scale, (__nv_bfloat16*)out, M, N, NP, ns);
   return (int)cudaGetLastError();
 }
 
@@ -568,4 +912,34 @@ extern "C" int spt_int8_matmul_t(int dtype, const void* g, const void* q,
                                : spt::launch_int8_matmul_t<float>;
   return f(g, (const int8_t*)q, (const float*)scale, out, M, K, N, NS, NP,
            (cudaStream_t)stream);
+}
+
+// bf16 x only. route 1: int8_matmul_wgmma_kernel (m >= 64), p0 = BN (128 or
+// 256); route 2: the weight stream (m < 64), p0 = cw, p1 = NG, p2 = the
+// ring's stages, p3 = the K slice (part: [K / slice][M][NP] f32 when there
+// are several). The plan is ops/int8_matmul.py int8_matmul_plan's. x's rows
+// and q 16-byte aligned, K % 8 == 0, NP % 16 == 0 (the wrapper checks).
+extern "C" int spt_int8_matmul_tc(const void* x, const void* q,
+                                  const void* scale, void* out, void* part,
+                                  int M, int K, int N, int NP, int route,
+                                  int p0, int p1, int p2, int p3,
+                                  void* stream) {
+  if (K % 8 != 0 || NP % 16 != 0 || (uintptr_t)x % 16 != 0 ||
+      (uintptr_t)q % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    if (p0 == 128)
+      return spt::launch_int8_matmul_wgmma<128>(
+          x, (const int8_t*)q, (const float*)scale, out, M, K, N, NP, st);
+    if (p0 == 256)
+      return spt::launch_int8_matmul_wgmma<256>(
+          x, (const int8_t*)q, (const float*)scale, out, M, K, N, NP, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 2)
+    return spt::launch_int8_matmul_stream(
+        x, (const int8_t*)q, (const float*)scale, out, (float*)part, M, K, N,
+        NP, p0, p1, p2, p3, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -179,22 +179,6 @@ struct HeadSmem {
                 "stage layout");
 };
 
-// one word of ldmatrix.trans over int8 pairs: bytes (k, c), (k, c + 1),
-// (k + 1, c), (k + 1, c + 1) -> the A registers of rows c and c + 1, each
-// the bf16 pair (k, k + 1): byte b becomes the f32 2^23 + (b ^ 0x80), less
-// 2^23 + 128, an integer of at most 8 bits whose upper half is its bf16
-__device__ __forceinline__ void i8_pairs_to_bf16(uint32_t w, uint32_t* a) {
-  const uint32_t u = w ^ 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(
-        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
-        8388736.f);
-  a[0] = __byte_perm(f[0], f[2], 0x7632);
-  a[1] = __byte_perm(f[1], f[3], 0x7632);
-}
-
 // W's rows (LDW), x's rows (D) and both bases are 16-byte aligned
 template <typename W, int NG>
 __global__ void __launch_bounds__(HeadSmem<W, NG>::kThreads)

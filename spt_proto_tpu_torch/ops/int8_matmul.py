@@ -4,13 +4,19 @@ int8_matmul in spt_proto_tpu/ops/pallas/int8_matmul.py):
     y = x @ (q * scale)      q [K, N_pad] int8, scale [N] f32 per column
 
 `int8_matmul` launches csrc/int8_matmul.cu for CUDA tensors and runs the
-plain twin `int8_matmul_ref` for CPU tensors. Both follow the TPU KERNEL,
+plain twin `int8_matmul_ref` for CPU tensors; `int8_matmul_plan` is the
+rule that picks the kernel (bf16: wgmma at m >= SKINNY_M, the tensor-core
+weight stream below it; f32 and shapes off that rule: the CUDA-core
+kernels). The twin and the f32 kernels follow the TPU KERNEL,
 not the JAX package's `int8_matmul_ref` oracle, which differs from it in
 two ways: x is rounded to bf16 (also when the serving dtype is f32), and
 the f32 products are summed in `block_k`-row chunks whose partial sums are
 added in ascending order. Because the scale is per output column it
 commutes with the K sum and is applied once: (acc * scale) cast to x's
-dtype. Columns past the scale's width (q's N padding) come out 0.
+dtype. Columns past the scale's width (q's N padding) come out 0. The
+bf16 kernels sum over K without the chunk partials (wgmma over all of K;
+the stream in K slices added in order): the f32 sums part from the twin's
+by far less than the bf16 output's step.
 
 `int8_matmul_t` is the transposed form (port of int8_matmul_t): dx =
 (g * scale) @ q^T with q read in its stored [K, N] layout, launching the
@@ -22,8 +28,15 @@ from __future__ import annotations
 import torch
 
 from spt_proto_tpu_torch import _build
+from spt_proto_tpu_torch.ops import weight_stream as ws
 
 SKINNY_M = 64       # below this many rows the kernel streams the weight
+WGMMA_WIDE_M = 1024  # from this many rows the wgmma CTA takes 256 x rows,
+                     # below it 128 (on the H100, 4096 x 4096: 128 rows
+                     # faster up to m 512, 256 rows from m 1,024)
+STREAM_SLICE_MIN = 128   # K rows a slice of the skinny stream, at least
+STREAM_CTAS = 264        # CTAs the skinny stream aims for (two an SM; more
+                         # slices cost more in the reduce than they gain)
 
 
 def int8_block_k(m: int, k: int) -> int:
@@ -58,6 +71,27 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     return (acc * s).to(x.dtype).reshape(*lead, n_pad)
 
 
+def int8_matmul_plan(m: int, k: int, n_pad: int, dtype: torch.dtype,
+                     aligned: bool = True) -> dict:
+    """The kernel an int8_matmul call runs on the card. bf16 x with K % 8 == 0
+    and 16-byte aligned x and q (`aligned`) takes the tensor cores: route
+    'wgmma' (m >= SKINNY_M; `bn` x rows a CTA) or 'stream' (m < SKINNY_M; `cw`
+    16-column tiles a CTA, `ng` row groups a warp, a ring of `stages`, K in
+    `slices` slices of `kslice` rows). f32 x and the shapes off that rule take
+    route 'cuda_core' (int8_matmul_skinny_kernel / _tiled_kernel, the TPU
+    kernel's chunk partials)."""
+    if dtype != torch.bfloat16 or k % 8 or not aligned:
+        return dict(route='cuda_core')
+    if m >= SKINNY_M:
+        return dict(route='wgmma', bn=256 if m >= WGMMA_WIDE_M else 128)
+    cw, ng = ws.tile(m)
+    stages, ng = ws.ring(1, 1, 1, cw, m, ng)
+    kslice = ws.k_slice(k, -(-n_pad // (16 * cw)), STREAM_SLICE_MIN,
+                        STREAM_CTAS)
+    return dict(route='stream', cw=cw, ng=ng, stages=stages, kslice=kslice,
+                slices=-(-k // kslice))
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [..., K] (f32 or bf16, contiguous) @ dequant(q [K, N_pad] int8,
@@ -82,9 +116,22 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     if m == 0:
         return out
     p = _build.ptr
-    err = _build.lib().spt_int8_matmul(
-        code, p(x), p(q), p(scale), p(out), m, k, n, n_pad,
-        int8_block_k(m, k), _build.stream())
+    plan = int8_matmul_plan(m, k, n_pad, x.dtype, x.data_ptr() % 16 == 0)
+    if plan['route'] == 'cuda_core':
+        err = _build.lib().spt_int8_matmul(
+            code, p(x), p(q), p(scale), p(out), m, k, n, n_pad,
+            int8_block_k(m, k), _build.stream())
+    elif plan['route'] == 'wgmma':
+        err = _build.lib().spt_int8_matmul_tc(
+            p(x), p(q), p(scale), p(out), None, m, k, n, n_pad, 1,
+            plan['bn'], 0, 0, 0, _build.stream())
+    else:
+        part = (torch.empty((plan['slices'], m, n_pad), dtype=torch.float32,
+                            device=x.device) if plan['slices'] > 1 else None)
+        err = _build.lib().spt_int8_matmul_tc(
+            p(x), p(q), p(scale), p(out), p(part), m, k, n, n_pad, 2,
+            plan['cw'], plan['ng'], plan['stages'], plan['kslice'],
+            _build.stream())
     _build.check(err, 'int8_matmul')
     int8_matmul.launches += 1
     return out

@@ -170,8 +170,8 @@ def test_prefill_chunk_matches_jax(sparse, quantized):
                          for f in ('k', 'v', 'codes', 'length', 'k_scale',
                                    'v_scale')})
     chunk = tokens[1:, TILE:]
-    j_logits, jc = jeng.prefill_chunk(j_iw, jnp.asarray(chunk), jc,
-                                      jnp.int32(1), TILE)
+    j_logits, jc = jax.jit(jeng.prefill_chunk, static_argnums=4)(
+        j_iw, jnp.asarray(chunk), jc, jnp.int32(1), TILE)
     t_logits, tc = teng.prefill_chunk(t_iw, t(chunk), tc, 1, TILE)
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                atol=1e-4, rtol=0)

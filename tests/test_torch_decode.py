@@ -16,6 +16,7 @@ from spt_proto_tpu.ops.pallas.decode_front import build_pq_bd as j_build_pq_bd
 from spt_proto_tpu.ops.pallas.decode_front import decode_front as j_front
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import decode_front as tfront
+from test_torch_engine import jitted
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -214,8 +215,8 @@ def _rows_both(arrays, tps, tile_base=None, clamp=0.0, ps=32):
     """The JAX oracle and the port's twin on the same inputs."""
     kw = dict(ps=ps, tps=tps, scale=64 ** -0.5, clamp=clamp)
     tb = () if tile_base is None else (tile_base,)
-    want = jattn.decode_attention_rows_ref(
-        *(jnp.asarray(a) for a in arrays + list(tb)), **kw)
+    want = jitted(jattn.decode_attention_rows_ref,
+                  *(jnp.asarray(a) for a in arrays + list(tb)), **kw)
     got = tattn.decode_attention_rows_ref(*(t(a) for a in arrays + list(tb)),
                                           **kw)
     return [np.asarray(a) for a in want], [a.numpy() for a in got], kw
@@ -291,8 +292,8 @@ def test_decode_attention_q_twin_dense_supertiles_match_jax_ref():
     arrays[6], arrays[7] = tables, n_sup.astype(np.int32)
     arrays[11] = np.zeros((b, kv, 1), np.int32)                 # c_new
     kw = dict(ps=TILE, tps=4, scale=64 ** -0.5, clamp=0.0)
-    want = jattn.decode_attention_rows_q_ref(
-        *(jnp.asarray(a) for a in arrays), **kw)
+    want = jitted(jattn.decode_attention_rows_q_ref,
+                  *(jnp.asarray(a) for a in arrays), **kw)
     got = tattn.decode_attention_rows_q_ref(*(t(a) for a in arrays), **kw)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=1e-5, rtol=1e-5)

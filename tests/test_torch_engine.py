@@ -7,6 +7,7 @@ from the same parameters (the JAX tree carried across with
 params_from_numpy) and the same numpy prompts.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +32,43 @@ torch.set_num_threads(1)
 B, MAX_LEN, STEPS = 2, 1024, 8
 
 
+def jitted(fn, *args, **kw):
+    """A JAX function called through jax.jit (its keyword arguments static):
+    the same function, traced and compiled once instead of dispatched op by
+    op (eager dispatch compiles every primitive and costs seconds)."""
+    return jax.jit(functools.partial(fn, **kw))(*args)
+
+
 def port_config(cfg):
     """The JAX ModelConfig as the port's (same fields, torch dtypes)."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     for name in ('dtype', 'param_dtype'):
         kw[name] = getattr(torch, jnp.dtype(kw[name]).name)
     return tcfg.ModelConfig(**kw)
+
+
+def jax_config(cfg):
+    """The port's ModelConfig as the JAX package's (jnp dtypes)."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for name in ('dtype', 'param_dtype'):
+        kw[name] = jnp.dtype(str(kw[name]).removeprefix('torch.'))
+    return jcfg.ModelConfig(**kw)
+
+
+def port_seeded(cfg, stages=(), **stage_kw):
+    """(JAX cfg, numpy params) of the JAX config `cfg` after the upgrade
+    `stages`, made by the port's seeded init_params and surgery (seeds 0,
+    1, 2, ...; milliseconds, where JAX's jitted surgery takes seconds a
+    model). test_init_params_matches_surgery_tree holds the initial tree to
+    JAX's (paths, shapes, dtypes, scales), test_upgrade_tree_matches_jax
+    the trees after the 'lora' and 'ffn' stages (paths, shapes, dtypes);
+    both packages then take the same numpy tree."""
+    tc = port_config(cfg)
+    params = surgery_port.init_params(tc, 0, 'cpu')
+    for i, stage in enumerate(stages):
+        tc, params = surgery_port.upgrade(tc, params, stage, i + 1,
+                                          **stage_kw.get(stage, {}))
+    return jax_config(tc), bridge.params_to_numpy(params)
 
 
 def flat(tree, prefix=''):
@@ -117,6 +149,32 @@ def test_init_params_matches_surgery_tree(model):
             np.testing.assert_array_equal(g.numpy(), w, err_msg=path)
         else:
             assert abs(gs - ws) < 0.1 * ws, (path, gs, ws)
+
+
+def test_upgrade_tree_matches_jax():
+    """port_seeded's tree after the 'lora' and 'ffn' stages (at
+    test_w8_routed_matches_jax's d_lora and ffn_block_size) has the paths,
+    shapes and dtypes of JAX's surgery.upgrade (jax.eval_shape: traced, not
+    run)."""
+    base = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
+                            vocab_size=256, max_length=512).replace(
+        dtype=jnp.float32, attn_impl='pallas')
+    stages = dict(lora=dict(d_lora=4), ffn=dict(ffn_block_size=64))
+
+    def jax_tree():
+        cfg, params = base, surgery.init_params(base, jax.random.PRNGKey(0))
+        for i, (stage, kw) in enumerate(stages.items()):
+            cfg, params = surgery.upgrade(cfg, params, stage,
+                                          jax.random.PRNGKey(i + 1), **kw)
+        return params
+    want = flat(jax.eval_shape(jax_tree))
+    got = flat(port_seeded(base, tuple(stages), **stages)[1])
+    assert sorted(got) == sorted(want)
+    assert any('lora' in p for p in want) and any('router' in p
+                                                  for p in want)
+    for path, w in want.items():
+        assert got[path].shape == w.shape, path
+        assert got[path].dtype == w.dtype, path
 
 
 def _jax_run(cfg, params, tokens):

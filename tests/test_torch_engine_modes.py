@@ -18,11 +18,10 @@ import torch
 from spt_proto_tpu import config as jcfg
 from spt_proto_tpu.inference import engine as jeng
 from spt_proto_tpu.inference.weights import InferenceWeights as JIW
-from spt_proto_tpu.tuning import surgery
 from spt_proto_tpu_torch.inference import bridge
 from spt_proto_tpu_torch.inference import engine as teng
 from spt_proto_tpu_torch.inference.weights import InferenceWeights as TIW
-from test_torch_engine import port_config
+from test_torch_engine import port_config, port_seeded
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -35,21 +34,17 @@ B, MAX_LEN, STEPS = 2, 1024, 8
 def models():
     """test_torch_engine.py's recipe (d_model 128, two heads, max_length
     1024: 8 tiles per layer, so dense decode walks supertiles of 4), before
-    and after the PQ upgrade. The JAX engine takes its per-slot decode
-    kernels (decode_multislot=False), which compute the same function as
-    the all-slot ones and compile in half the time; the port has one
-    kernel for both launch shapes."""
+    and after the PQ upgrade, seeded by the port (port_seeded). The JAX
+    engine takes its per-slot decode kernels (decode_multislot=False),
+    which compute the same function as the all-slot ones and compile in
+    half the time; the port has one kernel for both launch shapes."""
     dense = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
                              vocab_size=256, max_length=MAX_LEN).replace(
         dtype=jnp.float32, pq_metric='l2', attn_impl='pallas',
         decode_multislot=False)
-    dparams = surgery.init_params(dense, jax.random.PRNGKey(0))
-    cfg, params = surgery.upgrade(dense, dparams, 'mha_v1',
-                                  jax.random.PRNGKey(1))
-    cfg, params = surgery.upgrade(cfg, params, 'mha_v2',
-                                  jax.random.PRNGKey(2))
-    return ((dense, jax.device_get(dparams)),
-            (cfg.replace(sparse_coeff=2), jax.device_get(params)))
+    dense, dparams = port_seeded(dense)
+    cfg, params = port_seeded(dense, ('mha_v1', 'mha_v2'))
+    return ((dense, dparams), (cfg.replace(sparse_coeff=2), params))
 
 
 def _run(cfg, params, tokens, quantized, wquant, port):
@@ -158,16 +153,13 @@ def test_w8_routed_matches_jax():
     base = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
                             vocab_size=256, max_length=512).replace(
         dtype=jnp.float32, attn_impl='pallas', decode_multislot=False)
-    params = surgery.init_params(base, jax.random.PRNGKey(0))
-    cfg, params = surgery.upgrade(base, params, 'lora', jax.random.PRNGKey(1),
-                                  d_lora=4)
-    cfg, params = surgery.upgrade(cfg, params, 'ffn', jax.random.PRNGKey(2),
-                                  ffn_block_size=64)
+    cfg, params = port_seeded(base, ('lora', 'ffn'), lora=dict(d_lora=4),
+                              ffn=dict(ffn_block_size=64))
     r = np.random.RandomState(3)
     params = jax.tree_util.tree_map_with_path(
         lambda p, v: (r.randn(*v.shape) * 0.1).astype(np.float32)
         if 'lora_right' in jax.tree_util.keystr(p) else np.asarray(v),
-        jax.device_get(params))
+        params)
     tokens = np.random.RandomState(4).randint(1, 256, (B, 160)).astype(
         np.int32)
     jiw = JIW.from_params(cfg, jax.tree.map(jnp.asarray, params),

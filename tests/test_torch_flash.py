@@ -73,7 +73,7 @@ def test_twins_match_stock_kernel(d, dtype):
             o_ = stock.flash_attention(q_, k_, v_, causal=True,
                                        sm_scale=scale)
             return jnp.sum(o_.astype(jnp.float32) * jdo.astype(jnp.float32))
-        grads = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+        grads = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
     as_np = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
     td = getattr(torch, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(td) for a in (q, k, v, do))

@@ -92,8 +92,8 @@ def test_grouped_matmul_vjp_matches_megablox():
             return jnp.sum(ops.gmm(a, b, jnp.asarray(SIZES), jnp.float32,
                                    (128, 128, 128), None, None, t, True)
                            * cot)
-        jl, jr = jax.grad(f, argnums=(0, 1))(jnp.asarray(lhs),
-                                             jnp.asarray(rhs))
+        jl, jr = jax.jit(jax.grad(f, argnums=(0, 1)))(jnp.asarray(lhs),
+                                                      jnp.asarray(rhs))
         a = torch.from_numpy(lhs).requires_grad_(True)
         b = torch.from_numpy(rhs).requires_grad_(True)
         out = tgmm.grouped_matmul(a, b, torch.from_numpy(SIZES),
@@ -143,7 +143,7 @@ def test_routed_ffn_forms_match_jax(form):
 
     def jfun(*a):
         return jf(a[0], a[1], 2, *a[2:], jax.nn.relu, **kw)
-    jy, vjp = jax.vjp(jfun, *map(jnp.asarray, args))
+    jy, vjp = jax.vjp(jax.jit(jfun), *map(jnp.asarray, args))
     jgrads = vjp(jnp.asarray(cot))
     targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
     ty = tf(targs[0], targs[1], 2, *targs[2:], torch.relu)
@@ -178,7 +178,7 @@ def test_model_with_gmm_ffn_matches_jax():
     cfg, params = _routed_lora_tiny()
     cfg = cfg.replace(ffn_impl='gmm')
     tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 64))
-    want = JDecoderLM(cfg=jax_config(cfg)).apply(
+    want = jax.jit(JDecoderLM(cfg=jax_config(cfg)).apply)(
         {'params': jax.tree.map(jnp.asarray, params)},
         jnp.asarray(tokens))['logits']
     tp = bridge.params_from_numpy(params, 'cpu')

@@ -224,3 +224,42 @@ def test_int8_weight_tree_matches_jax(sparse_params, dtype):
     for path, g_ in got.items():
         assert staged[path].dtype == g_.dtype, path
         assert torch.equal(staged[path], g_), path
+
+
+# The wrapper's choice of int8_matmul kernel (int8_matmul_plan), pure
+# Python: the w8 serving shapes and the int8_base forward take the tensor
+# cores in bf16 (the weight stream below SKINNY_M rows, wgmma from it), f32
+# and the shapes off the rule (K % 8, an unaligned x) the CUDA-core
+# kernels; the stream's K slices are whole 64-row stages and keep every
+# K row, its tile holds every row of x.
+@pytest.mark.parametrize('m,k,n_pad,dtype,aligned,route', [
+    (8, 4096, 4096, torch.bfloat16, True, 'stream'),        # Llama-3-8B o
+    (4, 4096, 4096, torch.bfloat16, True, 'stream'),        # LLaMA-7B o B=4
+    (8, 768, 2304, torch.bfloat16, True, 'stream'),         # OPT-125M qkv
+    (63, 4096, 1024, torch.bfloat16, True, 'stream'),       # SKINNY_M - 1
+    (64, 4096, 1024, torch.bfloat16, True, 'wgmma'),        # SKINNY_M
+    (2048, 4096, 11008, torch.bfloat16, True, 'wgmma'),     # int8_base fwd
+    (16384, 4096, 14336, torch.bfloat16, True, 'wgmma'),    # 3-8B prefill
+    (16384, 4104, 512, torch.bfloat16, True, 'wgmma'),      # K off 64
+    (8, 4096, 4096, torch.float32, True, 'cuda_core'),      # f32
+    (16384, 768, 3072, torch.float32, True, 'cuda_core'),
+    (8, 100, 256, torch.bfloat16, True, 'cuda_core'),       # K % 8
+    (96, 100, 256, torch.bfloat16, True, 'cuda_core'),
+    (8, 256, 256, torch.bfloat16, False, 'cuda_core'),      # unaligned x
+    (96, 256, 256, torch.bfloat16, False, 'cuda_core')], ids=str)
+def test_int8_matmul_plan(m, k, n_pad, dtype, aligned, route):
+    plan = tmm.int8_matmul_plan(m, k, n_pad, dtype, aligned)
+    assert plan['route'] == route
+    assert (route == 'stream') == (dtype == torch.bfloat16 and aligned
+                                   and k % 8 == 0 and m < tmm.SKINNY_M)
+    if route == 'wgmma':
+        assert plan['bn'] == (256 if m >= tmm.WGMMA_WIDE_M else 128)
+    if route == 'stream':
+        cw, ng, kslice = plan['cw'], plan['ng'], plan['kslice']
+        assert cw in (1, 2, 4, 8) and ng in (1, 2, 4)
+        assert (8 // cw) * ng * 8 >= m                # every row of x held
+        assert kslice % 64 == 0 and plan['slices'] * kslice >= k
+        assert (plan['slices'] - 1) * kslice < k      # no empty slice
+        ctas = plan['slices'] * -(-n_pad // (16 * cw))
+        assert ctas <= tmm.STREAM_CTAS or plan['slices'] == 1
+        assert plan['stages'] == 4            # the kernel's one depth

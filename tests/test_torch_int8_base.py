@@ -101,7 +101,8 @@ def test_int8_frozen_matmul_grad_matches_jax():
     def jloss(x_):
         y = jmm.int8_frozen_matmul(x_, jnp.asarray(q), jnp.asarray(s))
         return jnp.sum(jnp.tanh(y) * w), y
-    (_, jy), jdx = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    (_, jy), jdx = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jnp.asarray(x))
     xt = to_torch(x).requires_grad_(True)
     qt, st = torch.from_numpy(q), torch.from_numpy(s)
     y = tmm.int8_frozen_matmul(xt, qt, st)
@@ -247,7 +248,7 @@ def test_routed_int8_forms_match_jax(form):
             a[0], a[1], 2, tq['fc1'], a[2], tq['fc2'], a[3], trelu)
     args = [w[k] for k in keys]
     cot = np.random.RandomState(9).randn(24, 16).astype(np.float32)
-    jy, vjp = jax.vjp(lambda *a: jf(a), *map(jnp.asarray, args))
+    jy, vjp = jax.vjp(jax.jit(lambda *a: jf(a)), *map(jnp.asarray, args))
     jgrads = vjp(jnp.asarray(cot))
     targs = [to_torch(a).requires_grad_(True) for a in args]
     ty = tf(targs)

@@ -26,7 +26,7 @@ from spt_proto_tpu_torch.inference import bridge
 from spt_proto_tpu_torch.inference import weights as tw
 from spt_proto_tpu_torch.ops import decode_front as tfront
 from spt_proto_tpu_torch.ops import ffn_tail as tffn
-from test_torch_engine import flat, port_config
+from test_torch_engine import flat, port_config, port_seeded
 from test_torch_engine_modes import B, _run
 from test_torch_int8 import as_np, t
 
@@ -55,15 +55,13 @@ def _upgrade(cfg, params):
 @pytest.fixture(scope='module')
 def models():
     """{'mha' | 'gqa': ((dense cfg, params), (sparse cfg, params))}, params
-    as numpy arrays; the sparse model is the dense one after its PQ
-    upgrade."""
+    as numpy arrays seeded by the port (port_seeded); the sparse model is
+    the dense one after its PQ upgrade."""
     out = {}
     for name, kvh in (('mha', None), ('gqa', 2)):
-        dense = _llama(kvh)
-        dparams = surgery.init_params(dense, jax.random.PRNGKey(0))
-        cfg, params = _upgrade(dense, dparams)
-        out[name] = ((dense, jax.device_get(dparams)),
-                     (cfg.replace(sparse_coeff=2), jax.device_get(params)))
+        dense, dparams = port_seeded(_llama(kvh))
+        cfg, params = port_seeded(dense, ('mha_v1', 'mha_v2'))
+        out[name] = ((dense, dparams), (cfg.replace(sparse_coeff=2), params))
     return out
 
 
@@ -311,3 +309,38 @@ def test_llama_decode_mode_matches_jax(models, mode):
             np.testing.assert_allclose(t_cache[n], j_cache[n], rtol=scale_tol,
                                        atol=0, err_msg=n)
     np.testing.assert_array_equal(t_tokens, j_tokens)
+
+
+# The gated tails' kernel plan (ffn_tail_plan, gated=True), pure Python: the
+# LLaMA decode shapes take the tensor-core streams in bf16 (the gate and the
+# side streamed side by side, int8 splitting the up product's K where d_ff
+# alone fills at most a third of a wave), f32 and off-rule shapes the
+# CUDA-core pair.
+@pytest.mark.parametrize('m,f,dtype,aligned,int8,route,up_slices', [
+    (8, 14336, torch.bfloat16, True, False, 'tc', 1),     # Llama-3-8B
+    (8, 14336, torch.bfloat16, True, True, 'tc', 3),
+    (4, 11008, torch.bfloat16, True, False, 'tc', None),  # LLaMA-7B B=4
+    (4, 11008, torch.bfloat16, True, True, 'tc', None),
+    (1, 14336, torch.bfloat16, True, True, 'tc', 3),
+    (64, 14336, torch.bfloat16, True, False, 'tc', 1),
+    (65, 11008, torch.bfloat16, True, True, 'tc', 1),
+    (256, 14336, torch.bfloat16, True, True, 'tc', 1),
+    (8, 14336, torch.float32, True, False, 'cuda_core', None),
+    (8, 11008, torch.float32, True, True, 'cuda_core', None),
+    (8, 14336, torch.bfloat16, False, True, 'cuda_core', None)], ids=str)
+def test_ffn_tail_gated_plan(m, f, dtype, aligned, int8, route, up_slices):
+    from spt_proto_tpu_torch.ops import weight_stream as ws
+    d = 4096
+    plan = tffn.ffn_tail_plan(m, d, f, dtype, aligned, gated=True, int8=int8)
+    assert plan['route'] == route
+    if route == 'cuda_core':
+        return
+    up, down = plan['up'], plan['down']
+    assert up_slices is None or up['slices'] == up_slices
+    for p, n_w, n_x, k in ((up, 2, 1, d), (down, 1, 2, f)):
+        assert (8 // p['cw']) * p['ng'] * 8 >= m
+        smem = p['stages'] * ws.stage_bytes(1 if int8 else 2, n_w, n_x,
+                                            p['cw'], m)
+        assert smem <= ws.MAX_SMEM
+        assert (p['slices'] - 1) * p['kslice'] < k <= \
+            p['slices'] * p['kslice'] and p['kslice'] % 64 == 0

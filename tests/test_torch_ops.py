@@ -27,6 +27,7 @@ from spt_proto_tpu_torch.ops import lookup as tlookup
 from spt_proto_tpu_torch.ops import pq as tpq
 from spt_proto_tpu_torch.ops import sparse_attention as tsa
 from spt_proto_tpu_torch.ops.decode_front import build_pq_bd as t_build_pq_bd
+from test_torch_engine import jitted
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -135,9 +136,9 @@ def test_block_sparse_attention_matches_jax(block_q, n_sel, clamp):
     want = np.asarray(jbsa.block_sparse_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(sel),
         **kw))
-    want_ref = np.asarray(jbs.block_sparse_attention_ref(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(sel),
-        **kw))
+    want_ref = np.asarray(jitted(
+        jbs.block_sparse_attention_ref, jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v), jnp.asarray(sel), **kw))
     got = tbs.block_sparse_attention_ref(t(q), t(k), t(v), t(sel), **kw)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), want_ref, atol=1e-5)
@@ -209,3 +210,45 @@ def test_ffn_tail_matches_jax_kernel():
                                     act='relu', interpret=True))
     got = tffn.ffn_tail_ref(*(t(a) for a in arrays))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+# The fused tails' kernel plan (ffn_tail_plan), pure Python: bf16 takes the
+# tensor-core streams for every m up to MAX_ROWS (a tile whose warps hold
+# all the rows, a ring that fits the card's shared memory), f32 and shapes
+# off the rule (d or d_ff % 8, unaligned operands) the CUDA-core pair; the
+# splits are whole 64-row stages, keep every K row, fill at most one wave.
+@pytest.mark.parametrize('m,d,f,dtype,aligned,int8,route', [
+    (8, 768, 3072, torch.bfloat16, True, False, 'tc'),      # OPT-125M
+    (8, 768, 3072, torch.bfloat16, True, True, 'tc'),
+    (8, 2048, 8192, torch.bfloat16, True, True, 'tc'),      # OPT-1.3B
+    (1, 768, 3072, torch.bfloat16, True, False, 'tc'),
+    (17, 768, 3072, torch.bfloat16, True, True, 'tc'),
+    (63, 2048, 8192, torch.bfloat16, True, False, 'tc'),
+    (64, 2048, 8192, torch.bfloat16, True, True, 'tc'),
+    (65, 640, 2944, torch.bfloat16, True, True, 'tc'),
+    (256, 768, 3072, torch.bfloat16, True, False, 'tc'),    # MAX_ROWS
+    (8, 768, 3072, torch.float32, True, False, 'cuda_core'),
+    (8, 2048, 8192, torch.float32, True, True, 'cuda_core'),
+    (8, 772, 3072, torch.bfloat16, True, False, 'cuda_core'),  # d % 8
+    (8, 768, 3076, torch.bfloat16, True, True, 'cuda_core'),   # d_ff % 8
+    (8, 768, 3072, torch.bfloat16, False, False, 'cuda_core')], ids=str)
+def test_ffn_tail_plan(m, d, f, dtype, aligned, int8, route):
+    from spt_proto_tpu_torch.ops import weight_stream as ws
+    plan = tffn.ffn_tail_plan(m, d, f, dtype, aligned, int8=int8)
+    assert plan['route'] == route
+    if route == 'cuda_core':
+        assert plan['ft'] in (32, 64)
+        return
+    item = 1 if int8 else 2
+    for name, n_w, n_x, k, n in (('up', 1, 1, d, f), ('down', 1, 2, f, d)):
+        p = plan[name]
+        cw, ng, stages = p['cw'], p['ng'], p['stages']
+        assert (8 // cw) * ng * 8 >= m                 # every row held
+        assert (stages, ng) in ((4, 1), (4, 2), (4, 4), (3, 1), (2, 4))
+        smem = stages * ws.stage_bytes(item, n_w, n_x, cw, m)
+        assert smem <= ws.MAX_SMEM
+        kslice, slices = p['kslice'], p['slices']
+        assert kslice % 64 == 0 and (slices - 1) * kslice < k <= \
+            slices * kslice
+        tiles = -(-n // (16 * cw))
+        assert slices == 1 or slices * tiles <= ws.wave(smem)

@@ -24,7 +24,7 @@ from spt_proto_tpu_torch.inference import paged as tpaged
 from spt_proto_tpu_torch.inference.weights import InferenceWeights as TIW
 from spt_proto_tpu_torch.ops import decode_attention as tattn
 from spt_proto_tpu_torch.ops import paged_attention as tpa
-from test_torch_engine import port_config
+from test_torch_engine import jitted, port_config
 
 # the suite runs in several xdist workers on a few cores, and these
 # tensors are small: one torch thread per worker
@@ -166,7 +166,7 @@ def test_tile_pool_twin_matches_jax_kernel(g, clamp):
     jargs = [jnp.asarray(a) for a in args]
     o_k, kp_k, vp_k, cp_k = jattn.decode_attention(*jargs, interpret=True,
                                                    **kw)
-    o_r = jattn.decode_attention_ref(*jargs, **kw)[0]
+    o_r = jitted(jattn.decode_attention_ref, *jargs, **kw)[0]
     got = tattn.decode_attention(*[t(a) for a in args], **kw)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(o_k), atol=2e-5,
                                rtol=0)
@@ -191,7 +191,8 @@ def test_tile_pool_twin_wraps_negative_ids():
     tables[0, 1] = -1
     args[10] = tables[np.arange(len(n_tiles)), n_tiles - 1].astype(np.int32)
     kw = dict(ps=32, scale=64 ** -0.5, clamp=0.0)
-    want = jattn.decode_attention_ref(*[jnp.asarray(a) for a in args], **kw)
+    want = jitted(jattn.decode_attention_ref,
+                  *[jnp.asarray(a) for a in args], **kw)
     got = tattn.decode_attention(*[t(a) for a in args], **kw)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=2e-5, rtol=0)
@@ -222,9 +223,9 @@ def test_paged_sparse_attention_matches_jax_with_ties():
     lengths = np.array([pps * ps, 5 * ps + 1, 3 * ps + 2], np.int32)
     phys = np.where(logical >= 0, logical, n_pages - 1).astype(np.int32)
     kw = dict(scale=d ** -0.5, clamp=4.0, sparse_coeff=4)
-    want = jpaged.paged_sparse_attention(
-        *(jnp.asarray(a) for a in (qg, codes_q, k, v, c, lengths, phys,
-                                   logical)), **kw)
+    want = jitted(jpaged.paged_sparse_attention,
+                  *(jnp.asarray(a) for a in (qg, codes_q, k, v, c, lengths,
+                                             phys, logical)), **kw)
     got = tpaged.paged_sparse_attention(
         *(t(a) for a in (qg, codes_q, k, v, c, lengths, phys, logical)),
         **kw)

@@ -154,8 +154,9 @@ def test_pq_train_quantize_decode_match_jax(metric):
     def jloss(z_, cb_):
         zq, loss = jpq.pq_train(z_, cb_, metric)
         return loss + 0.1 * jnp.sum(jnp.sin(zq)), (zq, loss)
-    (jl, (jzq, jloss_only)), (jgz, jgc) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(z), jnp.asarray(cb))
+    (jl, (jzq, jloss_only)), (jgz, jgc) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(z),
+                                              jnp.asarray(cb))
     tz, tcb = t(z, grad=True), t(cb, grad=True)
     zq, loss = tpq.pq_train(tz, tcb, metric)
     (loss + 0.1 * torch.sin(zq).sum()).backward()
@@ -222,8 +223,8 @@ def test_routed_ffn_forms_match_jax(gated, lora):
         return jnp.sum(jnp.sin(jf(args[0], args[1], top_k, *args[2:],
                                   jact)))
     jargs = [jnp.asarray(a) for a in (x, probs, *ws)]
-    jl, jg = jax.value_and_grad(jloss, argnums=tuple(range(len(jargs))))(
-        *jargs)
+    jl, jg = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(len(jargs)))))(*jargs)
     targs = [t(a, grad=True) for a in (x, probs, *ws)]
     tl = torch.sin(tf(targs[0], targs[1], top_k, *targs[2:], tact)).sum()
     tl.backward()
