@@ -9,17 +9,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels from spt_proto_tpu_torch/csrc and print the build time, and
    beside the build compile the tensor-core kernels' sources once more
    with -Xptxas -v to print their registers and spills (the int8_matmul
-   wgmma and weight-stream kernels and the FFN-tail streams must spill
-   nothing);
+   wgmma and weight-stream kernels, the FFN-tail streams, the bf16 decode
+   front's norm / stream / tail and the int8-KV split attention must
+   spill nothing);
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
-   at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32: the
-   decode front (with and without int8 KV quantization, with the stacked fp
-   and the packed int8 QKV weight; and LLaMA's RMSNorm + RoPE forms: the
-   stack and packed int8 at LLaMA-7B width, B=4, and the GQA triple and
-   triple_int8 at Llama-3-8B width, B=8), decode attention over a bf16/f32
-   cache (dense tables at max_len 2176, dense supertiles of 4 at max_len
-   2048, sparse tables) and over an int8 cache (sparse tables, and dense
-   supertiles of 4 through one table row; and both at Llama-3-8B's G = 4),
+   at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32, on
+   the route its wrapper's rule names (asserted): the decode front (with
+   and without int8 KV quantization, with the stacked fp and the packed
+   int8 QKV weight; and LLaMA's RMSNorm + RoPE forms: the stack and packed
+   int8 at LLaMA-7B width, B=4, and the GQA triple and triple_int8 at
+   Llama-3-8B width, B=8; and its edges: B = 1, 3, 9, 16, a slot with no
+   full tile, planted equal tile scores, packed int8 at D 640 (K blocks of
+   128), a biased GQA triple, one kv head), each beside the cuBLAS product
+   of its projection, decode attention over a bf16/f32 cache (dense tables
+   at max_len 2176, dense supertiles of 4 at max_len 2048, sparse tables)
+   and over an int8 cache (sparse tables, and dense supertiles of 4 through
+   one table row; and both at Llama-3-8B's G = 4; and its edges: -1
+   entries and entries past n_tiles, the new token at lane 0 and lane
+   127, grouped table rows, supertiles of 4 at G = 4, G = 1 and G = 8 at
+   d_head 128),
    the lm_head argmax (fp, and int8 at OPT-125M and OPT-1.3B widths; both
    at d 4096 over 128,256 and 32,000 tokens; and both at LLaMA-13B's d
    5120 over OPT's ragged 50,272 tokens at B 1, 4, 8, 13 and 40, on
@@ -82,7 +90,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (bench_serving.py's int8 mode) sparse int8-KV and dense bf16-KV: prefill
    + 32 greedy steps each, with the kernel launch counters zeroed before
    and read after each run and checked exactly, prefill / decode tokens per
-   second from CUDA events, and a profiled 4-step decode window per mode;
+   second from CUDA events (the decode window starts after a sync), and a
+   profiled 4-step decode window per mode (after a sync too); a bf16 run
+   (here and in phases 5-6) fails if its steps launch decode_front's fused
+   kernel or the int8-KV attention's one-pass or int8 walk kernel;
 5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, and sparse
    int8-KV w8 (the round-4 ladder's "sparse w8"), B=8, prompt 2048, max_len
    2176, 32 steps, with tokens per second and peak memory;
@@ -275,7 +286,10 @@ def log_ptxas(proc, pattern: str, no_spills: bool = False) -> list[str]:
 # 13__nv_bfloat16: bf16), lm_head_tc_kernel<W, NG> (a: int8) and
 # gmm_tc_kernel<Tile, KMAJ> / tgmm_tc_kernel<Tile>; and, required to spill
 # nothing, int8_matmul_wgmma_kernel<BN>, int8_matmul_stream_kernel<NG, S>,
-# ffn_up_kernel<W, GATED, NG, S> and ffn_down_kernel<W, NG, S>
+# ffn_up_kernel<W, GATED, NG, S>, ffn_down_kernel<W, NG, S>, the bf16
+# decode front's decode_front_norm_kernel<T>, decode_front_stream_kernel<W,
+# NG, S> and decode_front_tail_kernel<T, INT8>, and the int8-KV split walk
+# decode_attention_q_split_kernel<D>
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?',
      False),
@@ -286,7 +300,11 @@ PTXAS_KERNELS = (
     ('int8_matmul.cu', r'(int8_matmul_(?:wgmma|stream)_kernel)ILi(\d+)E'
      r'(?:Li(\d)E)?', True),
     ('ffn_tail.cu', r'(ffn_(?:up|down)_kernel)I(a|13__nv_bfloat16)'
-     r'(?:Lb([01])E)?Li(\d)ELi(\d)E', True))
+     r'(?:Lb([01])E)?Li(\d)ELi(\d)E', True),
+    ('decode_front.cu', r'(decode_front_(?:norm|stream|tail)_kernel)'
+     r'I(a|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d)ELi(\d)E)?', True),
+    ('decode_attention.cu', r'(decode_attention_q_split_kernel)ILi(\d+)E',
+     True))
 
 
 class Timer:
@@ -471,31 +489,22 @@ def dequant(wq, dtype):
     return (wq['q'][:, :n].float() * wq['scale'].reshape(1, n)).to(dtype)
 
 
-def check_front(dtype, timer=None, quantized=True, packed=False,
-                model=None):
-    """decode_front vs decode_front_ref at the serving shape (the middle
-    layer's slab), with int8 KV quantization (sparse int8-KV decode) or
-    without (sparse bf16-KV decode), with the fp weight or the int8 one
-    (packed=True: int8 weight-only serving). model None: OPT-125M, the
-    stacked QKV (int8: packed); else a LLAMA_FRONTS entry: LLaMA-7B's stack
-    (int8: packed) or Llama-3-8B's GQA triple (int8: triple_int8), with
-    RMSNorm and RoPE."""
+def front_case(label, dtype, args, cos_sin, base, kw, timer=None,
+               tdt=None):
+    """decode_front vs decode_front_ref on one set of inputs (front_inputs'
+    first nine, then cos / sin), on the kernels front_plan names (asserted:
+    bf16 the stream, f32 the fused kernel); tdt the dtype whose bounds hold
+    (the int8 forms: bf16). Timed with the cuBLAS product of the normed
+    rows and the concatenated q / k / v weights (dequantized for the int8
+    forms) beside it when timer is given."""
     from spt_proto_tpu_torch.ops import decode_front as m
-    from spt_proto_tpu_torch.inference.weights import quantize_int8
-    geo = LLAMA_FRONTS[model] if model else {}
-    b, n_sub = geo.get('b', B), geo.get('n_sub', N_SUB)
-    layers = geo.get('layers', LAYERS)
-    args = front_inputs(dtype, gen(SEED + 1), **geo)
-    cos_sin = args[9:]
-    args = args[:9]
-    if packed and isinstance(args[3], tuple):
-        args[3] = tuple(quantize_int8(w) for w in args[3])
-    elif packed:
-        args[3] = quantize_int8(torch.cat(list(args[3]), dim=-1))
-    llama = model is not None
-    kw = dict(nt=NT, nsel=NSEL, n_sub=n_sub, ps=TILE, quantized=quantized,
-              eps=1e-6 if llama else 1e-5, arch='llama' if llama else 'opt')
-    base = layers // 2 * NT
+    tdt = tdt or dtype
+    quantized = kw['quantized']
+    x, nsc, nbi, w, bq, bd, cbn, cc = args[:8]
+    route = m.call_plan(x, nsc, nbi, w, bd, cbn, cc, *cos_sin,
+                        kw['n_sub'])['route']
+    require(route == ('stream' if dtype == torch.bfloat16 else 'fused'),
+            f'{label} {dtype}: route {route}')
     got = m.decode_front(*args, base, *cos_sin, **kw)
     want = m.decode_front_ref(*args, base, *cos_sin, **kw)
     sync()
@@ -506,18 +515,14 @@ def check_front(dtype, timer=None, quantized=True, packed=False,
     # orders, so a projection one rounding step apart can move a value
     # across an argmin or int8 boundary. Codes and tables: none in f32, at
     # most one flipped entry each in bf16 (a wrong selection on a head
-    # shows as more). k8/v8: a few values one int8 step apart. The packed
-    # int8 form rounds the kernel's own f32 norm output to bf16 in both
-    # serving dtypes, so an f32 ulp between its norm sums and the twin's
-    # can become a whole bf16 step of one operand: it is held to the bf16
-    # bounds in f32 too.
-    tdt = torch.bfloat16 if packed else dtype
+    # shows as more). k8/v8: a few values one int8 step apart. The int8
+    # forms round the kernel's own f32 norm output to bf16 in both serving
+    # dtypes, so an f32 ulp between its norm sums and the twin's can become
+    # a whole bf16 step of one operand: they are held to the bf16 bounds in
+    # f32 too.
     sel_flips = max(int((got[i] != want[i]).sum()) for i in (3, 4))
     sel_tol = 0 if tdt == torch.float32 else 1
     qkv_ok = all(close(g_, w_, tdt) for g_, w_ in zip(got[:3], want[:3]))
-    form = m.weight_form(args[3])
-    label = (f'decode_front {form}{" " + model if model else ""} '
-             f'{"int8-KV" if quantized else "bf16-KV"}')
     if quantized:
         kv_flips = max(mismatch(got[i], want[i]) for i in (5, 6))
         kv_tol = 1e-3 if tdt == torch.float32 else 1e-2
@@ -536,26 +541,139 @@ def check_front(dtype, timer=None, quantized=True, packed=False,
     log(f'  {label:45s} {str(dtype):15s} qkv max err {q_err:.3g} '
         f'({tol_str(tdt)}); code/table entries flipped {sel_flips} '
         f'(tol {sel_tol}){kv_msg}')
-    res = dict(max_abs_err=q_err)
+    res = dict(max_abs_err=q_err, route=route)
     if timer is not None:
         x, nsc, nbi, w, bq, bd, cbn, cc, pos = args
         res['ms'] = timer.ms(lambda: m.decode_front(*args, base, *cos_sin,
                                                     **kw))
         res['plain_ms'] = timer.ms(lambda: m.decode_front_ref(
             *args, base, *cos_sin, **kw), reps=5)
-        cur = int(pos[0]) // TILE
-        n_full = min(cur, NT)
+        b = x.shape[0]
+        n_sub = kw['n_sub']
+        cur = pos // TILE
+        n_full = int(cur.clamp(max=kw['nt']).sum())
         kv = cc.shape[1]
-        slab = b * kv * n_full * n_sub * TILE * 4      # code slab it scans
+        slab = kv * n_full * n_sub * TILE * 4          # code slab it scans
         w_ts = [w] if not isinstance(w, tuple) else list(w)
         io = nbytes(x, nsc, nbi, *w_ts, bq, bd, cbn, pos, *cos_sin, *got)
         n_q, n_k = got[0].shape[1], got[1].shape[1]
         ops = 2 * b * x.shape[1] * (n_q + 2 * n_k) \
             + 2 * b * (n_q + n_k) * bd.shape[1]        # projection, encode
         res['bound_ms'], res['bound_by'] = bound_ms(io + slab, ops, dtype)
+        # no one PyTorch call computes the front; its projection alone is
+        # one product, timed as a yardstick for the stream
+        if isinstance(w, torch.Tensor):
+            wcat = torch.cat(list(w), 1)
+        elif isinstance(w, dict):
+            wcat = dequant(w, dtype)
+        elif isinstance(w[0], dict):
+            wcat = torch.cat([dequant(t, dtype) for t in w], 1)
+        else:
+            wcat = torch.cat(list(w), 1)
+        hn = randn(gen(SEED), (b, x.shape[1]), dtype)
+        res['projection_library_ms'] = timer.ms(lambda: hn @ wcat)
+        del wcat
         res['library_ms'] = None
         log_times(res)
+        log(f'      projection beside it: cuBLAS hn @ [wq | wk | wv] '
+            f'{res["projection_library_ms"] * 1e3:.1f} us')
     return res, got
+
+
+def check_front(dtype, timer=None, quantized=True, packed=False,
+                model=None):
+    """decode_front vs decode_front_ref at the serving shape (the middle
+    layer's slab), with int8 KV quantization (sparse int8-KV decode) or
+    without (sparse bf16-KV decode), with the fp weight or the int8 one
+    (packed=True: int8 weight-only serving). model None: OPT-125M, the
+    stacked QKV (int8: packed); else a LLAMA_FRONTS entry: LLaMA-7B's stack
+    (int8: packed) or Llama-3-8B's GQA triple (int8: triple_int8), with
+    RMSNorm and RoPE."""
+    from spt_proto_tpu_torch.ops import decode_front as m
+    from spt_proto_tpu_torch.inference.weights import quantize_int8
+    geo = LLAMA_FRONTS[model] if model else {}
+    n_sub = geo.get('n_sub', N_SUB)
+    layers = geo.get('layers', LAYERS)
+    args = front_inputs(dtype, gen(SEED + 1), **geo)
+    cos_sin = args[9:]
+    args = args[:9]
+    if packed and isinstance(args[3], tuple):
+        args[3] = tuple(quantize_int8(w) for w in args[3])
+    elif packed:
+        args[3] = quantize_int8(torch.cat(list(args[3]), dim=-1))
+    llama = model is not None
+    kw = dict(nt=NT, nsel=NSEL, n_sub=n_sub, ps=TILE, quantized=quantized,
+              eps=1e-6 if llama else 1e-5, arch='llama' if llama else 'opt')
+    base = layers // 2 * NT
+    form = m.weight_form(args[3])
+    label = (f'decode_front {form}{" " + model if model else ""} '
+             f'{"int8-KV" if quantized else "bf16-KV"}')
+    return front_case(label, dtype, args, cos_sin, base, kw, timer,
+                      torch.bfloat16 if packed else dtype)
+
+
+def check_front_edges(dtype, timer=None):
+    """decode_front's edges, each vs its twin on the route front_plan
+    names (and timed when timer is given): B = 1, 3, 9 and 16 (OPT-125M's
+    stack and Llama-3-8B's triple_int8); a slot whose position has no full
+    tile yet (every score empty: -1 entries before the current tile);
+    equal tile scores planted (every full tile of slot 0's slab the same:
+    the lowest tiles win); the packed int8 form at D = 640 (D % 256 != 0:
+    K blocks of 128); a biased GQA triple (OPT's LayerNorm and biases, 12
+    query heads over 4 kv heads); one kv head for 8 query heads (LLaMA's
+    RMSNorm and RoPE, d_head 128)."""
+    from spt_proto_tpu_torch.inference.weights import quantize_int8
+    opt = dict(nt=NT, nsel=NSEL, n_sub=N_SUB, ps=TILE, quantized=True,
+               eps=1e-5, arch='opt')
+    llama = dict(opt, n_sub=N_SUB_LL, eps=1e-6, arch='llama')
+    base = LAYERS // 2 * NT
+    res = {}
+
+    def case(name, kw, geo, int8=False, edit=None):
+        args = front_inputs(dtype, gen(SEED + 21), **geo)
+        cos_sin, args = args[9:], args[:9]
+        if int8:
+            args[3] = (tuple(quantize_int8(w) for w in args[3])
+                       if isinstance(args[3], tuple)
+                       else quantize_int8(torch.cat(list(args[3]), -1)))
+        if edit is not None:
+            edit(args)
+        geo_layers = geo.get('layers', LAYERS)
+        res[name] = front_case(
+            f'decode_front edge {name}', dtype, args, cos_sin,
+            geo_layers // 2 * NT if geo_layers != LAYERS else base, kw,
+            timer, torch.bfloat16 if int8 else dtype)[0]
+
+    ll38 = dict(LLAMA_FRONTS['llama-3-8b'], layers=4)
+    for b in (1, 3, 9, 16):
+        case(f'stack B={b}', opt, dict(b=b))
+        case(f'triple_int8 llama-3-8b B={b}', llama, dict(ll38, b=b),
+             int8=True)
+
+    def no_full_tile(args):
+        args[8][0] = 5                       # the first tile, 6 tokens in
+        args[8][1] = TILE - 1
+
+    def equal_scores(args):
+        cc = args[7]
+        sl = cc[0, :, base:base + NT - 1]
+        sl.copy_(sl[:, :1].clone().expand_as(sl))   # slot 0: tiles alike
+    case('no full tile', opt, {}, edit=no_full_tile)
+    case('equal tile scores', opt, {}, edit=equal_scores)
+    case('packed_int8 D=640 (BK 128)', opt, dict(d=640, heads=10, kv=10),
+         int8=True)
+
+    def biased(args):
+        wq, wk, wv = args[3]
+        b_ = randn(gen(SEED + 22), (3, wq.shape[1]), dtype, std=0.1)
+        b_[1:, wk.shape[1]:] = 0             # k / v biases zero-padded
+        args[4] = b_
+    case('biased triple (G=3)', opt, dict(heads=12, kv=4, triple=True),
+         edit=biased)
+    case('triple KV=1 (G=8)', llama,
+         dict(b=B, d=1024, heads=8, kv=1, n_sub=N_SUB_LL, llama=True,
+              triple=True, layers=4))
+    return res
 
 
 def attention_inputs(dtype, front_out, g):
@@ -637,6 +755,9 @@ def check_attention(dtype, front_out, timer=None, dense=False):
         label = 'int8 sparse'
     kw = dict(ps=TILE, tps=tps, scale=DH ** -0.5,
               clamp=0.0 if dense else 10.0)
+    route = m.q_route(dtype, 1, DH, TILE, args[6].shape[2] * tps)
+    require((route == 'split') == (dtype == torch.bfloat16),
+            f'int8 {label} {dtype}: route {route}')
     ref_args = [a.clone() for a in args]
     got = m.decode_attention_rows_q(*args, **kw)
     want = m.decode_attention_rows_q_ref(*ref_args, **kw)
@@ -897,8 +1018,11 @@ def check_attention_gqa(dtype, int8, dense, timer=None, nt=NT, pos0=PROMPT,
     err = max_err(got[0], want[0])
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
-    walk = m.rows_walk(grp, dh, TILE, tables.shape[2],
-                       1 if int8 else q.element_size())
+    walk = (m.q_route(dtype, grp, dh, TILE, tables.shape[2]) if int8
+            else m.rows_walk(grp, dh, TILE, tables.shape[2],
+                             q.element_size()))
+    require(not int8 or (walk == 'split') == (dtype == torch.bfloat16),
+            f'int8 G={grp} {dtype}: route {walk}')
     label = (f'{fn.__name__} G={grp} {"dense" if dense else "sparse"} '
              f'(T={int(n_tiles.max())}, {walk})')
     require(close(got[0], want[0], dtype) and caches_equal
@@ -919,6 +1043,128 @@ def check_attention_gqa(dtype, int8, dense, timer=None, nt=NT, pos0=PROMPT,
             torch.int8 if int8 else dtype)
         res['library_ms'] = None
         log_times(res)
+    return res
+
+
+def attention_q_case(label, dtype, grp, dh, kv, pos, tables, n_tiles,
+                     tps=1, nt=NT, layers=2, width=N_SUB_LL, timer=None,
+                     seed=SEED + 12):
+    """decode_attention_rows_q vs its twin on int8 caches of `layers` x nt
+    tiles (the middle layer's tiles at base), slots at `pos`, the given
+    PHYSICAL tables [B, N_TAB, T] and n_tiles, on the kernel q_route names
+    (asserted: bf16 the split walk); timed when timer is given."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    g = gen(seed)
+    b = pos.shape[0]
+    n_all, base = layers * nt, layers // 2 * nt
+    q = randn(g, (b, kv, grp, dh), dtype)
+    kc, vc = (torch.randint(-127, 128, (b, kv, n_all, dh, TILE), generator=g,
+                            device=DEV, dtype=torch.int8) for _ in range(2))
+    kvp = -(-kv // 8) * 8
+    ksc, vsc = (torch.rand((b, n_all, kvp, TILE), generator=g, device=DEV)
+                * 0.05 for _ in range(2))
+    ksc[:, :, kv:] = vsc[:, :, kv:] = 0.0
+    cc = torch.randint(0, N_CODE if width > 1 else 1,
+                       (b, kv, n_all, width, TILE), generator=g, device=DEV,
+                       dtype=torch.int32)
+    c_new = torch.randint(0, N_CODE if width > 1 else 1, (b, kv, width),
+                          generator=g, device=DEV, dtype=torch.int32)
+    kn, vn = (torch.randint(-127, 128, (b, kv, dh), generator=g, device=DEV,
+                            dtype=torch.int8) for _ in range(2))
+    ksn, vsn = (torch.rand((b, kv), generator=g, device=DEV) * 0.05
+                for _ in range(2))
+    tb = torch.full((b,), base, device=DEV, dtype=torch.int32)
+    tables = tables.to(torch.int32)
+    args = [q, kc, vc, cc, ksc, vsc, tables, n_tiles.to(torch.int32),
+            pos.to(torch.int32), kn, vn, c_new, ksn, vsn, tb]
+    kw = dict(ps=TILE, tps=tps, scale=dh ** -0.5, clamp=10.0)
+    route = m.q_route(dtype, grp, dh, TILE, tables.shape[2] * tps)
+    require(route == ('split' if dtype == torch.bfloat16
+                      else m.rows_walk(grp, dh, TILE, tables.shape[2] * tps,
+                                       1)), f'{label}: route {route}')
+    ref_args = [a.clone() for a in args]
+    got = m.decode_attention_rows_q(*args, **kw)
+    want = m.decode_attention_rows_q_ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
+                                                             want[1:]))
+    require(close(got[0], want[0], dtype, output_tolerance(want[0], dtype))
+            and caches_equal and bool(torch.isfinite(got[0]).all()),
+            f'{label} {dtype}: o err {err}, appended caches equal: '
+            f'{caches_equal}')
+    log(f'  decode_attention_rows_q {label} ({route}) {str(dtype):14s} o '
+        f'max err {err:.3g} '
+        f'({tol_str(dtype, output_tolerance(want[0], dtype))}); appended '
+        f'caches exact')
+    res = dict(max_abs_err=err, walk=route)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.decode_attention_rows_q(*args, **kw))
+        res['plain_ms'] = timer.ms(
+            lambda: m.decode_attention_rows_q_ref(*ref_args, **kw), reps=5)
+        tokens = covered_tokens(tables, args[7], args[8], tb, tps, kv)
+        io = nbytes(q, tables, args[7], args[8], c_new, tb, got[0], kn, vn,
+                    ksn, vsn)
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            tokens * (2 * dh + 2 * 4) + io, tokens * 2 * 2 * dh * grp,
+            torch.int8)
+        res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def sparse_rows(pos, kv, n_sel, base, g, n_tab=None):
+    """Per table row (kv, or n_tab rows): n_sel - 1 distinct random full
+    tiles, then the write tile; physical ids from base."""
+    b = pos.shape[0]
+    rows = n_tab or kv
+    cur = (pos // TILE).long()
+    full = torch.rand((b, rows, NT), generator=g, device=DEV)
+    full = full.masked_fill(torch.arange(NT, device=DEV)
+                            >= cur[:, None, None], 2)
+    pick = full.argsort(-1)[..., :n_sel - 1]
+    return torch.cat([pick, cur[:, None, None].expand(b, rows, 1)],
+                     -1) + base
+
+
+def check_attention_edges(dtype, timer=None):
+    """decode_attention_rows_q's edges, each vs its twin on the route
+    q_route names (and timed when timer is given), at d_head 128 unless
+    said: -1 entries and entries past n_tiles; the new token at lane 0 and
+    at lane PS - 1; grouped table rows (one row for two kv heads); dense
+    supertiles of 4 through one table row at G = 4; G = 1 and G = 8."""
+    g = gen(SEED + 13)
+    base = NT                                  # layers=2: the second layer
+    pos = PROMPT + torch.arange(B, device=DEV, dtype=torch.int32)
+    n3 = torch.full((B,), NSEL, device=DEV, dtype=torch.int32)
+    res = {}
+    # -1 entries and one past n_tiles: [t, -1, t', write tile, t'']
+    t5 = sparse_rows(pos, KV_38B, 4, base, g)
+    tables = torch.stack([t5[..., 0], torch.full_like(t5[..., 0], -1),
+                          t5[..., 1], t5[..., 3], t5[..., 2]], -1)
+    res['-1 and past n_tiles'] = attention_q_case(
+        '-1 / past-n_tiles entries G=4', dtype, 4, DH_LL, KV_38B, pos, tables,
+        torch.full((B,), 4, device=DEV, dtype=torch.int32), timer=timer)
+    for lane in (0, TILE - 1):
+        p_ = 15 * TILE + lane + 0 * pos
+        res[f'new token lane {lane}'] = attention_q_case(
+            f'new token at lane {lane} G=4', dtype, 4, DH_LL, KV_38B, p_,
+            sparse_rows(p_, KV_38B, NSEL, base, g), n3, timer=timer)
+    res['grouped rows'] = attention_q_case(
+        'grouped rows (N_TAB = KV / 2) G=4', dtype, 4, DH_LL, KV_38B, pos,
+        sparse_rows(pos, KV_38B, NSEL, base, g, n_tab=KV_38B // 2), n3,
+        timer=timer)
+    p4 = PROMPT - B + torch.arange(B, device=DEV, dtype=torch.int32)
+    t4, n4 = dense_tables(p4, PROMPT // TILE, 4, PROMPT // TILE)
+    res['dense tps 4 G=4'] = attention_q_case(
+        'dense supertiles of 4 G=4', dtype, 4, DH_LL, KV_38B, p4, t4, n4,
+        tps=4, nt=PROMPT // TILE, width=1, timer=timer)
+    res['G=1'] = attention_q_case(
+        'G=1 d_head 128', dtype, 1, DH_LL, 32, pos[:4],
+        sparse_rows(pos[:4], 32, NSEL, base, g), n3[:4], timer=timer)
+    res['G=8'] = attention_q_case(
+        'G=8', dtype, 8, DH_LL, 4, pos, sparse_rows(pos, 4, NSEL, base, g),
+        n3, timer=timer)
     return res
 
 
@@ -2140,19 +2386,29 @@ def phase_kernels(timer):
         r_walk = {int8: check_attention_gqa(dtype, int8, True, t, nt=97,
                                             pos0=96 * TILE - B, layers=2)
                   for int8 in (False, True)}
-        require(all(r['walk'] == 'two-pass' for r in r_walk.values()),
-                'the 96-tile table takes the two-pass walk')
+        # past the one-pass kernel's shared memory: the two-pass walk, but
+        # for the int8 cache in bf16, whose split walk serves any table
+        require(all(r['walk'] == ('split' if int8 and dtype == torch.bfloat16
+                                  else 'two-pass')
+                    for int8, r in r_walk.items()),
+                f'the 96-tile table takes the two-pass walk or the split '
+                f'one: {[r["walk"] for r in r_walk.values()]}')
+        # the decode front's and the int8 attention's edges
+        r_front_edges = check_front_edges(dtype, t)
+        r_attn_edges = check_attention_edges(dtype, t)
         if t is not None:
             res = dict(
                 decode_front=dict(r_front, bf16_kv=r_front_bf,
                                   packed_int8=r_front8,
                                   packed_int8_bf16_kv=r_front8_bf,
-                                  **r_fl),
+                                  **r_fl, **{f'edge {k}': v for k, v
+                                             in r_front_edges.items()}),
                 decode_attention_rows_q=dict(
                     r_attn, dense_tps4=r_attn_d,
                     gqa_llama_3_8b_sparse=r_gqa[True, False],
                     gqa_llama_3_8b_dense=r_gqa[True, True],
-                    gqa_llama_3_8b_dense_96_tiles=r_walk[True]),
+                    gqa_llama_3_8b_dense_96_tiles=r_walk[True],
+                    **{f'edge {k}': v for k, v in r_attn_edges.items()}),
                 paged_attention=dict(r_paged['opt-125m fp'], **r_paged),
                 decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll,
@@ -2876,11 +3132,22 @@ def expected_launches(iw, quantized):
     return prefill, step
 
 
+# kernels a bf16 decode step never launches: decode_front's fused kernel
+# and the int8-KV attention's one-pass and int8 walk kernels; every bf16
+# call takes the weight stream and the split walk (front_plan, q_route)
+NOT_BF16_DECODE = ('decode_front_kernel<', 'decode_attention_q_kernel<',
+                   'decode_attention_walk_kernel<__nv_bfloat16, signed char>')
+
+
 def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
                 check_first=()):
     """Prefill + `steps` greedy steps: the launch counters are zeroed just
     before the timed run and read after its prefill and after its decode
-    loop, and must equal the mode's expected counts exactly. check_first
+    loop, and must equal the mode's expected counts exactly. The decode
+    window and the profiled one each start after a sync, so a host-bound
+    step reads at the host's rate. A bf16 run
+    fails when a profiled window of its steps (4, or 1 without `profile`)
+    shows a kernel of NOT_BF16_DECODE. check_first
     names wrappers (of WRAPPER_TWINS) whose first call of each form in the
     warm-up run (prefill and two steps) is held against its twin on that
     call's own tensors at the bf16 output bound (check_recorded_kernels)."""
@@ -2900,6 +3167,10 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
         logits, cache = engine.prefill(iw, tokens, cache)
         if events:
             events[1].record()
+            # the steps start from an idle card: behind an unsynced prefill
+            # the host queues steps during it, and a host-bound step would
+            # read short by that head start
+            sync()
         at_prefill = counts()
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         out = []
@@ -2961,18 +3232,26 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
         f'{decode_ms:.2f} ms = {res["decode_tok_s"]:.0f} tok/s '
         f'({decode_ms / steps:.3f} ms/step); peak memory '
         f'{res["peak_mem_gb"]:.2f} GB')
-    if profile:
+    bf16 = cfg.dtype == torch.bfloat16
+    if profile or bf16:
         cache = engine.KVCache.create(cfg, b, max_len, dtype=cfg.dtype,
                                       quantized=quantized, device=DEV)
         _, cache = engine.prefill(iw, tokens, cache)
         tok = toks[:, -1].contiguous()
+        n_prof = 4 if profile else 1
+        sync()              # else the window shows steps queued during it
 
-        def steps4():
+        def steps_n():
             t = tok
-            for _ in range(4):
+            for _ in range(n_prof):
                 t, _ = engine.decode_step_greedy(iw, t, cache)
-        res['decode_profile'] = device_profile(f'{label}: 4 decode steps',
-                                               steps4)
+        prof = device_profile(f'{label}: {n_prof} decode steps', steps_n)
+        if profile:
+            res['decode_profile'] = prof
+        if bf16:
+            old = sorted(k for k in prof['by_kernel']
+                         if any(name in k for name in NOT_BF16_DECODE))
+            require(not old, f'{label}: bf16 decode steps launched {old}')
     return res
 
 

@@ -2,7 +2,8 @@
 """Time the port's OPT decode kernels, or its flash-attention or
 int8_matmul_t kernels, or its greedy heads and LLaMA decode steps, or
 end-to-end training steps, or its grouped matmuls and the gmm tune step,
-from several checkouts, in turns, on one CUDA card.
+or its decode front and int8-KV decode attention with the decode steps
+they serve, from several checkouts, in turns, on one CUDA card.
 
     python3 kernel_ab.py PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --flash PARENT CHANGE CHANGE PARENT
@@ -13,6 +14,8 @@ from several checkouts, in turns, on one CUDA card.
     python3 kernel_ab.py --int8 PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --int8-sweep CHECKOUT
     python3 kernel_ab.py --int8-losses CHECKOUT
+    python3 kernel_ab.py --front PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --host PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -53,7 +56,22 @@ and per kernel from the profiler), and the LLaMA-7B int8_base losses with
 int8_matmul's plain twin in place of its kernel; or (--int8-losses)
 phase 10's LLaMA-7B int8_base run on three synthetic-data seeds, each
 with int8_matmul's forward on the wgmma kernel, the CUDA-core kernels and
-the plain twin (int8_losses). One JSON
+the plain twin (int8_losses); or (--front) decode_front at its six
+form x model shapes (OPT-125M stack and packed int8, LLaMA-7B stack and
+packed int8 at B=4, Llama-3-8B triple and triple_int8) and
+decode_attention_rows_q at four cases (OPT-125M sparse and dense
+supertiles of 4, Llama-3-8B sparse G = 4 and dense T = 17), each checked
+against its twin first (check_front / check_attention /
+check_attention_gqa) and timed from a cold and a clean L2, the front's
+kernels apart from the profiler (cold L2) and the cuBLAS product hn @ [wq
+| wk | wv] of the same widths beside them, then phase 6's Llama-3-8B B=8
+sparse int8-KV fp and w8 runs and LLaMA-7B w8 B=4, and phase 4's OPT-125M
+sparse int8-KV run, with ms a step, busy share, peak memory and both
+kernels' in-situ us a call (front); or (--host) the same four decode runs
+on the host's clock and the card's (host_steps: the steps after a sync,
+step by step; a window behind an unsynced prefill; the device busy time;
+the two wrappers' host us a call; cProfile's top functions).
+One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
 """
@@ -65,7 +83,7 @@ import subprocess
 import sys
 
 MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm', '--int8',
-         '--int8-sweep', '--int8-losses')
+         '--int8-sweep', '--int8-losses', '--front', '--host')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -528,6 +546,280 @@ def int8_losses(cs) -> dict:
     return out
 
 
+# decode_front's timed shapes: (label, check_front's model, packed)
+FRONT_SHAPES = (('opt-125m stack', None, False),
+                ('opt-125m packed_int8', None, True),
+                ('llama-7b stack', 'llama-7b', False),
+                ('llama-7b packed_int8', 'llama-7b', True),
+                ('llama-3-8b triple', 'llama-3-8b', False),
+                ('llama-3-8b triple_int8', 'llama-3-8b', True))
+
+
+def front_weights(cs, model, packed):
+    """The concatenated [D, Nq + 2 Nkv] weight of a FRONT_SHAPES entry in
+    bf16 (dequantized for the int8 forms) and its slots: the cuBLAS
+    yardstick of the front's projection."""
+    import torch
+    from spt_proto_tpu_torch.inference.weights import quantize_int8
+    geo = cs.LLAMA_FRONTS[model] if model else {}
+    bf = torch.bfloat16
+    w = cs.front_inputs(bf, cs.gen(cs.SEED + 1), **geo)[3]
+    parts = list(w)
+    if packed:
+        parts = [cs.dequant(quantize_int8(t), bf) for t in parts]
+    return torch.cat(parts, 1), geo.get('b', cs.B)
+
+
+def front_ab(cs, timer) -> dict:
+    """decode_front at FRONT_SHAPES and decode_attention_rows_q at four
+    cases (cold and clean L2; the front's kernels apart), then the decode
+    runs of phase 6 and phase 4 with both kernels in situ."""
+    import torch
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    from spt_proto_tpu_torch.ops import decode_front as F
+    bf = torch.bfloat16
+    out = {}
+    rec = {}
+    f0 = F.decode_front
+
+    def recording(*a, **k):
+        rec['front'] = (a, k)
+        return f0(*a, **k)
+    recording.launches = 0
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        for name, model, packed in FRONT_SHAPES:
+            F.decode_front = recording
+            try:
+                r, fo = cs.check_front(bf, t, packed=packed, model=model)
+            finally:
+                F.decode_front = f0
+            out[f'decode_front {name}{tag} us'] = r['ms'] * 1e3
+            out[f'decode_front {name} bound us'] = r['bound_ms'] * 1e3
+            if not tag:
+                a, k = rec['front']
+                out[f'decode_front {name} kernels us'] = by_kernel(
+                    cs, lambda: f0(*a, **k))
+                wcat, b = front_weights(cs, model, packed)
+                hn = torch.randn((b, wcat.shape[0]), device=cs.DEV).to(bf)
+                out[f'decode_front {name} cuBLAS hn @ w us'] = t.ms(
+                    lambda: hn @ wcat) * 1e3
+                del wcat
+            if name == 'opt-125m stack':
+                opt_front = fo
+        cases = (('opt-125m sparse', lambda: cs.check_attention(
+                     bf, opt_front, t)),
+                 ('opt-125m dense tps 4', lambda: cs.check_attention(
+                     bf, None, t, dense=True)),
+                 ('llama-3-8b sparse G=4', lambda: cs.check_attention_gqa(
+                     bf, True, False, t)),
+                 ('llama-3-8b dense T=17', lambda: cs.check_attention_gqa(
+                     bf, True, True, t)))
+        for name, fn in cases:
+            r = fn()
+            out[f'attention {name}{tag} us'] = r['ms'] * 1e3
+            out[f'attention {name} bound us'] = r['bound_ms'] * 1e3
+        del opt_front
+    del t
+    torch.cuda.empty_cache()
+
+    def per_call(prof, key, calls_key):
+        return in_situ(prof['by_kernel'], (key,), (calls_key,))
+
+    def record(label, r):
+        prof = r['decode_profile']
+        bk = prof['by_kernel']
+        calls = ('decode_front_tail' if any('decode_front_tail' in k
+                                            for k in bk)
+                 else 'decode_front_kernel')
+        out[f'{label} ms/step'] = r['decode_ms'] / r['steps']
+        out[f'{label} peak GB'] = r['peak_mem_gb']
+        out[f'{label} busy'] = prof['busy_share']
+        out[f'{label} decode_front us a call'] = per_call(prof,
+                                                          'decode_front',
+                                                          calls)
+        out[f'{label} attention us a call'] = per_call(
+            prof, 'decode_attention_q', 'decode_attention_q')
+
+    for model, b, runs in (
+            ('3-8b', cs.B, (('sparse int8-KV', None),
+                            ('sparse int8-KV w8', 'int8'))),
+            ('7b', cs.B_7B, (('sparse int8-KV w8', 'int8'),))):
+        cfg = cs.llama_cfg(model, cs.MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS)
+        params = init_params(cfg, cs.SEED, device=cs.DEV)
+        tokens = torch.randint(1, cfg.vocab_size, (b, cs.LLAMA_PROMPT),
+                               generator=cs.gen(cs.SEED), device=cs.DEV)
+        for mode, quant in runs:
+            label = f'{model} B={b} {mode}'
+            iw = InferenceWeights.from_params(cfg, params, quant=quant)
+            r = cs.serving_run(label, iw, tokens, cs.MAX_LEN,
+                               cs.LLAMA_STEPS, True)
+            record(label, dict(r, steps=cs.LLAMA_STEPS))
+            del iw
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    sparse = cs.opt_cfg('125m', cs.MAX_LEN, bf)
+    params = init_params(sparse, cs.SEED, device=cs.DEV)
+    tokens = torch.randint(1, cs.VOCAB, (cs.B, cs.PROMPT),
+                           generator=cs.gen(cs.SEED), device=cs.DEV)
+    r = cs.serving_run('125m B=8 sparse int8-KV',
+                       InferenceWeights.from_params(sparse, params), tokens,
+                       cs.MAX_LEN, cs.STEPS, True)
+    record('125m B=8 sparse int8-KV', dict(r, steps=cs.STEPS))
+    return out
+
+
+HOST_STEPS = 32
+
+
+def host_steps(cs) -> dict:
+    """Decode steps on the host's clock and the card's, at phase 6's
+    Llama-3-8B B=8 sparse int8-KV fp and w8 runs, LLaMA-7B w8 B=4 and
+    phase 4's OPT-125M sparse int8-KV run. Each run, after a warm-up
+    (prefill and 2 steps): (synced) a sync, then HOST_STEPS steps with
+    time.perf_counter read around each step's enqueue and a CUDA event
+    after it: host ms a step, and the card's ms between consecutive
+    events, which is the slower of the host and the card; (behind
+    prefill) events around a prefill and the steps after it with no sync
+    between them, beside the host's enqueue ms of each: the host queues
+    steps during the prefill, so a host-bound step reads short by that
+    head start; (busy) the profiler's device time over 4 steps started
+    after a sync; (wrappers) decode_front's and decode_attention_rows_q's
+    host us a call (the engine's calls, 8 steps); (cprofile) the 12
+    functions with the most own host time over 4 steps."""
+    import cProfile
+    import pstats
+    import statistics
+    import time
+    import torch
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    pc = time.perf_counter
+
+    def one_run(label, cfg, iw, tokens):
+        b = tokens.shape[0]
+
+        def fresh():
+            cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
+                                          quantized=True, device=cs.DEV)
+            logits, cache = engine.prefill(iw, tokens, cache)
+            return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+
+        def steps(tok, cache, n, host=None, events=None):
+            for _ in range(n):
+                t0 = pc()
+                tok, cache = engine.decode_step_greedy(iw, tok, cache)
+                if host is not None:
+                    host.append((pc() - t0) * 1e3)
+                if events is not None:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+            return tok, cache
+
+        steps(*fresh(), 2)                                  # warm-up
+        tok, cache = fresh()
+        torch.cuda.synchronize()
+        host, ev = [], [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        steps(tok, cache, HOST_STEPS, host, ev)
+        torch.cuda.synchronize()
+        dev = [a.elapsed_time(z) for a, z in zip(ev, ev[1:])]
+        r = {'synced host ms/step median': statistics.median(host),
+             'synced host ms first 3': host[:3],
+             'synced card ms/step median': statistics.median(dev),
+             'synced card ms first 3': dev[:3],
+             'synced ms/step': ev[0].elapsed_time(ev[-1]) / HOST_STEPS}
+        cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
+                                      quantized=True, device=cs.DEV)
+        torch.cuda.synchronize()
+        e3 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = pc()
+        e3[0].record()
+        logits, cache = engine.prefill(iw, tokens, cache)
+        e3[1].record()
+        t1 = pc()
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        steps(tok, cache, HOST_STEPS)
+        e3[2].record()
+        t2 = pc()
+        torch.cuda.synchronize()
+        r.update({
+            'behind prefill ms/step': e3[1].elapsed_time(e3[2]) / HOST_STEPS,
+            'behind prefill card prefill ms': e3[0].elapsed_time(e3[1]),
+            'behind prefill host prefill ms': (t1 - t0) * 1e3,
+            'behind prefill host ms/step': (t2 - t1) * 1e3 / HOST_STEPS})
+        tok, cache = fresh()
+        torch.cuda.synchronize()
+        prof = cs.device_profile(f'{label}: 4 steps after a sync',
+                                 lambda: steps(tok, cache, 4))
+        r['busy card ms/step'] = prof['device_busy_us'] / 4e3
+        r['busy window ms/step'] = prof['window_us'] / 4e3
+        spent = {}
+        saved = {}
+        for name in ('decode_front', 'decode_attention_rows_q'):
+            f0 = saved[name] = getattr(engine, name)
+
+            def timed(*a, _f=f0, _n=name, **k):
+                t = pc()
+                o = _f(*a, **k)
+                spent.setdefault(_n, []).append(pc() - t)
+                return o
+            setattr(engine, name, timed)
+        try:
+            tok, cache = fresh()
+            torch.cuda.synchronize()
+            steps(tok, cache, 8)
+            torch.cuda.synchronize()
+        finally:
+            for name, f0 in saved.items():
+                setattr(engine, name, f0)
+        for name, ts in spent.items():
+            r[f'{name} host us a call'] = statistics.median(ts) * 1e6
+        tok, cache = fresh()
+        torch.cuda.synchronize()
+        cp = cProfile.Profile()
+        cp.enable()
+        steps(tok, cache, 4)
+        cp.disable()
+        st = pstats.Stats(cp)
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
+        r['cprofile own ms/step'] = [
+            f'{fn[0].rsplit("/", 1)[-1]}:{fn[1]}({fn[2]}) '
+            f'{v[2] / 4 * 1e3:.3f} ms, {v[1] // 4} calls'
+            for fn, v in rows]
+        r['cprofile total ms/step'] = st.total_tt / 4 * 1e3
+        for k, v in r.items():
+            out[f'{label} {k}'] = v
+        print(f'{label}: {json.dumps(r)}', file=sys.stderr, flush=True)
+
+    for model, b, runs in (
+            ('3-8b', cs.B, ((None, 'sparse int8-KV'),
+                            ('int8', 'sparse int8-KV w8'))),
+            ('7b', cs.B_7B, (('int8', 'sparse int8-KV w8'),))):
+        cfg = cs.llama_cfg(model, cs.MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS)
+        params = init_params(cfg, cs.SEED, device=cs.DEV)
+        tokens = torch.randint(1, cfg.vocab_size, (b, cs.LLAMA_PROMPT),
+                               generator=cs.gen(cs.SEED), device=cs.DEV)
+        for quant, mode in runs:
+            iw = InferenceWeights.from_params(cfg, params, quant=quant)
+            one_run(f'{model} B={b} {mode}', cfg, iw, tokens)
+            del iw
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    cfg = cs.opt_cfg('125m', cs.MAX_LEN, bf)
+    params = init_params(cfg, cs.SEED, device=cs.DEV)
+    tokens = torch.randint(1, cs.VOCAB, (cs.B, cs.PROMPT),
+                           generator=cs.gen(cs.SEED), device=cs.DEV)
+    one_run('125m B=8 sparse int8-KV', cfg,
+            InferenceWeights.from_params(cfg, params), tokens)
+    return out
+
+
 def one(root: str, mode: str | None) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -563,6 +855,10 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **int8_sweep(cs, timer))
     if mode == '--int8-losses':
         return dict(out, **int8_losses(cs))
+    if mode == '--front':
+        return dict(out, **front_ab(cs, timer))
+    if mode == '--host':
+        return dict(out, **host_steps(cs))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']

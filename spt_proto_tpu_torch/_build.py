@@ -38,10 +38,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     'spt_decode_front': [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] * 12 + [_I]
-                        + [_P] * 9 + [_I] * 13 + [_F, _F, _I, _I, _P],
+                        + [_P] * 9 + [_I] * 13 + [_F, _F] + [_I] * 7
+                        + [_P] * 3,
     'spt_decode_attention': [_I, _I] + [_P] * 12 + [_I] * 10 + [_F, _F, _P],
     'spt_decode_attention_q': [_I, _I] + [_P] * 16 + [_I] * 11
-                              + [_F, _F, _P],
+                              + [_F, _F, _I, _P, _P, _P],
     'spt_verify_attention': [_I] + [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P],
     'spt_ffn_tail': [_I] + [_P] * 8 + [_I] * 4 + [_P],
     'spt_ffn_tail_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],

@@ -6,6 +6,9 @@
 
 #include <cmath>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -261,6 +264,56 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it on the stream ends; grid_dep_wait blocks until that
+// kernel has completed and its writes are visible, grid_dep_launch lets the
+// next such kernel start once every CTA of this one has called it
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) only when `bytes` is
+// more than `kernel` was last raised to on the current device: a decode
+// step launches the same kernels every layer, and the attribute call is
+// host time on each of them
+inline cudaError_t raise_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = raised[{kernel, dev}];
+  if (bytes <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
+
+// launch `kernel` as a programmatic dependent of the kernel ahead of it
+template <typename... KArgs, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(KArgs...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 // named barrier over `n` threads (ids 1..15; 0 is __syncthreads)

@@ -7,7 +7,10 @@
 //     (_rows_kernel) and decode_attention_rows_ms (_rows_kernel_ms).
 //   decode_attention_q_kernel int8 cache with per-token f32 scales.
 //     Replaces decode_attention_rows_q (_rows_kernel_q) and
-//     decode_attention_rows_q_ms (_rows_kernel_q_ms).
+//     decode_attention_rows_q_ms (_rows_kernel_q_ms); in bf16 (the
+//     serving dtype) decode_attention_q_split_kernel takes its place: each
+//     row's table split over CTAs, both products on the tensor cores (its
+//     notes are at its definition below).
 //
 // decode_attention_walk_kernel computes either of the two on the two-pass
 // walk of softmax_walk.cuh (the walk of csrc/paged_attention.cu), for
@@ -42,6 +45,8 @@
 // o = sum_p e_p v_p / sum_p e_p with e_p = exp(s_p - max). The bf16/f32
 // kernel rounds the unnormalised e_p to the cache dtype before the PV
 // product; the int8 kernel folds the value scales into e_p instead.
+#include <cooperative_groups.h>
+
 #include "softmax_walk.cuh"
 
 namespace spt {
@@ -208,9 +213,8 @@ int launch_attention(const void* q, void* kc, void* vc, void* cc,
                       sizeof(float) * (2 * G * D + (size_t)G * NE * PS + 32) +
                       sizeof(int) * 2 * NE;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        raise_smem((const void*)decode_attention_kernel<T>, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(KV, B);
@@ -357,9 +361,8 @@ int launch_attention_q(const void* q, void* kc, void* vc, void* cc, void* ksc,
   const size_t smem = sizeof(float) * (2 * G * D + (size_t)G * NE * PS + 32) +
                       sizeof(int) * 2 * NE + (size_t)D * PS;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_q_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        raise_smem((const void*)decode_attention_q_kernel<T>, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(KV, B);
@@ -372,6 +375,484 @@ int launch_attention_q(const void* q, void* kc, void* vc, void* cc, void* ksc,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// int8 cache, bf16 q: the split walk on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// decode_attention_q_split_kernel<D> computes what decode_attention_q_kernel
+// computes for a bf16 q (the serving dtype), PS = 128 and d_head D = 64 or
+// 128 (ops/decode_attention.py q_route), with the walk of each (slot, kv
+// head) split over CTAs: the grid is (chunk, kv head, slot), a chunk being
+// E consecutive entries j = t * TPS + u of the table row (q_split_entries).
+//
+// A CTA's 4 warps take 32 token lanes of every tile each. It issues all of
+// its chunk's bytes at once (cp.async: the K tiles, their key scales and
+// q as one group, the V tiles and their value scales as a second) into
+// tiles of 144-byte rows (ldmatrix rows in distinct banks), then:
+// - scores on mma.sync m16n8k16: the tile's tokens as the m16 side (the K
+//   tile [D][PS] is W^T of the weight stream: ldmatrix.trans + the int8
+//   pairs widened to bf16 in registers), the G <= 8 query rows as n8
+//   (bf16 q, exact); s = dot * scale * kscale, clamped only when clamp > 0;
+// - the chunk's row max over its valid lanes, e = exp(s - m), l = sum e, and
+//   P = e * vscale (0 on masked lanes) through a per-warp shared buffer;
+// - PV on mma.sync: o^T [D][G] += V [D][32 lanes] P [32 lanes][G], the V
+//   tile's rows as A (ldmatrix of int8 quads widened in registers: the k16
+//   order is permuted alike on both operands) and P as two bf16 terms, hi =
+//   bf16(P) and lo = bf16(P - hi), so that the product keeps P's f32 value
+//   to ~2^-16;
+// - the 4 warps' sums are added in warp order. One chunk writes o = acc /
+//   max(l, 1e-30); several keep (m, l, acc) rows and combine them in chunk
+//   order: o = sum_c acc_c exp(m_c - M) / max(sum_c l_c exp(m_c - M),
+//   1e-30), M = max_c m_c. A row of at most kSplitCluster chunks is one
+//   cluster: the rows stay in each CTA's shared memory and every rank
+//   combines a share of the outputs through distributed shared memory.
+//   Past that they go to a work buffer, and the last CTA of the row to
+//   finish (an atomic count a row, zeroed by the caller) combines them.
+// Against the one-pass kernel only the order of the f32 sums changes (the
+// split combine; the tensor cores' sums).
+//
+// The append: the new token's column (k8, v8, their scales, its codes) is
+// staged in shared memory by the kernel's first copies. The CTA whose
+// chunk holds the row's first valid entry on the write tile (chunk 0 when
+// no entry covers it) writes it into the caches; every CTA that stages the
+// write tile takes the new column from the staged one into its copy, so
+// no CTA reads back a cache column another CTA of the launch writes.
+
+constexpr int kSplitThreads = 128;   // 4 warps, 32 token lanes each
+constexpr int kSplitPS = 128;        // the tile's token lanes
+constexpr int kSplitRow = kSplitPS + 16;   // bytes a staged tile row
+constexpr int kSplitPRow = 36;       // floats a row of a warp's P buffer
+constexpr int kSplitCluster = 4;     // chunks a row combines in a cluster
+
+// shared memory of a split CTA: K and V tiles, key and value scales, q,
+// the warps' P buffers, row max / sum scratch, the new token's column (k8,
+// v8, their scales, its W codes), the entries' info
+__host__ __device__ inline int split_smem_bytes(int E, int D, int W) {
+  return 2 * E * D * kSplitRow + 2 * E * kSplitPS * 4 + 8 * (D + 8) * 2 +
+         4 * 8 * kSplitPRow * 4 + 2 * 4 * 8 * 4 + 2 * D + 8 + W * 4 +
+         2 * E * 4 + 16;
+}
+
+// 4 int8 in one word (bytes k, k+1, k+2, k+3 along a row) -> the bf16 pairs
+// (k, k+1) in a[0] and (k+2, k+3) in a[1] (the float trick of
+// i8_pairs_to_bf16)
+__device__ __forceinline__ void i8_quad_to_bf16(uint32_t w, uint32_t* a) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+        8388736.f);
+  a[0] = __byte_perm(f[0], f[1], 0x7632);
+  a[1] = __byte_perm(f[2], f[3], 0x7632);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+    decode_attention_q_split_kernel(
+        // the caches are written by one CTA of the row: no __restrict__
+        const __nv_bfloat16* __restrict__ q, int8_t* kc, int8_t* vc,
+        int* cc, float* ksc, float* vsc, const int* __restrict__ tables,
+        const int* __restrict__ n_tiles, const int* __restrict__ pos,
+        const int8_t* __restrict__ kn, const int8_t* __restrict__ vn,
+        const int* __restrict__ cn, const float* __restrict__ ksn,
+        const float* __restrict__ vsn, const int* __restrict__ tile_base,
+        __nv_bfloat16* __restrict__ o, float* work, int* counters, int KV,
+        int G, int NTALL, int W, int KVP, int NTAB, int TM, int TPS, int E,
+        float scale, float clamp, int cluster_combine) {
+  constexpr int PS = kSplitPS, QROW = D + 8, KB = D / 32, MD = D / 16;
+  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nch = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t bh = (size_t)b * KV + h;
+  const int NE = TM * TPS, j0 = chunk * E, ne = min(E, NE - j0);
+
+  extern __shared__ __align__(16) unsigned char smq[];
+  int8_t* ktile = reinterpret_cast<int8_t*>(smq);          // [E][D][row]
+  int8_t* vtile = ktile + E * D * kSplitRow;              // [E][D][row]
+  float* kss = reinterpret_cast<float*>(vtile + E * D * kSplitRow);  // [E][PS]
+  float* vss = kss + E * PS;                                // [E][PS]
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(vss + E * PS);  // [8][QROW]
+  float* pbuf = reinterpret_cast<float*>(qs + 8 * QROW);   // [4][8][PROW]
+  float* redm = pbuf + 4 * 8 * kSplitPRow;                  // [4][8]
+  float* redl = redm + 32;                                  // [4][8]
+  int8_t* kns = reinterpret_cast<int8_t*>(redl + 32);       // [D] new k8
+  int8_t* vns = kns + D;                                    // [D] new v8
+  float* ksns = reinterpret_cast<float*>(vns + D);          // new k scale
+  float* vsns = ksns + 1;                                   // new v scale
+  int* cns = reinterpret_cast<int*>(vsns + 1);              // [W] new codes
+  int* env = cns + W;                                       // [E] valid lanes
+  int* egt = env + E;                                       // [E] tile
+  int* s_first = egt + E;
+  int* s_last = s_first + 1;
+  float* accs = reinterpret_cast<float*>(smq);   // [4][8][D] over the K tiles
+
+  // ---- the new token's column, in flight at once (the append and the
+  // write tile's copies take it from here)
+  for (int c = tid; c < D / 16; c += kSplitThreads) {
+    cp_async16(kns + 16 * c, kn + bh * D + 16 * c);
+    cp_async16(vns + 16 * c, vn + bh * D + 16 * c);
+  }
+  for (int c = tid; c < W; c += kSplitThreads)
+    cp_async4_zfill(cns + c, cn + bh * W + c, 4);
+  if (tid == 0) {
+    cp_async4_zfill(ksns, ksn + bh, 4);
+    cp_async4_zfill(vsns, vsn + bh, 4);
+  }
+  cp_async_commit();
+
+  // ---- the row's entries: this chunk's, and the first valid one on the
+  // write tile (its chunk appends)
+  const int p = pos[b];
+  const int wt = tile_base[b] + p / PS, wc = p % PS;
+  const int* tab = tables + ((size_t)b * NTAB + h / (KV / NTAB)) * TM;
+  const int n_t = n_tiles[b];
+  if (tid == 0) *s_first = NE;
+  __syncthreads();
+  for (int j = tid; j < NE; j += kSplitThreads) {
+    const int t = j / TPS, e = tab[t], gt = e + j % TPS;
+    const bool ok = e >= 0 && t < n_t && gt < NTALL;
+    const int nv = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
+    if (j >= j0 && j < j0 + ne) {
+      env[j - j0] = nv;
+      egt[j - j0] = gt;
+    }
+    if (nv > 0 && gt == wt) atomicMin(s_first, j);
+  }
+  __syncthreads();
+
+  // ---- every byte of the chunk in flight: K tiles, key scales and q, then
+  // V tiles and value scales
+  for (int i = 0; i < ne; ++i) {
+    if (env[i] == 0) continue;
+    const int8_t* src = kc + (bh * NTALL + egt[i]) * D * PS;
+    int8_t* dst = ktile + i * D * kSplitRow;
+    for (int c = tid; c < D * (PS / 16); c += kSplitThreads) {
+      const int r = c / (PS / 16), cb = (c % (PS / 16)) * 16;
+      cp_async16(dst + r * kSplitRow + cb, src + r * PS + cb);
+    }
+    if (tid < PS / 4)
+      cp_async16(kss + i * PS + 4 * tid,
+                 ksc + (((size_t)b * NTALL + egt[i]) * KVP + h) * PS +
+                     4 * tid);
+  }
+  for (int c = tid; c < G * (D / 8); c += kSplitThreads) {
+    const int r = c / (D / 8), cb = (c % (D / 8)) * 8;
+    cp_async16(qs + r * QROW + cb, q + (bh * G + r) * D + cb);
+  }
+  cp_async_commit();
+  for (int i = 0; i < ne; ++i) {
+    if (env[i] == 0) continue;
+    const int8_t* src = vc + (bh * NTALL + egt[i]) * D * PS;
+    int8_t* dst = vtile + i * D * kSplitRow;
+    for (int c = tid; c < D * (PS / 16); c += kSplitThreads) {
+      const int r = c / (PS / 16), cb = (c % (PS / 16)) * 16;
+      cp_async16(dst + r * kSplitRow + cb, src + r * PS + cb);
+    }
+    if (tid < PS / 4)
+      cp_async16(vss + i * PS + 4 * tid,
+                 vsc + (((size_t)b * NTALL + egt[i]) * KVP + h) * PS +
+                     4 * tid);
+  }
+  cp_async_commit();
+  // the query rows past G are zero (their scores are never used)
+  for (int i = tid; i < (8 - G) * QROW; i += kSplitThreads)
+    qs[G * QROW + i] = __float2bfloat16(0.f);
+
+  // ---- scores: the new column and the K group have landed; the write
+  // tile's new column from the staged one
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int i = 0; i < ne; ++i) {
+    if (env[i] == 0 || egt[i] != wt) continue;
+    for (int d = tid; d < D; d += kSplitThreads)
+      ktile[(i * D + d) * kSplitRow + wc] = kns[d];
+    if (tid == 0) kss[i * PS + wc] = *ksns;
+  }
+  // the append in place (one CTA of the row)
+  const int first = *s_first;
+  if (chunk == (first < NE ? first / E : 0)) {
+    for (int d = tid; d < D; d += kSplitThreads) {
+      const size_t at = ((bh * NTALL + wt) * D + d) * PS + wc;
+      kc[at] = kns[d];
+      vc[at] = vns[d];
+    }
+    if (W > 1)
+      for (int s = tid; s < W; s += kSplitThreads)
+        cc[((bh * NTALL + wt) * W + s) * PS + wc] = cns[s];
+    if (tid == 0) {
+      const size_t at = (((size_t)b * NTALL + wt) * KVP + h) * PS + wc;
+      ksc[at] = *ksns;
+      vsc[at] = *vsns;
+    }
+  }
+  __syncthreads();
+  uint32_t qf[KB][4];   // q as the B operand: two k16 steps a load
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb)
+    ldsm_x4(qf[kb], qs + (lane & 7) * QROW + kb * 32 + (lane >> 3) * 8);
+  float sreg[4][2][4];  // [entry][m16 tile][element], E <= 4
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= ne) break;
+    const int nv = env[i];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const int tok0 = 32 * wid + 16 * mt;
+      if (nv > 0) {
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          uint32_t raw[4], af[2][4];
+          ldsm_x4_trans(raw, ktile + (i * D + kb * 32 + lane) * kSplitRow +
+                                 tok0);
+          i8_pairs_to_bf16(raw[0], af[0]);
+          i8_pairs_to_bf16(raw[1], af[0] + 2);
+          i8_pairs_to_bf16(raw[2], af[1]);
+          i8_pairs_to_bf16(raw[3], af[1] + 2);
+          mma_bf16_16816(acc, af[0], qf[kb]);
+          mma_bf16_16816(acc, af[1], qf[kb] + 2);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // token lane (the int8 pairs' row order) and query row
+        const int tok = tok0 + 2 * g8 + (e >> 1), n = 2 * t4 + (e & 1);
+        float sv = acc[e] * scale * kss[i * PS + tok];
+        if (clamp > 0.f) sv = fminf(fmaxf(sv, -clamp), clamp);
+        sv = tok < nv && n < G ? sv : kNeg;
+        sreg[i][mt][e] = sv;
+        mx[e & 1] = fmaxf(mx[e & 1], sv);
+      }
+    }
+  }
+  // the chunk's row max: lanes of one t4 hold rows 2 t4 and 2 t4 + 1
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    for (int off = 4; off < 32; off <<= 1)
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    if (g8 == 0) redm[wid * 8 + 2 * t4 + r] = mx[r];
+  }
+
+  // ---- e, l, P and PV: the V group has landed; the new column from vn
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = 0; i < ne; ++i) {
+    if (env[i] == 0 || egt[i] != wt) continue;
+    for (int d = tid; d < D; d += kSplitThreads)
+      vtile[(i * D + d) * kSplitRow + wc] = vns[d];
+    if (tid == 0) vss[i * PS + wc] = *vsns;
+  }
+  float m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = redm[2 * t4 + r];
+    for (int w = 1; w < 4; ++w) m[r] = fmaxf(m[r], redm[w * 8 + 2 * t4 + r]);
+  }
+  __syncthreads();
+  float* pw = pbuf + wid * 8 * kSplitPRow;   // [8 rows][32 lanes of the warp]
+  float oacc[MD][4];
+#pragma unroll
+  for (int md = 0; md < MD; ++md)
+    oacc[md][0] = oacc[md][1] = oacc[md][2] = oacc[md][3] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= ne) break;
+    const int nv = env[i];
+    if (nv == 0) continue;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lt = 16 * mt + 2 * g8 + (e >> 1), n = 2 * t4 + (e & 1);
+        const int tok = 32 * wid + lt;
+        const bool ok = tok < nv && n < G;
+        const float ev = ok ? expf(sreg[i][mt][e] - m[e & 1]) : 0.f;
+        lsum[e & 1] += ev;
+        pw[n * kSplitPRow + lt] = ok ? ev * vss[i * PS + tok] : 0.f;
+      }
+    __syncwarp();
+    // P^T as B, two k16 steps of the warp's 32 lanes, in the permuted k
+    // order of the V quads: lanes 16 ks + 4 t4 .. + 3, query row g8
+    uint32_t bh_[2][2], bl_[2][2];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const float4 pv = *reinterpret_cast<const float4*>(
+          pw + g8 * kSplitPRow + 16 * ks + 4 * t4);
+      const float hv[4] = {pv.x, pv.y, pv.z, pv.w};
+      float lv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        lv[u] = hv[u] - __bfloat162float(__float2bfloat16(hv[u]));
+      bh_[ks][0] = pack_bf16(hv[0], hv[1]);
+      bh_[ks][1] = pack_bf16(hv[2], hv[3]);
+      bl_[ks][0] = pack_bf16(lv[0], lv[1]);
+      bl_[ks][1] = pack_bf16(lv[2], lv[3]);
+    }
+#pragma unroll
+    for (int md = 0; md < MD; ++md) {
+      // V rows md*16 .. +15 at this warp's lanes: matrices (rows 0-7, lanes
+      // 0-15), (rows 8-15, 0-15), (rows 0-7, 16-31), (rows 8-15, 16-31);
+      // a lane's word holds lanes 4 t4 .. + 3 of row g8 (or g8 + 8)
+      uint32_t raw[4];
+      ldsm_x4(raw, vtile + (i * D + md * 16 + (lane & 7) +
+                            ((lane >> 3) & 1) * 8) * kSplitRow +
+                       32 * wid + (lane >> 4) * 16);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t r0[2], r8[2], af[4];
+        i8_quad_to_bf16(raw[2 * ks], r0);
+        i8_quad_to_bf16(raw[2 * ks + 1], r8);
+        af[0] = r0[0];
+        af[1] = r8[0];
+        af[2] = r0[1];
+        af[3] = r8[1];
+        mma_bf16_16816(oacc[md], af, bh_[ks]);
+        mma_bf16_16816(oacc[md], af, bl_[ks]);
+      }
+    }
+    __syncwarp();
+  }
+
+  // ---- the warps' sums in warp order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    for (int off = 4; off < 32; off <<= 1)
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], off);
+    if (g8 == 0) redl[wid * 8 + 2 * t4 + r] = lsum[r];
+  }
+  __syncthreads();   // every warp is done with the K tiles: accs over them
+#pragma unroll
+  for (int md = 0; md < MD; ++md)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = md * 16 + g8 + 8 * (e >> 1), n = 2 * t4 + (e & 1);
+      accs[(wid * 8 + n) * D + d] = oacc[md][e];
+    }
+  __syncthreads();
+  // the chunk's (acc, m, l) rows [G][D + 2]: in the V tiles' space (read
+  // out) when the chunks combine in a cluster, else in the work buffer
+  float* cpart = cluster_combine ? reinterpret_cast<float*>(vtile)
+                                 : work + (bh * nch + chunk) * G * (D + 2);
+  for (int idx = tid; idx < G * D; idx += kSplitThreads) {
+    const int n = idx / D, d = idx % D;
+    float a = 0.f, l = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      a += accs[(w * 8 + n) * D + d];
+      l += redl[w * 8 + n];
+    }
+    if (nch == 1) {
+      o[bh * G * D + idx] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+      continue;
+    }
+    float* dst = cpart + n * (D + 2);
+    dst[d] = a;
+    if (d == 0) {
+      float mm = redm[n];
+      for (int w = 1; w < 4; ++w) mm = fmaxf(mm, redm[w * 8 + n]);
+      dst[D] = mm;
+      dst[D + 1] = l;
+    }
+  }
+  if (nch == 1) return;
+
+  // ---- the chunks combined in chunk order: o = sum_c acc_c exp(m_c - M) /
+  // max(sum_c l_c exp(m_c - M), 1e-30), M = max_c m_c
+  // (other CTAs' rows: from L2 past L1 in the work buffer)
+  auto ld = [&](const float* p) { return cluster_combine ? *p : __ldcg(p); };
+  auto combine = [&](auto chunk_row, int first_idx, int step) {
+    for (int idx = first_idx; idx < G * D; idx += step) {
+      const int n = idx / D, d = idx % D;
+      float mm = kNeg;
+      for (int c = 0; c < nch; ++c) mm = fmaxf(mm, ld(chunk_row(c, n) + D));
+      float num = 0.f, den = 0.f;
+      for (int c = 0; c < nch; ++c) {
+        const float* r = chunk_row(c, n);
+        const float f = expf(ld(r + D) - mm);
+        num += ld(r + d) * f;
+        den += ld(r + D + 1) * f;
+      }
+      o[bh * G * D + idx] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+    }
+  };
+  if (cluster_combine) {
+    // a cluster of the row's nch chunks: every rank combines a share of
+    // the outputs from the ranks' shared memory
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    combine([&](int c, int n) -> const float* {
+      return cluster.map_shared_rank(cpart, c) + n * (D + 2);
+    }, (int)cluster.block_rank() * kSplitThreads + tid,
+            nch * kSplitThreads);
+    cluster.sync();   // no rank leaves while another reads its rows
+    return;
+  }
+  // the last CTA of the row to finish combines (an atomic count a row)
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *s_last = atomicAdd(&counters[bh], 1) == nch - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  combine([&](int c, int n) -> const float* {
+    return work + ((bh * nch + c) * G + n) * (D + 2);
+  }, tid, kSplitThreads);
+}
+
+int launch_attention_q_split(const void* q, void* kc, void* vc, void* cc,
+                             void* ksc, void* vsc, const void* tables,
+                             const void* n_tiles, const void* pos,
+                             const void* kn, const void* vn, const void* cn,
+                             const void* ksn, const void* vsn,
+                             const void* tile_base, void* o, int B, int KV,
+                             int G, int D, int NTALL, int W, int KVP,
+                             int NTAB, int TM, int TPS, int PS, float scale,
+                             float clamp, int E, float* work, int* counters,
+                             cudaStream_t stream) {
+  const int NE = TM * TPS;
+  if (PS != kSplitPS || (D != 64 && D != 128) || G < 1 || G > 8 || E < 1 ||
+      E > 4 || NE < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nch = (NE + E - 1) / E;
+  if (nch > kSplitCluster && (work == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kern = D == 64 ? decode_attention_q_split_kernel<64>
+                      : decode_attention_q_split_kernel<128>;
+  const int smem = split_smem_bytes(E, D, W);
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem((const void*)kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // a row of 2 .. 4 chunks combines in a cluster (clusters of 8 ran the
+  // dense OPT-125M table 4 us slower than the atomic combine, H100)
+  const int cluster = nch >= 2 && nch <= kSplitCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nch, KV, B);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nch;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster;
+  return (int)cudaLaunchKernelEx(
+      &cfg, kern, (const __nv_bfloat16*)q, (int8_t*)kc, (int8_t*)vc,
+      (int*)cc, (float*)ksc, (float*)vsc, (const int*)tables,
+      (const int*)n_tiles, (const int*)pos, (const int8_t*)kn,
+      (const int8_t*)vn, (const int*)cn, (const float*)ksn,
+      (const float*)vsn, (const int*)tile_base, (__nv_bfloat16*)o, work,
+      counters, KV, G, NTALL, W, KVP, NTAB, TM, TPS, E, scale, clamp,
+      cluster);
+}
 
 // ---------------------------------------------------------------------------
 // two-pass walk (tables whose scores outgrow shared memory)
@@ -469,8 +950,7 @@ int launch_walk(const void* q, void* kc, void* vc, void* cc, void* ksc,
   const size_t smem = walk_smem_bytes(G, D, PS, D * (PS + 1), kQ);
   auto kern = decode_attention_walk_kernel<T, KT>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = raise_smem((const void*)kern, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(KV, B);
@@ -730,9 +1210,8 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
                                        2 * GKP) +
                       sizeof(int) * 2 * TM;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        verify_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        raise_smem((const void*)verify_attention_kernel<T>, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(KV, B, (GK + RC - 1) / RC);
@@ -769,14 +1248,27 @@ extern "C" int spt_decode_attention(
            (cudaStream_t)stream);
 }
 
+// walk 0: decode_attention_q_kernel; 1: the two-pass walk; 2 (bf16 q):
+// the split kernel with E entries a chunk (past kSplitCluster chunks, work:
+// [B * KV * chunks * G][D + 2] f32 partials and counters: B * KV zeroed
+// ints)
 extern "C" int spt_decode_attention_q(
-    int dtype, int two_pass, const void* q, void* kc, void* vc, void* cc,
+    int dtype, int walk, const void* q, void* kc, void* vc, void* cc,
     void* ksc, void* vsc, const void* tables, const void* n_tiles,
     const void* pos, const void* kn, const void* vn, const void* cn,
     const void* ksn, const void* vsn, const void* tile_base, void* o, int B,
     int KV, int G, int D, int NTALL, int W, int KVP, int NTAB, int TM,
-    int TPS, int PS, float scale, float clamp, void* stream) {
+    int TPS, int PS, float scale, float clamp, int E, void* work,
+    void* counters, void* stream) {
   using bf = __nv_bfloat16;
+  if (walk == 2) {
+    if (dtype != spt::kBF16) return (int)cudaErrorInvalidValue;
+    return spt::launch_attention_q_split(
+        q, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn, cn, ksn, vsn,
+        tile_base, o, B, KV, G, D, NTALL, W, KVP, NTAB, TM, TPS, PS, scale,
+        clamp, E, (float*)work, (int*)counters, (cudaStream_t)stream);
+  }
+  const bool two_pass = walk == 1;
   auto f = two_pass
                ? (dtype == spt::kBF16 ? spt::launch_walk<bf, int8_t>
                                       : spt::launch_walk<float, int8_t>)

@@ -82,12 +82,17 @@ __device__ __forceinline__ int ws_row(int ng, int e) {
   return ng * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// the mainloop: fills acc[nw][i] (row group rs + i * (8 / cw) of the warp);
-// leaves shared memory free for an epilogue after a __syncthreads
-template <typename W, int NW, int NX, int NG, int S>
+// the mainloop: fills acc[nw][i] (row group rs + i * (8 / cw) of the warp)
+// for the C = 16 cw columns from c0 of the weights (blockIdx.x's tile when
+// c0 is not given); leaves shared memory free for an epilogue after a
+// __syncthreads. X_AFTER_DEP (a kernel launched as a programmatic
+// dependent of the one that writes X): the first S - 1 stages' weight
+// copies are issued before griddepcontrol.wait, X's after it.
+template <typename W, int NW, int NX, int NG, int S, bool X_AFTER_DEP = false>
 __device__ __forceinline__ void ws_mainloop(const WsArgs<W, NW, NX>& a,
                                             unsigned char* smem,
-                                            float (&acc)[NW][NG][4]) {
+                                            float (&acc)[NW][NG][4],
+                                            int c0 = -1) {
   constexpr bool kInt8 = std::is_same<W, int8_t>::value;
   constexpr int kWE = 16 / (int)sizeof(W);   // W elements a copy
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -95,14 +100,14 @@ __device__ __forceinline__ void ws_mainloop(const WsArgs<W, NW, NX>& a,
   const int ngt = (a.m + 7) / 8, rows = 8 * ngt;
   const int wbytes = kWsK * rowB;
   const int stage = ws_stage_bytes<W, NW, NX>(a.cw, a.m);
-  const int c0 = blockIdx.x * C;
+  if (c0 < 0) c0 = blockIdx.x * C;
   const int kbeg = blockIdx.y * a.kslice;
   const int kend = min(a.K, kbeg + a.kslice);
   const int n_steps = (kend - kbeg + kWsK - 1) / kWsK;
   // copies a W row: a power of two (C = 16 cw, cw 1, 2, 4 or 8)
   const int wsh = __ffs(C / kWE) - 1, wcopies = 1 << wsh;
 
-  auto load = [&](int j) {
+  auto load_w = [&](int j) {
     unsigned char* st = smem + (j % S) * stage;
     const int k0 = kbeg + j * kWsK;
 #pragma unroll
@@ -115,7 +120,10 @@ __device__ __forceinline__ void ws_mainloop(const WsArgs<W, NW, NX>& a,
                             ok ? a.w[nw] + (size_t)k * a.ldw + col : a.w[nw],
                             ok ? 16 : 0);
       }
-    unsigned char* xs = st + NW * wbytes;
+  };
+  auto load_x = [&](int j) {
+    unsigned char* xs = smem + (j % S) * stage + NW * wbytes;
+    const int k0 = kbeg + j * kWsK;
 #pragma unroll
     for (int nx = 0; nx < NX; ++nx)
       for (int i = tid; i < rows * (kWsK / 8); i += kWsThreads) {
@@ -128,11 +136,30 @@ __device__ __forceinline__ void ws_mainloop(const WsArgs<W, NW, NX>& a,
       }
   };
 
+  auto load = [&](int j) {
+    load_w(j);
+    load_x(j);
+  };
+
   const int ctile = wid % a.cw, rs = wid / a.cw, nrs = 8 / a.cw;
+  if constexpr (X_AFTER_DEP) {
+    // groups 0 .. S-2 still hold stages 0 .. S-2 whole: group 0 takes the
+    // early weight copies of every prologue stage
 #pragma unroll
-  for (int j = 0; j < S - 1; ++j) {
-    if (j < n_steps) load(j);
-    cp_async_commit();
+    for (int j = 0; j < S - 1; ++j)
+      if (j < n_steps) load_w(j);
+    grid_dep_wait();
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n_steps) load_x(j);
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n_steps) load(j);
+      cp_async_commit();
+    }
   }
   for (int j = 0; j < n_steps; ++j) {
     cp_async_wait<S - 2>();   // stage j has landed ...

@@ -20,6 +20,10 @@ token, nothing past it.
 columns a slot) launch the kernels of csrc/decode_attention.cu for CUDA
 tensors and run their plain twins for CPU tensors. A table whose scores do
 not fit in shared memory (`rows_walk`) goes to the two-pass walk kernel.
+`q_route` picks the int8-cache kernel: a bf16 q at the serving tiles takes
+the split walk on the tensor cores (each row's entries in chunks of
+`q_split_entries`, a CTA each), f32 and shapes off that rule the kernels
+`rows_walk` names.
 The TPU package has two launch shapes of each function (one program per
 slot, and `_ms`: one program for all slots); here one kernel serves both,
 and the `_ms` names are the same wrappers.
@@ -153,6 +157,38 @@ def rows_walk(g: int, d: int, ps: int, n_ent: int, kv_bytes: int) -> str:
     return 'two-pass'
 
 
+SPLIT_CTAS = 4 * 132      # CTAs the split walk aims for: 4 an H100 SM
+SPLIT_MAX_ENTRIES = 4     # entries (tiles) a split CTA stages at most
+SPLIT_CLUSTER = 4         # chunks a row combines in one cluster, at most
+                          # (csrc kSplitCluster; more use the work buffer)
+
+
+def q_route(dtype: torch.dtype, g: int, d: int, ps: int, n_ent: int,
+            aligned: bool = True) -> str:
+    """The kernel a decode_attention_rows_q launch runs: 'split'
+    (decode_attention_q_split_kernel) for a bf16 q with 128-token tiles,
+    d_head 64 or 128, G <= 8 and 16-byte aligned q, caches and scales
+    (`aligned`), whatever the table's length; else what rows_walk names
+    for the table ('one-pass' or 'two-pass')."""
+    if (dtype == torch.bfloat16 and ps == 128 and d in (64, 128)
+            and 1 <= g <= 8 and aligned):
+        return 'split'
+    return rows_walk(g, d, ps, n_ent, 1)
+
+
+def q_split_entries(rows: int, n_ent: int) -> int:
+    """Entries a chunk of the split walk takes (a CTA each): as many as
+    keep the launch at SPLIT_CTAS CTAs or more for `rows` (slot, kv head)
+    rows of `n_ent` entries, 1 to SPLIT_MAX_ENTRIES."""
+    return max(1, min(SPLIT_MAX_ENTRIES, rows * n_ent // SPLIT_CTAS))
+
+
+def q_split_chunks(n_ent: int, e: int) -> int:
+    """Chunks of a table row of `n_ent` entries, `e` a chunk (the last
+    may be short): chunk c takes entries c*e .. min((c+1)*e, n_ent) - 1."""
+    return -(-n_ent // e)
+
+
 def _common_args(q, k_cache, c_cache, tables, n_tiles, pos, c_new,
                  tile_base, ps, tps, kv_bytes):
     """Shape checks shared by both kernels; returns the int32 metadata, the
@@ -254,7 +290,7 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
         tile_base = torch.zeros((b,), dtype=torch.int32, device=q.device)
     code = _build.dtype_code(q)
     req = _build.require
-    ints, (n_all, width, n_tab, t_max), two_pass = _common_args(
+    ints, (n_all, width, n_tab, t_max), _ = _common_args(
         q, k_cache, c_cache, tables, n_tiles, pos, c_new, tile_base, ps, tps,
         1)
     kv_pad = k_scale.shape[2]
@@ -275,10 +311,22 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
     req(all(a.is_contiguous() for a in args), 'inputs must be contiguous')
     o = torch.empty_like(q)
     p = _build.ptr
+    route = q_route(q.dtype, g, d, ps, t_max * tps, all(
+        a.data_ptr() % 16 == 0 for a in (q, k_cache, v_cache, k_scale,
+                                         v_scale)))
+    walk, e, work, counters = int(route == 'two-pass'), 0, None, None
+    if route == 'split':
+        walk, e = 2, q_split_entries(b * kv, t_max * tps)
+        chunks = q_split_chunks(t_max * tps, e)
+        if chunks > SPLIT_CLUSTER:    # else the chunks combine in a cluster
+            work = torch.empty((b * kv * chunks * g, d + 2),
+                               dtype=torch.float32, device=q.device)
+            counters = torch.zeros((b * kv,), dtype=torch.int32,
+                                   device=q.device)
     err = _build.lib().spt_decode_attention_q(
-        code, two_pass, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
-        width, kv_pad, n_tab, t_max, tps, ps, float(scale), float(clamp),
-        _build.stream())
+        code, walk, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
+        width, kv_pad, n_tab, t_max, tps, ps, float(scale), float(clamp), e,
+        p(work), p(counters), _build.stream())
     _build.check(err, 'decode_attention_rows_q')
     decode_attention_rows_q.launches += 1
     return o, k_cache, v_cache, c_cache, k_scale, v_scale

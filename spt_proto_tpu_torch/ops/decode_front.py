@@ -2,8 +2,12 @@
 tile selection (+ int8 KV quantization) in one launch per decode layer (port
 of spt_proto_tpu/ops/pallas/decode_front.py).
 
-`decode_front` launches the CUDA kernel csrc/decode_front.cu for CUDA
-tensors and runs the plain twin `decode_front_ref` for CPU tensors. The
+`decode_front` launches the CUDA kernels of csrc/decode_front.cu for CUDA
+tensors and runs the plain twin `decode_front_ref` for CPU tensors;
+`front_plan` is the rule that picks the kernels (bf16: the norm, one
+tensor-core weight stream over q | k | v for all slots, and the per-head
+tail; f32 and shapes off that rule: the fused kernel, one CTA per (kv
+head, slot)). The
 engine calls it for sparse decode over an int8 KV cache (quantized=True)
 and over a bf16/f32 one (quantized=False). Architectures: OPT (LayerNorm,
 biases) and LLaMA (RMSNorm, no biases, RoPE from per-slot cos / sin
@@ -31,13 +35,17 @@ last. Group member g of kv head j is query head j*G + g.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from spt_proto_tpu_torch import _build
 from spt_proto_tpu_torch.layers.common import rotate_half
+from spt_proto_tpu_torch.ops import weight_stream as ws
 from spt_proto_tpu_torch.ops.int8_matmul import int8_dot
 
 NEG = -1e30
+STREAM_SLICE_MIN = 128   # K rows a slice of the projection stream, at least
 
 
 def build_pq_bd(codebook: torch.Tensor):
@@ -75,6 +83,87 @@ def _part_widths(wqkv, d: int):
 def _front_block_k(d: int) -> int:
     """K block of the int8 projection (decode_front.py:205)."""
     return 256 if d % 256 == 0 else 128
+
+
+def _parts(wqkv, d: int):
+    """Per part (q, k, v): (weight tensor, first column, row stride, scale
+    tensor or None, first scale column), as the kernels address them."""
+    form = weight_form(wqkv)
+    if form == 'stack':
+        return [(wqkv, i * d * d, d, None, 0) for i in range(3)]
+    if form == 'packed_int8':
+        w8, wsc = wqkv['q'], wqkv['scale']
+        return [(w8, i * d, w8.shape[1], wsc, i * d) for i in range(3)]
+    if form == 'triple':
+        return [(w, 0, w.shape[1], None, 0) for w in wqkv]
+    return [(w['q'], 0, w['q'].shape[1], w['scale'], 0) for w in wqkv]
+
+
+def call_plan(x, norm_scale, norm_bias, wqkv, bd, cb_norm, c_cache, cos,
+              sin, n_sub: int, parts=None) -> dict:
+    """front_plan for one call's tensors: its widths, the parts' row
+    strides and whether the operands the kernels copy 16 bytes at a time
+    (x, the norm, every part's rows, the codebook, the code cache, the
+    RoPE rows) are 16-byte aligned. `parts`: _parts(wqkv, D) when the
+    caller has them."""
+    d = x.shape[1]
+    parts = parts or _parts(wqkv, d)
+    aligned = all(a.data_ptr() % 16 == 0 for a in [
+        x, norm_scale, bd, cb_norm, c_cache] + [
+        a for a in (norm_bias, cos, sin) if a is not None]) \
+        and all(_offset(w, o) % 16 == 0 for w, o, _, _, _ in parts) \
+        and (bd.shape[1] // n_sub) % 4 == 0
+    form = weight_form(wqkv)
+    return front_plan(x.shape[0], d, _part_widths(wqkv, d), x.dtype,
+                      form in ('packed_int8', 'triple_int8'),
+                      [ld for _, _, ld, _, _ in parts], aligned)
+
+
+def front_plan(b: int, d: int, widths, dtype: torch.dtype, int8w: bool,
+               lds=(), aligned: bool = True) -> dict:
+    """The kernels a decode_front call runs on the card. bf16 takes route
+    'stream' when a column tile of 16 cw columns divides every part's
+    width (`widths`: q, k, v; a tile never straddles two parts) and its
+    warps hold all b rows, D is a multiple of 8, every row stride (`lds`)
+    starts its rows on 16 bytes, and the operands are 16-byte aligned
+    with a multiple of 4 codewords a subspace (`aligned`, call_plan):
+    decode_front_norm_kernel, decode_front_stream_kernel with `cw`, `ng`
+    row groups a warp and a ring of `stages` over `tiles` column tiles and
+    D in `slices` ordered slices of `kslice` rows (whole K blocks of the
+    int8 forms), then decode_front_tail_kernel. f32 and the shapes off
+    that rule take route 'fused' (decode_front_kernel). The plan is kept
+    per argument set: the engine asks for the same one every layer. The
+    caller reads the returned dict and does not change it."""
+    return _front_plan(b, d, tuple(widths), dtype, int8w, tuple(lds),
+                       aligned)
+
+
+@functools.lru_cache(maxsize=256)
+def _front_plan(b, d, widths, dtype, int8w, lds, aligned) -> dict:
+    fused = dict(route='fused')
+    per_copy = 16 if int8w else 8          # weight elements a 16-byte copy
+    if (dtype != torch.bfloat16 or not aligned or d % 8
+            or any(ld % per_copy for ld in lds)):
+        return fused
+    tile = next(((cw, ng) for cw in ws.CWS
+                 if all(n % (16 * cw) == 0 for n in widths)
+                 and (ng := ws.row_groups(b, cw)) is not None), None)
+    if tile is None:
+        return fused
+    cw, ng = tile
+    item = 1 if int8w else 2
+    ring = ws.ring(item, 1, 1, cw, b, ng)
+    if ring is None:
+        return fused
+    stages, ng = ring
+    smem = stages * ws.stage_bytes(item, 1, 1, cw, b)
+    tiles = sum(n // (16 * cw) for n in widths)
+    kslice = ws.k_slice(d, tiles, STREAM_SLICE_MIN, ws.wave(smem))
+    if int8w:
+        bk = _front_block_k(d)
+        kslice = -(-kslice // bk) * bk
+    return dict(route='stream', cw=cw, ng=ng, stages=stages, tiles=tiles,
+                kslice=kslice, slices=-(-d // kslice))
 
 
 def _project(hn, wqkv, bqkv, dtype):
@@ -195,9 +284,10 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     wqkv in one of the four forms of the module doc; bqkv [3, D] (stack /
     packed) or [3, max part width] (a biased triple, parts zero-padded) in
     the serving dtype, or None; norm_bias None for LLaMA; bd / cb_norm from
-    build_pq_bd; c_cache [B, KV, L*NT, w, T] int32 (pad columns -2); pos [B]
-    int32; base = layer_index * nt (int); cos / sin [B, d_head] f32 RoPE
-    tables at each slot's position (LLaMA only, layers.common.rope_cos_sin).
+    build_pq_bd (the kernels read only bd's diagonal blocks); c_cache [B,
+    KV, L*NT, w, T] int32 (pad columns -2); pos [B] int32; base =
+    layer_index * nt (int); cos / sin [B, d_head] f32 RoPE tables at each
+    slot's position (LLaMA only, layers.common.rope_cos_sin).
     """
     form = weight_form(wqkv)
     int8w = form in ('packed_int8', 'triple_int8')
@@ -246,13 +336,10 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
         req(bqkv.dim() == 2 and bqkv.shape[0] == 3
             and bqkv.shape[1] >= max(widths), f'bqkv {tuple(bqkv.shape)}')
     ldb = 0 if bqkv is None else bqkv.shape[1]
-    # per part: (weight tensor, first column, row stride, scale tensor,
-    # first scale column)
     if form == 'stack':
         req(wqkv.dtype == x.dtype and wqkv.shape == (3, d, d),
             f'wqkv {tuple(wqkv.shape)} {wqkv.dtype} != [3, {d}, {d}] '
             f'{x.dtype}')
-        parts = [(wqkv, i * d * d, d, None, 0) for i in range(3)]
     elif form == 'packed_int8':
         w8, wsc = wqkv['q'], wqkv['scale']
         req(w8.dtype == torch.int8 and w8.dim() == 2 and w8.shape[0] == d
@@ -260,26 +347,23 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
             and wsc.numel() == 3 * d,
             f'packed int8 QKV {tuple(w8.shape)} {w8.dtype} / scale '
             f'[{wsc.numel()}] at D={d}')
-        parts = [(w8, i * d, w8.shape[1], wsc, i * d) for i in range(3)]
     elif form == 'triple':
         req(all(w.dtype == x.dtype and w.dim() == 2 and w.shape[0] == d
                 for w in wqkv), f'triple weights [D, n] in {x.dtype}')
-        parts = [(w, 0, w.shape[1], None, 0) for w in wqkv]
     else:
         req(all(w['q'].dtype == torch.int8 and w['q'].dim() == 2
                 and w['q'].shape[0] == d and w['q'].shape[1] >= n
                 and w['scale'].dtype == torch.float32
                 for w, n in zip(wqkv, widths)),
             'triple_int8 parts {q: [D, n_pad] int8, scale: [n] f32}')
-        parts = [(w['q'], 0, w['q'].shape[1], w['scale'], 0) for w in wqkv]
     req(not int8w or d % 128 == 0, f'int8 forms need D={d} a multiple of 128')
     req(norm_scale.numel() == d
         and (norm_bias is None or norm_bias.numel() == d), 'norm width')
     req(256 % dh == 0, f'd_head {dh} must divide 256')
     req(bd.dtype == torch.float32 and cb_norm.dtype == torch.float32,
         'bd / cb_norm are f32')
-    req(bd.shape[1] % n_sub == 0 and cb_norm.numel() == bd.shape[1],
-        'bd / cb_norm shapes')
+    req(bd.shape[1] % n_sub == 0 and dh % n_sub == 0
+        and cb_norm.numel() == bd.shape[1], 'bd / cb_norm shapes')
     req(c_cache.dtype == torch.int32 and t == ps and width >= n_sub,
         'c_cache [B, KV, L*NT, w>=n_sub, ps] int32')
     req(c_cache.shape[0] == b and 0 <= base and base + nt <= n_all
@@ -288,6 +372,9 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     tensors = [x, norm_scale, bd, cb_norm, c_cache, pos] + w_ts + extra
     req(all(a.is_contiguous() for a in tensors), 'inputs must be contiguous')
 
+    parts = _parts(wqkv, d)
+    plan = call_plan(x, norm_scale, norm_bias, wqkv, bd, cb_norm, c_cache,
+                     cos, sin, n_sub, parts)
     dev = x.device
     q = torch.empty((b, heads * dh), dtype=x.dtype, device=dev)
     k, v = (torch.empty((b, kv * dh), dtype=x.dtype, device=dev)
@@ -306,13 +393,21 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
     s_ptrs = [None if s is None else _offset(s, o) for _, _, _, s, o in parts]
     b_ptrs = [None if bqkv is None else _offset(bqkv, i * ldb)
               for i in range(3)]
+    hn = part = None
+    route = [0] * 5
+    if plan['route'] == 'stream':
+        hn = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+        part = torch.empty((plan['slices'], b, sum(widths)),
+                           dtype=torch.float32, device=dev)
+        route = [1] + [plan[n] for n in ('cw', 'ng', 'stages', 'kslice')]
     err = _build.lib().spt_decode_front(
         code, int(int8w), p(x), p(norm_scale), p(norm_bias), *w_ptrs, *lds,
         *s_ptrs, *b_ptrs, p(bd), p(cb_norm), p(cos), p(sin), p(c_cache),
         p(pos), base, p(q), p(k), p(v), p(c_new), p(tables), p(k8), p(v8),
         p(ks), p(vs), b, d, heads, kv, dh, n_sub, bd.shape[1] // n_sub,
         width, n_all, nt, nsel, ps, _front_block_k(d) if int8w else 0,
-        1.0 / (ps * g), eps, int(llama), int(quantized), _build.stream())
+        1.0 / (ps * g), eps, int(llama), int(quantized), *route, p(hn),
+        p(part), _build.stream())
     _build.check(err, 'decode_front')
     decode_front.launches += 1
     res = (q, k, v, c_new, tables)

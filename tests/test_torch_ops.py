@@ -252,3 +252,83 @@ def test_ffn_tail_plan(m, d, f, dtype, aligned, int8, route):
             slices * kslice
         tiles = -(-n // (16 * cw))
         assert slices == 1 or slices * tiles <= ws.wave(smem)
+
+
+# The decode front's kernel plan (front_plan), pure Python: bf16 takes the
+# norm, one weight stream over q | k | v and the per-head tail at every
+# serving form and width, f32 and the shapes off the rule the fused kernel;
+# a column tile never straddles two parts, the warps hold every slot, the
+# K slices keep every row and are whole K blocks in the int8 forms.
+FRONT_WIDTHS = {'opt-125m': (768, [768] * 3), 'llama-7b': (4096, [4096] * 3),
+                'llama-3-8b': (4096, [4096, 1024, 1024]),
+                'tiny': (128, [128] * 3), 'tiny-gqa': (128, [128, 64, 64]),
+                'd-not-256': (384, [384] * 3)}
+
+
+@pytest.mark.parametrize('model', sorted(FRONT_WIDTHS))
+@pytest.mark.parametrize('int8w', [False, True])
+@pytest.mark.parametrize('b', [1, 3, 8, 9, 16])
+def test_front_plan(model, int8w, b):
+    from spt_proto_tpu_torch.ops import decode_front as tfront
+    from spt_proto_tpu_torch.ops import weight_stream as ws
+    d, widths = FRONT_WIDTHS[model]
+    lds = [n + (-n % 256) if int8w else n for n in widths]
+    plan = tfront.front_plan(b, d, widths, torch.bfloat16, int8w, lds)
+    assert plan['route'] == 'stream'
+    cw, ng, kslice = plan['cw'], plan['ng'], plan['kslice']
+    assert all(n % (16 * cw) == 0 for n in widths)     # no tile straddles
+    assert plan['tiles'] == sum(widths) // (16 * cw)
+    assert (8 // cw) * ng * 8 >= b                     # every slot held
+    assert (plan['stages'], ng) in ((4, 1), (4, 2), (4, 4), (3, 1), (2, 4))
+    assert kslice % 64 == 0 and (plan['slices'] - 1) * kslice < d <= \
+        plan['slices'] * kslice
+    if int8w:
+        assert kslice % tfront._front_block_k(d) == 0  # whole K blocks
+    smem = plan['stages'] * ws.stage_bytes(1 if int8w else 2, 1, 1, cw, b)
+    assert smem <= ws.MAX_SMEM
+    # f32, an unaligned operand, a row stride off 16 bytes: the fused kernel
+    for args in ((b, d, widths, torch.float32, int8w, lds),
+                 (b, d, widths, torch.bfloat16, int8w, lds, False),
+                 (b, d, widths, torch.bfloat16, int8w,
+                  [lds[0] + 4] + lds[1:])):
+        assert tfront.front_plan(*args)['route'] == 'fused'
+
+
+def test_front_plan_off_rule_shapes():
+    from spt_proto_tpu_torch.ops import decode_front as tfront
+    bf = torch.bfloat16
+    # a part no 16-column tile divides; D off 8; more slots than a tile holds
+    assert tfront.front_plan(4, 64, [64, 24, 24], bf, False)['route'] == \
+        'fused'
+    assert tfront.front_plan(4, 68, [68] * 3, bf, False)['route'] == 'fused'
+    assert tfront.front_plan(257, 768, [768] * 3, bf, False)['route'] == \
+        'fused'
+    assert tfront.front_plan(256, 768, [768] * 3, bf, False)['route'] == \
+        'stream'
+
+
+# The int8-KV decode attention's kernel rule (q_route) and the split walk's
+# chunks, pure Python: bf16 at the serving tiles takes the split kernel for
+# any table length, f32 and the shapes off the rule the kernels rows_walk
+# names; the chunks cover every entry of a row once.
+@pytest.mark.parametrize('g,d,n_ent,rows', [
+    (1, 64, 3, 96),        # OPT-125M sparse
+    (1, 64, 16, 96),       # OPT-125M dense, tps 4 (4 entries x 4)
+    (4, 128, 3, 64),       # Llama-3-8B sparse
+    (4, 128, 17, 64),      # Llama-3-8B dense
+    (4, 128, 96, 64),      # a dense table past the one-pass kernel
+    (8, 128, 5, 8)])
+def test_q_route_and_split_chunks(g, d, n_ent, rows):
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    assert tattn.q_route(torch.bfloat16, g, d, 128, n_ent) == 'split'
+    assert tattn.q_route(torch.float32, g, d, 128, n_ent) == \
+        tattn.rows_walk(g, d, 128, n_ent, 1)
+    assert tattn.q_route(torch.bfloat16, g, d, 128, n_ent, False) == \
+        tattn.rows_walk(g, d, 128, n_ent, 1)
+    assert tattn.q_route(torch.bfloat16, g, 32, 128, n_ent) != 'split'
+    assert tattn.q_route(torch.bfloat16, g, d, 64, n_ent) != 'split'
+    e = tattn.q_split_entries(rows, n_ent)
+    assert 1 <= e <= tattn.SPLIT_MAX_ENTRIES
+    chunks = tattn.q_split_chunks(n_ent, e)
+    assert (chunks - 1) * e < n_ent <= chunks * e     # every entry, once
+    assert e == 1 or rows * chunks >= tattn.SPLIT_CTAS // 2
