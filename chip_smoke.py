@@ -10,8 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside the build compile the tensor-core kernels' sources once more
    with -Xptxas -v to print their registers and spills (the int8_matmul
    wgmma and weight-stream kernels, the FFN-tail streams, the bf16 decode
-   front's norm / stream / tail and the int8-KV split attention must
-   spill nothing);
+   front's norm / stream / tail, both split attentions and the bf16
+   block-sparse forward must spill nothing);
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32, on
    the route its wrapper's rule names (asserted): the decode front (with
@@ -24,10 +24,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    of its projection, decode attention over a bf16/f32 cache (dense tables
    at max_len 2176, dense supertiles of 4 at max_len 2048, sparse tables)
    and over an int8 cache (sparse tables, and dense supertiles of 4 through
-   one table row; and both at Llama-3-8B's G = 4; and its edges: -1
-   entries and entries past n_tiles, the new token at lane 0 and lane
-   127, grouped table rows, supertiles of 4 at G = 4, G = 1 and G = 8 at
-   d_head 128),
+   one table row; and both at Llama-3-8B's G = 4; and the edges of both:
+   -1 entries and entries past n_tiles, the new token at lane 0 and lane
+   127, grouped table rows (int8), supertiles of 4 at G = 4, G = 1 and G
+   = 8 at d_head 128; for the bf16 cache also G = 1 at d_head 64, a row
+   of 400 tiles whose scores go to the global buffer, and the row's max
+   in a chunk past the first and in the new token),
    the lm_head argmax (fp, and int8 at OPT-125M and OPT-1.3B widths; both
    at d 4096 over 128,256 and 32,000 tokens; and both at LLaMA-13B's d
    5120 over OPT's ragged 50,272 tokens at B 1, 4, 8, 13 and 40, on
@@ -36,7 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ragged last tile, in the last true column against larger int8 pad
    columns -- the ids must match exactly), block-sparse prefill
    attention (d_head 64 and 128, at S=2048 and with off-diagonal and -1
-   entries at S=4096, sparse_coeff 4), the fused FFN tail (fp and int8) at
+   entries at S=4096, sparse_coeff 4; and its edges: block_q 128 and 256,
+   the clamp on and off, -1 entries amid a list and a tile after the q
+   tile's rows, the lse form), the fused FFN tail (fp and int8) at
    OPT-125M and OPT-1.3B widths, the gated tails (fp and int8) at LLaMA-7B
    and Llama-3-8B widths, m = 4 and 8, and in bf16 the four tails at m =
    1, 9, 17, 64, 65 and 256 and the int8 forms' padded strides, and the
@@ -93,7 +97,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    second from CUDA events (the decode window starts after a sync), and a
    profiled 4-step decode window per mode (after a sync too); a bf16 run
    (here and in phases 5-6) fails if its steps launch decode_front's fused
-   kernel or the int8-KV attention's one-pass or int8 walk kernel;
+   kernel, the int8-KV attention's one-pass or int8 walk kernel or the
+   bf16-KV attention's one-pass or walk kernel, or its profiled sparse
+   prefill the CUDA-core block-sparse forward;
 5. bench.py's OPT-1.3B rung: dense bf16-KV vs sparse int8-KV, and sparse
    int8-KV w8 (the round-4 ladder's "sparse w8"), B=8, prompt 2048, max_len
    2176, 32 steps, with tokens per second and peak memory;
@@ -288,8 +294,10 @@ def log_ptxas(proc, pattern: str, no_spills: bool = False) -> list[str]:
 # nothing, int8_matmul_wgmma_kernel<BN>, int8_matmul_stream_kernel<NG, S>,
 # ffn_up_kernel<W, GATED, NG, S>, ffn_down_kernel<W, NG, S>, the bf16
 # decode front's decode_front_norm_kernel<T>, decode_front_stream_kernel<W,
-# NG, S> and decode_front_tail_kernel<T, INT8>, and the int8-KV split walk
-# decode_attention_q_split_kernel<D>
+# NG, S> and decode_front_tail_kernel<T, INT8>, the split walks
+# decode_attention_q_split_kernel<D> (int8 KV) and
+# decode_attention_split_kernel<D> (bf16 KV), and the bf16 block-sparse
+# forward block_sparse_fwd_kernel_tc<D, W>
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?',
      False),
@@ -303,8 +311,10 @@ PTXAS_KERNELS = (
      r'(?:Lb([01])E)?Li(\d)ELi(\d)E', True),
     ('decode_front.cu', r'(decode_front_(?:norm|stream|tail)_kernel)'
      r'I(a|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d)ELi(\d)E)?', True),
-    ('decode_attention.cu', r'(decode_attention_q_split_kernel)ILi(\d+)E',
-     True))
+    ('decode_attention.cu',
+     r'(decode_attention_(?:q_)?split_kernel)ILi(\d+)E', True),
+    ('block_sparse_attention.cu',
+     r'(block_sparse_fwd_kernel_tc)ILi(\d+)ELi(\d+)E', True))
 
 
 class Timer:
@@ -367,6 +377,15 @@ def output_tolerance(want, dtype) -> tuple[float, float]:
     if dtype != torch.float32:
         atol = rtol * want.float().abs().max().item()
     return atol, rtol
+
+
+def tight_tolerance(want, dtype) -> tuple[float, float]:
+    """(atol, rtol) for the bf16-KV decode attention's and the block-sparse
+    forward's outputs: the tighter of `tolerance` (the fixed 2e-2 their
+    contract states) and `output_tolerance` (one bf16 step of the largest
+    output), so that neither a small nor a large output loosens the check."""
+    atol, rtol = output_tolerance(want, dtype)
+    return min(atol, tolerance(dtype)[0]), rtol
 
 
 def close(got, want, dtype, tol=None) -> bool:
@@ -827,12 +846,15 @@ def rows_inputs(dtype, mode, front_out, g):
 def check_rows(dtype, mode, front_out, timer=None):
     """decode_attention_rows (bf16/f32 cache) vs its twin. The kernel rounds
     the unnormalised exp to the cache dtype before PV, the twin the
-    normalised probabilities (the TPU kernel vs its oracle): one bf16 step
-    apart, 1e-5 in f32."""
+    normalised probabilities (the TPU kernel vs its oracle): held to
+    tight_tolerance, 1e-5 in f32."""
     from spt_proto_tpu_torch.ops import decode_attention as m
     args, tps = rows_inputs(dtype, mode, front_out, gen(SEED + 5))
     kw = dict(ps=TILE, tps=tps, scale=DH ** -0.5,
               clamp=10.0 if mode == 'sparse' else 0.0)
+    route = m.rows_route(dtype, 1, DH, TILE, args[4].shape[2] * tps)
+    require((route == 'split') == (dtype == torch.bfloat16),
+            f'decode_attention_rows {mode} {dtype}: route {route}')
     ref_args = [a.clone() for a in args]
     got = m.decode_attention_rows(*args, **kw)
     want = m.decode_attention_rows_ref(*ref_args, **kw)
@@ -841,14 +863,15 @@ def check_rows(dtype, mode, front_out, timer=None):
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
     t_max = args[4].shape[2]
-    require(close(got[0], want[0], dtype) and caches_equal
+    tol = tight_tolerance(want[0], dtype)
+    require(close(got[0], want[0], dtype, tol) and caches_equal
             and bool(torch.isfinite(got[0]).all()),
             f'decode_attention_rows {mode} {dtype}: o err {err}, appended '
             f'caches equal: {caches_equal}')
-    log(f'  decode_attention_rows {mode:10s} (T={t_max}, tps {tps}) '
-        f'{str(dtype):14s} o max err {err:.3g} ({tol_str(dtype)}); appended '
-        f'caches exact')
-    res = dict(max_abs_err=err)
+    log(f'  decode_attention_rows {mode:10s} (T={t_max}, tps {tps}, '
+        f'{route}) {str(dtype):14s} o max err {err:.3g} '
+        f'({tol_str(dtype, tol)}); appended caches exact')
+    res = dict(max_abs_err=err, walk=route)
     if timer is not None:
         res['ms'] = timer.ms(lambda: m.decode_attention_rows(*args, **kw))
         res['plain_ms'] = timer.ms(
@@ -864,6 +887,168 @@ def check_rows(dtype, mode, front_out, timer=None):
         # append + attention over this token-minor layout
         res['library_ms'] = None
         log_times(res)
+    return res
+
+
+def unaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary (a view into a larger buffer)."""
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return u.view(t.shape).copy_(t)
+
+
+def rows_case(label, dtype, grp, dh, kv, pos, tables, n_tiles, tps=1,
+              nt=NT, layers=2, width=N_SUB_LL, clamp=10.0, plant=None,
+              timer=None, seed=SEED + 14, off_rule=None):
+    """decode_attention_rows vs its twin on bf16/f32 caches of `layers` x nt
+    tiles (the middle layer's at base), slots at `pos`, the given PHYSICAL
+    tables [B, N_TAB, T] and n_tiles, on the kernel rows_route names
+    (asserted: bf16 the split walk; off_rule names the kernel a bf16 call
+    off the rule takes, 'one-pass' or 'two-pass', with q unaligned when
+    d_head is 64 or 128). The output is held to tight_tolerance. plant:
+    'chunk' puts a key whose score
+    is each row's max (~0.75 sqrt(dh) against ~N(0, 1) elsewhere) at lane
+    50 of the table's entry T - 7 (a chunk past the first), 'new' makes the
+    new token's key that max: both hold the max the split walk exchanges
+    between its chunks. Timed when timer is given."""
+    from spt_proto_tpu_torch.ops import decode_attention as m
+    g = gen(seed)
+    b = pos.shape[0]
+    n_all, base = layers * nt, layers // 2 * nt
+    q = randn(g, (b, kv, grp, dh), dtype)
+    kc, vc = (randn(g, (b, kv, n_all, dh, TILE), dtype) for _ in range(2))
+    cc = torch.randint(0, N_CODE if width > 1 else 1,
+                       (b, kv, n_all, width, TILE), generator=g, device=DEV,
+                       dtype=torch.int32)
+    c_new = torch.randint(0, N_CODE if width > 1 else 1, (b, kv, width),
+                          generator=g, device=DEV, dtype=torch.int32)
+    kn, vn = (randn(g, (b, kv, dh), dtype) for _ in range(2))
+    top = (q.float().mean(2) * (0.75 * grp)).to(dtype)        # [b, kv, dh]
+    tables = tables.to(torch.int32)
+    if plant == 'chunk':
+        rows = tables.repeat_interleave(kv // tables.shape[1], dim=1)
+        at = rows[..., tables.shape[2] - 7].long()              # [b, kv]
+        bi = torch.arange(b, device=DEV)[:, None]
+        hi = torch.arange(kv, device=DEV)[None]
+        kc[bi, hi, at, :, 50] = top
+    elif plant == 'new':
+        kn = top
+    tb = torch.full((b,), base, device=DEV, dtype=torch.int32)
+    aligned = off_rule is None or dh not in (64, 128)
+    if not aligned:
+        q = unaligned(q)
+    args = [q, kc, vc, cc, tables, n_tiles.to(torch.int32),
+            pos.to(torch.int32), kn, vn, c_new, tb]
+    kw = dict(ps=TILE, tps=tps, scale=dh ** -0.5, clamp=clamp)
+    route = m.rows_route(dtype, grp, dh, TILE, tables.shape[2] * tps,
+                         aligned)
+    require(route == off_rule if off_rule else
+            (route == 'split') == (dtype == torch.bfloat16),
+            f'{label}: route {route}')
+    ref_args = [a.clone() for a in args]
+    got = m.decode_attention_rows(*args, **kw)
+    want = m.decode_attention_rows_ref(*ref_args, **kw)
+    sync()
+    err = max_err(got[0], want[0])
+    caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
+                                                             want[1:]))
+    tol = tight_tolerance(want[0], dtype)
+    require(close(got[0], want[0], dtype, tol) and caches_equal
+            and bool(torch.isfinite(got[0]).all()),
+            f'{label} {dtype}: o err {err}, appended caches equal: '
+            f'{caches_equal}')
+    plan = (m.rows_split_plan(tables.shape[2] * tps) if route == 'split'
+            else None)
+    log(f'  decode_attention_rows {label} ({route}'
+        + (f', {plan[0]} chunks of {plan[1]}' if plan else '')
+        + f') {str(dtype):14s} o max err {err:.3g} ({tol_str(dtype, tol)}); '
+        f'appended caches exact')
+    res = dict(max_abs_err=err, walk=route)
+    if timer is not None:
+        res['ms'] = timer.ms(lambda: m.decode_attention_rows(*args, **kw))
+        res['plain_ms'] = timer.ms(
+            lambda: m.decode_attention_rows_ref(*ref_args, **kw), reps=5)
+        tokens = covered_tokens(tables, args[5], args[6], tb, tps, kv)
+        io = nbytes(q, tables, args[5], args[6], c_new, tb, got[0], kn, vn)
+        res['bound_ms'], res['bound_by'] = bound_ms(
+            tokens * 2 * dh * q.element_size() + io,
+            tokens * 2 * 2 * dh * grp, dtype)
+        res['library_ms'] = None
+        log_times(res)
+    return res
+
+
+def check_rows_edges(dtype, timer=None):
+    """decode_attention_rows' edges, each vs its twin on the route
+    rows_route names: -1 entries and entries past n_tiles; the new token at
+    lane 0 and at lane PS - 1; dense supertiles of 4 through one table row;
+    G = 1, 4 and 8 (d_head 128, and 64 at G = 1); a row of 400 tiles whose
+    scores go to the global buffer; the row's max in a chunk past the
+    first, and in the new token (dense T = 17 at G = 4: 3 chunks of 6
+    entries, so both lie in another chunk than the first). In bf16, the
+    calls off the rule too: d_head 80 (OPT-2.7B's) and an unaligned q
+    take the one-pass kernel, an unaligned q over a dense table of 96
+    tiles the two-pass walk."""
+    g = gen(SEED + 15)
+    base = NT
+    pos = PROMPT + torch.arange(B, device=DEV, dtype=torch.int32)
+    n3 = torch.full((B,), NSEL, device=DEV, dtype=torch.int32)
+    res = {}
+    t5 = sparse_rows(pos, KV_38B, 4, base, g)
+    tables = torch.stack([t5[..., 0], torch.full_like(t5[..., 0], -1),
+                          t5[..., 1], t5[..., 3], t5[..., 2]], -1)
+    res['-1 and past n_tiles'] = rows_case(
+        '-1 / past-n_tiles entries G=4', dtype, 4, DH_LL, KV_38B, pos,
+        tables, torch.full((B,), 4, device=DEV, dtype=torch.int32),
+        timer=timer)
+    for lane in (0, TILE - 1):
+        p_ = 15 * TILE + lane + 0 * pos
+        res[f'new token lane {lane}'] = rows_case(
+            f'new token at lane {lane} G=4', dtype, 4, DH_LL, KV_38B, p_,
+            sparse_rows(p_, KV_38B, NSEL, base, g), n3, timer=timer)
+    p4 = PROMPT - B + torch.arange(B, device=DEV, dtype=torch.int32)
+    t4, n4 = dense_tables(p4, PROMPT // TILE, 4, PROMPT // TILE)
+    res['dense tps 4 G=4'] = rows_case(
+        'dense supertiles of 4 G=4', dtype, 4, DH_LL, KV_38B, p4, t4, n4,
+        tps=4, nt=PROMPT // TILE, width=1, clamp=0.0, timer=timer)
+    res['G=1'] = rows_case(
+        'G=1 d_head 128', dtype, 1, DH_LL, 32, pos[:4],
+        sparse_rows(pos[:4], 32, NSEL, base, g), n3[:4], timer=timer)
+    res['G=1 d_head 64'] = rows_case(
+        'G=1 d_head 64', dtype, 1, DH, HEADS, pos,
+        sparse_rows(pos, HEADS, NSEL, base, g), n3, width=N_SUB,
+        timer=timer)
+    res['G=8'] = rows_case(
+        'G=8', dtype, 8, DH_LL, 4, pos, sparse_rows(pos, 4, NSEL, base, g),
+        n3, timer=timer)
+    # a row of 400 tiles at G = 8: its chunks' scores outgrow shared
+    # memory and go to the global buffer (rows_split_plan)
+    pl = 400 * TILE - 3 + torch.arange(2, device=DEV, dtype=torch.int32)
+    tl, nl = dense_tables(pl, 401, 1, 401)
+    res['long row, global scores G=8'] = rows_case(
+        'dense T=400 G=8 (scores in the global buffer)', dtype, 8, DH_LL, 1,
+        pl, tl, nl, nt=401, width=1, clamp=0.0, timer=timer)
+    td, nd = dense_tables(pos, NT, 1, base)
+    for plant in ('chunk', 'new'):
+        res[f'max in {plant}'] = rows_case(
+            'dense T=17 G=4, max ' + ('in the new token' if plant == 'new'
+                                      else 'in a chunk past the first'),
+            dtype, 4,
+            DH_LL, KV_38B, pos, td, nd, width=1, clamp=0.0, plant=plant,
+            timer=timer)
+    if dtype == torch.bfloat16:
+        res['off rule d_head 80'] = rows_case(
+            'off rule: G=1 d_head 80 (OPT-2.7B)', dtype, 1, 80, 32, pos[:4],
+            sparse_rows(pos[:4], 32, NSEL, base, g), n3[:4], width=N_SUB,
+            off_rule='one-pass')
+        res['off rule unaligned q'] = rows_case(
+            'off rule: unaligned q G=4', dtype, 4, DH_LL, KV_38B, pos,
+            sparse_rows(pos, KV_38B, NSEL, base, g), n3, off_rule='one-pass')
+        p96 = 96 * TILE - 2 + torch.arange(2, device=DEV, dtype=torch.int32)
+        t96, n96 = dense_tables(p96, 97, 1, 97)
+        res['off rule unaligned q T=96'] = rows_case(
+            'off rule: unaligned q dense T=96 G=4', dtype, 4, DH_LL, KV_38B,
+            p96, t96, n96, nt=97, width=1, clamp=0.0, off_rule='two-pass')
     return res
 
 
@@ -960,7 +1145,8 @@ def check_attention_gqa(dtype, int8, dense, timer=None, nt=NT, pos0=PROMPT,
     2176), slots at 2048-2055; dense tables (one row, tps 1) or sparse ones
     (per kv head: two random full tiles, then the write tile). With nt 97
     and slots at 12,280-12,287 the dense table has 96 tiles (12,288
-    tokens): past the one-pass kernel's shared memory, the two-pass walk."""
+    tokens): past the one-pass kernel's shared memory, the two-pass walk.
+    The bf16/f32 cache's output is held to tight_tolerance."""
     from spt_proto_tpu_torch.ops import decode_attention as m
     g = gen(SEED + 11)
     b, kv, grp, dh = B, KV_38B, HEADS_LL // KV_38B, DH_LL
@@ -1018,19 +1204,20 @@ def check_attention_gqa(dtype, int8, dense, timer=None, nt=NT, pos0=PROMPT,
     err = max_err(got[0], want[0])
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
-    walk = (m.q_route(dtype, grp, dh, TILE, tables.shape[2]) if int8
-            else m.rows_walk(grp, dh, TILE, tables.shape[2],
-                             q.element_size()))
-    require(not int8 or (walk == 'split') == (dtype == torch.bfloat16),
-            f'int8 G={grp} {dtype}: route {walk}')
+    walk = (m.q_route if int8 else m.rows_route)(dtype, grp, dh, TILE,
+                                                  tables.shape[2])
+    require((walk == 'split') == (dtype == torch.bfloat16),
+            f'{"int8" if int8 else "bf16/f32"} cache G={grp} {dtype}: '
+            f'route {walk}')
     label = (f'{fn.__name__} G={grp} {"dense" if dense else "sparse"} '
              f'(T={int(n_tiles.max())}, {walk})')
-    require(close(got[0], want[0], dtype) and caches_equal
+    tol = None if int8 else tight_tolerance(want[0], dtype)
+    require(close(got[0], want[0], dtype, tol) and caches_equal
             and bool(torch.isfinite(got[0]).all()),
             f'{label} {dtype}: o err {err}, appended caches equal: '
             f'{caches_equal}')
     log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
-        f'({tol_str(dtype)}); appended caches exact')
+        f'({tol_str(dtype, tol)}); appended caches exact')
     res = dict(max_abs_err=err, walk=walk)
     if timer is not None:
         res['ms'] = timer.ms(lambda: fn(*args, **kw))
@@ -2006,39 +2193,68 @@ def causal_pairs(sel, block_q, block_k=128) -> int:
 
 
 def check_block_sparse(dtype, s, coeff, timer=None, bh=B * HEADS, dh=DH,
-                       n_sub=N_SUB):
-    """block_sparse_attention vs its twin over bh (slot, head) rows of s
-    tokens and d_head dh (OPT-125M's 64, or LLaMA's 128, a kernel of its
-    own), selection from random codes of n_sub subspaces."""
+                       n_sub=N_SUB, block_q=256, clamp=10.0, edit_sel=None,
+                       lse=False, off_rule=False):
+    """block_sparse_attention (or, lse=True, block_sparse_attention_lse)
+    vs its twin over bh (slot, head) rows of s tokens and d_head dh
+    (OPT-125M's 64, or LLaMA's 128, a kernel of its own), selection from
+    random codes of n_sub subspaces (edit_sel may change it), on the
+    kernel fwd_route names (asserted: bf16 the tensor-core kernel; with
+    off_rule, q unaligned, the CUDA-core kernel). o is held to
+    tight_tolerance, lse to the f32 bound. Timed beside dense SDPA's
+    causal forward on the same q, k, v (library_ms) when timer is given."""
     from spt_proto_tpu_torch.ops.block_sparse import block_sparse_attention_ref
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
     g = gen(SEED + 4)
-    block_q = 256
-    n_sel = max(2, (s // 128) // coeff)
+    n_sel = max(block_q // 128, (s // 128) // coeff)
     sel = sparse_sel(s, n_sel, bh, block_q, g, n_sub)
+    if edit_sel is not None:
+        sel = edit_sel(sel)
     q = randn(g, (bh, s, dh), dtype, std=2.0)
     k = randn(g, (bh, s, dh), dtype)
     v = randn(g, (bh, s, dh), dtype)
-    kw = dict(block_q=block_q, block_k=128, scale=dh ** -0.5, clamp=10.0)
-    got = m.block_sparse_attention(q, k, v, sel, **kw)
-    want = block_sparse_attention_ref(q, k, v, sel, **kw)
+    if off_rule:
+        q = unaligned(q)
+    kw = dict(block_q=block_q, block_k=128, scale=dh ** -0.5, clamp=clamp)
+    route = m.fwd_route(dtype, dh, block_q, 128, not off_rule)
+    require((route == 'tc') == (dtype == torch.bfloat16 and not off_rule),
+            f'block_sparse_attention {dtype} d {dh}: route {route}')
+    if lse:
+        fn = m.block_sparse_attention_lse
+        got, got_lse = fn(q, k, v, sel, **kw)
+        want, want_lse = m.block_sparse_attention_lse_ref(q, k, v, sel, **kw)
+    else:
+        fn = m.block_sparse_attention
+        got = fn(q, k, v, sel, **kw)
+        want = block_sparse_attention_ref(q, k, v, sel, **kw)
     sync()
     err = max_err(got, want)
-    diag = (torch.arange(sel.shape[1], device=DEV) * 2)[None, :, None]
+    diag = (torch.arange(sel.shape[1], device=DEV)
+            * (block_q // 128))[None, :, None]
     off_diag = bool(((sel >= 0) & (sel < diag)).any())
     invalid = bool((sel < 0).any())
-    require(close(got, want, dtype) and bool(torch.isfinite(got).all()),
-            f'block_sparse_attention {dtype} S={s}: err {err}')
-    if n_sel > block_q // 128:      # more tiles than the forced diagonal
+    tol = tight_tolerance(want, dtype)
+    ok = close(got, want, dtype, tol) and bool(torch.isfinite(got).all())
+    lse_err = None
+    if lse:
+        lse_err = max_err(got_lse, want_lse)
+        ok = ok and close(got_lse, want_lse, torch.float32) and bool(
+            torch.isfinite(got_lse).all())
+    require(ok, f'block_sparse_attention{"_lse" if lse else ""} {dtype} '
+            f'S={s} d {dh} block_q {block_q} clamp {clamp}: err {err}, lse '
+            f'err {lse_err}')
+    if n_sel > block_q // 128 and edit_sel is None:
         require(off_diag and invalid, f'sel at S={s} lacks off-diagonal or '
                 f'-1 entries')
-    log(f'  block_sparse S={s} d_head {dh} n_sel={n_sel} {str(dtype):14s} '
-        f'max err {err:.3g} ({tol_str(dtype)}); off-diagonal tiles '
-        f'{off_diag}, -1 entries {invalid}')
-    res = dict(max_abs_err=err)
+    log(f'  block_sparse{"_lse" if lse else ""} S={s} d_head {dh} block_q '
+        f'{block_q} clamp {clamp} n_sel={sel.shape[2]} ({route}'
+        f'{", unaligned q" if off_rule else ""}) '
+        f'{str(dtype):14s} max err {err:.3g} ({tol_str(dtype, tol)})'
+        + (f', lse {lse_err:.3g} ({tol_str(torch.float32)})' if lse else '')
+        + f'; off-diagonal tiles {off_diag}, -1 entries {invalid}')
+    res = dict(max_abs_err=err, route=route)
     if timer is not None:
-        res['ms'] = timer.ms(lambda: m.block_sparse_attention(q, k, v, sel,
-                                                              **kw))
+        res['ms'] = timer.ms(lambda: fn(q, k, v, sel, **kw))
         res['plain_ms'] = timer.ms(
             lambda: block_sparse_attention_ref(q, k, v, sel, **kw), reps=5)
         # K/V bytes of the tiles some query tile selects, q read, o written
@@ -2048,9 +2264,60 @@ def check_block_sparse(dtype, s, coeff, timer=None, bh=B * HEADS, dh=DH,
         res['bound_ms'], res['bound_by'] = bound_ms(
             nbytes(q, sel, got) + kv_bytes,
             4 * dh * causal_pairs(sel, block_q), dtype)
+        # no one PyTorch call takes per-tile selection lists; dense causal
+        # SDPA over the same rows is the yardstick the sparse path must beat
         res['library_ms'] = None
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        res['sdpa_causal_ms'] = timer.ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True))
         log_times(res)
+        log(f'      dense causal SDPA over the same rows '
+            f'{res["sdpa_causal_ms"] * 1e3:.1f} us')
     return res
+
+
+def check_block_sparse_edges(dtype):
+    """The block-sparse forward's edges, each vs its twin on the kernel
+    fwd_route names: d_head 64 and 128 at block_q 128 and 256; the clamp on
+    and off; -1 entries amid a q tile's list and a tile wholly after the q
+    tile's rows (an entry the kernel skips and the twin masks); the lse
+    form at both block sizes. In bf16, the calls off the rule too: an
+    unaligned q takes the CUDA-core kernel, with and without lse."""
+    def holes(block_q):
+        def edit(sel):
+            # a -1 entry after every list's first; every q tile but the
+            # last: the next q tile's first key tile appended (after its
+            # rows)
+            n_qt = sel.shape[1]
+            qt = torch.arange(n_qt, device=sel.device)
+            nxt = torch.where(qt < n_qt - 1, (qt + 1) * (block_q // 128), -1)
+            hole = torch.full_like(sel[..., :1], -1)
+            return torch.cat([sel[..., :1], hole, sel[..., 1:], nxt[
+                None, :, None].expand(sel.shape[0], -1, 1).to(sel.dtype)],
+                -1).contiguous()
+        return edit
+    res = {}
+    for dh, bh, n_sub in ((DH, 16, N_SUB), (DH_LL, 8, N_SUB_LL)):
+        for block_q in (128, 256):
+            for clamp in (10.0, None):
+                res[f'd {dh} block_q {block_q} clamp {clamp}'] = \
+                    check_block_sparse(dtype, PROMPT, 4, None, bh, dh, n_sub,
+                                       block_q, clamp, holes(block_q))
+            res[f'lse d {dh} block_q {block_q}'] = check_block_sparse(
+                dtype, PROMPT, 4, None, bh, dh, n_sub, block_q, 10.0,
+                holes(block_q), lse=True)
+        if dtype == torch.bfloat16:
+            for lse in (False, True):
+                res[f'off rule unaligned q d {dh}{" lse" if lse else ""}'] \
+                    = check_block_sparse(dtype, PROMPT, 4, None, bh, dh,
+                                         n_sub, 256 if lse else 128, 10.0,
+                                         holes(256 if lse else 128), lse=lse,
+                                         off_rule=True)
+    return res
+
+
+
 
 
 def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
@@ -2386,9 +2653,9 @@ def phase_kernels(timer):
         r_walk = {int8: check_attention_gqa(dtype, int8, True, t, nt=97,
                                             pos0=96 * TILE - B, layers=2)
                   for int8 in (False, True)}
-        # past the one-pass kernel's shared memory: the two-pass walk, but
-        # for the int8 cache in bf16, whose split walk serves any table
-        require(all(r['walk'] == ('split' if int8 and dtype == torch.bfloat16
+        # past the one-pass kernel's shared memory: the two-pass walk in
+        # f32; in bf16 the split walks, which serve any table
+        require(all(r['walk'] == ('split' if dtype == torch.bfloat16
                                   else 'two-pass')
                     for int8, r in r_walk.items()),
                 f'the 96-tile table takes the two-pass walk or the split '
@@ -2396,6 +2663,9 @@ def phase_kernels(timer):
         # the decode front's and the int8 attention's edges
         r_front_edges = check_front_edges(dtype, t)
         r_attn_edges = check_attention_edges(dtype, t)
+        # the bf16-KV attention's and the block-sparse forward's edges
+        r_rows_edges = check_rows_edges(dtype, t)
+        r_bsa_edges = check_block_sparse_edges(dtype)
         if t is not None:
             res = dict(
                 decode_front=dict(r_front, bf16_kv=r_front_bf,
@@ -2413,13 +2683,16 @@ def phase_kernels(timer):
                 decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll,
                                     **r_edges['lm_head_argmax']),
-                block_sparse_attention=dict(r_bsa, llama_d_head_128=r_bsa_ll),
+                block_sparse_attention=dict(
+                    r_bsa, llama_d_head_128=r_bsa_ll,
+                    **{f'edge {k}': v for k, v in r_bsa_edges.items()}),
                 **r_train,
                 decode_attention_rows=dict(
                     r_rows, dense_tps4=r_rows4, sparse=r_rows_s,
                     gqa_llama_3_8b_sparse=r_gqa[False, False],
                     gqa_llama_3_8b_dense=r_gqa[False, True],
-                    gqa_llama_3_8b_dense_96_tiles=r_walk[False]),
+                    gqa_llama_3_8b_dense_96_tiles=r_walk[False],
+                    **{f'edge {k}': v for k, v in r_rows_edges.items()}),
                 ffn_tail=dict(r_ffn, opt_1p3b=r_ffn13, **r_ffn_fp_edges),
                 int8_matmul=dict(r_mm['decode o 125m'], **{
                     k: v for k, v in r_mm.items() if k != 'decode o 125m'}),
@@ -3132,11 +3405,18 @@ def expected_launches(iw, quantized):
     return prefill, step
 
 
-# kernels a bf16 decode step never launches: decode_front's fused kernel
-# and the int8-KV attention's one-pass and int8 walk kernels; every bf16
-# call takes the weight stream and the split walk (front_plan, q_route)
+# kernels a bf16 decode step never launches: decode_front's fused kernel,
+# the int8-KV attention's one-pass and int8 walk kernels and the bf16-KV
+# attention's one-pass and walk kernels; every bf16 call takes the weight
+# stream and the split walks (front_plan, q_route, rows_route)
 NOT_BF16_DECODE = ('decode_front_kernel<', 'decode_attention_q_kernel<',
-                   'decode_attention_walk_kernel<__nv_bfloat16, signed char>')
+                   'decode_attention_walk_kernel<__nv_bfloat16, signed char>',
+                   'decode_attention_kernel<__nv_bfloat16>',
+                   'decode_attention_walk_kernel<__nv_bfloat16, '
+                   '__nv_bfloat16>')
+# the kernel a bf16 prefill never launches: the CUDA-core block-sparse
+# forward (every bf16 prefill takes block_sparse_fwd_kernel_tc, fwd_route)
+NOT_BF16_PREFILL = ('block_sparse_fwd_kernel<__nv_bfloat16',)
 
 
 def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
@@ -3147,7 +3427,8 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
     window and the profiled one each start after a sync, so a host-bound
     step reads at the host's rate. A bf16 run
     fails when a profiled window of its steps (4, or 1 without `profile`)
-    shows a kernel of NOT_BF16_DECODE. check_first
+    shows a kernel of NOT_BF16_DECODE, or a profiled bf16 sparse prefill
+    one of NOT_BF16_PREFILL. check_first
     names wrappers (of WRAPPER_TWINS) whose first call of each form in the
     warm-up run (prefill and two steps) is held against its twin on that
     call's own tensors at the bf16 output bound (check_recorded_kernels)."""
@@ -3236,7 +3517,18 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
     if profile or bf16:
         cache = engine.KVCache.create(cfg, b, max_len, dtype=cfg.dtype,
                                       quantized=quantized, device=DEV)
-        _, cache = engine.prefill(iw, tokens, cache)
+        if bf16 and cfg.attention == 'sparse_v2':
+            box = {}
+
+            def prefill():
+                box['cache'] = engine.prefill(iw, tokens, cache)[1]
+            prof = device_profile(f'{label}: prefill', prefill, top=3)
+            old = sorted(k for k in prof['by_kernel']
+                         if any(name in k for name in NOT_BF16_PREFILL))
+            require(not old, f'{label}: the bf16 prefill launched {old}')
+            cache = box['cache']
+        else:
+            _, cache = engine.prefill(iw, tokens, cache)
         tok = toks[:, -1].contiguous()
         n_prof = 4 if profile else 1
         sync()              # else the window shows steps queued during it
@@ -5200,7 +5492,7 @@ def main() -> int:
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'],
             **{k: v for k, v in r.items() if isinstance(v, dict)
-               or k == 'unfused_ms'}))
+               or k in ('unfused_ms', 'sdpa_causal_ms')}))
 
     for row in rows:
         require(row['launches'] > 0 or not row['on_main_path'],

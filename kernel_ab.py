@@ -16,6 +16,9 @@ they serve, from several checkouts, in turns, on one CUDA card.
     python3 kernel_ab.py --int8-losses CHECKOUT
     python3 kernel_ab.py --front PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --host PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --dense-attn PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --bsa PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --attn-sweep CHECKOUT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -70,7 +73,16 @@ sparse int8-KV run, with ms a step, busy share, peak memory and both
 kernels' in-situ us a call (front); or (--host) the same four decode runs
 on the host's clock and the card's (host_steps: the steps after a sync,
 step by step; a window behind an unsynced prefill; the device busy time;
-the two wrappers' host us a call; cProfile's top functions).
+the two wrappers' host us a call; cProfile's top functions); or
+(--dense-attn) decode_attention_rows at six bf16-KV shapes, cold and clean
+L2 beside their bounds and dense SDPA, then the OPT-125M dense and sparse
+bf16-KV and Llama-3-8B dense bf16-KV decode runs with the attention in
+situ, synced, and the wrapper's host us a call (dense_attn); or (--bsa)
+the block-sparse forward at OPT-125M and Llama-3-8B prefill shapes and
+the lse training shape beside dense causal SDPA, then both sparse
+prefills with the forward in situ and the wrapper's host us a call (bsa);
+or (--attn-sweep) the split walk's entries a chunk and the forward's warps
+a CTA around their rules' picks, each checked and timed (attn_sweep).
 One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
@@ -83,7 +95,8 @@ import subprocess
 import sys
 
 MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm', '--int8',
-         '--int8-sweep', '--int8-losses', '--front', '--host')
+         '--int8-sweep', '--int8-losses', '--front', '--host',
+         '--dense-attn', '--bsa', '--attn-sweep')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -673,129 +686,131 @@ def front_ab(cs, timer) -> dict:
 HOST_STEPS = 32
 
 
-def host_steps(cs) -> dict:
-    """Decode steps on the host's clock and the card's, at phase 6's
-    Llama-3-8B B=8 sparse int8-KV fp and w8 runs, LLaMA-7B w8 B=4 and
-    phase 4's OPT-125M sparse int8-KV run. Each run, after a warm-up
-    (prefill and 2 steps): (synced) a sync, then HOST_STEPS steps with
-    time.perf_counter read around each step's enqueue and a CUDA event
-    after it: host ms a step, and the card's ms between consecutive
-    events, which is the slower of the host and the card; (behind
-    prefill) events around a prefill and the steps after it with no sync
-    between them, beside the host's enqueue ms of each: the host queues
-    steps during the prefill, so a host-bound step reads short by that
-    head start; (busy) the profiler's device time over 4 steps started
-    after a sync; (wrappers) decode_front's and decode_attention_rows_q's
-    host us a call (the engine's calls, 8 steps); (cprofile) the 12
-    functions with the most own host time over 4 steps."""
+def host_run(cs, label, cfg, iw, tokens, quantized=True,
+             wrappers=('decode_front', 'decode_attention_rows_q')) -> dict:
+    """One decode run of host_steps (quantized: an int8 KV cache): after a
+    warm-up (prefill and 2 steps), (synced) a sync, then HOST_STEPS steps
+    with time.perf_counter read around each step's enqueue and a CUDA event
+    after it: host ms a step, and the card's ms between consecutive events,
+    which is the slower of the host and the card; (behind prefill) events
+    around a prefill and the steps after it with no sync between them,
+    beside the host's enqueue ms of each; (busy) the profiler's device time
+    over 4 steps started after a sync; (wrappers) each named engine
+    wrapper's host us a call (the engine's calls, 8 steps); (cprofile) the
+    12 functions with the most own host time over 4 steps."""
     import cProfile
     import pstats
     import statistics
     import time
     import torch
     from spt_proto_tpu_torch.inference import engine
+    bf = torch.bfloat16
+    pc = time.perf_counter
+    b = tokens.shape[0]
+
+    def fresh():
+        cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
+                                      quantized=quantized, device=cs.DEV)
+        logits, cache = engine.prefill(iw, tokens, cache)
+        return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
+
+    def steps(tok, cache, n, host=None, events=None):
+        for _ in range(n):
+            t0 = pc()
+            tok, cache = engine.decode_step_greedy(iw, tok, cache)
+            if host is not None:
+                host.append((pc() - t0) * 1e3)
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        return tok, cache
+
+    steps(*fresh(), 2)                                  # warm-up
+    tok, cache = fresh()
+    torch.cuda.synchronize()
+    host, ev = [], [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+    steps(tok, cache, HOST_STEPS, host, ev)
+    torch.cuda.synchronize()
+    dev = [a.elapsed_time(z) for a, z in zip(ev, ev[1:])]
+    r = {'synced host ms/step median': statistics.median(host),
+         'synced host ms first 3': host[:3],
+         'synced card ms/step median': statistics.median(dev),
+         'synced card ms first 3': dev[:3],
+         'synced ms/step': ev[0].elapsed_time(ev[-1]) / HOST_STEPS}
+    cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
+                                  quantized=quantized, device=cs.DEV)
+    torch.cuda.synchronize()
+    e3 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = pc()
+    e3[0].record()
+    logits, cache = engine.prefill(iw, tokens, cache)
+    e3[1].record()
+    t1 = pc()
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    steps(tok, cache, HOST_STEPS)
+    e3[2].record()
+    t2 = pc()
+    torch.cuda.synchronize()
+    r.update({
+        'behind prefill ms/step': e3[1].elapsed_time(e3[2]) / HOST_STEPS,
+        'behind prefill card prefill ms': e3[0].elapsed_time(e3[1]),
+        'behind prefill host prefill ms': (t1 - t0) * 1e3,
+        'behind prefill host ms/step': (t2 - t1) * 1e3 / HOST_STEPS})
+    tok, cache = fresh()
+    torch.cuda.synchronize()
+    prof = cs.device_profile(f'{label}: 4 steps after a sync',
+                             lambda: steps(tok, cache, 4))
+    r['busy card ms/step'] = prof['device_busy_us'] / 4e3
+    r['busy window ms/step'] = prof['window_us'] / 4e3
+    spent = {}
+    saved = {}
+    for name in wrappers:
+        f0 = saved[name] = getattr(engine, name)
+
+        def timed(*a, _f=f0, _n=name, **k):
+            t = pc()
+            o = _f(*a, **k)
+            spent.setdefault(_n, []).append(pc() - t)
+            return o
+        setattr(engine, name, timed)
+    try:
+        tok, cache = fresh()
+        torch.cuda.synchronize()
+        steps(tok, cache, 8)
+        torch.cuda.synchronize()
+    finally:
+        for name, f0 in saved.items():
+            setattr(engine, name, f0)
+    for name, ts in spent.items():
+        r[f'{name} host us a call'] = statistics.median(ts) * 1e6
+    tok, cache = fresh()
+    torch.cuda.synchronize()
+    cp = cProfile.Profile()
+    cp.enable()
+    steps(tok, cache, 4)
+    cp.disable()
+    st = pstats.Stats(cp)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    r['cprofile own ms/step'] = [
+        f'{fn[0].rsplit("/", 1)[-1]}:{fn[1]}({fn[2]}) '
+        f'{v[2] / 4 * 1e3:.3f} ms, {v[1] // 4} calls'
+        for fn, v in rows]
+    r['cprofile total ms/step'] = st.total_tt / 4 * 1e3
+    print(f'{label}: {json.dumps(r)}', file=sys.stderr, flush=True)
+    return {f'{label} {k}': v for k, v in r.items()}
+
+
+def host_steps(cs) -> dict:
+    """Decode steps on the host's clock and the card's (host_run), at phase
+    6's Llama-3-8B B=8 sparse int8-KV fp and w8 runs, LLaMA-7B w8 B=4 and
+    phase 4's OPT-125M sparse int8-KV run, with decode_front's and
+    decode_attention_rows_q's host us a call."""
+    import torch
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
     bf = torch.bfloat16
     out = {}
-    pc = time.perf_counter
-
-    def one_run(label, cfg, iw, tokens):
-        b = tokens.shape[0]
-
-        def fresh():
-            cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
-                                          quantized=True, device=cs.DEV)
-            logits, cache = engine.prefill(iw, tokens, cache)
-            return torch.argmax(logits[:, -1], -1).to(torch.int32), cache
-
-        def steps(tok, cache, n, host=None, events=None):
-            for _ in range(n):
-                t0 = pc()
-                tok, cache = engine.decode_step_greedy(iw, tok, cache)
-                if host is not None:
-                    host.append((pc() - t0) * 1e3)
-                if events is not None:
-                    events.append(torch.cuda.Event(enable_timing=True))
-                    events[-1].record()
-            return tok, cache
-
-        steps(*fresh(), 2)                                  # warm-up
-        tok, cache = fresh()
-        torch.cuda.synchronize()
-        host, ev = [], [torch.cuda.Event(enable_timing=True)]
-        ev[0].record()
-        steps(tok, cache, HOST_STEPS, host, ev)
-        torch.cuda.synchronize()
-        dev = [a.elapsed_time(z) for a, z in zip(ev, ev[1:])]
-        r = {'synced host ms/step median': statistics.median(host),
-             'synced host ms first 3': host[:3],
-             'synced card ms/step median': statistics.median(dev),
-             'synced card ms first 3': dev[:3],
-             'synced ms/step': ev[0].elapsed_time(ev[-1]) / HOST_STEPS}
-        cache = engine.KVCache.create(cfg, b, cs.MAX_LEN, dtype=bf,
-                                      quantized=True, device=cs.DEV)
-        torch.cuda.synchronize()
-        e3 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        t0 = pc()
-        e3[0].record()
-        logits, cache = engine.prefill(iw, tokens, cache)
-        e3[1].record()
-        t1 = pc()
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        steps(tok, cache, HOST_STEPS)
-        e3[2].record()
-        t2 = pc()
-        torch.cuda.synchronize()
-        r.update({
-            'behind prefill ms/step': e3[1].elapsed_time(e3[2]) / HOST_STEPS,
-            'behind prefill card prefill ms': e3[0].elapsed_time(e3[1]),
-            'behind prefill host prefill ms': (t1 - t0) * 1e3,
-            'behind prefill host ms/step': (t2 - t1) * 1e3 / HOST_STEPS})
-        tok, cache = fresh()
-        torch.cuda.synchronize()
-        prof = cs.device_profile(f'{label}: 4 steps after a sync',
-                                 lambda: steps(tok, cache, 4))
-        r['busy card ms/step'] = prof['device_busy_us'] / 4e3
-        r['busy window ms/step'] = prof['window_us'] / 4e3
-        spent = {}
-        saved = {}
-        for name in ('decode_front', 'decode_attention_rows_q'):
-            f0 = saved[name] = getattr(engine, name)
-
-            def timed(*a, _f=f0, _n=name, **k):
-                t = pc()
-                o = _f(*a, **k)
-                spent.setdefault(_n, []).append(pc() - t)
-                return o
-            setattr(engine, name, timed)
-        try:
-            tok, cache = fresh()
-            torch.cuda.synchronize()
-            steps(tok, cache, 8)
-            torch.cuda.synchronize()
-        finally:
-            for name, f0 in saved.items():
-                setattr(engine, name, f0)
-        for name, ts in spent.items():
-            r[f'{name} host us a call'] = statistics.median(ts) * 1e6
-        tok, cache = fresh()
-        torch.cuda.synchronize()
-        cp = cProfile.Profile()
-        cp.enable()
-        steps(tok, cache, 4)
-        cp.disable()
-        st = pstats.Stats(cp)
-        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
-        r['cprofile own ms/step'] = [
-            f'{fn[0].rsplit("/", 1)[-1]}:{fn[1]}({fn[2]}) '
-            f'{v[2] / 4 * 1e3:.3f} ms, {v[1] // 4} calls'
-            for fn, v in rows]
-        r['cprofile total ms/step'] = st.total_tt / 4 * 1e3
-        for k, v in r.items():
-            out[f'{label} {k}'] = v
-        print(f'{label}: {json.dumps(r)}', file=sys.stderr, flush=True)
-
     for model, b, runs in (
             ('3-8b', cs.B, ((None, 'sparse int8-KV'),
                             ('int8', 'sparse int8-KV w8'))),
@@ -806,7 +821,8 @@ def host_steps(cs) -> dict:
                                generator=cs.gen(cs.SEED), device=cs.DEV)
         for quant, mode in runs:
             iw = InferenceWeights.from_params(cfg, params, quant=quant)
-            one_run(f'{model} B={b} {mode}', cfg, iw, tokens)
+            out.update(host_run(cs, f'{model} B={b} {mode}', cfg, iw,
+                                tokens))
             del iw
             torch.cuda.empty_cache()
         del params
@@ -815,8 +831,265 @@ def host_steps(cs) -> dict:
     params = init_params(cfg, cs.SEED, device=cs.DEV)
     tokens = torch.randint(1, cs.VOCAB, (cs.B, cs.PROMPT),
                            generator=cs.gen(cs.SEED), device=cs.DEV)
-    one_run('125m B=8 sparse int8-KV', cfg,
-            InferenceWeights.from_params(cfg, params), tokens)
+    out.update(host_run(cs, '125m B=8 sparse int8-KV', cfg,
+                        InferenceWeights.from_params(cfg, params), tokens))
+    return out
+
+
+# profiler names of the bf16-KV decode attention's kernels and of the
+# block-sparse forward's, in either checkout
+ROWS_NAMES = ('decode_attention_kernel', 'decode_attention_walk_kernel',
+              'decode_attention_split_kernel')
+BSA_NAMES = ('block_sparse_fwd_kernel',)
+
+
+def sdpa_ms(timer, b, h, kv, s_q, s_k, d, causal):
+    """Dense SDPA's time over q [b, h, s_q, d] and k / v [b, h, s_k, d]
+    (the kv heads repeated to h outside the timed call), bf16."""
+    import torch
+    g = torch.Generator(device='cuda')
+    g.manual_seed(0)
+    q = torch.randn((b, h, s_q, d), generator=g, device='cuda').bfloat16()
+    k, v = (torch.randn((b, kv, s_k, d), generator=g, device='cuda')
+            .bfloat16().repeat_interleave(h // kv, 1) for _ in range(2))
+    return timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+
+
+def dense_attn(cs, timer) -> dict:
+    """decode_attention_rows at six shapes (OPT-125M dense T=17, dense
+    supertiles of 4, sparse; Llama-3-8B G=4 sparse, dense T=17 and T=96),
+    each checked against its twin first, from a cold and a clean L2 beside
+    its bound and dense SDPA of one query row over the same context; then
+    phase 4's OPT-125M dense and sparse bf16-KV decode runs and phase 6's
+    Llama-3-8B dense bf16-KV run (serving_run: ms a step, the attention's
+    in-situ us a call from the profiled 4 steps) and, on the host's clock,
+    the same runs synced (host_run, with decode_attention_rows' host us a
+    call)."""
+    import torch
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    _, fo = cs.check_front(bf, None, quantized=False)
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        cases = (
+            ('opt-125m dense T=17', lambda: cs.check_rows(bf, 'dense', None,
+                                                          t)),
+            ('opt-125m dense tps 4', lambda: cs.check_rows(
+                bf, 'dense-tps4', None, t)),
+            ('opt-125m sparse', lambda: cs.check_rows(bf, 'sparse', fo, t)),
+            ('llama-3-8b sparse G=4', lambda: cs.check_attention_gqa(
+                bf, False, False, t)),
+            ('llama-3-8b dense T=17', lambda: cs.check_attention_gqa(
+                bf, False, True, t)),
+            ('llama-3-8b dense T=96', lambda: cs.check_attention_gqa(
+                bf, False, True, t, nt=97, pos0=96 * cs.TILE - cs.B,
+                layers=2)))
+        for name, fn in cases:
+            r = fn()
+            out[f'{name}{tag} us'] = r['ms'] * 1e3
+            out[f'{name} bound us'] = r['bound_ms'] * 1e3
+    # one query row over the same number of tokens (no table gather)
+    for name, (h, kv, s_k, d) in (
+            ('opt-125m dense T=17', (cs.HEADS, cs.HEADS, cs.PROMPT + 1,
+                                     cs.DH)),
+            ('opt-125m sparse', (cs.HEADS, cs.HEADS, 3 * cs.TILE, cs.DH)),
+            ('llama-3-8b sparse G=4', (cs.HEADS_LL, cs.KV_38B, 3 * cs.TILE,
+                                       cs.DH_LL)),
+            ('llama-3-8b dense T=17', (cs.HEADS_LL, cs.KV_38B, cs.PROMPT + 1,
+                                       cs.DH_LL)),
+            ('llama-3-8b dense T=96', (cs.HEADS_LL, cs.KV_38B,
+                                       96 * cs.TILE, cs.DH_LL))):
+        out[f'{name} SDPA us'] = sdpa_ms(timer, cs.B, h, kv, 1, s_k, d,
+                                         False) * 1e3
+    torch.cuda.empty_cache()
+
+    def record(label, r, steps):
+        bk = r['decode_profile']['by_kernel']
+        out[f'{label} ms/step'] = r['decode_ms'] / steps
+        out[f'{label} busy'] = r['decode_profile']['busy_share']
+        out[f'{label} attention us a call'] = in_situ(bk, ROWS_NAMES,
+                                                      ROWS_NAMES)
+        out[f'{label} attention kernels'] = sorted(
+            k[:60] for k in bk if any(n in k for n in ROWS_NAMES))
+    wrap = ('decode_attention_rows',)
+    sparse = cs.opt_cfg('125m', cs.MAX_LEN, bf)
+    params = init_params(sparse, cs.SEED, device=cs.DEV)
+    tokens = torch.randint(1, cs.VOCAB, (cs.B, cs.PROMPT),
+                           generator=cs.gen(cs.SEED), device=cs.DEV)
+    for label, cfg, p in (
+            ('125m B=8 dense bf16-KV', cs.opt_cfg('125m', cs.MAX_LEN, bf,
+                                                  dense=True),
+             cs.dense_params(params)),
+            ('125m B=8 sparse bf16-KV', sparse, params)):
+        iw = InferenceWeights.from_params(cfg, p)
+        record(label, cs.serving_run(label, iw, tokens, cs.MAX_LEN, cs.STEPS,
+                                     False), cs.STEPS)
+        out.update(host_run(cs, label, cfg, iw, tokens, False, wrap))
+        del iw
+    del params
+    torch.cuda.empty_cache()
+    cfg = cs.llama_cfg('3-8b', cs.MAX_LEN, bf, dense=True,
+                       n_layers=cs.LLAMA_LAYERS)
+    params = init_params(cfg, cs.SEED, device=cs.DEV)
+    tokens = torch.randint(1, cfg.vocab_size, (cs.B, cs.LLAMA_PROMPT),
+                           generator=cs.gen(cs.SEED), device=cs.DEV)
+    iw = InferenceWeights.from_params(cfg, params)
+    label = '3-8b B=8 dense bf16-KV'
+    record(label, cs.serving_run(label, iw, tokens, cs.MAX_LEN,
+                                 cs.LLAMA_STEPS, False), cs.LLAMA_STEPS)
+    out.update(host_run(cs, label, cfg, iw, tokens, False, wrap))
+    return out
+
+
+def bsa(cs, timer) -> dict:
+    """The block-sparse forward at three shapes (OPT-125M d 64 and
+    Llama-3-8B d 128, 256-row q tiles at S 2048, and the lse form at the
+    training shape, 96 x 512 x 64), each checked against its twin first,
+    from a cold and a clean L2 beside its bound and dense causal SDPA over
+    the same rows; then the OPT-125M (B=8) and Llama-3-8B (B=8, 16 layers)
+    sparse prefills of prompt 2048 after a sync: prefill ms (CUDA events,
+    median of 3), the forward's in-situ us a call (profiled prefill) and
+    block_sparse_attention's host us a call."""
+    import statistics
+    import time
+    import torch
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    for t, tag in ((timer, ''), (clean_timer(cs), ' clean L2')):
+        for name, fn in (
+                ('opt-125m d 64 S 2048', lambda: cs.check_block_sparse(
+                    bf, cs.PROMPT, 8, t)),
+                ('llama-3-8b d 128 S 2048', lambda: cs.check_block_sparse(
+                    bf, cs.PROMPT, 8, t, cs.B * cs.HEADS_LL, cs.DH_LL,
+                    cs.N_SUB_LL)),
+                ('lse 96 x 512 x 64', lambda: cs.check_block_sparse_train(
+                    bf, cs.B * cs.HEADS, 512, cs.DH, 8, t)[
+                        'block_sparse_attention_lse'])):
+            r = fn()
+            out[f'{name}{tag} us'] = r['ms'] * 1e3
+            out[f'{name} bound us'] = r['bound_ms'] * 1e3
+    for name, (bh, s, d) in (('opt-125m d 64 S 2048', (cs.B * cs.HEADS,
+                                                       cs.PROMPT, cs.DH)),
+                             ('llama-3-8b d 128 S 2048', (
+                                 cs.B * cs.HEADS_LL, cs.PROMPT, cs.DH_LL)),
+                             ('lse 96 x 512 x 64', (cs.B * cs.HEADS, 512,
+                                                    cs.DH))):
+        out[f'{name} SDPA causal us'] = sdpa_ms(timer, 1, bh, bh, s, s, d,
+                                                True) * 1e3
+    torch.cuda.empty_cache()
+    pc = time.perf_counter
+    for label, cfg, prompt in (
+            ('125m B=8 sparse prefill', cs.opt_cfg('125m', cs.MAX_LEN, bf),
+             cs.PROMPT),
+            ('3-8b B=8 sparse prefill', cs.llama_cfg(
+                '3-8b', cs.MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS),
+             cs.LLAMA_PROMPT)):
+        params = init_params(cfg, cs.SEED, device=cs.DEV)
+        iw = InferenceWeights.from_params(cfg, params)
+        tokens = torch.randint(1, cfg.vocab_size, (cs.B, prompt),
+                               generator=cs.gen(cs.SEED), device=cs.DEV)
+
+        def prefill():
+            cache = engine.KVCache.create(cfg, cs.B, cs.MAX_LEN, dtype=bf,
+                                          device=cs.DEV)
+            return engine.prefill(iw, tokens, cache)
+        prefill()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            prefill()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        out[f'{label} ms'] = statistics.median(times)
+        torch.cuda.synchronize()
+        prof = cs.device_profile(label, prefill)
+        bk = prof['by_kernel']
+        out[f'{label} forward us a call'] = in_situ(bk, BSA_NAMES, BSA_NAMES)
+        out[f'{label} forward kernels'] = sorted(
+            k[:60] for k in bk if any(n in k for n in BSA_NAMES))
+        spent = []
+        f0 = engine.block_sparse_attention
+
+        def timed(*a, **k):
+            t0 = pc()
+            o = f0(*a, **k)
+            spent.append(pc() - t0)
+            return o
+        engine.block_sparse_attention = timed
+        try:
+            torch.cuda.synchronize()
+            prefill()
+            torch.cuda.synchronize()
+        finally:
+            engine.block_sparse_attention = f0
+        out[f'{label} block_sparse_attention host us a call'] = \
+            statistics.median(spent) * 1e6
+        del iw, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def attn_sweep(cs, timer) -> dict:
+    """The plans of the bf16-KV split walk and the block-sparse tensor-core
+    forward around their rules' picks, each call checked against its twin
+    and timed (cold L2): the split walk's entries a chunk (ROWS_CHUNK) at
+    dense_attn's six shapes, and the forward's warps a CTA (FWD_WARPS) at
+    bsa's three."""
+    import torch
+    from spt_proto_tpu_torch.ops import block_sparse_attention as bsa_m
+    from spt_proto_tpu_torch.ops import decode_attention as rows_m
+    bf = torch.bfloat16
+    out = {}
+    _, fo = cs.check_front(bf, None, quantized=False)
+    shapes = (
+        ('opt-125m dense T=17', lambda: cs.check_rows(bf, 'dense', None,
+                                                      timer)),
+        ('opt-125m dense tps 4', lambda: cs.check_rows(bf, 'dense-tps4', None,
+                                                       timer)),
+        ('opt-125m sparse', lambda: cs.check_rows(bf, 'sparse', fo, timer)),
+        ('llama-3-8b sparse G=4', lambda: cs.check_attention_gqa(
+            bf, False, False, timer)),
+        ('llama-3-8b dense T=17', lambda: cs.check_attention_gqa(
+            bf, False, True, timer)),
+        ('llama-3-8b dense T=96', lambda: cs.check_attention_gqa(
+            bf, False, True, timer, nt=97, pos0=96 * cs.TILE - cs.B,
+            layers=2)))
+    chunk0 = rows_m.ROWS_CHUNK
+    try:
+        for name, fn in shapes:
+            for chunk in ((12, 16, 24, 48) if 'T=96' in name
+                          else (1, 2, 3, 6, 8, 17)):
+                rows_m.ROWS_CHUNK = chunk
+                rows_m.rows_split_plan.cache_clear()
+                out[f'{name} entries a chunk {chunk} us'] = fn()['ms'] * 1e3
+    finally:
+        rows_m.ROWS_CHUNK = chunk0
+        rows_m.rows_split_plan.cache_clear()
+    warps0 = dict(bsa_m.FWD_WARPS)
+    try:
+        for w in (4, 8):
+            bsa_m.FWD_WARPS = {64: w, 128: w}
+            for name, fn in (
+                    ('opt-125m d 64 S 2048', lambda: cs.check_block_sparse(
+                        bf, cs.PROMPT, 8, timer)),
+                    ('llama-3-8b d 128 S 2048',
+                     lambda: cs.check_block_sparse(
+                         bf, cs.PROMPT, 8, timer, cs.B * cs.HEADS_LL,
+                         cs.DH_LL, cs.N_SUB_LL)),
+                    ('lse 96 x 512 x 64', lambda: cs.check_block_sparse_train(
+                        bf, cs.B * cs.HEADS, 512, cs.DH, 8, timer)[
+                            'block_sparse_attention_lse'])):
+                out[f'{name} {w} warps us'] = fn()['ms'] * 1e3
+    finally:
+        bsa_m.FWD_WARPS = warps0
     return out
 
 
@@ -859,6 +1132,12 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **front_ab(cs, timer))
     if mode == '--host':
         return dict(out, **host_steps(cs))
+    if mode == '--dense-attn':
+        return dict(out, **dense_attn(cs, timer))
+    if mode == '--bsa':
+        return dict(out, **bsa(cs, timer))
+    if mode == '--attn-sweep':
+        return dict(out, **attn_sweep(cs, timer))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']

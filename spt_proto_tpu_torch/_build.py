@@ -40,7 +40,9 @@ SIGNATURES = {
     'spt_decode_front': [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] * 12 + [_I]
                         + [_P] * 9 + [_I] * 13 + [_F, _F] + [_I] * 7
                         + [_P] * 3,
-    'spt_decode_attention': [_I, _I] + [_P] * 12 + [_I] * 10 + [_F, _F, _P],
+    'spt_decode_attention': [_I, _I] + [_P] * 12 + [_I] * 10
+                            + [_F, _F, _I, _I, _P, _P],
+    'spt_rows_split_scores': [_I] * 4,
     'spt_decode_attention_q': [_I, _I] + [_P] * 16 + [_I] * 11
                               + [_F, _F, _I, _P, _P, _P],
     'spt_verify_attention': [_I] + [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P],
@@ -54,7 +56,8 @@ SIGNATURES = {
     'spt_ffn_tail_tc': [_I] + [_P] * 13 + [_I] * 13 + [_P],
     'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
     'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],
-    'spt_block_sparse_fwd': [_I] + [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
+    'spt_block_sparse_fwd': [_I, _I] + [_P] * 6 + [_I] * 6
+                            + [_F, _F, _I, _P],
     'spt_block_sparse_bwd': [_I] + [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
     'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     'spt_gmm': [_I, _I] + [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P],

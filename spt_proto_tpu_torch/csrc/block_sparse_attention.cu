@@ -13,15 +13,17 @@
 // 30 us at 3.35 TB/s. With 2 selected 128-key tiles per 256-query tile the
 // products are 2 x 2 x 96 x 2048 x 256 x 64 = 13 GFLOP (13 us at the bf16
 // tensor-core peak), so even a tensor-core kernel stays memory-bound.
-// This kernel computes in f32 on the CUDA cores and is far from that bound;
-// wgmma tiles come in a later change.
+// block_sparse_fwd_kernel computes in f32 on the CUDA cores and is far
+// from that bound; in bf16, block_sparse_fwd_kernel_tc (below) runs the
+// products on the tensor cores.
 //
-// Design: one CTA per (batch*head, 64-query sub-tile of a q tile). It walks
-// the parent q tile's `sel` entries, skips -1 and tiles wholly after its
-// rows, stages each 128-key K (transposed) and V tile in shared memory, and
-// runs online softmax in f32: logits scaled then clamped to +-clamp, causal
-// mask col <= row, probabilities rounded to the input dtype before the PV
-// product (as the TPU kernel feeds its MXU), output acc / max(l, 1e-9).
+// Design (block_sparse_fwd_kernel): one CTA per (batch*head, 64-query
+// sub-tile of a q tile). It walks the parent q tile's `sel` entries, skips
+// -1 and tiles wholly after its rows, stages each 128-key K (transposed)
+// and V tile in shared memory, and runs online softmax in f32: logits
+// scaled then clamped to +-clamp, causal mask col <= row, probabilities
+// rounded to the input dtype before the PV product (as the TPU kernel
+// feeds its MXU), output acc / max(l, 1e-9).
 // 256 threads hold a 4-row x 8-column score micro-tile and a 4 x 4 output
 // micro-tile each; the P tile reuses the K tile's shared memory. With an
 // `lse` pointer it also writes m + log(max(l, 1e-9)) per row in f32 from the
@@ -192,6 +194,261 @@ int launch_bsa(const void* q, const void* k, const void* v, const void* sel,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// the bf16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// block_sparse_fwd_kernel_tc<D, W> computes what block_sparse_fwd_kernel
+// <bf16, D> computes, with or without lse, for bf16 q/k/v at block_k 128,
+// block_q a multiple of 128 and 16-byte aligned rows
+// (ops/block_sparse_attention.py fwd_route); f32 and the shapes off that
+// rule keep the CUDA-core kernel, whose f32 products ran at 10-33x the
+// bound above.
+//
+// Design: flash_fwd_kernel_tc's (csrc/flash_attention.cu) on the q tile's
+// `sel` list: one CTA per (batch*head, 16 W query rows), W warps of 16 rows
+// (W = 4 at d 64, two CTAs an SM; 8 at d 128); mma.sync m16n8k16 from
+// ldmatrix (K as the B operand along its rows, V through ldmatrix.trans), a
+// cp.async ring of the selected K and V tiles ([128][D + 8] bf16: the 8
+// rows of an ldmatrix in distinct banks; its every stage in flight from the
+// start, so a short list's tiles land together), P repacked from the
+// accumulators into the A operand in registers. The
+// TPU kernel updates the running max once per selected 128-key tile, and p
+// is rounded to bf16 against that max: so a warp holds its whole 16 x 128
+// score tile (64 f32 a thread) when it takes the max, and a 64- or 32-key
+// step (flash's) would round p differently. Q stays in shared memory and
+// its fragments are reloaded for each tile, which leaves the 64 score and
+// D / 2 output registers a thread room at d 128. Per tile: s = clip(q k^T
+// * scale) in f32 (clip only with a clamp), MASK_VALUE where col > row
+// (only on a tile that crosses the warp's diagonal); m_next = max(m, max
+// s), p = exp(s - m_next) (0 where masked), l = alpha l + sum p from the
+// f32 p, acc = alpha acc + bf16(p) V; at the end o = acc / max(l, 1e-9)
+// and lse = m + log(max(l, 1e-9)). -1 entries and tiles wholly after the
+// CTA's rows are not staged, and a warp skips a tile wholly after its own
+// rows (its update would leave m, l and acc as they are). Only the order of
+// the f32 sums differs from the CUDA-core kernel's.
+
+// W warps a CTA (ops/block_sparse_attention.py FWD_WARPS), 16 query rows
+// each; the K/V ring's depth, all of it in flight from the start: with 8
+// warps 3 stages (129 KB) at d 64 and 2 (174 KB) at d 128, with 4 warps 2
+// (two CTAs an SM at d 64)
+template <int D, int W> constexpr int kTcStages = W == 8 && D == 64 ? 3 : 2;
+
+template <int D, int W>
+constexpr int bsa_tc_smem_bytes(int NSEL) {
+  return 2 * (D + 8) * (16 * W + 2 * kTcStages<D, W> * kBK) +
+         4 * (NSEL + 1);
+}
+
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
+    block_sparse_fwd_kernel_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ sel,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int NQT,
+    int NSEL, int BQ, float scale, float clamp, int has_clamp) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kRow = D + 8, kC = D / 8, kStage = 2 * kBK * kRow;
+  constexpr int kSt = kTcStages<D, W>;
+  constexpr int kTcThreads = 32 * W, kTcRows = 16 * W;
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* qs = reinterpret_cast<bf16*>(smb);    // [kTcRows][kRow] Q, then o
+  bf16* ring = qs + kTcRows * kRow;           // [kSt][K, V][kBK][kRow]
+  int* tl = reinterpret_cast<int*>(ring + kSt * kStage);  // [NSEL]
+  int* s_n = tl + NSEL;
+
+  const int bh = blockIdx.y, row0 = blockIdx.x * kTcRows, qt = row0 / BQ;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const size_t off = (size_t)bh * S * D;
+
+  // the CTA's tiles: sel entries in order, -1 and tiles wholly after its
+  // rows left out
+  if (tid == 0) {
+    const int* srow = sel + ((size_t)bh * NQT + qt) * NSEL;
+    int n = 0;
+    for (int si = 0; si < NSEL; ++si) {
+      const int t = srow[si];
+      if (t >= 0 && t * kBK <= row0 + kTcRows - 1) tl[n++] = t;
+    }
+    *s_n = n;
+  }
+  auto copy_rows = [&](bf16* dst, const bf16* src, int n_rows) {
+    for (int i = tid; i < n_rows * kC; i += kTcThreads) {
+      const int r = i / kC, c = i % kC;
+      cp_async16(dst + r * kRow + c * 8, src + (size_t)r * D + c * 8);
+    }
+  };
+  copy_rows(qs, q + off + (size_t)row0 * D, kTcRows);
+  cp_async_commit();
+  __syncthreads();
+  const int n_act = *s_n;
+  // one commit group a tile (empty past the last): tile j's is group j + 1
+  auto load_kv = [&](int j) {
+    if (j < n_act) {
+      bf16* st = ring + (j % kSt) * kStage;
+      const size_t col0 = (size_t)tl[j] * kBK;
+      copy_rows(st, k + off + col0 * D, kBK);
+      copy_rows(st + kBK * kRow, v + off + col0 * D, kBK);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kSt; ++j) load_kv(j);
+
+  const int wr0 = row0 + 16 * w;   // the warp's first row
+  // the thread's rows gr and gr + 8: running max, sum and output columns
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int j = 0; j < n_act; ++j) {
+    if (j > 0) {
+      __syncthreads();                // tile j - 1 is read out
+      load_kv(j - 1 + kSt);           // into its slot
+    }
+    cp_async_wait<kSt - 1>();         // Q and tile j have landed
+    __syncthreads();                  // ... for every thread
+    const int col0 = tl[j] * kBK;
+    if (col0 > wr0 + 15) continue;    // every key lies past the warp's rows
+    const bf16* ks = ring + (j % kSt) * kStage;
+    const bf16* vs = ks + kBK * kRow;
+
+    // S = Q K^T over the whole 128-key tile
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qs + a_off(16 * w, kk * 16, kRow));
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + bt_off(np * 16, kk * 16, kRow));
+        mma_bf16_16816(s[2 * np], qa, kb);
+        mma_bf16_16816(s[2 * np + 1], qa, kb + 2);
+      }
+    }
+    // logits (masked only on a tile that crosses the warp's diagonal) and
+    // the new row max over the tile, over the 4 lanes of a quad
+    const bool diag = col0 + kBK - 1 > wr0;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, r = wr0 + gr + 8 * i;
+        const int c = col0 + nt * 8 + tig * 2 + (e & 1);
+        float x = s[nt][e] * scale;
+        if (has_clamp) x = fminf(fmaxf(x, -clamp), clamp);
+        s[nt][e] = !diag || c <= r ? x : kMask;
+        mx[i] = fmaxf(mx[i], s[nt][e]);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    // p = exp(s - m) in f32 (0 where masked), summed before it is rounded
+    // to bf16 and repacked as the A operand of the PV product, one k16
+    // step (accumulator tiles 2t, 2t + 1) at a time
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) {
+      uint32_t pa[4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int nt = 2 * t + hf;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, r = wr0 + gr + 8 * i;
+          const int c = col0 + nt * 8 + tig * 2 + (e & 1);
+          p[e] = !diag || c <= r ? expf(s[nt][e] - m[i]) : 0.f;
+          rs[i] += p[e];
+        }
+        pa[hf * 2] = pack_bf16(p[0], p[1]);
+        pa[hf * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs + bn_off(t * 16, n2 * 16, kRow));
+        mma_bf16_16816(acc[2 * n2], pa, vb);
+        mma_bf16_16816(acc[2 * n2 + 1], pa, vb + 2);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = alpha[i] * l[i] + rs[i];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();      // Q has landed even where no tile was walked
+  const float den[2] = {fmaxf(l[0], 1e-9f), fmaxf(l[1], 1e-9f)};
+  // o through the warp's own Q rows (only this warp reads them), then
+  // 16-byte stores
+  bf16* rows = qs + 16 * w * kRow;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(rows + gr * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][0] / den[0], acc[nt][1] / den[0]);
+    *reinterpret_cast<__nv_bfloat162*>(rows + (gr + 8) * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][2] / den[1], acc[nt][3] / den[1]);
+  }
+  __syncwarp();
+  bf16* og = o + off + (size_t)wr0 * D;
+#pragma unroll
+  for (int it = 0; it < 16 * kC / 32; ++it) {
+    const int i = it * 32 + lane, r = i / kC, c = i % kC;
+    *reinterpret_cast<uint4*>(og + (size_t)r * D + c * 8) =
+        *reinterpret_cast<const uint4*>(rows + r * kRow + c * 8);
+  }
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lse[(size_t)bh * S + wr0 + gr + 8 * i] = m[i] + logf(den[i]);
+  }
+}
+
+template <int D, int W>
+int launch_bsa_tc(const void* q, const void* k, const void* v,
+                  const void* sel, void* o, float* lse, int BH, int S,
+                  int NQT, int NSEL, int BQ, float scale, float clamp,
+                  int has_clamp, cudaStream_t stream) {
+  constexpr int kTcRows = 16 * W;
+  if (BQ % kTcRows != 0 || S % kTcRows != 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = bsa_tc_smem_bytes<D, W>(NSEL);
+  auto kern = block_sparse_fwd_kernel_tc<D, W>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem((const void*)kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(S / kTcRows, BH), 32 * W, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)sel, (__nv_bfloat16*)o, lse, S,
+      NQT, NSEL, BQ, scale, clamp, has_clamp);
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // backward
@@ -491,12 +748,25 @@ int launch_bsa_bwd(const void* q, const void* k, const void* v,
 }  // namespace spt
 
 // D is 64 (every OPT size up to 1.3B) or 128.
-// `lse` may be null (no log-sum-exp output).
-extern "C" int spt_block_sparse_fwd(int dtype, const void* q, const void* k,
-                                    const void* v, const void* sel, void* o,
-                                    void* lse, int BH, int S, int D, int NQT,
-                                    int NSEL, int BQ, float scale, float clamp,
+// `lse` may be null (no log-sum-exp output). tc (bf16 only): 0 the
+// CUDA-core kernel, 4 or 8 the tensor-core kernel with that many warps a
+// CTA (ops/block_sparse_attention.py fwd_route, FWD_WARPS).
+extern "C" int spt_block_sparse_fwd(int dtype, int tc, const void* q,
+                                    const void* k, const void* v,
+                                    const void* sel, void* o, void* lse,
+                                    int BH, int S, int D, int NQT, int NSEL,
+                                    int BQ, float scale, float clamp,
                                     int has_clamp, void* stream) {
+  if (tc) {
+    if (dtype != spt::kBF16 || (tc != 4 && tc != 8))
+      return (int)cudaErrorInvalidValue;
+    auto f = D == 64 ? (tc == 4 ? spt::launch_bsa_tc<64, 4>
+                                : spt::launch_bsa_tc<64, 8>)
+                     : (tc == 4 ? spt::launch_bsa_tc<128, 4>
+                                : spt::launch_bsa_tc<128, 8>);
+    return f(q, k, v, sel, o, (float*)lse, BH, S, NQT, NSEL, BQ, scale,
+             clamp, has_clamp, (cudaStream_t)stream);
+  }
   auto f = dtype == spt::kBF16
                ? (D == 64 ? spt::launch_bsa<__nv_bfloat16, 64>
                           : spt::launch_bsa<__nv_bfloat16, 128>)

@@ -4,7 +4,10 @@
 //
 //   decode_attention_kernel   bf16/f32 cache. Replaces the TPU kernels
 //     spt_proto_tpu/ops/pallas/decode_attention.py decode_attention_rows
-//     (_rows_kernel) and decode_attention_rows_ms (_rows_kernel_ms).
+//     (_rows_kernel) and decode_attention_rows_ms (_rows_kernel_ms); in
+//     bf16 (the serving dtype) decode_attention_split_kernel takes its
+//     place and the walk's: each row's table split over a cluster of CTAs,
+//     both products on the tensor cores (its notes are at its definition).
 //   decode_attention_q_kernel int8 cache with per-token f32 scales.
 //     Replaces decode_attention_rows_q (_rows_kernel_q) and
 //     decode_attention_rows_q_ms (_rows_kernel_q_ms); in bf16 (the
@@ -855,6 +858,382 @@ int launch_attention_q_split(const void* q, void* kc, void* vc, void* cc,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 cache: the split walk on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// decode_attention_split_kernel<D> computes what decode_attention_kernel
+// computes for a bf16 cache (the TPU kernels _rows_kernel and
+// _rows_kernel_ms), for PS = 128, d_head D = 64 or 128 and G <= 8
+// (ops/decode_attention.py rows_route), at any table length: in bf16 it
+// takes the place of the one-pass kernel and of the two-pass walk.
+//
+// Bound on the H100: memory, K and V of the covered tokens (2 x 2 x D
+// bytes a token) against 2 x 2 x D x G operations a token. The one-pass
+// kernel ran one CTA per (slot, kv head), 64-96 CTAs on 132 SMs, each
+// walking its table serially with an f32 dot a token lane on the CUDA
+// cores: 25-30x its bound.
+//
+// Design: the grid is (chunk, kv head, slot), a chunk being E consecutive
+// entries j = t * TPS + u of the row (rows_split_plan: ~6 entries; fewer,
+// longer chunks ran faster than many short ones, kernel_ab.py
+// --attn-sweep), and the row's chunks (at most kRowsCluster) are one
+// cluster. A CTA's 4 warps take 32 token lanes of every tile each. The CTA
+// streams its chunk's K tiles, then its V tiles, through a ring of
+// kRowsRing tile slots (cp.async, rows padded to 272 bytes: the 8 rows of
+// an ldmatrix fall in distinct banks; 2 slots keep a CTA's shared memory
+// small, so that several CTAs an SM overlap their loads), so that V is in
+// flight while the scores are computed and exchanged:
+// - scores on mma.sync m16n8k16: the tile's tokens as the m16 side (the K
+//   tile [D][PS] is K^T stored [k][m]: ldmatrix.trans), the G <= 8 query
+//   rows as n8 (bf16 q, exact in f32); s = dot * scale, clamped only when
+//   clamp > 0, kept in f32 (in shared memory, or in a global buffer when
+//   the chunk's scores outgrow it);
+// - the TPU kernel rounds e = exp(s - M) to bf16 against the row's max M
+//   over its whole table, and bf16(exp(s - m_c)) exp(m_c - M) is not
+//   bf16(exp(s - M)): so no e is formed before M is known. Each CTA takes
+//   its chunk's max per query row, the cluster's CTAs exchange them
+//   through distributed shared memory (one cluster barrier, while the V
+//   tiles land) and M is the max over the ranks;
+// - PV on mma.sync: o^T [D][G] += V [D][32 lanes] P [32 lanes][G], the V
+//   tile's rows as A (ldmatrix) and P = bf16(e) as B, built in registers
+//   from the f32 scores; l = sum e of the unrounded e, in f32;
+// - the 4 warps' sums are added in warp order, then the ranks' in chunk
+//   order through distributed shared memory: o = sum_c acc_c /
+//   max(sum_c l_c, 1e-30). Every chunk used the same M: nothing rescales.
+// Against the one-pass kernel only the order of the f32 sums changes.
+//
+// The append follows decode_attention_q_split_kernel: the new token's k/v
+// are read into shared memory first; the CTA whose chunk holds the row's
+// first valid entry on the write tile (chunk 0 when none does) writes the
+// caches; every CTA that stages the write tile overlays the new column on
+// its copy, so no CTA reads back a column another CTA of the launch writes.
+
+constexpr int kRowsCluster = 8;            // chunks a row (one cluster)
+constexpr int kRowsRing = 2;               // tile slots a CTA
+constexpr int kTileRow = kSplitPS + 8;     // bf16 a staged tile row (272 B)
+constexpr int kScoreRow = kSplitPS + 4;    // floats a score row
+constexpr int kRowsSmem = 227 * 1024;      // shared memory an H100 CTA may have
+
+// shared memory of a split CTA: the tile slots, q, the chunk's combine rows
+// (acc [8][D], l [8]), max / sum scratch and the chunk max [8], the scores
+// [E][G][kScoreRow] unless they go to the global buffer, the new token's k
+// and v, its W codes, the entries' info
+__host__ __device__ inline int rows_split_smem_bytes(int E, int G, int D,
+                                                     int W, bool scores) {
+  return kRowsRing * D * kTileRow * 2 + 16 * (D + 8) + 32 * D + 320 +
+         (scores ? E * G * kScoreRow * 4 : 0) + 4 * D + 4 * (W + 2 * E + 1);
+}
+
+// floats of global score buffer a split CTA needs: 0 when its scores fit in
+// shared memory beside the rest, else E x G x kScoreRow (rows past ~40,000
+// tokens at G = 8)
+inline int rows_split_scores(int E, int G, int D, int W) {
+  return rows_split_smem_bytes(E, G, D, W, true) > kRowsSmem
+             ? E * G * kScoreRow
+             : 0;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+    decode_attention_split_kernel(
+        // the caches are written by one CTA of the row: no __restrict__
+        const __nv_bfloat16* __restrict__ q, __nv_bfloat16* kc,
+        __nv_bfloat16* vc, int* cc, const int* __restrict__ tables,
+        const int* __restrict__ n_tiles, const int* __restrict__ pos,
+        const __nv_bfloat16* __restrict__ kn,
+        const __nv_bfloat16* __restrict__ vn, const int* __restrict__ cn,
+        const int* __restrict__ tile_base, __nv_bfloat16* __restrict__ o,
+        float* scores, int KV, int G, int NTALL, int W, int NTAB, int TM,
+        int TPS, int E, float scale, float clamp) {
+  using bf16 = __nv_bfloat16;
+  constexpr int PS = kSplitPS, QROW = D + 8, KB = D / 32, MD = D / 16;
+  constexpr int ring = kRowsRing;
+  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nch = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t bh = (size_t)b * KV + h;
+  const int NE = TM * TPS, j0 = chunk * E, ne = min(E, NE - j0);
+
+  extern __shared__ __align__(16) unsigned char smr[];
+  bf16* tiles = reinterpret_cast<bf16*>(smr);           // [ring][D][row]
+  bf16* qs = tiles + (size_t)ring * D * kTileRow;        // [8][QROW]
+  float* cpart = reinterpret_cast<float*>(qs + 8 * QROW);  // [8][D]
+  float* cl = cpart + 8 * D;                             // [8]
+  float* redm = cl + 8;                                  // [4][8]
+  float* redl = redm + 32;                               // [4][8]
+  float* cm = redl + 32;                                 // [8] chunk max
+  float* scs = cm + 8;                                   // [E][G][kScoreRow]
+  float* sc = scores != nullptr
+                  ? scores + (bh * nch + chunk) * E * G * kScoreRow
+                  : scs;
+  bf16* kns = reinterpret_cast<bf16*>(
+      scores != nullptr ? scs : scs + E * G * kScoreRow);  // [D] new k
+  bf16* vns = kns + D;                                   // [D] new v
+  int* cns = reinterpret_cast<int*>(vns + D);            // [W] new codes
+  int* env = cns + W;                                    // [E] valid lanes
+  int* egt = env + E;                                    // [E] tile
+  int* s_first = egt + E;
+  float* accs = reinterpret_cast<float*>(smr);   // [4][8][D] over the slots
+
+  // ---- the row's entries first (the tile copies wait on them): this
+  // chunk's, and the first valid one on the write tile
+  const int p = pos[b];
+  const int wt = tile_base[b] + p / PS, wc = p % PS;
+  const int* tab = tables + ((size_t)b * NTAB + h / (KV / NTAB)) * TM;
+  const int n_t = n_tiles[b];
+  if (tid == 0) *s_first = NE;
+  // the query rows past G are zero (their scores are never kept)
+  for (int i = tid; i < (8 - G) * QROW; i += kSplitThreads)
+    qs[G * QROW + i] = __float2bfloat16(0.f);
+  __syncthreads();
+  for (int j = tid; j < NE; j += kSplitThreads) {
+    const int t = j / TPS, e = tab[t], gt = e + j % TPS;
+    const bool ok = e >= 0 && t < n_t && gt < NTALL;
+    const int nv = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
+    if (j >= j0 && j < j0 + ne) {
+      env[j - j0] = nv;
+      egt[j - j0] = gt;
+    }
+    if (nv > 0 && gt == wt) atomicMin(s_first, j);
+  }
+  __syncthreads();
+
+  // ---- the ring: step t < ne stages entry t's K tile, step ne + i entry
+  // i's V tile; one commit group a step (empty for an empty entry). The
+  // first group also brings q, the new token's k / v and its codes.
+  for (int c = tid; c < G * (D / 8); c += kSplitThreads) {
+    const int r = c / (D / 8), cb = (c % (D / 8)) * 8;
+    cp_async16(qs + r * QROW + cb, q + (bh * G + r) * D + cb);
+  }
+  for (int c = tid; c < D / 8; c += kSplitThreads) {
+    cp_async16(kns + 8 * c, kn + bh * D + 8 * c);
+    cp_async16(vns + 8 * c, vn + bh * D + 8 * c);
+  }
+  for (int c = tid; c < W; c += kSplitThreads)
+    cp_async4_zfill(cns + c, cn + bh * W + c, 4);
+  const int nt = 2 * ne;
+  auto issue = [&](int t) {
+    if (t < nt) {
+      const int i = t < ne ? t : t - ne;
+      if (env[i] > 0) {
+        const bf16* src = (t < ne ? kc : vc) + (bh * NTALL + egt[i]) * D * PS;
+        bf16* dst = tiles + (size_t)(t % ring) * D * kTileRow;
+        for (int c = tid; c < D * (PS / 8); c += kSplitThreads) {
+          const int r = c / (PS / 8), cb = (c % (PS / 8)) * 8;
+          cp_async16(dst + r * kTileRow + cb, src + r * PS + cb);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < ring; ++t) issue(t);
+
+  uint32_t qf[KB][4];           // q as the B operand: two k16 steps a load
+  float mx[2] = {kNeg, kNeg};   // the chunk's max of rows 2 t4, 2 t4 + 1
+  float mrow = kNeg;            // the row's max M of query row g8
+  float lsum = 0.f;             // sum e of query row g8
+  float oacc[MD][4];
+#pragma unroll
+  for (int md = 0; md < MD; ++md)
+    oacc[md][0] = oacc[md][1] = oacc[md][2] = oacc[md][3] = 0.f;
+  const int first = *s_first;
+  namespace cg = cooperative_groups;
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ring - 1>();   // step t's tile has landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb)
+        ldsm_x4(qf[kb], qs + (lane & 7) * QROW + kb * 32 + (lane >> 3) * 8);
+      // the append in place (one CTA of the row)
+      if (chunk == (first < NE ? first / E : 0)) {
+        for (int d = tid; d < D; d += kSplitThreads) {
+          const size_t at = ((bh * NTALL + wt) * D + d) * PS + wc;
+          kc[at] = kns[d];
+          vc[at] = vns[d];
+        }
+        if (W > 1)
+          for (int s = tid; s < W; s += kSplitThreads)
+            cc[((bh * NTALL + wt) * W + s) * PS + wc] = cns[s];
+      }
+    }
+    const int i = t < ne ? t : t - ne;
+    const int nv = env[i];
+    bf16* tile = tiles + (size_t)(t % ring) * D * kTileRow;
+    if (nv > 0 && egt[i] == wt) {     // the write tile: the new column
+      const bf16* col = t < ne ? kns : vns;
+      for (int d = tid; d < D; d += kSplitThreads)
+        tile[d * kTileRow + wc] = col[d];
+      __syncthreads();
+    }
+    float* srow = sc + (size_t)i * G * kScoreRow;
+    if (t < ne && nv > 0) {
+      // ---- scores of the warp's 32 lanes: tokens as m16, query rows n8
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const int tok0 = 32 * wid + 16 * mt;
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          uint32_t a0[4], a1[4];
+          ldsm_x4_trans(a0, tile + at_off(tok0, kb * 32, kTileRow));
+          ldsm_x4_trans(a1, tile + at_off(tok0, kb * 32 + 16, kTileRow));
+          mma_bf16_16816(acc, a0, qf[kb]);
+          mma_bf16_16816(acc, a1, qf[kb] + 2);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = tok0 + g8 + 8 * (e >> 1), n = 2 * t4 + (e & 1);
+          float sv = acc[e] * scale;
+          if (clamp > 0.f) sv = fminf(fmaxf(sv, -clamp), clamp);
+          const bool ok = tok < nv && n < G;
+          if (n < G) srow[n * kScoreRow + tok] = ok ? sv : kNeg;
+          if (ok) mx[e & 1] = fmaxf(mx[e & 1], sv);
+        }
+      }
+    } else if (t >= ne && nv > 0) {
+      // ---- P^T as B (query row g8; lanes 2 t4, +1, +8, +9 of each k16
+      // step), e from the f32 scores against M; V's rows as A
+      const float* sr = srow + g8 * kScoreRow;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int k0 = 32 * wid + 16 * ks;
+        float ev[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int tok = k0 + 2 * t4 + (u & 1) + 8 * (u >> 1);
+          ev[u] = g8 < G && tok < nv ? expf(sr[tok] - mrow) : 0.f;
+          lsum += ev[u];
+        }
+        const uint32_t bfr[2] = {pack_bf16(ev[0], ev[1]),
+                                 pack_bf16(ev[2], ev[3])};
+#pragma unroll
+        for (int md = 0; md < MD; ++md) {
+          uint32_t a[4];
+          ldsm_x4(a, tile + a_off(md * 16, k0, kTileRow));
+          mma_bf16_16816(oacc[md], a, bfr);
+        }
+      }
+    }
+    if (t == ne - 1) {
+      // ---- the chunk's max per query row, then the row's M over the
+      // cluster's ranks (lanes of one t4 hold rows 2 t4 and 2 t4 + 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        for (int off = 4; off < 32; off <<= 1)
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+        if (g8 == 0) redm[wid * 8 + 2 * t4 + r] = mx[r];
+      }
+      __syncthreads();
+      if (tid < 8) {
+        float m = redm[tid];
+        for (int w = 1; w < 4; ++w) m = fmaxf(m, redm[w * 8 + tid]);
+        cm[tid] = m;
+      }
+      if (nch > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        for (int c = 0; c < nch; ++c)
+          mrow = fmaxf(mrow, cluster.map_shared_rank(cm, c)[g8]);
+      } else {
+        __syncthreads();
+        mrow = cm[g8];
+      }
+    }
+    __syncthreads();      // step t's slot is read out
+    issue(t + ring);
+  }
+  cp_async_wait<0>();
+
+  // ---- the warps' sums in warp order; l of row g8 over the lanes t4
+  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+  lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+  if (t4 == 0) redl[wid * 8 + g8] = lsum;
+  __syncthreads();      // the slots are free: accs over them
+#pragma unroll
+  for (int md = 0; md < MD; ++md)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = md * 16 + g8 + 8 * (e >> 1), n = 2 * t4 + (e & 1);
+      accs[(wid * 8 + n) * D + d] = oacc[md][e];
+    }
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += kSplitThreads) {
+    const int n = idx / D, d = idx % D;
+    float a = 0.f, l = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      a += accs[(w * 8 + n) * D + d];
+      l += redl[w * 8 + n];
+    }
+    if (nch == 1) {
+      o[bh * G * D + idx] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+      continue;
+    }
+    cpart[n * D + d] = a;
+    if (d == 0) cl[n] = l;
+  }
+  if (nch == 1) return;
+
+  // ---- the ranks' rows in chunk order: every rank combines a share
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int idx = (int)cluster.block_rank() * kSplitThreads + tid; idx < G * D;
+       idx += nch * kSplitThreads) {
+    const int n = idx / D, d = idx % D;
+    float num = 0.f, den = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      num += cluster.map_shared_rank(cpart, c)[n * D + d];
+      den += cluster.map_shared_rank(cl, c)[n];
+    }
+    o[bh * G * D + idx] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();       // no rank leaves while another reads its rows
+}
+
+int launch_attention_split(const void* q, void* kc, void* vc, void* cc,
+                           const void* tables, const void* n_tiles,
+                           const void* pos, const void* kn, const void* vn,
+                           const void* cn, const void* tile_base, void* o,
+                           int B, int KV, int G, int D, int NTALL, int W,
+                           int NTAB, int TM, int TPS, int PS, float scale,
+                           float clamp, int E, int nch, float* scores,
+                           cudaStream_t stream) {
+  // nch chunks of E entries cover the row's NE entries, each once
+  const int NE = TM * TPS;
+  if (PS != kSplitPS || (D != 64 && D != 128) || G < 1 || G > 8 || E < 1 ||
+      nch < 1 || nch > kRowsCluster || (nch - 1) * E >= NE || nch * E < NE ||
+      (rows_split_scores(E, G, D, W) > 0 && scores == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kern = D == 64 ? decode_attention_split_kernel<64>
+                      : decode_attention_split_kernel<128>;
+  const int smem =
+      rows_split_smem_bytes(E, G, D, W, scores == nullptr);
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem((const void*)kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nch, KV, B);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nch;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = nch > 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, kern, (const __nv_bfloat16*)q, (__nv_bfloat16*)kc,
+      (__nv_bfloat16*)vc, (int*)cc, (const int*)tables, (const int*)n_tiles,
+      (const int*)pos, (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn,
+      (const int*)cn, (const int*)tile_base, (__nv_bfloat16*)o, scores, KV,
+      G, NTALL, W, NTAB, TM, TPS, E, scale, clamp);
+}
+
+// ---------------------------------------------------------------------------
 // two-pass walk (tables whose scores outgrow shared memory)
 // ---------------------------------------------------------------------------
 //
@@ -1225,16 +1604,32 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
 
 }  // namespace spt
 
-// two_pass: 0 = the one-pass kernel (scores kept in shared memory), 1 = the
-// two-pass walk (ops/decode_attention.py chooses by shared memory)
+// floats of global score buffer a CTA of the split walk takes for chunks of
+// E entries, G query rows, d_head D and W codes: 0 when its scores stay in
+// shared memory
+extern "C" int spt_rows_split_scores(int E, int G, int D, int W) {
+  return spt::rows_split_scores(E, G, D, W);
+}
+
+// walk (ops/decode_attention.py rows_route): 0 = the one-pass kernel
+// (scores kept in shared memory), 1 = the two-pass walk, 2 (bf16) = the
+// split walk, chunks of E entries a row (scores: null, or B * KV * chunks
+// rows of spt_rows_split_scores floats when that is not 0)
 extern "C" int spt_decode_attention(
-    int dtype, int two_pass, const void* q, void* kc, void* vc, void* cc,
+    int dtype, int walk, const void* q, void* kc, void* vc, void* cc,
     const void* tables, const void* n_tiles, const void* pos, const void* kn,
     const void* vn, const void* cn, const void* tile_base, void* o, int B,
     int KV, int G, int D, int NTALL, int W, int NTAB, int TM, int TPS, int PS,
-    float scale, float clamp, void* stream) {
+    float scale, float clamp, int E, int chunks, void* scores, void* stream) {
   using bf = __nv_bfloat16;
-  if (two_pass) {
+  if (walk == 2) {
+    if (dtype != spt::kBF16) return (int)cudaErrorInvalidValue;
+    return spt::launch_attention_split(
+        q, kc, vc, cc, tables, n_tiles, pos, kn, vn, cn, tile_base, o, B, KV,
+        G, D, NTALL, W, NTAB, TM, TPS, PS, scale, clamp, E, chunks,
+        (float*)scores, (cudaStream_t)stream);
+  }
+  if (walk == 1) {
     auto f = dtype == spt::kBF16 ? spt::launch_walk<bf, bf>
                                  : spt::launch_walk<float, float>;
     return f(q, kc, vc, cc, nullptr, nullptr, tables, n_tiles, pos, kn, vn,

@@ -17,7 +17,9 @@ tensors and runs its plain twin for CPU tensors:
 The TPU package chooses between forward kernels (_fwd_v3 while K+V fit
 VMEM, else _fwd, and _fwd_dma) and between backward pairs (_bwd_kernels_v3,
 _bwd_kernels); each choice computes the same function and one Hopper kernel
-(one pair for the backward) replaces it.
+(one pair for the backward) replaces it. `fwd_route` picks the forward's
+kernel: bf16 at the prefill tiles runs block_sparse_fwd_kernel_tc (the
+tensor cores), f32 and shapes off that rule block_sparse_fwd_kernel.
 """
 from __future__ import annotations
 
@@ -54,14 +56,35 @@ def _check_kernel(q, k, v, sel, block_q, block_k, *rest):
         'inputs must be contiguous')
 
 
+# warps a tensor-core forward CTA, by d_head (16 query rows each): at d 64
+# 4 warps (two CTAs an SM) ran faster than 8, at d 128 slower
+# (kernel_ab.py --attn-sweep)
+FWD_WARPS = {64: 4, 128: 8}
+
+
+def fwd_route(dtype: torch.dtype, d: int, block_q: int, block_k: int,
+              aligned: bool = True) -> str:
+    """The kernel a forward launch runs: 'tc' (block_sparse_fwd_kernel_tc,
+    the tensor cores) for bf16 q/k/v at d_head 64 or 128, block_k 128, a
+    block_q multiple of 128 and 16-byte aligned q, k and v (`aligned`);
+    else 'cuda_core' (block_sparse_fwd_kernel)."""
+    if (dtype == torch.bfloat16 and d in (64, 128) and block_k == 128
+            and block_q % 128 == 0 and aligned):
+        return 'tc'
+    return 'cuda_core'
+
+
 def _launch_fwd(q, k, v, sel, lse, block_q, scale, clamp):
     b, s, d = q.shape
     o = torch.empty_like(q)
     p = _build.ptr
+    tc = fwd_route(q.dtype, d, block_q, 128, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v))) == 'tc'
     err = _build.lib().spt_block_sparse_fwd(
-        _build.dtype_code(q), p(q), p(k), p(v), p(sel), p(o), p(lse), b, s, d,
-        s // block_q, sel.shape[2], block_q, float(scale), float(clamp or 0.0),
-        int(clamp is not None), _build.stream())
+        _build.dtype_code(q), FWD_WARPS[d] if tc else 0, p(q), p(k), p(v),
+        p(sel), p(o), p(lse), b, s, d, s // block_q, sel.shape[2], block_q,
+        float(scale), float(clamp or 0.0), int(clamp is not None),
+        _build.stream())
     _build.check(err, 'block_sparse_attention')
     return o
 

@@ -20,10 +20,13 @@ token, nothing past it.
 columns a slot) launch the kernels of csrc/decode_attention.cu for CUDA
 tensors and run their plain twins for CPU tensors. A table whose scores do
 not fit in shared memory (`rows_walk`) goes to the two-pass walk kernel.
-`q_route` picks the int8-cache kernel: a bf16 q at the serving tiles takes
-the split walk on the tensor cores (each row's entries in chunks of
-`q_split_entries`, a CTA each), f32 and shapes off that rule the kernels
-`rows_walk` names.
+`rows_route` picks the bf16/f32-cache kernel: bf16 at the serving tiles
+takes the split walk on the tensor cores (each row's entries in chunks of
+`rows_split_plan`, one cluster a row), f32 and shapes off that rule the
+kernels `rows_walk` names. `q_route` picks the int8-cache kernel: a bf16
+q at the serving tiles takes the split walk on the tensor cores (each
+row's entries in chunks of `q_split_entries`, a CTA each), f32 and shapes
+off that rule the kernels `rows_walk` names.
 The TPU package has two launch shapes of each function (one program per
 slot, and `_ms`: one program for all slots); here one kernel serves both,
 and the `_ms` names are the same wrappers.
@@ -38,6 +41,8 @@ tensors are returned. This is the port's counterpart of the TPU kernels'
 input_output_aliases.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -183,6 +188,47 @@ def q_split_entries(rows: int, n_ent: int) -> int:
     return max(1, min(SPLIT_MAX_ENTRIES, rows * n_ent // SPLIT_CTAS))
 
 
+ROWS_CLUSTER = 8           # chunks a row at most, one cluster (the
+                           # portable cluster size, csrc kRowsCluster)
+ROWS_CHUNK = 6             # entries a split CTA aims at: fewer, longer
+                           # chunks ran faster than many short ones
+                           # (kernel_ab.py --attn-sweep)
+
+
+def rows_route(dtype: torch.dtype, g: int, d: int, ps: int, n_ent: int,
+               aligned: bool = True) -> str:
+    """The kernel a decode_attention_rows launch runs: 'split'
+    (decode_attention_split_kernel) for a bf16 cache with 128-token tiles,
+    d_head 64 or 128, G <= 8 and 16-byte aligned q, caches and new k / v
+    (`aligned`), whatever the table's length; else what rows_walk names
+    for the table ('one-pass' or 'two-pass')."""
+    if (dtype == torch.bfloat16 and ps == 128 and d in (64, 128)
+            and 1 <= g <= 8 and aligned):
+        return 'split'
+    return rows_walk(g, d, ps, n_ent, 4 if dtype == torch.float32 else 2)
+
+
+@functools.lru_cache(maxsize=256)
+def rows_split_plan(n_ent: int) -> tuple[int, int]:
+    """The split walk's plan for table rows of `n_ent` entries: (chunks a
+    row, entries a chunk). One CTA a chunk and one cluster a row: as many
+    chunks as make chunks of about ROWS_CHUNK entries, at most
+    ROWS_CLUSTER; chunk c takes entries c*e .. min((c+1)*e, n_ent) - 1."""
+    chunks = min(ROWS_CLUSTER, -(-n_ent // ROWS_CHUNK))
+    e = -(-n_ent // chunks)
+    return -(-n_ent // e), e
+
+
+@functools.lru_cache(maxsize=256)
+def rows_split_scores(e: int, g: int, d: int, width: int) -> int:
+    """Floats of global score buffer a split CTA takes for chunks of `e`
+    entries, G = g query rows, d_head d and code width `width`: 0 while
+    its scores fit in shared memory (the kernel library's own layout,
+    csrc rows_split_smem_bytes), else e x g x 132 (rows past ~40,000
+    tokens at G = 8)."""
+    return _build.lib().spt_rows_split_scores(e, g, d, width)
+
+
 def q_split_chunks(n_ent: int, e: int) -> int:
     """Chunks of a table row of `n_ent` entries, `e` a chunk (the last
     may be short): chunk c takes entries c*e .. min((c+1)*e, n_ent) - 1."""
@@ -252,10 +298,20 @@ def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
     req(all(a.is_contiguous() for a in args), 'inputs must be contiguous')
     o = torch.empty_like(q)
     p = _build.ptr
+    walk, e, chunks, scores = two_pass, 0, 0, None
+    if rows_route(q.dtype, g, d, ps, t_max * tps, all(
+            a.data_ptr() % 16 == 0
+            for a in (q, k_cache, v_cache, k_new, v_new))) == 'split':
+        walk = 2
+        chunks, e = rows_split_plan(t_max * tps)
+        spill = rows_split_scores(e, g, d, width)
+        if spill:
+            scores = torch.empty((b * kv * chunks, spill),
+                                 dtype=torch.float32, device=q.device)
     err = _build.lib().spt_decode_attention(
-        code, two_pass, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
-        width, n_tab, t_max, tps, ps, float(scale), float(clamp),
-        _build.stream())
+        code, walk, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
+        width, n_tab, t_max, tps, ps, float(scale), float(clamp), e, chunks,
+        p(scores), _build.stream())
     _build.check(err, 'decode_attention_rows')
     decode_attention_rows.launches += 1
     return o, k_cache, v_cache, c_cache

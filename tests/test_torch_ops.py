@@ -76,18 +76,20 @@ def test_tile_scores_and_selection_match_jax(n_code, block_q, n_sel):
     qc = rng.randint(0, n_code, size=(3, 1024, 8)).astype(np.int32)
     kc = rng.randint(0, n_code, size=(3, 1024, 8)).astype(np.int32)
     kw = dict(n_codewords=n_code, block_q=block_q, block_k=128)
-    ts_j = np.asarray(jbs.pq_tile_scores(jnp.asarray(qc), jnp.asarray(kc),
-                                         **kw))
+    ts_j = np.asarray(jitted(jbs.pq_tile_scores, jnp.asarray(qc),
+                             jnp.asarray(kc), **kw))
     ts_t = tbs.pq_tile_scores(t(qc), t(kc), **kw)
     np.testing.assert_array_equal(ts_t.numpy(), ts_j)
     ratio = block_q // 128
-    sel_j = np.asarray(jbs.select_tiles(jnp.asarray(ts_j), n_sel, ratio))
+    sel_j = np.asarray(jitted(jbs.select_tiles, jnp.asarray(ts_j),
+                              n_sel=n_sel, block_ratio=ratio))
     sel_t = tbs.select_tiles(ts_t, n_sel, ratio).numpy()
     np.testing.assert_array_equal(sel_t, sel_j)
     assert (sel_t < 0).any()
     # planted ties: every causal off-diagonal tile scores the same
     flat = np.zeros_like(ts_j)
-    sel_j = np.asarray(jbs.select_tiles(jnp.asarray(flat), n_sel, ratio))
+    sel_j = np.asarray(jitted(jbs.select_tiles, jnp.asarray(flat),
+                              n_sel=n_sel, block_ratio=ratio))
     np.testing.assert_array_equal(
         tbs.select_tiles(t(flat), n_sel, ratio).numpy(), sel_j)
     assert tbs.n_selected_tiles(2048, 128, 8) == \
@@ -101,14 +103,13 @@ def test_row_oracle_matches_jax():
     s = 300
     qc = rng.randint(0, 4, size=(4, s, 8)).astype(np.int32)
     kc = rng.randint(0, 4, size=(4, s, 8)).astype(np.int32)
-    idx_j = np.asarray(jlookup.pq_topk_indices(
-        jnp.asarray(qc), jnp.asarray(kc), top_k=37, n_codewords=4))
+    idx_j = np.asarray(jitted(jlookup.pq_topk_indices, jnp.asarray(qc),
+                              jnp.asarray(kc), top_k=37, n_codewords=4))
     idx_t = tlookup.pq_topk_indices(t(qc), t(kc), top_k=37, n_codewords=4)
     np.testing.assert_array_equal(idx_t.numpy(), idx_j)
     q, k, v = (rng.randn(4, s, 64).astype(np.float32) for _ in range(3))
-    o_j = jsa.sparse_attention(jnp.asarray(q * 4), jnp.asarray(k),
-                               jnp.asarray(v), jnp.asarray(idx_j),
-                               scale=0.125, clamp=10.0)
+    o_j = jitted(jsa.sparse_attention, jnp.asarray(q * 4), jnp.asarray(k),
+                 jnp.asarray(v), jnp.asarray(idx_j), scale=0.125, clamp=10.0)
     o_t = tsa.sparse_attention(t(q * 4), t(k), t(v), idx_t, scale=0.125,
                                clamp=10.0)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
@@ -127,9 +128,10 @@ def test_block_sparse_attention_matches_jax(block_q, n_sel, clamp):
     k, v = (rng.randn(b, s, d).astype(np.float32) for _ in range(2))
     qc = rng.randint(0, 16, size=(b, s, 8)).astype(np.int32)
     kc = rng.randint(0, 16, size=(b, s, 8)).astype(np.int32)
-    ts = jbs.pq_tile_scores(jnp.asarray(qc), jnp.asarray(kc), n_codewords=16,
-                            block_q=block_q, block_k=128)
-    sel = np.asarray(jbs.select_tiles(ts, n_sel, block_q // 128))
+    ts = jitted(jbs.pq_tile_scores, jnp.asarray(qc), jnp.asarray(kc),
+                n_codewords=16, block_q=block_q, block_k=128)
+    sel = np.asarray(jitted(jbs.select_tiles, ts, n_sel=n_sel,
+                            block_ratio=block_q // 128))
     diag_lo = (np.arange(sel.shape[1]) * block_q // 128)[None, :, None]
     assert ((sel >= 0) & (sel < diag_lo)).any() and (sel < 0).any()
     kw = dict(block_q=block_q, block_k=128, scale=d ** -0.5, clamp=clamp)
@@ -332,3 +334,132 @@ def test_q_route_and_split_chunks(g, d, n_ent, rows):
     chunks = tattn.q_split_chunks(n_ent, e)
     assert (chunks - 1) * e < n_ent <= chunks * e     # every entry, once
     assert e == 1 or rows * chunks >= tattn.SPLIT_CTAS // 2
+
+
+# The bf16-KV decode attention's kernel rule (rows_route) and the split
+# walk's plan (rows_split_plan), pure Python: bf16 at the serving tiles
+# takes the split kernel for any table length, f32 and the shapes off the
+# rule the kernels rows_walk names; a row's chunks (one cluster) cover its
+# entries once, about ROWS_CHUNK each. Cases: (G, d_head, entries,
+# expected chunks x entries).
+@pytest.mark.parametrize('g,d,n_ent,plan', [
+    (1, 64, 3, (1, 3)),        # OPT-125M sparse
+    (1, 64, 16, (3, 6)),       # OPT-125M dense, tps 4 (4 entries x 4)
+    (1, 64, 17, (3, 6)),       # OPT-125M dense T=17 (B=8: 96 rows)
+    (4, 128, 3, (1, 3)),       # Llama-3-8B sparse
+    (4, 128, 17, (3, 6)),      # Llama-3-8B dense T=17 (B=8: 64 rows)
+    (4, 128, 96, (8, 12)),     # dense T=96: past the one-pass kernel
+    (8, 128, 5, (1, 5)),
+    (8, 128, 401, (8, 51))])   # a row of 401 tiles, one cluster of 8
+def test_rows_route_and_split_plan(g, d, n_ent, plan):
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tattn.rows_route(bf, g, d, 128, n_ent) == 'split'
+    assert tattn.rows_route(f32, g, d, 128, n_ent) == \
+        tattn.rows_walk(g, d, 128, n_ent, 4)
+    assert tattn.rows_route(bf, g, d, 128, n_ent, False) == \
+        tattn.rows_walk(g, d, 128, n_ent, 2)
+    assert tattn.rows_route(bf, g, 32, 128, n_ent) != 'split'
+    assert tattn.rows_route(bf, g, d, 64, n_ent) != 'split'
+    assert tattn.rows_route(bf, 9, d, 128, 3) != 'split'
+    chunks, e = tattn.rows_split_plan(n_ent)
+    assert (chunks, e) == plan
+    assert 1 <= chunks <= tattn.ROWS_CLUSTER
+    assert (chunks - 1) * e < n_ent <= chunks * e     # every entry, once
+
+
+def _fake_lib(monkeypatch, module, name, record, **entries):
+    """CPU tensors reported as CUDA ones, and a stand-in for the library
+    whose entry `name` records its arguments (other `entries` as given)."""
+    import types
+    monkeypatch.setattr(module._build, 'on_cuda', lambda *ts: True)
+    monkeypatch.setattr(module._build, 'lib', lambda: types.SimpleNamespace(
+        **{name: lambda *a: record.append(a) or 0}, **entries))
+    monkeypatch.setattr(module._build, 'stream', lambda: 0)
+
+
+@pytest.mark.parametrize('dtype,d,g,t_max,aligned,walk,spill', [
+    (torch.bfloat16, 64, 1, 17, True, 2, 0),
+    (torch.bfloat16, 128, 4, 96, True, 2, 0),
+    (torch.bfloat16, 128, 8, 401, True, 2, 51 * 8 * 132),
+    (torch.bfloat16, 128, 4, 17, False, 0, 0),
+    (torch.bfloat16, 128, 4, 96, False, 1, 0),
+    (torch.float32, 64, 1, 17, True, 0, 0),
+    (torch.float32, 128, 4, 96, True, 1, 0)])
+def test_decode_attention_rows_launches_the_rule(monkeypatch, dtype, d, g,
+                                                 t_max, aligned, walk,
+                                                 spill):
+    """decode_attention_rows hands the library the kernel rows_route names
+    (walk 2: the split walk, with rows_split_plan's chunks and entries,
+    and a global score buffer of B x KV x chunks rows only where the
+    library's spt_rows_split_scores asks for one), one launch a call; an
+    unaligned bf16 cache takes the kernels rows_walk names."""
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    calls, asked = [], []
+    _fake_lib(monkeypatch, tattn, 'spt_decode_attention', calls,
+              spt_rows_split_scores=lambda *a: asked.append(a) or spill)
+    tattn.rows_split_scores.cache_clear()
+    b, kv, ps = 1, 1, 128
+    q = torch.zeros((b, kv, g, d), dtype=dtype)
+    flat = torch.zeros(t_max * d * ps + 8, dtype=dtype)
+    k = (flat[:t_max * d * ps] if aligned else flat[1:1 + t_max * d * ps])
+    k = k.view(b, kv, t_max, d, ps)
+    codes = torch.zeros((b, kv, t_max, 1, ps), dtype=torch.int32)
+    tables = torch.arange(t_max, dtype=torch.int32)[None, None]
+    ints = torch.zeros((b,), dtype=torch.int32)
+    tattn.decode_attention_rows.launches = 0
+    tattn.decode_attention_rows(
+        q, k, k, codes, tables, ints + t_max, ints,
+        torch.zeros((b, kv, d), dtype=dtype),
+        torch.zeros((b, kv, d), dtype=dtype),
+        torch.zeros((b, kv, 1), dtype=torch.int32))
+    assert tattn.decode_attention_rows.launches == 1
+    tattn.decode_attention_rows.launches = 0
+    tattn.rows_split_scores.cache_clear()
+    (args,) = calls
+    assert args[1] == walk
+    e, chunks, scores = args[-4], args[-3], args[-2]
+    if walk == 2:
+        assert (chunks, e) == tattn.rows_split_plan(t_max)
+        assert asked == [(e, g, d, 1)]
+        assert (scores is not None) == (spill > 0)
+    else:
+        assert e == chunks == 0 and scores is None and not asked
+
+
+@pytest.mark.parametrize('dtype,d,block_q,aligned,route', [
+    (torch.bfloat16, 64, 256, True, 'tc'),      # OPT prefill
+    (torch.bfloat16, 128, 256, True, 'tc'),     # LLaMA prefill
+    (torch.bfloat16, 64, 128, True, 'tc'),      # training, short prompts
+    (torch.bfloat16, 128, 128, False, 'cuda_core'),
+    (torch.bfloat16, 64, 64, True, 'cuda_core'),
+    (torch.float32, 64, 256, True, 'cuda_core'),
+    (torch.float32, 128, 128, True, 'cuda_core')])
+def test_block_sparse_forward_route(monkeypatch, dtype, d, block_q, aligned,
+                                    route):
+    """Which forward a block_sparse_attention(_lse) call takes (fwd_route):
+    the tensor-core kernel for bf16 at d_head 64 / 128, block_k 128, a
+    block_q multiple of 128 and aligned q/k/v; the CUDA-core kernel else.
+    Both wrappers hand the library the rule's pick, one launch a call."""
+    assert tbsa.fwd_route(dtype, d, block_q, 128, aligned) == route
+    assert tbsa.fwd_route(dtype, d, block_q, 64, aligned) == 'cuda_core'
+    calls = []
+    _fake_lib(monkeypatch, tbsa, 'spt_block_sparse_fwd', calls)
+    s = 256
+    flat = torch.zeros(3 * s * d + 8, dtype=dtype)
+    off = 0 if aligned else 1
+    q, k, v = (flat[off + i * s * d:off + (i + 1) * s * d].view(1, s, d)
+               for i in range(3))
+    sel = torch.zeros((1, s // block_q, 2), dtype=torch.int32)
+    kw = dict(block_q=block_q, block_k=128, scale=0.1)
+    tbsa.block_sparse_attention.launches = 0
+    tbsa.block_sparse_attention_lse.launches = 0
+    tbsa.block_sparse_attention(q, k, v, sel, **kw)
+    tbsa.block_sparse_attention_lse(q, k, v, sel, **kw)
+    assert tbsa.block_sparse_attention.launches == 1
+    assert tbsa.block_sparse_attention_lse.launches == 1
+    tbsa.block_sparse_attention.launches = 0
+    tbsa.block_sparse_attention_lse.launches = 0
+    assert [a[1] for a in calls] == [
+        tbsa.FWD_WARPS[d] if route == 'tc' else 0] * 2
+    assert calls[0][7] is None and calls[1][7] is not None     # lse

@@ -72,9 +72,9 @@ def test_paged_attention_twin_matches_jax_ref(dtype, g):
     q, k, v, lengths, tables = _paged_inputs(g)
     scale = q.shape[-1] ** -0.5
     jd, td = jnp.dtype(dtype), getattr(torch, dtype)
-    want = jpaged.paged_attention_ref(
-        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
-        jnp.asarray(lengths), jnp.asarray(tables), scale=scale)
+    want = jitted(jpaged.paged_attention_ref,
+                  jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                  jnp.asarray(lengths), jnp.asarray(tables), scale=scale)
     got = tpa.paged_attention(t(q).to(td), t(k).to(td), t(v).to(td),
                               t(lengths), t(tables), scale=scale)
     assert got.dtype == td and got.shape == q.shape

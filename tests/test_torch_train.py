@@ -229,7 +229,8 @@ def test_checkpoints_load_in_both_packages(tmp_path):
     tckpt.save_checkpoint(str(tmp_path / 'port'), cfg, tuned)
     jc, jp = jckpt.load_checkpoint(str(tmp_path / 'port'))
     assert jc == jax_config(cfg)
-    jl = JDecoderLM(cfg=jc).apply({'params': jp}, jnp.asarray(tokens))
+    jl = jax.jit(JDecoderLM(cfg=jc).apply)({'params': jp},
+                                           jnp.asarray(tokens))
     np.testing.assert_allclose(np.asarray(jl['logits']),
                                port_logits.detach().numpy(), rtol=0,
                                atol=1e-5)
@@ -239,7 +240,7 @@ def test_checkpoints_load_in_both_packages(tmp_path):
     jckpt.save_checkpoint(str(tmp_path / 'jax'), jax_config(lc), lp)
     tc, tp = tckpt.load_checkpoint(str(tmp_path / 'jax'), device='cpu')
     assert tc == lc
-    want = JDecoderLM(cfg=jax_config(lc)).apply(
+    want = jax.jit(JDecoderLM(cfg=jax_config(lc)).apply)(
         {'params': jax.tree.map(jnp.asarray, lp)}, jnp.asarray(tokens))
     got = DecoderLM(tc, tp)(torch.from_numpy(tokens))['logits']
     np.testing.assert_allclose(got.detach().numpy(),

@@ -20,6 +20,7 @@ from spt_proto_tpu_torch.ops import block_sparse as tbs
 from spt_proto_tpu_torch.ops import block_sparse_attention as tbsa
 from spt_proto_tpu_torch.ops import pq as tpq
 from spt_proto_tpu_torch.ops import routed_ffn as trf
+from test_torch_engine import jitted
 
 torch.set_num_threads(1)
 
@@ -37,9 +38,10 @@ def bsa_case(bq, mult, s=512, d=64, b=2, seed=11):
     v = rng.randn(b, s, d).astype(np.float32)
     g = rng.randn(b, s, d).astype(np.float32)
     codes = rng.randint(0, 16, (b, s, 8)).astype(np.int32)
-    ts = jbs.pq_tile_scores(jnp.asarray(codes), jnp.asarray(codes),
-                            n_codewords=16, block_q=bq, block_k=128)
-    sel = np.array(jbs.select_tiles(ts, 3, block_ratio=bq // 128))
+    ts = jitted(jbs.pq_tile_scores, jnp.asarray(codes), jnp.asarray(codes),
+                n_codewords=16, block_q=bq, block_k=128)
+    sel = np.array(jitted(jbs.select_tiles, ts, n_sel=3,
+                          block_ratio=bq // 128))
     return q, k, v, g, sel
 
 
@@ -55,8 +57,8 @@ def test_lse_and_backward_twins_match_jax_kernels(bq, mult):
     q, k, v, g, sel = bsa_case(bq, mult)
     kw = dict(block_q=bq, block_k=128, scale=64 ** -0.5, clamp=10.0)
     jq, jk, jv, jg, jsel = map(jnp.asarray, (q, k, v, g, sel))
-    jo, jlse = jbsa._fwd_dispatch(jq, jk, jv, jsel, interpret=True,
-                                  with_lse=True, **kw)
+    jo, jlse = jitted(jbsa._fwd_dispatch, jq, jk, jv, jsel, interpret=True,
+                      with_lse=True, **kw)
     to, tlse = tbsa.block_sparse_attention_lse_ref(t(q), t(k), t(v), t(sel),
                                                    **kw)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5)
@@ -69,7 +71,8 @@ def test_lse_and_backward_twins_match_jax_kernels(bq, mult):
     want = tbsa.block_sparse_attention_bwd_ref(
         t(q), t(k), t(v), t(sel), to, tlse, t(g), **kw)
     for bwd in (jbsa._bwd_kernels_v3, jbsa._bwd_kernels):
-        got = bwd(jq, jk, jv, jsel, jo, jlse, jg, interpret=True, **kw)
+        got = jitted(bwd, jq, jk, jv, jsel, jo, jlse, jg, interpret=True,
+                     **kw)
         for name, a, w in zip(('dq', 'dk', 'dv'), got, want):
             np.testing.assert_allclose(w.numpy(), np.asarray(a), atol=1e-4,
                                        err_msg=f'{bwd.__name__} {name}')
@@ -128,12 +131,12 @@ def test_fwd_dma_matches_forward_twin():
     q, k, v = (rng.randn(b, s, d).astype(np.float32) for _ in range(3))
     cq = rng.randint(0, 16, (b, s, 8)).astype(np.int32)
     ck = rng.randint(0, 16, (b, s, 8)).astype(np.int32)
-    ts = jbs.pq_tile_scores(jnp.asarray(cq), jnp.asarray(ck), n_codewords=16,
-                            block_q=256, block_k=128)
-    sel = np.asarray(jbs.select_tiles(ts, 3, block_ratio=2))
+    ts = jitted(jbs.pq_tile_scores, jnp.asarray(cq), jnp.asarray(ck),
+                n_codewords=16, block_q=256, block_k=128)
+    sel = np.asarray(jitted(jbs.select_tiles, ts, n_sel=3, block_ratio=2))
     kw = dict(block_q=256, block_k=128, scale=d ** -0.5, clamp=10.0)
-    want = jbsa._fwd_dma(*map(jnp.asarray, (q, k, v, sel)), interpret=True,
-                         **kw)
+    want = jitted(jbsa._fwd_dma, *map(jnp.asarray, (q, k, v, sel)),
+                  interpret=True, **kw)
     got = tbsa.block_sparse_attention(t(q), t(k), t(v), t(sel), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
