@@ -295,8 +295,9 @@ def log_ptxas(proc, pattern: str, no_spills: bool = False) -> list[str]:
 # ffn_up_kernel<W, GATED, NG, S>, ffn_down_kernel<W, NG, S>, the bf16
 # decode front's decode_front_norm_kernel<T>, decode_front_stream_kernel<W,
 # NG, S> and decode_front_tail_kernel<T, INT8>, the split walks
-# decode_attention_q_split_kernel<D> (int8 KV) and
-# decode_attention_split_kernel<D> (bf16 KV), and the bf16 block-sparse
+# decode_attention_q_split_kernel<D> (int8 KV),
+# decode_attention_split_kernel<D> (bf16 KV), verify_attention_split_kernel<D>
+# and paged_attention_split_kernel<D, Q>, and the bf16 block-sparse
 # forward block_sparse_fwd_kernel_tc<D, W>
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?',
@@ -312,7 +313,10 @@ PTXAS_KERNELS = (
     ('decode_front.cu', r'(decode_front_(?:norm|stream|tail)_kernel)'
      r'I(a|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d)ELi(\d)E)?', True),
     ('decode_attention.cu',
-     r'(decode_attention_(?:q_)?split_kernel)ILi(\d+)E', True),
+     r'((?:decode_attention_(?:q_)?|verify_attention_)split_kernel)'
+     r'ILi(\d+)E', True),
+    ('paged_attention.cu',
+     r'(paged_attention_split_kernel)ILi(\d+)ELb([01])E', True),
     ('block_sparse_attention.cu',
      r'(block_sparse_fwd_kernel_tc)ILi(\d+)ELi(\d+)E', True))
 
@@ -1363,27 +1367,59 @@ def verify_inputs(dtype, model, dense, g, kk=KK):
     Tables and bits come from the engine's own table code over a random
     decode selection per block position (2 full tiles below its own, then
     its own: sparse_coeff 8 at 18 tiles), or dense."""
-    from spt_proto_tpu_torch.inference.engine import _Block
     kv, grp, dh, n_sub = ((HEADS, 1, DH, N_SUB) if model == 'opt-125m' else
                           (KV_38B, HEADS_LL // KV_38B, DH_LL, N_SUB_LL))
-    b, nt, base = B, NT_SPEC, NT_SPEC
+    pos = PROMPT - 2 + 3 * torch.arange(B, device=DEV, dtype=torch.int32)
+    return verify_case_inputs(dtype, grp, dh, kv, kk, pos, NT_SPEC, dense,
+                              n_sub, g)
+
+
+def verify_case_inputs(dtype, grp, dh, kv, kk, pos, nt, dense, n_sub, g,
+                       ps=TILE, zero_bits=False, plant=False):
+    """verify_attention_rows inputs over 2 layers of nt tiles of ps tokens
+    (the second addressed), slots at `pos`: the engine's own tables and
+    bits (_Block) over a random decode selection per block position, or
+    dense; at ps != TILE (the engine's tile), dense tables made here.
+    zero_bits: one selected entry of every row keeps its tile but gets
+    sel_mask 0; plant: each row's first query group's max key at lane 50
+    of its table's first entry (a chunk other than the write tiles')."""
+    from spt_proto_tpu_torch.inference.engine import _Block
+    b, base = pos.shape[0], nt
     nsel = min(nt, max(1, nt // 8) + 1)
-    pos = PROMPT - 2 + 3 * torch.arange(b, device=DEV, dtype=torch.int32)
-    keep = None
-    if not dense:
+    if ps == TILE:
+        keep = None
+        if not dense:
+            ar = torch.arange(nt, device=DEV)
+            own = (pos.long()[:, None] + torch.arange(kk, device=DEV)) // ps
+            r = torch.rand((b, kv, kk, nt), generator=g, device=DEV)
+            r = r.masked_fill(ar >= own[:, None, :, None], 2.0)
+            keep = torch.zeros(r.shape, dtype=torch.bool, device=DEV)
+            keep.scatter_(-1, r.argsort(-1)[..., :nsel - 1], True)
+            keep |= ar == own[:, None, :, None]
+        tables, bits = _Block(pos, kk, nt, kv, nsel).tables(keep, base)
+    else:
+        w0, w1 = pos.long() // ps, (pos.long() + kk - 1) // ps
         ar = torch.arange(nt, device=DEV)
-        own = (pos.long()[:, None] + torch.arange(kk, device=DEV)) // TILE
-        r = torch.rand((b, kv, kk, nt), generator=g, device=DEV)
-        r = r.masked_fill(ar >= own[:, None, :, None], 2.0)
-        keep = torch.zeros(r.shape, dtype=torch.bool, device=DEV)
-        keep.scatter_(-1, r.argsort(-1)[..., :nsel - 1], True)
-        keep |= ar == own[:, None, :, None]
-    tables, bits = _Block(pos, kk, nt, kv, nsel).tables(keep, base)
+        ent = torch.where(ar < w0[:, None], ar + base, -1)
+        tables = torch.cat([ent, (w0 + base)[:, None], (w1 + base)[:, None]],
+                           -1)[:, None].expand(b, kv, -1).contiguous()
+        bits = torch.full(tables.shape, (1 << kk) - 1, device=DEV)
+        bits[..., -2] = torch.where(w0 == w1, 0, (1 << kk) - 1)[:, None]
+        tables, bits = tables.to(torch.int32), bits.to(torch.int32)
+    if zero_bits:
+        bits = bits.clone()
+        bits[..., 0] = torch.where(tables[..., 0] >= 0, 0, bits[..., 0])
     width = 1 if dense else n_sub
     q = randn(g, (b, kv, grp * kk, dh), dtype)
-    kc, vc = (randn(g, (b, kv, 2 * nt, dh, TILE), dtype) for _ in range(2))
+    kc, vc = (randn(g, (b, kv, 2 * nt, dh, ps), dtype) for _ in range(2))
+    if plant:
+        top = (q.float()[:, :, :kk].mean(2) * (0.75 * kk)).to(dtype)
+        at = tables[..., 0].long().clamp(min=0)
+        bi = torch.arange(b, device=DEV)[:, None]
+        hi = torch.arange(kv, device=DEV)[None]
+        kc[bi, hi, at, :, 50] = top
     cc = torch.randint(0, N_CODE if width > 1 else 1,
-                       (b, kv, 2 * nt, width, TILE), generator=g, device=DEV,
+                       (b, kv, 2 * nt, width, ps), generator=g, device=DEV,
                        dtype=torch.int32)
     kn, vn = (randn(g, (b, kv, dh, kk), dtype) for _ in range(2))
     cn = torch.randint(0, N_CODE if width > 1 else 1, (b, kv, width, kk),
@@ -1398,85 +1434,155 @@ def verify_work(args):
     it; row r (position j = r % K) sees a lane of it when bit j is set and
     the lane's position is <= pos + j."""
     q, tables, bits, pos, tb = args[0], args[4], args[5], args[6], args[10]
-    n_all = args[1].shape[2]
+    n_all, ps = args[1].shape[2], args[1].shape[4]
     j = torch.arange(q.shape[2], device=q.device) % args[7].shape[3]
     valid = (tables >= 0) & (tables < n_all) & (bits != 0)
     seen = ((bits[:, :, None, :] >> j[:, None]) & 1).bool() \
         & valid[:, :, None]                                  # [B,KV,GK,T]
-    first = (tables.long() - tb.long()[:, None, None]) * TILE  # [B, KV, T]
+    first = (tables.long() - tb.long()[:, None, None]) * ps  # [B, KV, T]
     lanes = (pos.long()[:, None, None, None] + j[:, None] - first[:, :, None]
-             + 1).clamp(0, TILE)
+             + 1).clamp(0, ps)
     return int(valid.sum()), int((lanes * seen).sum())
 
 
-def check_verify(dtype, model, dense, timer=None, kk=KK):
-    """verify_attention_rows vs its twin at the speculative serving shape
-    (verify_inputs): OPT-125M (12 heads, d_head 64) or Llama-3-8B (8 kv
-    heads of G = 4, d_head 128), union or dense tables, a block of kk
-    columns. Kernel and twin round e at the same place (the TPU kernel's
-    numerics), so the f32 and bf16 bounds of the other attention kernels
-    hold; the appended caches and codes must be exact. A block whose G*K
-    rows outgrow one CTA (kk = 30 at G = 4) launches split into row chunks;
-    a block that fits is also launched split into chunks of 8 rows, which
-    must give the one-chunk launch's output and caches bit for bit (each
-    row's arithmetic does not depend on its CTA's other rows)."""
+def verify_case(label, dtype, args, clamp, timer=None, off_rule=False):
+    """verify_attention_rows vs its twin on the kernel verify_route names
+    (asserted: bf16 the split walk, or with off_rule the walk kernel; f32
+    the walk kernel). Kernel and twin round e at the same place (the TPU
+    kernel's numerics): f32 to 1e-5, bf16 to tight_tolerance; the appended
+    caches and codes must be exact. The launch is repeated with its rows in
+    groups of 8 (the split walk's VERIFY_ROWS, the walk kernel's
+    verify_rows_per_cta), which must give the same output and caches bit
+    for bit (each row's arithmetic does not depend on its CTA's other
+    rows). Timed when timer is given, beside dense SDPA of the same query
+    rows over as many contiguous tokens as the fullest row reads, the K
+    block positions' causal offsets as its mask."""
     from spt_proto_tpu_torch.ops import decode_attention as m
-    g = gen(SEED + 12)
-    args = verify_inputs(dtype, model, dense, g, kk)
-    kw = dict(ps=TILE, scale=args[0].shape[3] ** -0.5,
-              clamp=0.0 if dense else 10.0)
+    q, kn = args[0], args[7]
+    gk, d, kk = q.shape[2], q.shape[3], kn.shape[3]
+    ps = args[1].shape[4]
+    kw = dict(ps=ps, scale=d ** -0.5, clamp=clamp)
+    aligned = all(a.data_ptr() % 16 == 0 for a in args[1:3])
+    route = m.verify_route(dtype, gk // kk, d, ps, kk, aligned)
+    require(route == ('split' if dtype == torch.bfloat16 and not off_rule
+                      else 'walk'), f'{label}: route {route}')
+    split_args = [a.clone() for a in args]
     ref_args = [a.clone() for a in args]
+    m.verify_attention_rows.launches = 0
     got = m.verify_attention_rows(*args, **kw)
+    require(m.verify_attention_rows.launches == 1, f'{label}: launches')
     want = m.verify_attention_rows_ref(*ref_args, **kw)
     sync()
     err = max_err(got[0], want[0])
     caches_equal = all(torch.equal(g_, w_) for g_, w_ in zip(got[1:],
                                                              want[1:]))
     tables = args[4]
-    crosses = bool((tables[:, 0, -2] != tables[:, 0, -1]).any())
-    gk, d = args[0].shape[2], args[0].shape[3]
-    rows = m.verify_rows_per_cta(gk, d, TILE, tables.shape[2],
-                                 args[0].element_size())
-    label = (f'verify_attention_rows {model} {"dense" if dense else "union"} '
-             f'(GK={gk}, T={tables.shape[2]}, {-(-gk // rows)} chunk(s) of '
-             f'{rows} rows)')
-    require(close(got[0], want[0], dtype) and caches_equal and crosses
+    t_max = tables.shape[2]
+    if route == 'split':
+        groups, rows, chunks, e = m.verify_split_plan(gk, t_max, d)
+        how = (f'{groups} group(s) of {rows} rows, {chunks} chunk(s) of {e} '
+               f'entries')
+    else:
+        rows = m.verify_rows_per_cta(gk, d, ps, t_max, q.element_size())
+        how = f'{-(-gk // rows)} chunk(s) of {rows} rows'
+    label = f'verify_attention_rows {label} (GK={gk}, T={t_max}, {how})'
+    tol = tight_tolerance(want[0], dtype)
+    require(close(got[0], want[0], dtype, tol) and caches_equal
             and bool(torch.isfinite(got[0]).all()),
             f'{label} {dtype}: o err {err}, appended caches equal: '
-            f'{caches_equal}, a block across a tile boundary: {crosses}')
-    if rows == gk:
-        split_args = [a.clone() for a in verify_inputs(
-            dtype, model, dense, gen(SEED + 12), kk)]
+            f'{caches_equal}')
+    if route == 'split':
+        orig = m.VERIFY_ROWS
+        m.VERIFY_ROWS = 8
+        m.verify_split_plan.cache_clear()
+    else:
         orig = m.verify_rows_per_cta
         m.verify_rows_per_cta = lambda *a: 8
-        try:
-            split = m.verify_attention_rows(*split_args, **kw)
-        finally:
+    try:
+        split = m.verify_attention_rows(*split_args, **kw)
+    finally:
+        if route == 'split':
+            m.VERIFY_ROWS = orig
+            m.verify_split_plan.cache_clear()
+        else:
             m.verify_rows_per_cta = orig
-        sync()
-        require(all(torch.equal(a, b) for a, b in zip(split, got)),
-                f'{label} {dtype}: the split launch differs from one chunk')
+    sync()
+    require(all(torch.equal(a, b_) for a, b_ in zip(split, got)),
+            f'{label} {dtype}: rows in groups of 8 differ from the launch')
     log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
-        f'({tol_str(dtype)}); appended caches exact; a block across a tile '
-        f'boundary' + ('; split into 8-row chunks: bit-identical'
-                       if rows == gk else ''))
-    res = dict(max_abs_err=err, rows_per_cta=rows)
+        f'({tol_str(dtype, tol)}); appended caches exact; rows in groups '
+        f'of 8: bit-identical')
+    res = dict(max_abs_err=err, route=route, rows_per_cta=rows)
     if timer is not None:
         res['ms'] = timer.ms(lambda: m.verify_attention_rows(*args, **kw))
         res['plain_ms'] = timer.ms(
             lambda: m.verify_attention_rows_ref(*ref_args, **kw), reps=5)
-        q, kn = args[0], args[7]
         entries, pairs = verify_work(args)
-        kv_bytes = entries * 2 * kn.shape[2] * TILE * q.element_size()
+        kv_bytes = entries * 2 * d * ps * q.element_size()
         new = [args[7], args[8]] + ([args[9]] if args[3].shape[3] > 1 else [])
         io = nbytes(q, *args[4:7], args[10], got[0], *new)
         res['bound_ms'], res['bound_by'] = bound_ms(
-            kv_bytes + io, pairs * 2 * 2 * kn.shape[2], dtype)
-        # no one PyTorch call does the table gather + append + per-position
-        # visibility
-        res['library_ms'] = None
+            kv_bytes + io, pairs * 2 * 2 * d, dtype)
+        # the fullest row's tokens, the block's query columns as SDPA's
+        # query positions (G K rows -> G heads x K positions)
+        b, kv = tables.shape[:2]
+        valid = (tables >= 0) & (tables < args[1].shape[2]) & (args[5] != 0)
+        s_k = int(valid.sum(-1).max()) * ps
+        q4 = q.reshape(b, kv * (gk // kk), kk, d)
+        mask = (torch.arange(s_k, device=DEV)[None]
+                <= s_k - kk + torch.arange(kk, device=DEV)[:, None])
+        res['library_ms'] = sdpa_yardstick(timer, q4, kv, s_k, mask)
+        res['library'] = ('SDPA, contiguous K/V, causal offsets (no table '
+                          'gather)')
         res.update(entries_read=entries, visible_pairs=pairs)
         log_times(res)
+    return res
+
+
+def check_verify(dtype, model, dense, timer=None, kk=KK):
+    """verify_attention_rows vs its twin at the speculative serving shape
+    (verify_inputs): OPT-125M (12 heads, d_head 64) or Llama-3-8B (8 kv
+    heads of G = 4, d_head 128), union or dense tables, a block of kk
+    columns (slot 0's across a tile boundary, its two write tiles
+    differing), verify_case's route and bounds."""
+    args = verify_inputs(dtype, model, dense, gen(SEED + 12), kk)
+    tables = args[4]
+    require(bool((tables[:, 0, -2] != tables[:, 0, -1]).any()),
+            'a block across a tile boundary')
+    return verify_case(f'{model} {"dense" if dense else "union"}', dtype,
+                       args, 0.0 if dense else 10.0, timer)
+
+
+def check_verify_edges(dtype):
+    """verify_attention_rows' edges, each vs its twin on the route
+    verify_route names: K = 1 and K = 30 at G = 8 (240 rows: 4 row groups),
+    d_head 64 and 128, clamp on and off, an entry with sel_mask 0 in every
+    row, a dense T = 96 table, each row's max planted in its first entry's
+    chunk; in bf16, the call off the rule too: tiles of 64 tokens take the
+    walk kernel."""
+    g = gen(SEED + 42)
+    res = {}
+    pos = PROMPT - 2 + 3 * torch.arange(4, device=DEV, dtype=torch.int32)
+    for kk, grp, dh, kv, dense, clamp in (
+            (1, 8, DH_LL, 2, False, 10.0), (30, 8, DH_LL, 2, False, 0.0),
+            (30, 8, DH, 2, True, 10.0), (5, 4, DH_LL, 2, False, 0.0),
+            (1, 1, DH, 3, True, 0.0)):
+        name = (f'K={kk} G={grp} d {dh} {"dense" if dense else "union"} '
+                f'clamp {clamp:g}, a sel_mask-0 entry, max planted')
+        args = verify_case_inputs(dtype, grp, dh, kv, kk, pos, NT_SPEC,
+                                  dense, N_SUB_LL, g, zero_bits=not dense,
+                                  plant=True)
+        res[name] = verify_case(name, dtype, args, clamp)
+    p96 = 96 * TILE - 2 + torch.arange(2, device=DEV, dtype=torch.int32)
+    args = verify_case_inputs(dtype, 4, DH_LL, 2, KK, p96, 97, True,
+                              N_SUB_LL, g)
+    res['dense T=96'] = verify_case('dense T=96 G=4', dtype, args, 0.0)
+    if dtype == torch.bfloat16:
+        args = verify_case_inputs(dtype, 4, DH_LL, 2, KK, pos, 2 * NT_SPEC,
+                                  True, N_SUB_LL, g, ps=64)
+        res['off rule ps 64'] = verify_case(
+            'off rule: tiles of 64 tokens G=4', dtype, args, 0.0,
+            off_rule=True)
     return res
 
 
@@ -1491,68 +1597,159 @@ def paged_inputs(dtype, model, int8, g):
     a random disjoint set; slot 0 is a released lane (its whole table -1,
     read through the sink as the engine builds it). int8 pages come from
     the engine's own quantization of random values."""
-    from spt_proto_tpu_torch.inference.paged import _quantize_pages
     kv, grp, dh = ((HEADS, 1, DH) if model == 'opt-125m' else
                    (KV_38B, HEADS_LL // KV_38B, DH_LL))
-    pps = -(-MAX_LEN // PAGED_PS)
-    n_pages = B * pps + 1
-    sink = n_pages - 1
-    q = randn(g, (B, kv * grp, dh), dtype)
-    k, v = (randn(g, (kv, n_pages, PAGED_PS, dh), torch.float32)
-            for _ in range(2))
-    tables = torch.randperm(B * pps, generator=g, device=DEV).reshape(
-        B, pps).to(torch.int32)
-    tables[0] = sink
     lengths = PROMPT - B + 1 + torch.arange(B, device=DEV, dtype=torch.int32)
+    return paged_case_inputs(dtype, grp, dh, kv, PAGED_PS, int8, lengths,
+                             -(-MAX_LEN // PAGED_PS), g, sink_slot=True)
+
+
+def paged_case_inputs(dtype, grp, dh, kv, ps, int8, lengths, pps, g,
+                      sink_slot=False, neg_ids=0, plant=False):
+    """paged_attention inputs: q [B, kv * grp, dh], pools of B * pps pages
+    of ps tokens plus a sink page, each slot's table a random disjoint set
+    of pages (sink_slot: slot 0's whole table the sink, a released lane;
+    neg_ids: that many of slot 1's pages inside its length -1, read as page
+    0); plant: each slot's key at its position length - 2 (in its last
+    chunk) made each row's max (~0.75 sqrt(dh) against ~N(0, 1)); int8
+    pages from the engine's own quantization of random f32 values.
+    Returns (args, scales kw)."""
+    from spt_proto_tpu_torch.inference.paged import _quantize_pages
+    b = lengths.shape[0]
+    n_pages = b * pps + 1
+    sink = n_pages - 1
+    q = randn(g, (b, kv * grp, dh), dtype)
+    k, v = (randn(g, (kv, n_pages, ps, dh), torch.float32)
+            for _ in range(2))
+    tables = torch.randperm(b * pps, generator=g, device=DEV).reshape(
+        b, pps).to(torch.int32)
+    if plant:
+        at = (lengths.long() - 2).clamp(min=0)
+        page = tables.gather(1, (at // ps)[:, None])[:, 0].long()
+        top = q.float().reshape(b, kv, grp, dh).mean(2) * (0.75 * grp)
+        for i in range(b):
+            k[:, page[i], int(at[i]) % ps] = top[i]
+    if sink_slot:
+        tables[0] = sink
+    if neg_ids:
+        n_in = max(1, int(lengths[1]) // ps)
+        tables[1, :min(neg_ids, n_in)] = -1
     if int8:
         (k, ks), (v, vs) = _quantize_pages(k), _quantize_pages(v)
         return [q, k, v, lengths, tables], dict(k_scales=ks, v_scales=vs)
     return [q, k.to(dtype), v.to(dtype), lengths, tables], {}
 
 
-def check_paged(dtype, model, int8, timer=None):
-    """paged_attention (the stock paged-attention kernel's port) vs its
-    plain twin (the JAX oracle, int8 pages read back as (x h) / 127.5 in
-    q's dtype): f32 to 1e-5, int8 pages too (kernel and twin round the same
-    dequantized values to f32; only the sums run in another order); bf16,
-    fp or int8 pages, to one bf16 step of the output (output_tolerance)."""
+def sdpa_yardstick(timer, q4, kv_heads, s_k, mask=None):
+    """The library yardstick of a decode attention kernel: dense SDPA of
+    the same query rows q4 [B, H, s_q, d] over s_k contiguous tokens of
+    random K / V (the kv heads repeated to H outside the timed call; mask:
+    a boolean [s_q, s_k]). Not the same function: no one call does the
+    page or table gather."""
+    b, h, _, d = q4.shape
+    g = gen(SEED + 40)
+    k, v = (randn(g, (b, kv_heads, s_k, d), q4.dtype)
+            .repeat_interleave(h // kv_heads, 1) for _ in range(2))
+    return timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask))
+
+
+def paged_case(label, dtype, args, sc, timer=None):
+    """paged_attention vs its plain twin (the JAX oracle, int8 pages read
+    back as (x h) / 127.5 in q's dtype) on the kernel paged_route names
+    (asserted: bf16 the split walk, with paged_split_plan's chunks; f32 the
+    two-pass walk): f32 to 1e-5, int8 pages too (kernel and twin round the
+    same dequantized values to f32; only the sums run in another order);
+    bf16, fp or int8 pages, to tight_tolerance. Timed when timer is given,
+    beside dense SDPA of the same query rows over the longest slot's
+    tokens."""
     from spt_proto_tpu_torch.ops import paged_attention as m
-    g = gen(SEED + 13)
-    args, sc = paged_inputs(dtype, model, int8, g)
     q, k = args[0], args[1]
-    scale = q.shape[2] ** -0.5
+    kv, ps, dh = k.shape[0], k.shape[2], k.shape[3]
+    pps = args[4].shape[1]
+    scale = dh ** -0.5
+    route = m.paged_route(dtype)
+    require(route == ('split' if dtype == torch.bfloat16 else 'walk'),
+            f'{label}: route {route}')
+    m.paged_attention.launches = 0
     got = m.paged_attention(*args, scale=scale, **sc)
+    require(m.paged_attention.launches == 1, f'{label}: launches')
 
     def plain():
         return m.paged_attention_ref(*args, scale=scale, **sc)
     want = plain()
     sync()
     err = max_err(got, want)
-    tol = output_tolerance(want, dtype)
-    label = (f'paged_attention {model} {"int8" if int8 else "fp"} pages '
-             f'(G={q.shape[1] // k.shape[0]}, ps {PAGED_PS}, a -1 row)')
+    tol = tight_tolerance(want, dtype)
+    plan = (m.paged_split_plan(pps, ps, k.dtype == torch.int8)
+            if route == 'split' else None)
+    label = (f'paged_attention {label} ({route}'
+             + (f', {plan[0]} chunks of {plan[1] * m.PAGED_STEP} positions'
+                if plan else '') + ')')
     require(close(got, want, dtype, tol) and bool(torch.isfinite(got).all()),
             f'{label} {dtype}: o err {err}')
     log(f'  {label} {str(dtype):14s} o max err {err:.3g} '
         f'({tol_str(dtype, tol)})')
-    res = dict(max_abs_err=err)
+    res = dict(max_abs_err=err, route=route)
     if timer is not None:
         res['ms'] = timer.ms(lambda: m.paged_attention(*args, scale=scale,
                                                        **sc))
         res['plain_ms'] = timer.ms(plain, reps=5)
         # each valid token's k and v (and int8 scales) read once
-        tokens = int(args[3].sum())
-        kv_heads, dh = k.shape[0], k.shape[3]
-        per_token = kv_heads * (2 * dh * k.element_size()
-                                + (8 if int8 else 0))
+        tokens = int(args[3].clamp(max=pps * ps).sum())
+        int8 = k.dtype == torch.int8
+        per_token = kv * (2 * dh * k.element_size() + (8 if int8 else 0))
         io = nbytes(q, args[3], args[4], got)
         res['bound_ms'], res['bound_by'] = bound_ms(
             tokens * per_token + io, tokens * q.shape[1] * 2 * 2 * dh,
             torch.int8 if int8 else dtype)
-        # no one PyTorch call does the page gather (SDPA wants contiguous
-        # K/V)
-        res['library_ms'] = None
+        res['library_ms'] = sdpa_yardstick(
+            timer, q[:, :, None], kv, int(args[3].max()))
+        res['library'] = 'SDPA, contiguous K/V (no page gather)'
         log_times(res)
+    return res
+
+
+def check_paged(dtype, model, int8, timer=None):
+    """paged_attention (the stock paged-attention kernel's port) vs its
+    plain twin at the serving shape (paged_inputs), paged_case's route and
+    bounds."""
+    args, sc = paged_inputs(dtype, model, int8, gen(SEED + 13))
+    q, k = args[0], args[1]
+    return paged_case(f'{model} {"int8" if int8 else "fp"} pages '
+                      f'(G={q.shape[1] // k.shape[0]}, ps {PAGED_PS}, a '
+                      f'released slot)', dtype, args, sc, timer)
+
+
+def check_paged_edges(dtype):
+    """paged_attention's edges, each vs its twin on the route paged_route
+    names: pages of 16 and 128 tokens, d_head 64 and 128, G = 1, 4 and 8,
+    fp and int8 pages; lengths of 1 and not a multiple of the page size;
+    -1 page ids inside a slot's length; a released slot read through the
+    sink; 16,384 positions (8 chunks of 2,048) and 49,152 at G = 8 (the
+    chunks' scores in the global buffer); each slot's max planted in its
+    last chunk."""
+    g = gen(SEED + 41)
+    res = {}
+    ln = torch.tensor([1, 63, 64, 65, 1000, 2047], device=DEV,
+                      dtype=torch.int32)
+    for ps, grp, dh, kv in ((16, 1, DH, 4), (128, 4, DH_LL, 2),
+                            (16, 8, DH_LL, 1), (128, 8, DH, 2),
+                            (64, 4, DH, 3)):
+        for int8 in (False, True):
+            name = (f'ps {ps} G={grp} d {dh} {"int8" if int8 else "fp"} '
+                    f'lengths 1-2047, -1 ids, sink, max in the last chunk')
+            args, sc = paged_case_inputs(
+                dtype, grp, dh, kv, ps, int8, ln, -(-2048 // ps), g,
+                sink_slot=True, neg_ids=2, plant=True)
+            res[name] = paged_case(name, dtype, args, sc)
+    for n, grp, ps in ((16384, 4, 64), (49152, 8, 128)):
+        lens = n - torch.arange(2, device=DEV, dtype=torch.int32)
+        for int8 in (False, True):
+            name = f'{n} positions G={grp} ps {ps} {"int8" if int8 else "fp"}'
+            args, sc = paged_case_inputs(dtype, grp, DH_LL, 1, ps, int8, lens,
+                                         n // ps, g, plant=True)
+            res[name] = paged_case(name, dtype, args, sc)
     return res
 
 
@@ -2649,6 +2846,8 @@ def phase_kernels(timer):
         r_paged = {f'{model} {"int8" if int8 else "fp"}': check_paged(
             dtype, model, int8, t) for model in ('opt-125m', 'llama-3-8b')
             for int8 in (False, True)}
+        r_paged_edges = check_paged_edges(dtype)
+        r_ver_edges = check_verify_edges(dtype)
         r_pool = check_tile_pool(dtype, t)
         r_walk = {int8: check_attention_gqa(dtype, int8, True, t, nt=97,
                                             pos0=96 * TILE - B, layers=2)
@@ -2679,7 +2878,9 @@ def phase_kernels(timer):
                     gqa_llama_3_8b_dense=r_gqa[True, True],
                     gqa_llama_3_8b_dense_96_tiles=r_walk[True],
                     **{f'edge {k}': v for k, v in r_attn_edges.items()}),
-                paged_attention=dict(r_paged['opt-125m fp'], **r_paged),
+                paged_attention=dict(r_paged['opt-125m fp'], **r_paged,
+                                     **{f'edge {k}': v for k, v
+                                        in r_paged_edges.items()}),
                 decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll,
                                     **r_edges['lm_head_argmax']),
@@ -2707,7 +2908,9 @@ def phase_kernels(timer):
                 ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13,
                                    **r_ffn8_edges),
                 verify_attention_rows=dict(r_ver['opt-125m union'],
-                                           **r_ver),
+                                           **r_ver,
+                                           **{f'edge {k}': v for k, v
+                                              in r_ver_edges.items()}),
                 # the kernel line reports Llama-3-8B at m = 8 (its run)
                 **{n: dict(r[f'llama-3-8b m={B}'], **r)
                    for n, r in gated.items()})
@@ -3406,14 +3609,24 @@ def expected_launches(iw, quantized):
 
 
 # kernels a bf16 decode step never launches: decode_front's fused kernel,
-# the int8-KV attention's one-pass and int8 walk kernels and the bf16-KV
-# attention's one-pass and walk kernels; every bf16 call takes the weight
-# stream and the split walks (front_plan, q_route, rows_route)
+# the int8-KV attention's one-pass and int8 walk kernels, the bf16-KV
+# attention's one-pass and walk kernels, the paged walk and the verify walk
+# in bf16; every bf16 call takes the weight stream and the split walks
+# (front_plan, q_route, rows_route, paged_route, verify_route). Profiled
+# bf16 decode steps, paged engine steps and verify steps are held to it.
 NOT_BF16_DECODE = ('decode_front_kernel<', 'decode_attention_q_kernel<',
                    'decode_attention_walk_kernel<__nv_bfloat16, signed char>',
                    'decode_attention_kernel<__nv_bfloat16>',
                    'decode_attention_walk_kernel<__nv_bfloat16, '
-                   '__nv_bfloat16>')
+                   '__nv_bfloat16>', 'paged_attention_kernel<__nv_bfloat16',
+                   'verify_attention_kernel<__nv_bfloat16>')
+
+
+def require_new_kernels(label, prof) -> None:
+    """Fail a profiled bf16 window that shows a kernel of NOT_BF16_DECODE."""
+    old = sorted(k for k in prof['by_kernel']
+                 if any(name in k for name in NOT_BF16_DECODE))
+    require(not old, f'{label}: bf16 steps launched {old}')
 # the kernel a bf16 prefill never launches: the CUDA-core block-sparse
 # forward (every bf16 prefill takes block_sparse_fwd_kernel_tc, fwd_route)
 NOT_BF16_PREFILL = ('block_sparse_fwd_kernel<__nv_bfloat16',)
@@ -3541,9 +3754,7 @@ def serving_run(label, iw, tokens, max_len, steps, quantized, profile=True,
         if profile:
             res['decode_profile'] = prof
         if bf16:
-            old = sorted(k for k in prof['by_kernel']
-                         if any(name in k for name in NOT_BF16_DECODE))
-            require(not old, f'{label}: bf16 decode steps launched {old}')
+            require_new_kernels(label, prof)
     return res
 
 
@@ -3772,6 +3983,8 @@ def spec_run(label, iw, prompts, quantized, draft=None, profile=True):
                 tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
         res['verify_profile'] = device_profile(f'{label}: 4 verify steps',
                                                steps4)
+        if iw.cfg.dtype == torch.bfloat16:
+            require_new_kernels(label, res['verify_profile'])
     del cache
     torch.cuda.empty_cache()
     return res
@@ -4044,6 +4257,8 @@ def engine_run(label, iw, prompts, pin=None, n_new=SERVE_NEW, profile=False,
         res['step_profile'] = device_profile(
             f'{label}: 4 engine steps of {SERVE_SLOTS} decoding slots',
             lambda: [eng.step() for _ in range(4)])
+        if cfg.dtype == torch.bfloat16:
+            require_new_kernels(label, res['step_profile'])
         del eng
     torch.cuda.empty_cache()
     return res

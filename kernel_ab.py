@@ -19,6 +19,8 @@ they serve, from several checkouts, in turns, on one CUDA card.
     python3 kernel_ab.py --dense-attn PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --bsa PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --attn-sweep CHECKOUT
+    python3 kernel_ab.py --paged PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --verify PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -82,7 +84,20 @@ the block-sparse forward at OPT-125M and Llama-3-8B prefill shapes and
 the lse training shape beside dense causal SDPA, then both sparse
 prefills with the forward in situ and the wrapper's host us a call (bsa);
 or (--attn-sweep) the split walk's entries a chunk and the forward's warps
-a CTA around their rules' picks, each checked and timed (attn_sweep).
+a CTA around their rules' picks, each checked and timed (attn_sweep); or
+(--paged) paged_attention at the four serving shapes (OPT-125M and
+Llama-3-8B G=4, fp and int8 pages of 64 tokens), each checked against its
+twin first, from a cold L2 beside its bound, its kernels alone and the
+wrapper's torch ops apart (profiler), then the OPT-125M paged dense
+bf16-KV and int8-KV engines and the Llama-3-8B (16 layers) paged dense one
+on phase 8's traffic: the kernel's in-situ us a call, device ms an engine
+step (profiler) and engine steps timed after a sync (paged); or (--verify)
+verify_attention_rows at five speculative shapes (OPT-125M and Llama-3-8B
+union and dense tables, K = 30 at G = 4), each checked first, cold L2
+beside its bound, the kernel and the wrapper's torch ops apart, then the
+n-gram speculative runs (OPT-125M, Llama-3-8B at
+16 layers) and phase 8's speculative engine: the kernel in situ, device ms
+a verify round, verify steps timed after a sync (verify).
 One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
@@ -96,7 +111,7 @@ import sys
 
 MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm', '--int8',
          '--int8-sweep', '--int8-losses', '--front', '--host',
-         '--dense-attn', '--bsa', '--attn-sweep')
+         '--dense-attn', '--bsa', '--attn-sweep', '--paged', '--verify')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -1042,7 +1057,10 @@ def attn_sweep(cs, timer) -> dict:
     forward around their rules' picks, each call checked against its twin
     and timed (cold L2): the split walk's entries a chunk (ROWS_CHUNK) at
     dense_attn's six shapes, and the forward's warps a CTA (FWD_WARPS) at
-    bsa's three."""
+    bsa's three; then (where the checkout has them) the paged split walk's
+    steps a chunk (PAGED_CHUNK_STEPS) at the four paged shapes, and the
+    verify split walk's entries a chunk and rows a CTA (VERIFY_CHUNK,
+    VERIFY_ROWS) at the five verify shapes."""
     import torch
     from spt_proto_tpu_torch.ops import block_sparse_attention as bsa_m
     from spt_proto_tpu_torch.ops import decode_attention as rows_m
@@ -1090,6 +1108,245 @@ def attn_sweep(cs, timer) -> dict:
                 out[f'{name} {w} warps us'] = fn()['ms'] * 1e3
     finally:
         bsa_m.FWD_WARPS = warps0
+    from spt_proto_tpu_torch.ops import paged_attention as pa_m
+    if hasattr(pa_m, 'PAGED_CHUNK_STEPS'):
+        steps0 = dict(pa_m.PAGED_CHUNK_STEPS)
+        try:
+            for model in ('opt-125m', 'llama-3-8b'):
+                for int8 in (False, True):
+                    for st in (4, 8, 16):
+                        pa_m.PAGED_CHUNK_STEPS = {False: st, True: st}
+                        pa_m.paged_split_plan.cache_clear()
+                        out[f'paged {model} {"int8" if int8 else "fp"} '
+                            f'{st} steps us'] = cs.check_paged(
+                                bf, model, int8, timer)['ms'] * 1e3
+        finally:
+            pa_m.PAGED_CHUNK_STEPS = steps0
+            pa_m.paged_split_plan.cache_clear()
+    if hasattr(rows_m, 'VERIFY_CHUNK'):
+        v0 = dict(rows_m.VERIFY_CHUNK), rows_m.VERIFY_ROWS
+        try:
+            for name, args in (('opt-125m union', ('opt-125m', False)),
+                               ('opt-125m dense', ('opt-125m', True)),
+                               ('llama-3-8b union', ('llama-3-8b', False)),
+                               ('llama-3-8b dense', ('llama-3-8b', True)),
+                               ('llama-3-8b union K=30',
+                                ('llama-3-8b', False, 30))):
+                for ch, rows in ((2, 64), (3, 64), (4, 64), (6, 64),
+                                 (4, 32)):
+                    rows_m.VERIFY_CHUNK = {64: ch, 128: ch}
+                    rows_m.VERIFY_ROWS = rows
+                    rows_m.verify_split_plan.cache_clear()
+                    out[f'verify {name} {ch} entries rows {rows} '
+                        f'us'] = cs.check_verify(
+                            bf, args[0], args[1], timer,
+                            *args[2:])['ms'] * 1e3
+        finally:
+            rows_m.VERIFY_CHUNK, rows_m.VERIFY_ROWS = v0
+            rows_m.verify_split_plan.cache_clear()
+    return out
+
+
+# profiler names of the paged and verify kernels in either checkout
+PAGED_NAMES = ('paged_attention_kernel', 'paged_attention_split_kernel')
+VERIFY_NAMES = ('verify_attention_kernel', 'verify_attention_split_kernel')
+SYNCED = 8            # steps timed one by one after a sync
+
+
+def kernel_and_glue(cs, fn, reps=10) -> tuple[float, float, float]:
+    """Device us a call of fn's spt kernels and of its other device work
+    (the wrapper's torch ops), and those ops' count, from the profiler over
+    reps calls, each after chip_smoke's L2 flush (the flush excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    timer = cs.Timer()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spt = glue = ops = 0.0
+    for a in prof.key_averages():
+        if a.device_time_total <= 0 or 'FillFunctor<unsigned char' in a.key:
+            continue
+        if 'spt::' in a.key:
+            spt += a.device_time_total / reps
+        else:
+            glue += a.device_time_total / reps
+            ops += a.count / reps
+    return spt, glue, ops
+
+
+def synced_median(step, n=SYNCED) -> float:
+    """Median ms of n calls of step, each between a sync and CUDA events."""
+    import statistics
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(times)
+
+
+def engine_record(cs, out, label, iw, prompts, names, **kw) -> None:
+    """One phase-8 engine run (engine_run, profiled) and its numbers: the
+    kernels' in-situ us a call and their launches a profiled step, device
+    ms and busy share a step (4 profiled steps), mean and decode-only step
+    ms, and engine steps of 8 decoding slots timed after a sync."""
+    from spt_proto_tpu_torch.inference import batching
+    r = cs.engine_run(label, iw, prompts, profile=True, **kw)
+    prof = r['step_profile']
+    out[f'{label} kernel us a call'] = in_situ(prof['by_kernel'], names,
+                                               names)
+    out[f'{label} kernels'] = sorted(k[:60] for k in prof['by_kernel']
+                                     if any(n in k for n in names))
+    out[f'{label} device ms a step'] = prof['device_busy_us'] / 4e3
+    out[f'{label} busy'] = prof['busy_share']
+    out[f'{label} mean step ms'] = r['mean_step_ms']
+    out[f'{label} decode-only step ms'] = r['decode_only_step_ms']
+    kw = {**dict(n_slots=cs.SERVE_SLOTS, max_len=cs.MAX_LEN,
+                 prefill_bucket=cs.SERVE_BUCKET), **kw}
+    eng = batching.ContinuousBatchingEngine(iw, **kw)
+    for p in prompts[:cs.SERVE_SLOTS]:
+        eng.submit(p, max_new_tokens=SYNCED + 4)
+    eng.step()
+    eng.step()
+    out[f'{label} synced step ms'] = synced_median(eng.step)
+    del eng
+
+
+def paged(cs, timer) -> dict:
+    """paged_attention at the four serving shapes, then the paged engines
+    (engine_record) at OPT-125M (dense bf16-KV and int8-KV) and Llama-3-8B
+    (16 layers, dense bf16-KV)."""
+    import torch
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    bf = torch.bfloat16
+    out = {}
+    from spt_proto_tpu_torch.ops import paged_attention as pa
+    for model in ('opt-125m', 'llama-3-8b'):
+        for int8 in (False, True):
+            name = f'{model} {"int8" if int8 else "fp"}'
+            r = cs.check_paged(bf, model, int8, timer)
+            out[f'{name} us'] = r['ms'] * 1e3
+            out[f'{name} bound us'] = r['bound_ms'] * 1e3
+            out[f'{name} plain us'] = r['plain_ms'] * 1e3
+            if r.get('library_ms') is not None:
+                out[f'{name} SDPA us'] = r['library_ms'] * 1e3
+            args, sc = cs.paged_inputs(bf, model, int8, cs.gen(cs.SEED + 13))
+            scale = args[0].shape[2] ** -0.5
+            (out[f'{name} kernel us'], out[f'{name} glue us'],
+             out[f'{name} glue ops']) = kernel_and_glue(
+                cs, lambda: pa.paged_attention(*args, scale=scale, **sc))
+    torch.cuda.empty_cache()
+    cfg = cs.opt_cfg('125m', cs.MAX_LEN, bf, dense=True)
+    params = init_params(cs.opt_cfg('125m', cs.MAX_LEN, bf), cs.SEED,
+                         device=cs.DEV)
+    iw = InferenceWeights.from_params(cfg, cs.dense_params(params))
+    prompts = cs.serve_traffic(cs.VOCAB)[0]
+    for label, kw in (('125m paged dense bf16-KV', {}),
+                      ('125m paged dense int8-KV', dict(quantized_kv=True))):
+        engine_record(cs, out, label, iw, prompts, PAGED_NAMES, paged=True,
+                      page_size=cs.PAGED_PS, **kw)
+    del iw, params
+    torch.cuda.empty_cache()
+    cfg = cs.llama_cfg('3-8b', cs.MAX_LEN, bf, dense=True,
+                       n_layers=cs.LLAMA_LAYERS)
+    params = init_params(cs.llama_cfg('3-8b', cs.MAX_LEN, bf,
+                                      n_layers=cs.LLAMA_LAYERS),
+                         cs.SEED, device=cs.DEV)
+    iw = InferenceWeights.from_params(cfg, cs.dense_params(params))
+    del params
+    engine_record(cs, out, '3-8b paged dense bf16-KV', iw,
+                  cs.serve_traffic(cfg.vocab_size)[0], PAGED_NAMES,
+                  paged=True, page_size=cs.PAGED_PS)
+    return out
+
+
+def verify(cs, timer) -> dict:
+    """verify_attention_rows at five speculative shapes, then the n-gram
+    speculative runs (spec_run: OPT-125M, Llama-3-8B at 16 layers) with the
+    kernel in situ, device ms a verify round and verify steps timed after
+    a sync, and phase 8's speculative engine (engine_record)."""
+    import dataclasses
+    import torch
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    from spt_proto_tpu_torch.ops import decode_attention as da
+    bf = torch.bfloat16
+    out = {}
+    for name, args in (('opt-125m union', ('opt-125m', False)),
+                       ('opt-125m dense', ('opt-125m', True)),
+                       ('llama-3-8b union', ('llama-3-8b', False)),
+                       ('llama-3-8b dense', ('llama-3-8b', True)),
+                       ('llama-3-8b union K=30', ('llama-3-8b', False, 30))):
+        r = cs.check_verify(bf, args[0], args[1], timer, *args[2:])
+        out[f'{name} us'] = r['ms'] * 1e3
+        out[f'{name} bound us'] = r['bound_ms'] * 1e3
+        out[f'{name} plain us'] = r['plain_ms'] * 1e3
+        if r.get('library_ms') is not None:
+            out[f'{name} SDPA us'] = r['library_ms'] * 1e3
+        va = cs.verify_inputs(bf, args[0], args[1], cs.gen(cs.SEED + 12),
+                              *args[2:])
+        kw = dict(ps=cs.TILE, scale=va[0].shape[3] ** -0.5,
+                  clamp=0.0 if args[1] else 10.0)
+        (out[f'{name} kernel us'], out[f'{name} glue us'],
+         out[f'{name} glue ops']) = kernel_and_glue(
+            cs, lambda: da.verify_attention_rows(*va, **kw))
+    torch.cuda.empty_cache()
+
+    def spec(label, cfg, iw):
+        prompts = cs.spec_workload(cfg.vocab_size)
+        r = cs.spec_run(label, iw, prompts, False)
+        prof = r['verify_profile']
+        out[f'{label} kernel us a call'] = in_situ(
+            prof['by_kernel'], VERIFY_NAMES, VERIFY_NAMES)
+        out[f'{label} device ms a round'] = prof['device_busy_us'] / 4e3
+        out[f'{label} busy'] = prof['busy_share']
+        out[f'{label} verify ms (events)'] = r['verify_ms']
+        out[f'{label} decode ms (events)'] = r['decode_ms']
+        out[f'{label} acceptance'] = r['acceptance']
+        cache = engine.KVCache.create(cfg, prompts.shape[0], cs.SPEC_MAX_LEN,
+                                      dtype=bf, device=cs.DEV)
+        logits, cache = engine.prefill(iw, prompts, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        box = [tok, cache]
+
+        def ver():
+            blk = box[0][:, None].expand(-1, cs.KK).contiguous()
+            lg, c = engine.verify_step(iw, blk, box[1])
+            box[1] = dataclasses.replace(c, length=c.length - cs.SPEC_K)
+            box[0] = torch.argmax(lg[:, -1], -1).to(torch.int32)
+        ver()
+        out[f'{label} synced verify ms'] = synced_median(ver)
+        del cache, box
+        torch.cuda.empty_cache()
+
+    cfg = cs.opt_cfg('125m', cs.SPEC_MAX_LEN, bf)
+    params = init_params(cfg, cs.SEED, device=cs.DEV)
+    spec('spec 125m n-gram bf16-KV', cfg,
+         InferenceWeights.from_params(cfg, params))
+    ecfg = cs.opt_cfg('125m', cs.MAX_LEN, bf)
+    engine_record(cs, out, '125m engine speculative=4',
+                  InferenceWeights.from_params(ecfg, params),
+                  cs.serve_traffic(cs.VOCAB)[0], VERIFY_NAMES,
+                  speculative=cs.SPEC_K)
+    del params
+    torch.cuda.empty_cache()
+    cfg = cs.llama_cfg('3-8b', cs.SPEC_MAX_LEN, bf, n_layers=cs.LLAMA_LAYERS)
+    params = init_params(cfg, cs.SEED, device=cs.DEV)
+    spec('spec 3-8b n-gram bf16-KV', cfg,
+         InferenceWeights.from_params(cfg, params))
     return out
 
 
@@ -1138,6 +1395,10 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **bsa(cs, timer))
     if mode == '--attn-sweep':
         return dict(out, **attn_sweep(cs, timer))
+    if mode == '--paged':
+        return dict(out, **paged(cs, timer))
+    if mode == '--verify':
+        return dict(out, **verify(cs, timer))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']

@@ -41,11 +41,13 @@ SIGNATURES = {
                         + [_P] * 9 + [_I] * 13 + [_F, _F] + [_I] * 7
                         + [_P] * 3,
     'spt_decode_attention': [_I, _I] + [_P] * 12 + [_I] * 10
-                            + [_F, _F, _I, _I, _P, _P],
+                            + [_F, _F, _I, _I, _P, _P, _P],
     'spt_rows_split_scores': [_I] * 4,
     'spt_decode_attention_q': [_I, _I] + [_P] * 16 + [_I] * 11
-                              + [_F, _F, _I, _P, _P, _P],
-    'spt_verify_attention': [_I] + [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P],
+                              + [_F, _F, _I, _P, _P, _P, _P],
+    'spt_verify_attention': [_I, _I] + [_P] * 12 + [_I] * 9
+                            + [_F, _F, _I, _I, _I, _P, _I, _P],
+    'spt_verify_split_scores': [_I] * 3,
     'spt_ffn_tail': [_I] + [_P] * 8 + [_I] * 4 + [_P],
     'spt_ffn_tail_int8': [_I] + [_P] * 10 + [_I] * 6 + [_P],
     'spt_ffn_tail_gated': [_I] + [_P] * 7 + [_I] * 4 + [_P],
@@ -59,7 +61,9 @@ SIGNATURES = {
     'spt_block_sparse_fwd': [_I, _I] + [_P] * 6 + [_I] * 6
                             + [_F, _F, _I, _P],
     'spt_block_sparse_bwd': [_I] + [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
-    'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _I, _I,
+                                                             _P, _P],
+    'spt_paged_split_scores': [_I] * 5,
     'spt_gmm': [_I, _I] + [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P],
     'spt_tgmm': [_I] + [_P] * 4 + [_I] * 4 + [_P],
     'spt_gmm_tc': [_I, _I] + [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P],

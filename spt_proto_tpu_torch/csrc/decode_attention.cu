@@ -22,7 +22,9 @@
 // verify_attention_rows / _verify_kernel), shares the tile staging and
 // keeps a two-pass walk of its own: each of its query rows sees a lane
 // only up to its own block position, where the shared walk counts valid
-// lanes per tile. The notes of both are at their definitions below.
+// lanes per tile; in bf16 (the serving dtype) verify_attention_split_kernel
+// takes its place: each row's table split over a cluster of CTAs, both
+// products on the tensor cores. The notes of each are at its definition.
 //
 // Each TPU pair differs only in how the TPU launches it (one program per
 // slot vs one program for all slots), so one kernel serves both.
@@ -417,8 +419,9 @@ int launch_attention_q(const void* q, void* kc, void* vc, void* cc, void* ksc,
 //
 // The append: the new token's column (k8, v8, their scales, its codes) is
 // staged in shared memory by the kernel's first copies. The CTA whose
-// chunk holds the row's first valid entry on the write tile (chunk 0 when
-// no entry covers it) writes it into the caches; every CTA that stages the
+// chunk the wrapper names (ops/decode_attention.py split_writer: the chunk
+// holding the row's first valid entry on the write tile, chunk 0 when no
+// entry covers it) writes it into the caches; every CTA that stages the
 // write tile takes the new column from the staged one into its copy, so
 // no CTA reads back a cache column another CTA of the launch writes.
 
@@ -462,7 +465,8 @@ __global__ void __launch_bounds__(kSplitThreads)
         const int8_t* __restrict__ kn, const int8_t* __restrict__ vn,
         const int* __restrict__ cn, const float* __restrict__ ksn,
         const float* __restrict__ vsn, const int* __restrict__ tile_base,
-        __nv_bfloat16* __restrict__ o, float* work, int* counters, int KV,
+        const int64_t* __restrict__ writer, __nv_bfloat16* __restrict__ o,
+        float* work, int* counters, int KV,
         int G, int NTALL, int W, int KVP, int NTAB, int TM, int TPS, int E,
         float scale, float clamp, int cluster_combine) {
   constexpr int PS = kSplitPS, QROW = D + 8, KB = D / 32, MD = D / 16;
@@ -489,8 +493,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   int* cns = reinterpret_cast<int*>(vsns + 1);              // [W] new codes
   int* env = cns + W;                                       // [E] valid lanes
   int* egt = env + E;                                       // [E] tile
-  int* s_first = egt + E;
-  int* s_last = s_first + 1;
+  int* s_last = egt + E;
   float* accs = reinterpret_cast<float*>(smq);   // [4][8][D] over the K tiles
 
   // ---- the new token's column, in flight at once (the append and the
@@ -507,23 +510,17 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   cp_async_commit();
 
-  // ---- the row's entries: this chunk's, and the first valid one on the
-  // write tile (its chunk appends)
+  // ---- this chunk's entries
   const int p = pos[b];
   const int wt = tile_base[b] + p / PS, wc = p % PS;
-  const int* tab = tables + ((size_t)b * NTAB + h / (KV / NTAB)) * TM;
+  const int trow = b * NTAB + h / (KV / NTAB);
+  const int* tab = tables + (size_t)trow * TM;
   const int n_t = n_tiles[b];
-  if (tid == 0) *s_first = NE;
-  __syncthreads();
-  for (int j = tid; j < NE; j += kSplitThreads) {
+  for (int j = j0 + tid; j < j0 + ne; j += kSplitThreads) {
     const int t = j / TPS, e = tab[t], gt = e + j % TPS;
     const bool ok = e >= 0 && t < n_t && gt < NTALL;
-    const int nv = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
-    if (j >= j0 && j < j0 + ne) {
-      env[j - j0] = nv;
-      egt[j - j0] = gt;
-    }
-    if (nv > 0 && gt == wt) atomicMin(s_first, j);
+    env[j - j0] = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
+    egt[j - j0] = gt;
   }
   __syncthreads();
 
@@ -576,8 +573,7 @@ __global__ void __launch_bounds__(kSplitThreads)
     if (tid == 0) kss[i * PS + wc] = *ksns;
   }
   // the append in place (one CTA of the row)
-  const int first = *s_first;
-  if (chunk == (first < NE ? first / E : 0)) {
+  if (chunk == writer[trow]) {
     for (int d = tid; d < D; d += kSplitThreads) {
       const size_t at = ((bh * NTALL + wt) * D + d) * PS + wc;
       kc[at] = kns[d];
@@ -813,17 +809,19 @@ int launch_attention_q_split(const void* q, void* kc, void* vc, void* cc,
                              const void* n_tiles, const void* pos,
                              const void* kn, const void* vn, const void* cn,
                              const void* ksn, const void* vsn,
-                             const void* tile_base, void* o, int B, int KV,
-                             int G, int D, int NTALL, int W, int KVP,
-                             int NTAB, int TM, int TPS, int PS, float scale,
-                             float clamp, int E, float* work, int* counters,
+                             const void* tile_base, const void* writer,
+                             void* o, int B, int KV, int G, int D, int NTALL,
+                             int W, int KVP, int NTAB, int TM, int TPS,
+                             int PS, float scale, float clamp, int E,
+                             float* work, int* counters,
                              cudaStream_t stream) {
   const int NE = TM * TPS;
   if (PS != kSplitPS || (D != 64 && D != 128) || G < 1 || G > 8 || E < 1 ||
       E > 4 || NE < 1)
     return (int)cudaErrorInvalidValue;
   const int nch = (NE + E - 1) / E;
-  if (nch > kSplitCluster && (work == nullptr || counters == nullptr))
+  if ((nch > kSplitCluster && (work == nullptr || counters == nullptr)) ||
+      writer == nullptr)
     return (int)cudaErrorInvalidValue;
   auto kern = D == 64 ? decode_attention_q_split_kernel<64>
                       : decode_attention_q_split_kernel<128>;
@@ -852,9 +850,9 @@ int launch_attention_q_split(const void* q, void* kc, void* vc, void* cc,
       (int*)cc, (float*)ksc, (float*)vsc, (const int*)tables,
       (const int*)n_tiles, (const int*)pos, (const int8_t*)kn,
       (const int8_t*)vn, (const int*)cn, (const float*)ksn,
-      (const float*)vsn, (const int*)tile_base, (__nv_bfloat16*)o, work,
-      counters, KV, G, NTALL, W, KVP, NTAB, TM, TPS, E, scale, clamp,
-      cluster);
+      (const float*)vsn, (const int*)tile_base, (const int64_t*)writer,
+      (__nv_bfloat16*)o, work, counters, KV, G, NTALL, W, KVP, NTAB, TM, TPS,
+      E, scale, clamp, cluster);
 }
 
 // ---------------------------------------------------------------------------
@@ -903,10 +901,11 @@ int launch_attention_q_split(const void* q, void* kc, void* vc, void* cc,
 // Against the one-pass kernel only the order of the f32 sums changes.
 //
 // The append follows decode_attention_q_split_kernel: the new token's k/v
-// are read into shared memory first; the CTA whose chunk holds the row's
-// first valid entry on the write tile (chunk 0 when none does) writes the
-// caches; every CTA that stages the write tile overlays the new column on
-// its copy, so no CTA reads back a column another CTA of the launch writes.
+// are read into shared memory first; the CTA whose chunk the wrapper names
+// (split_writer: the chunk holding the row's first valid entry on the write
+// tile, chunk 0 when none does) writes the caches; every CTA that stages
+// the write tile overlays the new column on its copy, so no CTA reads back
+// a column another CTA of the launch writes.
 
 constexpr int kRowsCluster = 8;            // chunks a row (one cluster)
 constexpr int kRowsRing = 2;               // tile slots a CTA
@@ -942,9 +941,10 @@ __global__ void __launch_bounds__(kSplitThreads)
         const int* __restrict__ n_tiles, const int* __restrict__ pos,
         const __nv_bfloat16* __restrict__ kn,
         const __nv_bfloat16* __restrict__ vn, const int* __restrict__ cn,
-        const int* __restrict__ tile_base, __nv_bfloat16* __restrict__ o,
-        float* scores, int KV, int G, int NTALL, int W, int NTAB, int TM,
-        int TPS, int E, float scale, float clamp) {
+        const int* __restrict__ tile_base, const int64_t* __restrict__ writer,
+        __nv_bfloat16* __restrict__ o, float* scores, int KV, int G,
+        int NTALL, int W, int NTAB, int TM, int TPS, int E, float scale,
+        float clamp) {
   using bf16 = __nv_bfloat16;
   constexpr int PS = kSplitPS, QROW = D + 8, KB = D / 32, MD = D / 16;
   constexpr int ring = kRowsRing;
@@ -973,29 +973,22 @@ __global__ void __launch_bounds__(kSplitThreads)
   int* cns = reinterpret_cast<int*>(vns + D);            // [W] new codes
   int* env = cns + W;                                    // [E] valid lanes
   int* egt = env + E;                                    // [E] tile
-  int* s_first = egt + E;
   float* accs = reinterpret_cast<float*>(smr);   // [4][8][D] over the slots
 
-  // ---- the row's entries first (the tile copies wait on them): this
-  // chunk's, and the first valid one on the write tile
+  // ---- this chunk's entries first (the tile copies wait on them)
   const int p = pos[b];
   const int wt = tile_base[b] + p / PS, wc = p % PS;
-  const int* tab = tables + ((size_t)b * NTAB + h / (KV / NTAB)) * TM;
+  const int trow = b * NTAB + h / (KV / NTAB);
+  const int* tab = tables + (size_t)trow * TM;
   const int n_t = n_tiles[b];
-  if (tid == 0) *s_first = NE;
   // the query rows past G are zero (their scores are never kept)
   for (int i = tid; i < (8 - G) * QROW; i += kSplitThreads)
     qs[G * QROW + i] = __float2bfloat16(0.f);
-  __syncthreads();
-  for (int j = tid; j < NE; j += kSplitThreads) {
+  for (int j = j0 + tid; j < j0 + ne; j += kSplitThreads) {
     const int t = j / TPS, e = tab[t], gt = e + j % TPS;
     const bool ok = e >= 0 && t < n_t && gt < NTALL;
-    const int nv = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
-    if (j >= j0 && j < j0 + ne) {
-      env[j - j0] = nv;
-      egt[j - j0] = gt;
-    }
-    if (nv > 0 && gt == wt) atomicMin(s_first, j);
+    env[j - j0] = !ok ? 0 : (gt == wt ? wc + 1 : (gt < wt ? PS : 0));
+    egt[j - j0] = gt;
   }
   __syncthreads();
 
@@ -1037,7 +1030,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 #pragma unroll
   for (int md = 0; md < MD; ++md)
     oacc[md][0] = oacc[md][1] = oacc[md][2] = oacc[md][3] = 0.f;
-  const int first = *s_first;
+  const bool appends = chunk == writer[trow];
   namespace cg = cooperative_groups;
   for (int t = 0; t < nt; ++t) {
     cp_async_wait<ring - 1>();   // step t's tile has landed
@@ -1047,7 +1040,7 @@ __global__ void __launch_bounds__(kSplitThreads)
       for (int kb = 0; kb < KB; ++kb)
         ldsm_x4(qf[kb], qs + (lane & 7) * QROW + kb * 32 + (lane >> 3) * 8);
       // the append in place (one CTA of the row)
-      if (chunk == (first < NE ? first / E : 0)) {
+      if (appends) {
         for (int d = tid; d < D; d += kSplitThreads) {
           const size_t at = ((bh * NTALL + wt) * D + d) * PS + wc;
           kc[at] = kns[d];
@@ -1194,15 +1187,16 @@ __global__ void __launch_bounds__(kSplitThreads)
 int launch_attention_split(const void* q, void* kc, void* vc, void* cc,
                            const void* tables, const void* n_tiles,
                            const void* pos, const void* kn, const void* vn,
-                           const void* cn, const void* tile_base, void* o,
-                           int B, int KV, int G, int D, int NTALL, int W,
-                           int NTAB, int TM, int TPS, int PS, float scale,
-                           float clamp, int E, int nch, float* scores,
-                           cudaStream_t stream) {
+                           const void* cn, const void* tile_base,
+                           const void* writer, void* o, int B, int KV, int G,
+                           int D, int NTALL, int W, int NTAB, int TM, int TPS,
+                           int PS, float scale, float clamp, int E, int nch,
+                           float* scores, cudaStream_t stream) {
   // nch chunks of E entries cover the row's NE entries, each once
   const int NE = TM * TPS;
   if (PS != kSplitPS || (D != 64 && D != 128) || G < 1 || G > 8 || E < 1 ||
       nch < 1 || nch > kRowsCluster || (nch - 1) * E >= NE || nch * E < NE ||
+      writer == nullptr ||
       (rows_split_scores(E, G, D, W) > 0 && scores == nullptr))
     return (int)cudaErrorInvalidValue;
   auto kern = D == 64 ? decode_attention_split_kernel<64>
@@ -1229,8 +1223,9 @@ int launch_attention_split(const void* q, void* kc, void* vc, void* cc,
       &cfg, kern, (const __nv_bfloat16*)q, (__nv_bfloat16*)kc,
       (__nv_bfloat16*)vc, (int*)cc, (const int*)tables, (const int*)n_tiles,
       (const int*)pos, (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn,
-      (const int*)cn, (const int*)tile_base, (__nv_bfloat16*)o, scores, KV,
-      G, NTALL, W, NTAB, TM, TPS, E, scale, clamp);
+      (const int*)cn, (const int*)tile_base, (const int64_t*)writer,
+      (__nv_bfloat16*)o, scores, KV, G, NTALL, W, NTAB, TM, TPS, E, scale,
+      clamp);
 }
 
 // ---------------------------------------------------------------------------
@@ -1602,6 +1597,461 @@ int launch_verify(const void* q, void* kc, void* vc, void* cc,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// block verify, bf16 cache: the split walk on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// verify_attention_split_kernel<D, NG> computes what verify_attention_kernel
+// computes for a bf16 cache (the serving dtype), PS = 128, d_head D = 64 or
+// 128, G <= 8 and K <= 30 (ops/decode_attention.py verify_route), at any
+// table length.
+//
+// Bound on the H100: memory, K and V of the union table's entries read once
+// (2 x 2 x D x 128 bytes an entry) against 2 x 2 x D operations a visible
+// (row, lane) pair. The walk kernel ran one CTA per (slot, kv head), read
+// every K tile twice and dotted on the CUDA cores: 11-26x its bound.
+//
+// Design: the grid is (chunk, kv head, slot x row group), a chunk being E
+// consecutive table entries (verify_split_plan), a row group RC of the G*K
+// query rows (all of them up to 64, else equal groups of at most 64), and
+// a row group's chunks (at most kRowsCluster) are one cluster. A CTA's
+// D / 16 warps (a d tile each in PV: 4 at D = 64 ran faster than 8, 8 at
+// D = 128 faster than 4, kernel_ab.py --attn-sweep) stream its chunk's K
+// tiles, then its V tiles, in halves of 64
+// lanes through a ring of kVerifyRing slots of [D][72] (cp.async; 144-byte
+// rows put the 8 rows of an ldmatrix in distinct banks; half tiles keep a
+// CTA's shared memory small, so that several CTAs an SM overlap their loads
+// and a cluster finds its SMs; deeper rings ran slower):
+// - scores on mma.sync m16n8k16: the half's lanes as the m16 side (K^T
+//   through ldmatrix.trans, 16 lanes a warp; at 8 warps, warps w and w + 4
+//   split the n8 groups), the query rows as n8 groups;
+//   s = dot * scale, clamped only when clamp > 0, f32, kept for the whole
+//   chunk (in shared memory, or in a global buffer when they outgrow it).
+//   Row r (block position j = r % K) sees a lane when bit j of its entry's
+//   sel_mask is set and the lane's position is <= pos + j: the mask is
+//   applied to the score fragments;
+// - the contract rounds e = exp(s - M) to bf16 against the row's max M over
+//   the whole table, so each CTA takes its chunk's max per row and the
+//   cluster's CTAs exchange them through distributed shared memory before
+//   any e is formed;
+// - per V half, e is written once as bf16 [rows][lanes] (l, the f32 sum of
+//   the unrounded e, added per row in a fixed order), and PV runs on
+//   mma.sync: o^T [D][rows] += V [D][16 lanes] E^T [16 lanes][rows], a
+//   warp a d tile;
+// - the ranks' sums are added in chunk order through distributed shared
+//   memory: o = sum_c pv_c / max(sum_c l_c, 1e-30).
+// A row's arithmetic does not depend on its group's other rows, so any row
+// grouping gives the same bits.
+//
+// The append: the CTA of row group 0 whose chunk the wrapper names writes
+// the K new columns (verify_writer: the chunk that holds the row's two
+// write entries, the table's last two, which the plan keeps in one chunk);
+// every CTA that stages a tile the columns land in takes them from k_new /
+// v_new into its copy, so no CTA reads back a column another CTA of the
+// launch writes.
+
+constexpr int kVerifyRowsMax = 64;        // query rows a split CTA at most
+constexpr int kVerifyScoreRow = kSplitPS + 4;   // floats a score row
+constexpr int kVerifyHalf = kSplitPS / 2;       // lanes a ring step
+constexpr int kVerifyRow = kVerifyHalf + 8;     // bf16 a staged row (144 B)
+constexpr int kVerifyRing = 2;                  // half-tile slots a CTA
+
+// shared-memory layout of a verify split CTA (bytes): the ring of half
+// tiles; q [RC8][D + 8] bf16; e [RC16][kVerifyRow] bf16; the chunk max, the
+// row max M and the row sum l [RC16] f32 each, and each row's block
+// position; the scores [E][RC8][kVerifyScoreRow] f32 unless they go to the
+// global buffer; the entries' tiles, bits and lane offsets
+struct VerifySmem {
+  int ring, qs, eb, cm, mr, lr, rj, sc, ent, total;
+};
+
+__host__ __device__ inline VerifySmem verify_smem(int E, int RC, int D,
+                                                  bool scores) {
+  const int rc8 = (RC + 7) / 8 * 8, rc16 = (RC + 15) / 16 * 16;
+  VerifySmem m;
+  int at = 0;
+  m.ring = at;
+  at += kVerifyRing * D * kVerifyRow * 2;
+  m.qs = at;
+  at += rc8 * (D + 8) * 2;
+  m.eb = at;
+  at += rc16 * kVerifyRow * 2;
+  m.cm = at;
+  at += rc16 * 4;
+  m.mr = at;
+  at += rc16 * 4;
+  m.lr = at;
+  at += rc16 * 4;
+  m.rj = at;
+  at += rc16 * 4;
+  m.sc = at;
+  at += scores ? E * rc8 * kVerifyScoreRow * 4 : 0;
+  m.ent = at;
+  at += 3 * E * 4;
+  m.total = at;
+  return m;
+}
+
+// floats of global score buffer a verify split CTA needs: 0 when its scores
+// fit in shared memory beside the rest, else E x RC8 x kVerifyScoreRow
+inline int verify_split_scores(int E, int RC, int D) {
+  return verify_smem(E, RC, D, true).total > kRowsSmem
+             ? E * ((RC + 7) / 8 * 8) * kVerifyScoreRow
+             : 0;
+}
+
+// NG: n8 row groups the PV accumulators cover (2, 4 or 8, the fewest that
+// hold the CTA's rows, so that registers follow the rows)
+template <int D, int NG>
+__global__ void __launch_bounds__(D * 2)
+    verify_attention_split_kernel(
+        // the caches are written by one CTA of the row: no __restrict__
+        const __nv_bfloat16* __restrict__ q, __nv_bfloat16* kc,
+        __nv_bfloat16* vc, int* cc, const int* __restrict__ tables,
+        const int* __restrict__ selm, const int* __restrict__ pos,
+        const __nv_bfloat16* __restrict__ kn,
+        const __nv_bfloat16* __restrict__ vn, const int* __restrict__ cn,
+        const int* __restrict__ tile_base, __nv_bfloat16* __restrict__ o,
+        float* scores, int KV, int GK, int KK, int NTALL, int W, int TM,
+        int E, int RC, int NRG, int writer, float scale, float clamp) {
+  using bf16 = __nv_bfloat16;
+  constexpr int PS = kSplitPS, QROW = D + 8, KB = D / 32;
+  constexpr int NW = D / 16, NT = NW * 32;   // a warp a d tile
+  constexpr int HL = kVerifyHalf, VR = kVerifyRow;
+  // QK: 4 m16 tiles a half, QW warps a tile splitting the n8 groups
+  constexpr int QW = NW / 4;
+  constexpr int ring = kVerifyRing;
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / NRG, rg = blockIdx.z % NRG;
+  const int nch = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t bh = (size_t)b * KV + h;
+  const int R0 = rg * RC, NR = min(RC, GK - R0);
+  const int rc8 = (RC + 7) / 8 * 8, rc16 = (RC + 15) / 16 * 16;
+  const int ng8 = (NR + 7) / 8;             // n8 groups with rows
+  const int j0 = chunk * E, ne = min(E, TM - j0);
+
+  extern __shared__ __align__(16) unsigned char smv[];
+  const VerifySmem L = verify_smem(E, RC, D, scores == nullptr);
+  bf16* tiles = reinterpret_cast<bf16*>(smv + L.ring);  // [ring][D][VR]
+  bf16* qs = reinterpret_cast<bf16*>(smv + L.qs);       // [rc8][QROW]
+  bf16* eb = reinterpret_cast<bf16*>(smv + L.eb);       // [rc16][VR]
+  float* cm = reinterpret_cast<float*>(smv + L.cm);     // [rc16]
+  float* mr = reinterpret_cast<float*>(smv + L.mr);     // [rc16]
+  float* lr = reinterpret_cast<float*>(smv + L.lr);     // [rc16]
+  int* rj = reinterpret_cast<int*>(smv + L.rj);         // [rc16]
+  float* sc = scores != nullptr
+                  ? scores + ((size_t)blockIdx.z * KV * nch + h * nch + chunk) *
+                                 E * rc8 * kVerifyScoreRow
+                  : reinterpret_cast<float*>(smv + L.sc);
+  int* etile = reinterpret_cast<int*>(smv + L.ent);     // [E], -1 = skip
+  int* ebits = etile + E;                               // [E]
+  int* elo = ebits + E;     // [E] pos - the entry's first position
+  float* cpart = reinterpret_cast<float*>(smv + L.ring);  // [rc16][D]
+
+  const int p = pos[b], base = tile_base[b];
+  const int* tab = tables + bh * TM;
+  const int w0 = max(tab[TM - 2], 0), w1 = max(tab[TM - 1], 0);
+  const int t_first = base + p / PS, t_last = base + (p + KK - 1) / PS;
+  // a tile some of the block's columns land in
+  auto lands = [&](int t) {
+    return t >= t_first && t <= t_last && (t == w0 || t == w1) && t < NTALL;
+  };
+
+  // ---- the append (one CTA of the row): k/v into the row's write tiles,
+  // codes (w > 1) into head 0's
+  if (chunk == writer && rg == 0) {
+    for (int i = tid; i < KK * D; i += NT) {
+      const int j = i / D, d = i % D;
+      const int ti = base + (p + j) / PS, ci = (p + j) % PS;
+      if ((ti == w0 || ti == w1) && ti < NTALL) {
+        const size_t at = ((bh * NTALL + ti) * D + d) * PS + ci;
+        kc[at] = kn[(bh * D + d) * KK + j];
+        vc[at] = vn[(bh * D + d) * KK + j];
+      }
+    }
+    if (W > 1) {
+      const int* tab0 = tables + (size_t)b * KV * TM;
+      const int c0 = max(tab0[TM - 2], 0), c1 = max(tab0[TM - 1], 0);
+      for (int i = tid; i < KK * W; i += NT) {
+        const int j = i / W, s = i % W;
+        const int ti = base + (p + j) / PS, ci = (p + j) % PS;
+        if ((ti == c0 || ti == c1) && ti < NTALL)
+          cc[((bh * NTALL + ti) * W + s) * PS + ci] = cn[(bh * W + s) * KK + j];
+      }
+    }
+  }
+
+  // ---- the chunk's entries, the CTA's query rows (plain loads: q needs
+  // no alignment; the rows past NR zero), the zero rows of e, the rows'
+  // sums and block positions
+  for (int i = tid; i < ne; i += NT) {
+    const int t = tab[j0 + i], bits = selm[bh * TM + j0 + i];
+    etile[i] = (t >= 0 && t < NTALL && bits != 0) ? t : -1;
+    ebits[i] = bits;
+    elo[i] = p - (t - base) * PS;
+  }
+  for (int i = tid; i < rc8 * D; i += NT) {
+    const int r = i / D, d = i % D;
+    qs[r * QROW + d] = r < NR ? q[(bh * GK + R0 + r) * D + d]
+                              : __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < (rc16 - NR) * VR; i += NT)
+    eb[NR * VR + i] = __float2bfloat16(0.f);
+  for (int r = tid; r < rc16; r += NT) {
+    lr[r] = 0.f;
+    rj[r] = (R0 + r) % KK;
+  }
+  __syncthreads();
+
+  // ---- the ring: step t < 2 ne stages half t % 2 of entry t / 2's K
+  // tile, step 2 ne + u the V tile's; one commit group a step (empty for a
+  // skipped entry)
+  const int nk = 2 * ne, nt = 4 * ne;
+  auto issue = [&](int t) {
+    if (t < nt) {
+      const int i = (t % nk) / 2, hf = t % 2;
+      if (etile[i] >= 0) {
+        const bf16* src = (t < nk ? kc : vc) +
+                          (bh * NTALL + etile[i]) * D * PS + hf * HL;
+        bf16* dst = tiles + (size_t)(t % ring) * D * VR;
+        for (int c = tid; c < D * (HL / 8); c += NT) {
+          const int r = c / (HL / 8), cb = (c % (HL / 8)) * 8;
+          cp_async16(dst + r * VR + cb, src + r * PS + cb);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < ring; ++t) issue(t);
+
+  // the block's new columns of staged half hf of tile tl into its copy
+  auto overlay = [&](bf16* tile, const bf16* src, int tl, int hf) {
+    if (!lands(tl)) return;            // the same for every thread
+    for (int i = tid; i < KK * D; i += NT) {
+      const int j = i / D, d = i % D, col = (p + j) % PS;
+      if (base + (p + j) / PS == tl && col / HL == hf)
+        tile[d * VR + col % HL] = src[(bh * D + d) * KK + j];
+    }
+    __syncthreads();
+  };
+  // the last lane of entry i row r sees (-1: none): block position j sees
+  // the lanes at positions <= pos + j of the entries whose bit j is set
+  auto last_lane = [&](int r, int i) {
+    const int j = rj[r];
+    return ((ebits[i] >> j) & 1) ? elo[i] + j : -1;
+  };
+
+  float oacc[NG][4];
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  namespace cg = cooperative_groups;
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ring - 1>();   // step t's half has landed
+    const int i = (t % nk) / 2, hf = t % 2;
+    const int tl = etile[i];
+    bf16* tile = tiles + (size_t)(t % ring) * D * VR;
+    if (t >= nk && tl >= 0) {
+      // ---- e of entry i's half as bf16 [rows][lanes] against the row
+      // max M; l adds the half's unrounded e per row (a warp a row, a
+      // fixed order)
+      for (int idx = tid; idx < NR * 32; idx += NT) {
+        const int r = idx >> 5, kh = 2 * (idx & 31), k = hf * HL + kh;
+        const float2 s2 = *reinterpret_cast<const float2*>(
+            sc + ((size_t)i * rc8 + r) * kVerifyScoreRow + k);
+        const float m = mr[r];
+        const int lim = last_lane(r, i);
+        const float e0 = k <= lim ? expf(s2.x - m) : 0.f;
+        const float e1 = k + 1 <= lim ? expf(s2.y - m) : 0.f;
+        *reinterpret_cast<uint32_t*>(eb + r * VR + kh) = pack_bf16(e0, e1);
+        const float ls = warp_sum(e0 + e1);
+        if (lane == 0) lr[r] += ls;
+      }
+    }
+    __syncthreads();
+    if (tl >= 0) overlay(tile, t < nk ? kn : vn, tl, hf);
+    if (t < nk && tl >= 0) {
+      // ---- scores of the warp's 16 lanes: tokens as m16, rows as n8
+      float* srow = sc + (size_t)i * rc8 * kVerifyScoreRow;
+      const int tl0 = 16 * (wid & 3), tok0 = hf * HL + tl0;
+      uint32_t af[KB][2][4];
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        ldsm_x4_trans(af[kb][0], tile + at_off(tl0, kb * 32, VR));
+        ldsm_x4_trans(af[kb][1], tile + at_off(tl0, kb * 32 + 16, VR));
+      }
+      for (int ng = wid >> 2; ng < ng8; ng += QW) {
+        uint32_t qf[KB][4];
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb)
+          ldsm_x4(qf[kb], qs + (ng * 8 + (lane & 7)) * QROW + kb * 32 +
+                              (lane >> 3) * 8);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          mma_bf16_16816(acc, af[kb][0], qf[kb]);
+          mma_bf16_16816(acc, af[kb][1], qf[kb] + 2);
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = ng * 8 + 2 * t4 + h2;
+          const int lim = r < NR ? last_lane(r, i) : -1;
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int k = tok0 + g8 + 8 * v;
+            float sv = acc[2 * v + h2] * scale;
+            if (clamp > 0.f) sv = fminf(fmaxf(sv, -clamp), clamp);
+            srow[r * kVerifyScoreRow + k] = k <= lim ? sv : kNeg;
+          }
+        }
+      }
+    } else if (t >= nk && tl >= 0) {
+      // ---- PV: V's rows as A (the warp's d tile), E^T as B (two n8
+      // groups a load)
+#pragma unroll
+      for (int ks = 0; ks < HL / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, tile + a_off(wid * 16, ks * 16, VR));
+#pragma unroll
+        for (int np = 0; np < NG / 2; ++np) {
+          if (np * 16 >= NR) break;
+          uint32_t bq[4];
+          ldsm_x4(bq, eb + bt_off(np * 16, ks * 16, VR));
+          mma_bf16_16816(oacc[2 * np], a, bq);
+          mma_bf16_16816(oacc[2 * np + 1], a, bq + 2);
+        }
+      }
+    }
+    if (t == nk - 1) {
+      // ---- the chunk's max per row, then the row's M over the cluster
+      __syncthreads();
+      for (int r = wid; r < NR; r += NW) {
+        float m = kNeg;
+        for (int ii = 0; ii < ne; ++ii) {
+          if (etile[ii] < 0) continue;
+          const float* sr = sc + ((size_t)ii * rc8 + r) * kVerifyScoreRow;
+          for (int k = lane; k < PS; k += 32) m = fmaxf(m, sr[k]);
+        }
+        m = warp_max(m);
+        if (lane == 0) cm[r] = m;
+      }
+      if (nch > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        for (int r = tid; r < NR; r += NT) {
+          float m = kNeg;
+          for (int c = 0; c < nch; ++c)
+            m = fmaxf(m, cluster.map_shared_rank(cm, c)[r]);
+          mr[r] = m;
+        }
+      } else {
+        __syncthreads();
+        for (int r = tid; r < NR; r += NT) mr[r] = cm[r];
+      }
+    }
+    __syncthreads();      // step t's slot (and e) is read out
+    issue(t + ring);
+  }
+  cp_async_wait<0>();
+  __syncthreads();        // the walk is done: cpart over the ring
+
+  // ---- o = pv / max(l, 1e-30), the ranks' sums in chunk order
+#pragma unroll
+  for (int n = 0; n < NG; ++n) {
+    if (n * 8 >= NR) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = wid * 16 + g8 + 8 * (e >> 1);
+      const int r = n * 8 + 2 * t4 + (e & 1);
+      if (r >= NR) continue;
+      if (nch == 1)
+        o[(bh * GK + R0 + r) * D + d] =
+            __float2bfloat16(oacc[n][e] / fmaxf(lr[r], 1e-30f));
+      else
+        cpart[r * D + d] = oacc[n][e];
+    }
+  }
+  if (nch == 1) return;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int idx = (int)cluster.block_rank() * NT + tid; idx < NR * D;
+       idx += nch * NT) {
+    const int r = idx / D;
+    float num = 0.f, den = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      num += cluster.map_shared_rank(cpart, c)[idx];
+      den += cluster.map_shared_rank(lr, c)[r];
+    }
+    o[(bh * GK + R0) * D + idx] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();         // no rank leaves while another reads its rows
+}
+
+// the instance for d_head D and NG n8 groups
+template <int D>
+const void* verify_kernel(int ng) {
+  return ng == 2   ? (const void*)verify_attention_split_kernel<D, 2>
+         : ng == 4 ? (const void*)verify_attention_split_kernel<D, 4>
+                   : (const void*)verify_attention_split_kernel<D, 8>;
+}
+
+int launch_verify_split(const void* q, void* kc, void* vc, void* cc,
+                        const void* tables, const void* selm, const void* pos,
+                        const void* kn, const void* vn, const void* cn,
+                        const void* tile_base, int writer, void* o, int B,
+                        int KV, int GK, int KK, int D, int NTALL, int W,
+                        int TM, int PS, float scale, float clamp, int E,
+                        int nch, int RC, float* scores,
+                        cudaStream_t stream) {
+  // nch chunks of E entries cover the row's TM entries, each once, the
+  // write entries (the last two) in the writer chunk; row groups of RC
+  // rows cover GK
+  const int nrg = RC > 0 ? (GK + RC - 1) / RC : 0;
+  if (PS != kSplitPS || (D != 64 && D != 128) || KK < 1 || KK > 30 ||
+      GK % KK != 0 || GK / KK > 8 || RC < 1 || RC > kVerifyRowsMax ||
+      E < 1 || nch < 1 || nch > kRowsCluster || (nch - 1) * E >= TM ||
+      nch * E < TM || TM < 2 || writer != (TM - 2) / E ||
+      writer != (TM - 1) / E ||
+      (verify_split_scores(E, RC, D) > 0 && scores == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the fewest n8 groups that hold RC rows
+  const int ng = RC <= 16 ? 2 : RC <= 32 ? 4 : 8;
+  const void* kern = D == 64 ? verify_kernel<64>(ng) : verify_kernel<128>(ng);
+  const int smem = verify_smem(E, RC, D, scores == nullptr).total;
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nch, KV, B * nrg);
+  cfg.blockDim = dim3(D * 2);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nch;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = nch > 1;
+  using bf = __nv_bfloat16;
+  const bf* q_ = (const bf*)q;
+  bf *kc_ = (bf*)kc, *vc_ = (bf*)vc, *o_ = (bf*)o;
+  int* cc_ = (int*)cc;
+  const int *tab_ = (const int*)tables, *selm_ = (const int*)selm,
+            *pos_ = (const int*)pos, *cn_ = (const int*)cn,
+            *tb_ = (const int*)tile_base;
+  const bf *kn_ = (const bf*)kn, *vn_ = (const bf*)vn;
+  int nrg_ = nrg;
+  void* args[] = {&q_, &kc_, &vc_, &cc_, &tab_, &selm_, &pos_, &kn_,
+                  &vn_, &cn_, &tb_, &o_, &scores, &KV, &GK, &KK, &NTALL,
+                  &W, &TM, &E, &RC, &nrg_, &writer, &scale, &clamp};
+  return (int)cudaLaunchKernelExC(&cfg, kern, args);
+}
+
 }  // namespace spt
 
 // floats of global score buffer a CTA of the split walk takes for chunks of
@@ -1611,22 +2061,31 @@ extern "C" int spt_rows_split_scores(int E, int G, int D, int W) {
   return spt::rows_split_scores(E, G, D, W);
 }
 
+// floats of global score buffer a CTA of the verify split walk takes for
+// chunks of E entries, RC query rows and d_head D: 0 when its scores stay
+// in shared memory
+extern "C" int spt_verify_split_scores(int E, int RC, int D) {
+  return spt::verify_split_scores(E, RC, D);
+}
+
 // walk (ops/decode_attention.py rows_route): 0 = the one-pass kernel
 // (scores kept in shared memory), 1 = the two-pass walk, 2 (bf16) = the
 // split walk, chunks of E entries a row (scores: null, or B * KV * chunks
-// rows of spt_rows_split_scores floats when that is not 0)
+// rows of spt_rows_split_scores floats when that is not 0; writer: [B,
+// N_TAB] the chunk that appends, split_writer)
 extern "C" int spt_decode_attention(
     int dtype, int walk, const void* q, void* kc, void* vc, void* cc,
     const void* tables, const void* n_tiles, const void* pos, const void* kn,
     const void* vn, const void* cn, const void* tile_base, void* o, int B,
     int KV, int G, int D, int NTALL, int W, int NTAB, int TM, int TPS, int PS,
-    float scale, float clamp, int E, int chunks, void* scores, void* stream) {
+    float scale, float clamp, int E, int chunks, void* scores,
+    const void* writer, void* stream) {
   using bf = __nv_bfloat16;
   if (walk == 2) {
     if (dtype != spt::kBF16) return (int)cudaErrorInvalidValue;
     return spt::launch_attention_split(
-        q, kc, vc, cc, tables, n_tiles, pos, kn, vn, cn, tile_base, o, B, KV,
-        G, D, NTALL, W, NTAB, TM, TPS, PS, scale, clamp, E, chunks,
+        q, kc, vc, cc, tables, n_tiles, pos, kn, vn, cn, tile_base, writer, o,
+        B, KV, G, D, NTALL, W, NTAB, TM, TPS, PS, scale, clamp, E, chunks,
         (float*)scores, (cudaStream_t)stream);
   }
   if (walk == 1) {
@@ -1646,7 +2105,7 @@ extern "C" int spt_decode_attention(
 // walk 0: decode_attention_q_kernel; 1: the two-pass walk; 2 (bf16 q):
 // the split kernel with E entries a chunk (past kSplitCluster chunks, work:
 // [B * KV * chunks * G][D + 2] f32 partials and counters: B * KV zeroed
-// ints)
+// ints; writer: [B, N_TAB] the chunk that appends, split_writer)
 extern "C" int spt_decode_attention_q(
     int dtype, int walk, const void* q, void* kc, void* vc, void* cc,
     void* ksc, void* vsc, const void* tables, const void* n_tiles,
@@ -1654,14 +2113,14 @@ extern "C" int spt_decode_attention_q(
     const void* ksn, const void* vsn, const void* tile_base, void* o, int B,
     int KV, int G, int D, int NTALL, int W, int KVP, int NTAB, int TM,
     int TPS, int PS, float scale, float clamp, int E, void* work,
-    void* counters, void* stream) {
+    void* counters, const void* writer, void* stream) {
   using bf = __nv_bfloat16;
   if (walk == 2) {
     if (dtype != spt::kBF16) return (int)cudaErrorInvalidValue;
     return spt::launch_attention_q_split(
         q, kc, vc, cc, ksc, vsc, tables, n_tiles, pos, kn, vn, cn, ksn, vsn,
-        tile_base, o, B, KV, G, D, NTALL, W, KVP, NTAB, TM, TPS, PS, scale,
-        clamp, E, (float*)work, (int*)counters, (cudaStream_t)stream);
+        tile_base, writer, o, B, KV, G, D, NTALL, W, KVP, NTAB, TM, TPS, PS,
+        scale, clamp, E, (float*)work, (int*)counters, (cudaStream_t)stream);
   }
   const bool two_pass = walk == 1;
   auto f = two_pass
@@ -1674,12 +2133,25 @@ extern "C" int spt_decode_attention_q(
            scale, clamp, (cudaStream_t)stream);
 }
 
+// split (ops/decode_attention.py verify_route): 0 = the walk kernel, RC
+// query rows a CTA; 1 (bf16) = the split walk, nch chunks of E entries a
+// row and groups of RC query rows (scores:
+// null, or B * row groups * KV * nch rows of spt_verify_split_scores floats
+// when that is not 0; writer: the chunk that appends, verify_writer)
 extern "C" int spt_verify_attention(
-    int dtype, const void* q, void* kc, void* vc, void* cc,
+    int dtype, int split, const void* q, void* kc, void* vc, void* cc,
     const void* tables, const void* selm, const void* pos, const void* kn,
     const void* vn, const void* cn, const void* tile_base, void* o, int B,
     int KV, int GK, int KK, int D, int NTALL, int W, int TM, int PS,
-    float scale, float clamp, int RC, void* stream) {
+    float scale, float clamp, int RC, int E, int nch, void* scores,
+    int writer, void* stream) {
+  if (split) {
+    if (dtype != spt::kBF16) return (int)cudaErrorInvalidValue;
+    return spt::launch_verify_split(
+        q, kc, vc, cc, tables, selm, pos, kn, vn, cn, tile_base, writer, o, B,
+        KV, GK, KK, D, NTALL, W, TM, PS, scale, clamp, E, nch, RC,
+        (float*)scores, (cudaStream_t)stream);
+  }
   auto f = dtype == spt::kBF16 ? spt::launch_verify<__nv_bfloat16>
                                : spt::launch_verify<float>;
   return f(q, kc, vc, cc, tables, selm, pos, kn, vn, cn, tile_base, o, B, KV,

@@ -70,6 +70,8 @@ from spt_proto_tpu_torch.ops.block_sparse_attention import \
     block_sparse_attention
 from spt_proto_tpu_torch.ops.decode_attention import (decode_attention_rows,
                                                       decode_attention_rows_q,
+                                                      split_entries,
+                                                      split_writer,
                                                       verify_attention_rows)
 from spt_proto_tpu_torch.ops.decode_front import decode_front
 from spt_proto_tpu_torch.ops.ffn_tail import (MAX_ROWS, ffn_tail,
@@ -739,7 +741,17 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
         k_new = k_new.reshape(b, kv, dh).contiguous()
         v_new = v_new.reshape(b, kv, dh).contiguous()
         base_t = torch.full((b,), base, dtype=torch.int32, device=dev)
-        kw = dict(ps=TILE, tps=tps, scale=scale, clamp=clamp)
+        if li == 0:
+            # the bf16 split walks' appending chunk (split_writer), once a
+            # step: every layer's tables hold the write tile at the same
+            # entry (dense: the same relative table; sparse: the last entry,
+            # behind full tiles), so the first layer's serves them all
+            writer = (split_writer(
+                tables, n_tiles, pos, base_t, ps=TILE, tps=tps,
+                e=split_entries(cache.quantized, b * kv,
+                                tables.shape[2] * tps))
+                if q4.is_cuda and q4.dtype == torch.bfloat16 else None)
+        kw = dict(ps=TILE, tps=tps, scale=scale, clamp=clamp, writer=writer)
         if cache.quantized:
             if kv_quant:
                 k8, v8, ks_new, vs_new = kv_quant

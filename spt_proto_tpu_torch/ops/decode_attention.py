@@ -235,6 +235,58 @@ def q_split_chunks(n_ent: int, e: int) -> int:
     return -(-n_ent // e)
 
 
+_CONSTS = {}
+
+
+def _const(key, make):
+    """A small index tensor made once per key (and device): the writer
+    rules run every layer, and a fresh arange is a launch of its own."""
+    if key not in _CONSTS:
+        _CONSTS[key] = make()
+    return _CONSTS[key]
+
+
+def _first_chunk(hit: torch.Tensor, e: int) -> torch.Tensor:
+    """The chunk (of `e` entries) of each row's first True along the last
+    axis of `hit`, 0 for a row with none (argmax returns the first maximum,
+    and an all-False row's is entry 0), as int64."""
+    return hit.view(torch.uint8).argmax(-1) // e
+
+
+def split_writer(tables, n_tiles, pos, tile_base, *, ps: int, tps: int,
+                 e: int) -> torch.Tensor:
+    """Which CTA of a split walk (decode_attention_q_split_kernel,
+    decode_attention_split_kernel) appends the new token: for each table
+    row, the chunk of `e` entries that holds the row's first valid entry on
+    the write tile tile_base + pos // ps (which lies in the cache, as the
+    append needs), or chunk 0 when no entry covers it. Entry j = t * tps +
+    u covers tile tables[t] + u and is valid when tables[t] >= 0 and t <
+    n_tiles. tables [B, N_TAB, T]; returns [B, N_TAB] int64 on the tables'
+    device (a few torch ops, no host sync)."""
+    b, n_tab, t_max = tables.shape
+    dev = tables.device
+    wt = torch.div(pos, ps, rounding_mode='floor').add_(tile_base)
+    gt = tables[..., None]
+    if tps > 1:
+        gt = gt + _const(('tps', tps, tables.dtype, dev), lambda: torch.arange(
+            tps, device=dev, dtype=tables.dtype))
+    hit = gt == wt[:, None, None, None]
+    if tps > 1:                        # else tables[t] == wt >= 0
+        hit &= (tables >= 0)[..., None]
+    ar = _const(('t', t_max, dev), lambda: torch.arange(
+        t_max, device=dev)[:, None])
+    hit &= ar < n_tiles[:, None, None, None]
+    return _first_chunk(hit.reshape(b, n_tab, t_max * tps), e)
+
+
+def split_entries(quantized: bool, rows: int, n_ent: int) -> int:
+    """Entries a chunk of the split walk a decode_attention_rows(_q) launch
+    of `rows` (slot, kv head) rows over `n_ent` entries takes: the int8-KV
+    walk's q_split_entries, or the bf16-KV walk's rows_split_plan."""
+    return (q_split_entries(rows, n_ent) if quantized
+            else rows_split_plan(n_ent)[1])
+
+
 def _common_args(q, k_cache, c_cache, tables, n_tiles, pos, c_new,
                  tile_base, ps, tps, kv_bytes):
     """Shape checks shared by both kernels; returns the int32 metadata, the
@@ -265,14 +317,17 @@ def _common_args(q, k_cache, c_cache, tables, n_tiles, pos, c_new,
 def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
                           pos, k_new, v_new, c_new, tile_base=None, *,
                           ps: int = 128, tps: int = 1, scale: float = 1.0,
-                          clamp: float = 0.0):
+                          clamp: float = 0.0, writer=None):
     """bf16/f32 tile-major decode attention + in-place append.
 
     q [B, KV, G, D]; caches as in the module docstring (the same dtype as
     q); tables [B, N_TAB, T] PHYSICAL tile ids, -1 = unused; n_tiles [B];
     pos [B]; k_new/v_new [B, KV, D]; c_new [B, KV, w]; tile_base [B].
     Returns (o [B, KV, G, D], k, v, codes), the caches being the (updated)
-    inputs. The codes are written only when w > 1, as in the TPU kernel."""
+    inputs. The codes are written only when w > 1, as in the TPU kernel.
+    writer: split_writer of these tables for the split walk's plan, where
+    the caller has it (the engine's decode tables give every layer the
+    same); else the wrapper computes it."""
     if not _build.on_cuda(q, k_cache, v_cache, c_cache, tables, n_tiles,
                           pos, k_new, v_new, c_new):
         return decode_attention_rows_ref(
@@ -308,10 +363,13 @@ def decode_attention_rows(q, k_cache, v_cache, c_cache, tables, n_tiles,
         if spill:
             scores = torch.empty((b * kv * chunks, spill),
                                  dtype=torch.float32, device=q.device)
+        if writer is None:
+            writer = split_writer(tables, n_tiles, pos_i, tile_base, ps=ps,
+                                  tps=tps, e=e)
     err = _build.lib().spt_decode_attention(
         code, walk, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
         width, n_tab, t_max, tps, ps, float(scale), float(clamp), e, chunks,
-        p(scores), _build.stream())
+        p(scores), p(writer if walk == 2 else None), _build.stream())
     _build.check(err, 'decode_attention_rows')
     decode_attention_rows.launches += 1
     return o, k_cache, v_cache, c_cache
@@ -325,12 +383,12 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
                             tables, n_tiles, pos, k_new, v_new, c_new,
                             kscale_new, vscale_new, tile_base=None, *,
                             ps: int = 128, tps: int = 1, scale: float = 1.0,
-                            clamp: float = 0.0):
+                            clamp: float = 0.0, writer=None):
     """int8 tile-major decode attention + in-place append.
 
-    The contract of decode_attention_rows, with int8 caches, their
-    per-token scales [B, NT, KV_pad, ps] f32, k_new/v_new [B, KV, D] int8
-    and kscale_new/vscale_new [B, KV] f32. Returns (o [B, KV, G, D], k, v,
+    The contract of decode_attention_rows (writer too), with int8 caches,
+    their per-token scales [B, NT, KV_pad, ps] f32, k_new/v_new [B, KV, D]
+    int8 and kscale_new/vscale_new [B, KV] f32. Returns (o [B, KV, G, D], k, v,
     codes, k_scale, v_scale), the caches being the (updated) inputs. The TPU
     signature's nt_layer (a per-layer staging bound) has no counterpart
     here."""
@@ -379,10 +437,14 @@ def decode_attention_rows_q(q, k_cache, v_cache, c_cache, k_scale, v_scale,
                                dtype=torch.float32, device=q.device)
             counters = torch.zeros((b * kv,), dtype=torch.int32,
                                    device=q.device)
+        if writer is None:
+            writer = split_writer(tables, n_tiles, pos_i, tile_base, ps=ps,
+                                  tps=tps, e=e)
     err = _build.lib().spt_decode_attention_q(
         code, walk, *[p(a) for a in args], p(o), b, kv, g, d, n_all,
         width, kv_pad, n_tab, t_max, tps, ps, float(scale), float(clamp), e,
-        p(work), p(counters), _build.stream())
+        p(work), p(counters), p(writer if walk == 2 else None),
+        _build.stream())
     _build.check(err, 'decode_attention_rows_q')
     decode_attention_rows_q.launches += 1
     return o, k_cache, v_cache, c_cache, k_scale, v_scale
@@ -466,6 +528,66 @@ def verify_rows_per_cta(gk: int, d: int, ps: int, t_max: int,
     return -(-gk // chunks // 8) * 8 if chunks > 1 else gk
 
 
+VERIFY_ROWS = 64          # query rows a split CTA at most (csrc
+                          # kVerifyRowsMax: 8 n8 groups)
+# entries a split chunk aims at, by d_head (kernel_ab.py --attn-sweep)
+VERIFY_CHUNK = {64: 3, 128: 4}
+VERIFY_CLUSTER = 8        # chunks a row at most, one cluster
+
+
+def verify_route(dtype: torch.dtype, g: int, d: int, ps: int, kk: int,
+                 aligned: bool = True) -> str:
+    """The kernel a verify_attention_rows launch runs: 'split'
+    (verify_attention_split_kernel, tensor cores) for a bf16 cache with
+    128-token tiles, d_head 64 or 128, G <= 8, K <= 30 and 16-byte aligned
+    caches (`aligned`), whatever the table's length; else 'walk'
+    (verify_attention_kernel, rows per CTA from verify_rows_per_cta)."""
+    if (dtype == torch.bfloat16 and ps == 128 and d in (64, 128)
+            and 1 <= g <= 8 and 1 <= kk <= 30 and aligned):
+        return 'split'
+    return 'walk'
+
+
+@functools.lru_cache(maxsize=256)
+def verify_split_plan(gk: int, t_max: int,
+                      d: int) -> tuple[int, int, int, int]:
+    """The verify split walk's plan for G*K = gk query rows of d_head d over
+    tables of t_max >= 2 entries: (row groups, rows a group, chunks a row,
+    entries a chunk). The rows split into the fewest equal groups of at
+    most VERIFY_ROWS (the last may be short), a CTA each on the third grid
+    axis; a row's entries into chunks of about VERIFY_CHUNK[d], at most
+    VERIFY_CLUSTER (one cluster), the two write entries (the last two) in
+    one chunk; chunk c takes entries c*e .. min((c+1)*e, t_max) - 1."""
+    groups = -(-gk // VERIFY_ROWS)
+    rows = -(-gk // groups)
+    chunks = min(VERIFY_CLUSTER, -(-t_max // VERIFY_CHUNK[d]))
+    e = -(-t_max // chunks)
+    while (t_max - 1) % e == 0 and e < t_max:   # a last chunk of one entry
+        e += 1
+    return -(-gk // rows), rows, -(-t_max // e), e
+
+
+@functools.lru_cache(maxsize=256)
+def verify_split_scores(e: int, rows: int, d: int) -> int:
+    """Floats of global score buffer a verify split CTA takes for chunks of
+    `e` entries and `rows` query rows of d_head d: 0 while its scores fit
+    in shared memory (the kernel library's own layout, csrc verify_smem),
+    else e x rows (to 8) x 132."""
+    return _build.lib().spt_verify_split_scores(e, rows, d)
+
+
+def verify_writer(t_max: int, e: int) -> int:
+    """Which CTA of the verify split walk appends the block's K columns
+    (row group 0's): the chunk of `e` entries that holds the row's first
+    valid entry on a tile the columns land in. The columns land only in the
+    tiles of the two write entries, the table's last two (verify_step's
+    contract: the union's selected tiles lie below them), and
+    verify_split_plan keeps both in the last chunk, which is therefore the
+    writer whichever of the two is valid: (t_max - 1) // e, read from the
+    plan alone (no device work)."""
+    return (t_max - 1) // e
+
+
 def verify_attention_rows_ref(q, k_cache, v_cache, c_cache, tables,
                               sel_mask, pos, k_new, v_new, c_new,
                               tile_base=None, *, ps: int = 128,
@@ -526,8 +648,12 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     up to pos + j); pos [B] the lengths before the block; k_new / v_new
     [B, KV, D, K]; c_new [B, KV, w, K] (written only when w > 1);
     tile_base [B]. Returns (o [B, KV, G*K, D], k, v, codes), the caches
-    being the (updated) inputs. When the G*K rows' buffers outgrow one
-    CTA's shared memory the rows split into chunks, a CTA each
+    being the (updated) inputs. verify_route names the kernel: bf16 at
+    the serving tiles takes the split walk (verify_split_plan: each row's
+    entries in chunks, one cluster a row, the rows in groups of at most
+    VERIFY_ROWS; the chunk verify_writer names appends, the others overlay
+    the new columns from k_new / v_new); the walk kernel splits the G*K
+    rows into chunks when their buffers outgrow one CTA's shared memory
     (verify_rows_per_cta): every chunk scores the whole table, chunk 0
     appends the new columns and the others read them from k_new / v_new."""
     if not _build.on_cuda(q, k_cache, v_cache, c_cache, tables, sel_mask,
@@ -554,7 +680,6 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     req(pos.shape == tile_base.shape == (b,), 'pos / tile_base [B]')
     req(ps % 32 == 0 and ps <= 1024 and (d * ps * q.element_size()) % 16 == 0,
         f'ps {ps} / d_head {d} outside the kernel envelope')
-    rows = verify_rows_per_cta(gk, d, ps, t_max, q.element_size())
     ints = [a if a.dtype == torch.int32 else a.to(torch.int32)
             for a in (tables, sel_mask, pos, c_new, tile_base)]
     tables, sel_mask, pos_i, c_new_i, tile_base = ints
@@ -563,9 +688,22 @@ def verify_attention_rows(q, k_cache, v_cache, c_cache, tables, sel_mask,
     req(all(a.is_contiguous() for a in args), 'inputs must be contiguous')
     o = torch.empty_like(q)
     p = _build.ptr
+    split, e, chunks, scores, writer = 0, 0, 0, None, 0
+    if verify_route(q.dtype, gk // kk, d, ps, kk, all(
+            a.data_ptr() % 16 == 0 for a in (k_cache, v_cache))) == 'split':
+        split = 1
+        groups, rows, chunks, e = verify_split_plan(gk, t_max, d)
+        spill = verify_split_scores(e, rows, d)
+        if spill:
+            scores = torch.empty((b * groups * kv * chunks, spill),
+                                 dtype=torch.float32, device=q.device)
+        writer = verify_writer(t_max, e)
+    else:
+        rows = verify_rows_per_cta(gk, d, ps, t_max, q.element_size())
     err = _build.lib().spt_verify_attention(
-        code, *[p(a) for a in args], p(o), b, kv, gk, kk, d, n_all, width,
-        t_max, ps, float(scale), float(clamp), rows, _build.stream())
+        code, split, *[p(a) for a in args], p(o), b, kv, gk, kk, d, n_all,
+        width, t_max, ps, float(scale), float(clamp), rows, e, chunks,
+        p(scores), writer, _build.stream())
     _build.check(err, 'verify_attention_rows')
     verify_attention_rows.launches += 1
     return o, k_cache, v_cache, c_cache

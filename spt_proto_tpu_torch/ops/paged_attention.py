@@ -9,12 +9,16 @@ QuantizedTensor form); lengths [B]; page_indices [B, pps] PHYSICAL page ids
 head h reads kv head h // (H / KV). Positions at or past lengths[b] are
 masked.
 
-`paged_attention` launches csrc/paged_attention.cu's kernel for CUDA
+`paged_attention` launches csrc/paged_attention.cu's kernels for CUDA
 tensors and runs `paged_attention_ref` (the JAX oracle, paged.py:170, with
 int8 pages read back through `dequantize_pages`, paged.py:162) for CPU
-tensors.
+tensors. `paged_route` names the kernel: bf16 takes the split walk on the
+tensor cores (each slot's positions in chunks of `paged_split_plan`, one
+cluster a slot), f32 the two-pass walk.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +29,46 @@ MAX_INT8 = 127.5     # the stock paged-attention QuantizedTensor convention
 PAGE_SIZES = (16, 64, 128)
 HEAD_DIMS = (64, 128)
 SMEM_LIMIT = 200 * 1024
+PAGED_STEP = 64           # token positions a split step (csrc kPagedStep)
+PAGED_CLUSTER = 8         # chunks a slot at most, one cluster (the portable
+                          # cluster size, csrc kPagedCluster)
+# steps a split chunk aims at, by page kind: 512 positions over bf16 pages,
+# 256 over int8 pages (whose steps also convert; kernel_ab.py
+# --attn-sweep)
+PAGED_CHUNK_STEPS = {False: 8, True: 4}
+
+
+def paged_route(dtype: torch.dtype) -> str:
+    """The kernel a paged_attention launch runs inside the envelope (pages
+    of PAGE_SIZES tokens, d_head in HEAD_DIMS, G 1-8): 'split'
+    (paged_attention_split_kernel, tensor cores) for a bf16 q, 'walk'
+    (paged_attention_kernel, the two-pass walk) for f32."""
+    return 'split' if dtype == torch.bfloat16 else 'walk'
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split_plan(pps: int, ps: int, quant: bool) -> tuple[int, int]:
+    """The split walk's plan for slots of `pps` pages of `ps` tokens (quant:
+    int8 pages): (chunks a slot, steps of PAGED_STEP positions a chunk).
+    One CTA a chunk and one cluster a slot: as many chunks as make chunks
+    of about PAGED_CHUNK_STEPS[quant] steps, at most PAGED_CLUSTER; chunk c
+    takes positions c*s*64 .. min((c+1)*s*64, pps*ps) - 1."""
+    n_steps = -(-pps * ps // PAGED_STEP)
+    chunks = min(PAGED_CLUSTER,
+                 -(-n_steps // PAGED_CHUNK_STEPS[bool(quant)]))
+    s = -(-n_steps // chunks)
+    return -(-n_steps // s), s
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split_scores(steps: int, g: int, d: int, ps: int,
+                       quant: bool) -> int:
+    """Floats of global score buffer a split CTA takes for chunks of
+    `steps` steps, G = g query rows, d_head d and pages of ps tokens (quant:
+    int8 pages): 0 while its scores fit in shared memory (the kernel
+    library's own layout, csrc paged_smem), else g x (64 steps + 4) (slots
+    past ~42,000 positions at G = 8)."""
+    return _build.lib().spt_paged_split_scores(steps, g, d, ps, int(quant))
 
 
 def dequantize_pages(q8: torch.Tensor, h: torch.Tensor,
@@ -104,19 +148,29 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, *,
     req(lengths.shape == (b,) and page_indices.shape[0] == b,
         'lengths [B], page_indices [B, pps]')
     g = hq // kv
-    smem = 4 * (ps * (d + 1) + 2 * g * d + g * ps + 2 * g)
-    req(smem <= SMEM_LIMIT, f'{smem} B of shared memory exceeds the kernel '
-        f'envelope of {SMEM_LIMIT} B')
     lengths_i = lengths.to(torch.int32)
     pages_i = page_indices.to(torch.int32)
     args = [q, k_pages, v_pages, k_scales, v_scales, lengths_i, pages_i]
     req(all(a.is_contiguous() for a in args if a is not None),
         'inputs must be contiguous')
+    steps, chunks, scores = 0, 0, None
+    if paged_route(q.dtype) == 'split':
+        req(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+            'pages must start on a 16-byte boundary')
+        chunks, steps = paged_split_plan(pps, ps, quant)
+        spill = paged_split_scores(steps, g, d, ps, quant)
+        if spill:
+            scores = torch.empty((b * kv * chunks, spill),
+                                 dtype=torch.float32, device=q.device)
+    else:
+        smem = 4 * (ps * (d + 1) + 2 * g * d + g * ps + 2 * g)
+        req(smem <= SMEM_LIMIT, f'{smem} B of shared memory exceeds the '
+            f'kernel envelope of {SMEM_LIMIT} B')
     o = torch.empty_like(q)
     p = _build.ptr
     err = _build.lib().spt_paged_attention(
         code, int(quant), *[p(a) for a in args], p(o), b, hq, kv, d, n_pages,
-        ps, pps, float(scale), _build.stream())
+        ps, pps, float(scale), steps, chunks, p(scores), _build.stream())
     _build.check(err, 'paged_attention')
     paged_attention.launches += 1
     return o

@@ -320,8 +320,9 @@ def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
     CUDA device), and the int8 cache, which has no kernel, refuses
     impl='kernel'. Query rows whose buffers outgrow one CTA's shared memory
     (G = 4 x K = 30 at d_head 128, K at the int32 bitfield's limit) no longer
-    raise: they split into chunks of rows, a CTA each, and a block that
-    fits still launches as one chunk. What lies past even one 8-row chunk
+    raise: they split into chunks of rows, a CTA each (in bf16 the split
+    walk's equal row groups of at most 64), and a block that fits still
+    launches as one chunk. What lies past even one 8-row chunk
     raises RuntimeError naming the limit and never runs the plain twin.
     (CPU tensors reported as CUDA ones, and a stand-in for the library
     that records the rows per CTA.)"""
@@ -340,7 +341,8 @@ def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
     rows = []
     monkeypatch.setattr(tattn._build, 'on_cuda', lambda *ts: True)
     monkeypatch.setattr(tattn._build, 'lib', lambda: types.SimpleNamespace(
-        spt_verify_attention=lambda *a: rows.append((a[15], a[-2])) or 0))
+        spt_verify_attention=lambda *a: rows.append((a[16], a[-6])) or 0,
+        spt_verify_split_scores=lambda *a: 0))
     monkeypatch.setattr(tattn._build, 'stream', lambda: 0)
 
     def launch(kk, g, d=128, ps=128, dtype=torch.float32):
@@ -357,12 +359,52 @@ def test_verify_refuses_plain_attention_on_the_gpu_and_rows_past_its_envelope(
             torch.zeros((b, kv, 1, kk), dtype=torch.int32), ps=ps)
     tattn.verify_attention_rows.launches = 0
     launch(5, 4)                                   # fits: one chunk
-    launch(30, 4, dtype=torch.bfloat16)            # 120 rows: 2 x 64
-    launch(30, 8)                                  # 240 rows: 4 x 64 (f32)
-    assert rows == [(20, 20), (120, 64), (240, 64)]
+    launch(30, 4, dtype=torch.bfloat16)            # 120 rows: the split
+    launch(30, 8)                                  # walk's 2 x 60; 240
+    assert rows == [(20, 20), (120, 60), (240, 64)]   # rows: 4 x 64 (f32)
     assert tattn.verify_attention_rows.launches == 3
     assert tattn.verify_rows_per_cta(84, 128, 128, 40, 2) == 48
     with pytest.raises(RuntimeError, match='kernel envelope of 204800 B'):
         launch(5, 1, ps=1024)
     assert tattn.verify_attention_rows.launches == 3
     tattn.verify_attention_rows.launches = 0
+
+
+@pytest.mark.parametrize('attention,quantized,prompt,max_len', [
+    ('sparse_v2', False, 300, 512), ('sparse_v2', True, 300, 512),
+    ('dense', False, 140, 512), ('dense', True, 700, 1024)])
+def test_decode_writer_is_the_same_every_layer(monkeypatch, attention,
+                                               quantized, prompt, max_len):
+    """The engine names the split walks' appending chunk once a step, from
+    the first layer's tables: split_writer over every layer's decode tables
+    (sparse and dense, int8 and bf16 KV; 8 tiles a layer give dense
+    supertiles of 4) names the same chunks as over the first layer's."""
+    cfg = _tiny_cfg().replace(attention=attention, n_layers=3,
+                              max_length=max_len)
+    iw = InferenceWeights.from_params(
+        cfg, bridge.init_params(cfg, seed=0, device='cpu'))
+    seen, tps_seen = [], []
+
+    def record(*a, **k):
+        tables, n_tiles, pos, base = (a[6:9] + a[14:15] if quantized
+                                      else a[4:7] + a[10:11])
+        tps_seen.append(k['tps'])
+        seen.append(tattn.split_writer(
+            tables, n_tiles, pos, base, ps=k['ps'], tps=k['tps'],
+            e=tattn.split_entries(quantized, tables.shape[0] * cfg.kv_heads,
+                                  tables.shape[2] * k['tps'])))
+        fn = (tattn.decode_attention_rows_q_ref if quantized
+              else tattn.decode_attention_rows_ref)
+        k.pop('writer')
+        return fn(*a, **k)
+    name = 'decode_attention_rows_q' if quantized else 'decode_attention_rows'
+    monkeypatch.setattr(teng, name, record)
+    tokens = torch.randint(1, 256, (2, prompt), generator=torch.Generator()
+                           .manual_seed(0))
+    cache = teng.KVCache.create(cfg, 2, max_len, quantized=quantized,
+                                device='cpu')
+    _, cache = teng.prefill(iw, tokens, cache)
+    teng.decode_step_greedy(iw, tokens[:, -1].to(torch.int32), cache)
+    assert len(seen) == cfg.n_layers
+    assert tps_seen[0] == (4 if max_len == 1024 else 1)
+    assert all(torch.equal(w, seen[0]) for w in seen)

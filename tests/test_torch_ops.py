@@ -6,6 +6,8 @@ Inputs come from numpy seeds and go through both packages. The JAX Pallas
 kernels run in interpret mode (as the JAX package's own tests run them);
 the port's wrappers, handed CPU tensors, run their plain twins.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -391,9 +393,10 @@ def test_decode_attention_rows_launches_the_rule(monkeypatch, dtype, d, g,
                                                  spill):
     """decode_attention_rows hands the library the kernel rows_route names
     (walk 2: the split walk, with rows_split_plan's chunks and entries,
-    and a global score buffer of B x KV x chunks rows only where the
-    library's spt_rows_split_scores asks for one), one launch a call; an
-    unaligned bf16 cache takes the kernels rows_walk names."""
+    a global score buffer of B x KV x chunks rows only where the library's
+    spt_rows_split_scores asks for one, and split_writer's chunks or the
+    caller's), one launch a call; an unaligned bf16 cache takes the
+    kernels rows_walk names."""
     from spt_proto_tpu_torch.ops import decode_attention as tattn
     calls, asked = [], []
     _fake_lib(monkeypatch, tattn, 'spt_decode_attention', calls,
@@ -407,24 +410,260 @@ def test_decode_attention_rows_launches_the_rule(monkeypatch, dtype, d, g,
     codes = torch.zeros((b, kv, t_max, 1, ps), dtype=torch.int32)
     tables = torch.arange(t_max, dtype=torch.int32)[None, None]
     ints = torch.zeros((b,), dtype=torch.int32)
+    given = torch.zeros((b, 1), dtype=torch.int64)     # the engine's
     tattn.decode_attention_rows.launches = 0
-    tattn.decode_attention_rows(
-        q, k, k, codes, tables, ints + t_max, ints,
-        torch.zeros((b, kv, d), dtype=dtype),
-        torch.zeros((b, kv, d), dtype=dtype),
-        torch.zeros((b, kv, 1), dtype=torch.int32))
-    assert tattn.decode_attention_rows.launches == 1
+    for writer_in in (None, given):
+        tattn.decode_attention_rows(
+            q, k, k, codes, tables, ints + t_max, ints,
+            torch.zeros((b, kv, d), dtype=dtype),
+            torch.zeros((b, kv, d), dtype=dtype),
+            torch.zeros((b, kv, 1), dtype=torch.int32), writer=writer_in)
+    assert tattn.decode_attention_rows.launches == 2
     tattn.decode_attention_rows.launches = 0
     tattn.rows_split_scores.cache_clear()
-    (args,) = calls
+    args, args_given = calls
     assert args[1] == walk
-    e, chunks, scores = args[-4], args[-3], args[-2]
+    e, chunks, scores, writer = args[-5], args[-4], args[-3], args[-2]
     if walk == 2:
         assert (chunks, e) == tattn.rows_split_plan(t_max)
         assert asked == [(e, g, d, 1)]
         assert (scores is not None) == (spill > 0)
+        # the appending chunk, [B, 1], or the one the caller names
+        assert writer is not None and args_given[-2] == given.data_ptr()
     else:
         assert e == chunks == 0 and scores is None and not asked
+        assert writer is None and args_given[-2] is None
+
+
+def _writer_loop(row, n_t, wt, tps, e):
+    """The split walks' append rule as a loop over one table row: the
+    chunk of the first valid entry j = t * tps + u on the write tile."""
+    for j in range(len(row) * tps):
+        t, u = divmod(j, tps)
+        if row[t] >= 0 and t < n_t and row[t] + u == wt:
+            return j // e
+    return 0
+
+
+# The split walks' writer chunk (split_writer), pure Python: the chunk of
+# the row's first valid entry on the write tile, chunk 0 when none covers
+# it. Cases: (rows of a table, n_tiles, pos, tile_base, tps, entries a
+# chunk, expected writers).
+@pytest.mark.parametrize('rows,n_t,pos,base,tps,e,want', [
+    ([[16, 3, 5]], 3, 16 * 128 + 7, 0, 1, 3, [0]),      # chunk 0
+    ([[0, 1, 2, 3, 4, 5, 6, 7]], 8, 6 * 128, 0, 1, 3, [2]),   # later
+    ([[0, 1, 2, 3]], 4, 9 * 128, 0, 1, 2, [0]),         # no entry covers
+    ([[-1, 2, -1, 9]], 4, 9 * 128 + 3, 0, 1, 1, [3]),   # behind -1
+    ([[3, 9, 9]], 1, 9 * 128, 0, 1, 1, [0]),            # past n_tiles
+    ([[0, 4, 8, 12]], 4, 9 * 128 + 1, 0, 4, 6, [1]),    # supertiles
+    ([[-1, 4, 8, 12]], 4, 2 * 128 + 1, 0, 4, 1, [0]),   # -1 supertile
+    ([[1, 5], [5, 1]], 2, 5 * 128, 20, 1, 1, [0, 0]),   # write tile 25
+    ([[21, 25], [25, 21]], 2, 5 * 128, 20, 1, 1, [1, 0])])
+def test_split_writer(rows, n_t, pos, base, tps, e, want):
+    """split_writer names the chunk the append rule names for each row
+    (held to the rule written as a loop), for the int8-KV and bf16-KV split
+    walks, on any device and without a host sync."""
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    tables = torch.tensor([rows], dtype=torch.int32)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32)
+    got = tattn.split_writer(tables, i32([n_t]), i32([pos]), i32([base]),
+                             ps=128, tps=tps, e=e)
+    wt = base + pos // 128
+    assert got.tolist() == [want]
+    assert want == [_writer_loop(r, n_t, wt, tps, e) for r in rows]
+
+
+# The verify split walk's writer chunk (verify_writer), pure Python: the
+# chunk that holds the row's first valid entry on a tile the block's
+# columns land in, held to that rule written as a loop over the engine's
+# own tables (_Block): union and dense, blocks inside one tile and across a
+# tile boundary (two write tiles; a first write entry that repeats the
+# second carries sel_mask 0). Cases: (block positions of the slots, K,
+# tiles a layer, sparse, d_head, entries a chunk the plan aims at).
+@pytest.mark.parametrize('pos,kk,nt,sparse,d,chunk', [
+    ([2046, 2000, 1000, 127], 5, 18, True, 64, 3),   # across 2048, union
+    ([2046, 2000, 1000, 127], 5, 18, False, 128, 4),  # dense T = 20
+    ([2047, 130, 255, 3], 30, 18, True, 128, 2),     # K = 30
+    ([12286, 300, 128, 129], 5, 97, False, 64, 3),   # dense T = 99
+    ([256, 511, 700, 1023], 1, 9, True, 128, 1)])    # K = 1
+def test_verify_writer(monkeypatch, pos, kk, nt, sparse, d, chunk):
+    """verify_writer names the chunk of the row's first valid entry on a
+    landing tile for every row of the engine's tables, and
+    verify_split_plan keeps the two write entries in that chunk."""
+    from spt_proto_tpu_torch.inference.engine import _Block
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    monkeypatch.setitem(tattn.VERIFY_CHUNK, d, chunk)
+    tattn.verify_split_plan.cache_clear()
+    kv, base, ps = 2, nt, 128
+    pos_t = torch.tensor(pos, dtype=torch.int32)
+    nsel = min(nt, max(1, nt // 8) + 1)
+    keep = None
+    if sparse:
+        g = torch.Generator().manual_seed(len(pos) + kk)
+        ar = torch.arange(nt)
+        own = (pos_t.long()[:, None] + torch.arange(kk)) // ps
+        r = torch.rand((len(pos), kv, kk, nt), generator=g)
+        r = r.masked_fill(ar >= own[:, None, :, None], 2.0)
+        keep = torch.zeros(r.shape, dtype=torch.bool)
+        keep.scatter_(-1, r.argsort(-1)[..., :nsel - 1], True)
+        keep |= ar == own[:, None, :, None]
+    tables, bits = _Block(pos_t, kk, nt, kv, nsel).tables(keep, base)
+    t_max = tables.shape[2]
+    _, _, chunks, e = tattn.verify_split_plan(kk, t_max, d)
+    tattn.verify_split_plan.cache_clear()
+    writer = tattn.verify_writer(t_max, e)
+    assert (t_max - 2) // e == (t_max - 1) // e == writer == chunks - 1
+    n_all = 2 * nt
+    for bi, p in enumerate(pos):
+        lands = {base + (p + j) // ps for j in range(kk)}
+        for h in range(kv):
+            row, rb = tables[bi, h].tolist(), bits[bi, h].tolist()
+            lands_h = lands & {max(row[-2], 0), max(row[-1], 0)}
+            first = next(j for j, t in enumerate(row)
+                         if 0 <= t < n_all and rb[j] and t in lands_h)
+            assert first // e == writer
+
+
+# The paged split walk's rule and plan (paged_route, paged_split_plan),
+# pure Python: bf16 takes the split kernel, f32 the walk; a slot's chunks
+# (one cluster) cover its positions once in steps of 64, about 8 steps a
+# chunk over bf16 pages and 4 over int8 ones. Cases: (pages a slot, page
+# size, int8 pages, expected chunks x steps).
+@pytest.mark.parametrize('pps,ps,quant,plan', [
+    (34, 64, False, (5, 7)),      # the serving shape: 2,176 positions
+    (34, 64, True, (7, 5)),
+    (136, 16, False, (5, 7)),
+    (17, 128, True, (7, 5)),
+    (1, 16, False, (1, 1)),
+    (2, 64, True, (1, 2)),
+    (256, 64, False, (8, 32)),    # 16,384 positions
+    (384, 128, True, (8, 96))])   # 49,152 positions
+def test_paged_route_and_split_plan(pps, ps, quant, plan):
+    from spt_proto_tpu_torch.ops import paged_attention as tpa
+    assert tpa.paged_route(torch.bfloat16) == 'split'
+    assert tpa.paged_route(torch.float32) == 'walk'
+    chunks, steps = tpa.paged_split_plan(pps, ps, quant)
+    assert (chunks, steps) == plan
+    n_steps = -(-pps * ps // tpa.PAGED_STEP)
+    assert 1 <= chunks <= tpa.PAGED_CLUSTER
+    assert (chunks - 1) * steps < n_steps <= chunks * steps
+
+
+# The verify split walk's rule and plan (verify_route, verify_split_plan):
+# bf16 at 128-token tiles, d_head 64 / 128, G <= 8, K <= 30 and aligned
+# caches; the rows in equal groups of at most VERIFY_ROWS, a row's entries
+# in one cluster of chunks covering them once. Cases: (G, K, d_head,
+# entries, expected (groups, rows, chunks, entries a chunk)).
+@pytest.mark.parametrize('g,kk,d,t_max,plan', [
+    (1, 5, 64, 12, (1, 5, 4, 3)),         # OPT-125M n-gram union
+    (1, 5, 64, 20, (1, 5, 7, 3)),         # OPT-125M dense T=20
+    (4, 5, 128, 12, (1, 20, 3, 4)),       # Llama-3-8B union
+    (4, 5, 128, 20, (1, 20, 5, 4)),       # dense T=20
+    (4, 30, 128, 20, (2, 60, 5, 4)),      # K = 30 at G = 4
+    (8, 30, 128, 20, (4, 60, 5, 4)),      # K = 30 at G = 8: 240 rows
+    (8, 1, 64, 99, (1, 8, 8, 13)),        # dense T = 96 + 3
+    (4, 5, 64, 13, (1, 20, 3, 5)),        # 3 x 4 would leave 1 entry
+    (4, 5, 128, 17, (1, 20, 4, 5)),       # 5 x 4 would leave 1 entry
+    (1, 1, 128, 2, (1, 1, 1, 2))])
+def test_verify_route_and_split_plan(g, kk, d, t_max, plan):
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tattn.verify_route(bf, g, d, 128, kk) == 'split'
+    assert tattn.verify_route(f32, g, d, 128, kk) == 'walk'
+    assert tattn.verify_route(bf, g, d, 128, kk, False) == 'walk'
+    assert tattn.verify_route(bf, g, d, 64, kk) == 'walk'
+    assert tattn.verify_route(bf, g, 80, 128, kk) == 'walk'
+    assert tattn.verify_route(bf, 9, d, 128, kk) == 'walk'
+    groups, rows, chunks, e = tattn.verify_split_plan(g * kk, t_max, d)
+    assert (groups, rows, chunks, e) == plan
+    assert rows <= tattn.VERIFY_ROWS and (groups - 1) * rows < g * kk \
+        <= groups * rows
+    assert chunks <= tattn.VERIFY_CLUSTER
+    assert (chunks - 1) * e < t_max <= chunks * e
+
+
+@pytest.mark.parametrize('dtype,quant,ps,d,g,spill', [
+    (torch.bfloat16, False, 64, 64, 1, 0),
+    (torch.bfloat16, True, 128, 128, 8, 8 * 6148),
+    (torch.float32, False, 64, 128, 4, 0),
+    (torch.float32, True, 16, 64, 1, 0)])
+def test_paged_attention_launches_the_rule(monkeypatch, dtype, quant, ps, d,
+                                           g, spill):
+    """paged_attention hands the library the kernel paged_route names (bf16:
+    the split walk, with paged_split_plan's steps and chunks and a global
+    score buffer of B x KV x chunks rows only where the library's
+    spt_paged_split_scores asks for one; f32: the walk), one launch a
+    call."""
+    from spt_proto_tpu_torch.ops import paged_attention as tpa
+    calls, asked = [], []
+    _fake_lib(monkeypatch, tpa, 'spt_paged_attention', calls,
+              spt_paged_split_scores=lambda *a: asked.append(a) or spill)
+    tpa.paged_split_scores.cache_clear()
+    b, kv, pps = 2, 1, 3
+    kt = torch.int8 if quant else dtype
+    pages = torch.zeros((kv, b * pps, ps, d), dtype=kt)
+    sc = (dict(k_scales=torch.ones((kv, b * pps, ps, 1)),
+               v_scales=torch.ones((kv, b * pps, ps, 1))) if quant else {})
+    tpa.paged_attention.launches = 0
+    tpa.paged_attention(torch.zeros((b, kv * g, d), dtype=dtype), pages,
+                        pages, torch.tensor([1, ps * pps]),
+                        torch.arange(b * pps).reshape(b, pps), scale=0.1,
+                        **sc)
+    assert tpa.paged_attention.launches == 1
+    tpa.paged_attention.launches = 0
+    tpa.paged_split_scores.cache_clear()
+    (args,) = calls
+    assert args[1] == int(quant)
+    steps, chunks, scores = args[-4], args[-3], args[-2]
+    if dtype == torch.bfloat16:
+        assert (chunks, steps) == tpa.paged_split_plan(pps, ps, quant)
+        assert asked == [(steps, g, d, ps, int(quant))]
+        assert (scores is not None) == (spill > 0)
+    else:
+        assert steps == chunks == 0 and scores is None and not asked
+
+
+@pytest.mark.parametrize('dtype,g,kk,d,ps,split', [
+    (torch.bfloat16, 1, 5, 64, 128, 1),
+    (torch.bfloat16, 8, 30, 128, 128, 1),
+    (torch.bfloat16, 4, 5, 128, 64, 0),
+    (torch.float32, 4, 5, 128, 128, 0)])
+def test_verify_attention_rows_launches_the_rule(monkeypatch, dtype, g, kk,
+                                                 d, ps, split):
+    """verify_attention_rows hands the library the kernel verify_route
+    names: the split walk with verify_split_plan's rows, entries and chunks
+    and verify_writer's chunk, or the walk kernel with
+    verify_rows_per_cta's rows; one launch a call."""
+    from spt_proto_tpu_torch.ops import decode_attention as tattn
+    calls = []
+    _fake_lib(monkeypatch, tattn, 'spt_verify_attention', calls,
+              spt_verify_split_scores=lambda *a: 0)
+    tattn.verify_split_scores.cache_clear()
+    b, kv, t_max = 1, 2, 4
+    q = torch.zeros((b, kv, g * kk, d), dtype=dtype)
+    k = torch.zeros((b, kv, 4, d, ps), dtype=dtype)
+    tables = torch.tensor([[[0, 1, 2, 2]] * kv], dtype=torch.int32)
+    tattn.verify_attention_rows.launches = 0
+    tattn.verify_attention_rows(
+        q, k, k.clone(), torch.zeros((b, kv, 4, 1, ps), dtype=torch.int32),
+        tables, torch.ones_like(tables), torch.tensor([2 * ps - 1]),
+        torch.zeros((b, kv, d, kk), dtype=dtype),
+        torch.zeros((b, kv, d, kk), dtype=dtype),
+        torch.zeros((b, kv, 1, kk), dtype=torch.int32), ps=ps)
+    assert tattn.verify_attention_rows.launches == 1
+    tattn.verify_attention_rows.launches = 0
+    tattn.verify_split_scores.cache_clear()
+    (args,) = calls
+    assert args[1] == split
+    rows, e, chunks, scores, writer = args[-6:-1]
+    if split:
+        assert (rows, chunks, e) == tattn.verify_split_plan(g * kk, t_max,
+                                                            d)[1:]
+        assert scores is None and writer == tattn.verify_writer(t_max, e)
+    else:
+        assert rows == tattn.verify_rows_per_cta(g * kk, d, ps, t_max,
+                                                 q.element_size())
+        assert e == chunks == writer == 0
 
 
 @pytest.mark.parametrize('dtype,d,block_q,aligned,route', [
