@@ -11,7 +11,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with -Xptxas -v to print their registers and spills (the int8_matmul
    wgmma and weight-stream kernels, the FFN-tail streams, the bf16 decode
    front's norm / stream / tail, both split attentions and the bf16
-   block-sparse forward must spill nothing);
+   block-sparse forward and backward must spill nothing);
 2. hold each kernel against its plain PyTorch twin on the same CUDA tensors,
    at the serving shapes (OPT-125M, B=8, context 2048) in bf16 and f32, on
    the route its wrapper's rule names (asserted): the decode front (with
@@ -72,7 +72,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    widths (bf16), from the layer's strided q, k, v and do, with each
    kernel's TFLOP/s and the backward pair beside its bound and SDPA's;
    time kernel, twin and the one-call library equivalent where there is
-   one (SDPA for flash attention, checked against the twins first);
+   one (SDPA for flash attention, checked against the twins first; for the
+   block-sparse backward, SDPA's dense causal backward over the same rows,
+   another function, timed only);
 3. slice parity at full width: OPT-125M (random weights from a seed) in f32,
    B=2, prompt 512, 8 greedy steps, on the card through the kernels and on
    the CPU through the plain twins, in six decode modes (sparse int8-KV,
@@ -139,7 +141,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention runs the block-sparse forward with log-sum-exp and the dq and
    dk/dv kernels, which phase 2 holds against their twins at OPT-125M's
    training shape and with off-diagonal and -1 tables at S 2048 and 4096,
-   d_head 64 and 128): f32 parity of 3 train steps on the card against the
+   d_head 64 and 128, on the route bwd_route names (asserted: the
+   tensor-core pair in bf16), plus block_q 64 (the CUDA-core pair in bf16
+   too) and a table that leaves a key tile unselected (its dk / dv exact
+   zeros)): f32 parity of 3 train steps on the card against the
    CPU twins, stepwise and free-running, with the kernels checked on the
    steps' own tensors, at OPT-125M width (2 layers, B=2, S=2048,
    sparse_coeff 4) and Llama-3-8B width (1 layer, vocabulary 32,000, B=1,
@@ -147,7 +152,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    tune defaults (B=8, S=512) in f32 and bf16 and S=2048 in bf16: 2 warm-up
    steps, 8 timed (CUDA events, exact launch counts: 1 lse forward, 1 dq,
    1 dk/dv a layer a step), 2 profiled; step ms, tok/s, peak memory,
-   device busy, kernel time in situ and the losses;
+   device busy, kernel time in situ and the losses; a profiled bf16 tune
+   window (here and in phases 10-11) fails if it shows the CUDA-core
+   block-sparse backward (NOT_BF16_TRAIN);
 10. int8-base (QLoRA shape) and grouped-matmul training: f32 parity of 3
    train steps on the card against the CPU twins (int8_base at OPT-125M
    width, 2 layers, B=2, S=2048, and LLaMA-7B width, 2 layers, B=1,
@@ -298,7 +305,8 @@ def log_ptxas(proc, pattern: str, no_spills: bool = False) -> list[str]:
 # decode_attention_q_split_kernel<D> (int8 KV),
 # decode_attention_split_kernel<D> (bf16 KV), verify_attention_split_kernel<D>
 # and paged_attention_split_kernel<D, Q>, and the bf16 block-sparse
-# forward block_sparse_fwd_kernel_tc<D, W>
+# forward block_sparse_fwd_kernel_tc<D, W> and backward
+# block_sparse_dq_kernel_tc<D, N> / block_sparse_dkv_kernel_tc<D, R>
 PTXAS_KERNELS = (
     ('flash_attention.cu', r'(flash_\w+_tc)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?',
      False),
@@ -318,7 +326,7 @@ PTXAS_KERNELS = (
     ('paged_attention.cu',
      r'(paged_attention_split_kernel)ILi(\d+)ELb([01])E', True),
     ('block_sparse_attention.cu',
-     r'(block_sparse_fwd_kernel_tc)ILi(\d+)ELi(\d+)E', True))
+     r'(block_sparse_(?:fwd|dq|dkv)_kernel_tc)ILi(\d+)ELi(\d+)E', True))
 
 
 class Timer:
@@ -2518,19 +2526,34 @@ def check_block_sparse_edges(dtype):
 
 
 def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
-                             n_sub=N_SUB):
+                             n_sub=N_SUB, block_q=256, drop_tile=False):
     """The training kernels of block-sparse attention against their twins:
     the forward with log-sum-exp (block_sparse_attention_lse), dq and dk/dv
     (block_sparse_attention_dq / _dkv) against block_sparse_attention_lse_ref
     and block_sparse_attention_bwd_ref, on bh (batch, head) rows of s tokens
-    and d_head dh, block_q 256, n_sel = max(2, (s / 128) / coeff) tiles from
-    random PQ codes; g the output gradient. Outputs held to
-    output_tolerance, lse to the f32 bound."""
+    and d_head dh, n_sel = max(2, (s / 128) / coeff) tiles from random PQ
+    codes (block_q 64: each 64-row q tile takes its 128-row parent's list);
+    g the output gradient; the backward's route asserted (bwd_route: bf16 at
+    block_q 256 / 128 the tensor-core pair, block_q 64 and f32 the CUDA-core
+    one). drop_tile (n_sel 2, block_q 256): q tile 0 drops key tile 1, which
+    no other q tile then selects, and dk / dv of its keys must come out
+    exact zeros. Outputs held to output_tolerance, lse to the f32 bound.
+    With a timer: each kernel's cold-L2 time beside its bound and, for dq
+    and dk/dv, SDPA's dense causal backward over the same rows (timed only:
+    it computes another function, every causal pair and no clip)."""
+    import torch.nn.functional as F
     from spt_proto_tpu_torch.ops import block_sparse_attention as m
     g_ = gen(SEED + 9)
-    block_q = 256
     n_sel = max(2, (s // 128) // coeff)
-    sel = sparse_sel(s, n_sel, bh, block_q, g_, n_sub)
+    if block_q % 128:
+        sel = sparse_sel(s, n_sel, bh, 128, g_, n_sub).repeat_interleave(
+            128 // block_q, 1).contiguous()
+    else:
+        sel = sparse_sel(s, n_sel, bh, block_q, g_, n_sub)
+    if drop_tile:
+        require(n_sel == 2 and block_q == 256, 'drop_tile takes the '
+                'diagonal pair at block_q 256')
+        sel[:, 0, 1] = -1
     q = randn(g_, (bh, s, dh), dtype, std=2.0)
     k = randn(g_, (bh, s, dh), dtype, std=2.0)
     v = randn(g_, (bh, s, dh), dtype)
@@ -2540,6 +2563,12 @@ def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
     o_w, lse_w = m.block_sparse_attention_lse_ref(q, k, v, sel, **kw)
     dd = (g.float() * o.float()).sum(-1)
     rsel = m.reverse_table(sel, s // 128)
+    route = m.bwd_route(dtype, dh, block_q, 128, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, g, lse, dd)))
+    require(route == ('tc' if dtype == torch.bfloat16 and block_q % 128 == 0
+                      else 'cuda_core'),
+            f'block-sparse backward {dtype} d {dh} block_q {block_q}: route '
+            f'{route}')
     dq = m.block_sparse_attention_dq(q, k, v, sel, g, lse, dd, **kw)
     dk, dv = m.block_sparse_attention_dkv(q, k, v, sel, rsel, g, lse, dd,
                                           **kw)
@@ -2547,10 +2576,17 @@ def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
     sync()
     require(all(w.float().abs().max().item() > 0 for w in want),
             'a zero twin gradient')
-    diag = (torch.arange(sel.shape[1], device=DEV) * 2)[None, :, None]
+    if drop_tile:
+        require(bool((rsel[:, 1] < 0).all()), 'key tile 1 is still selected')
+        require(bool((dk[:, 128:256] == 0).all())
+                and bool((dv[:, 128:256] == 0).all()),
+                f'block-sparse training {dtype}: the unselected key tile\'s '
+                f'dk / dv are not zeros')
+    diag = (torch.arange(sel.shape[1], device=DEV)
+            * (block_q // 128))[None, :, None]
     off_diag = bool(((sel >= 0) & (sel < diag)).any())
     invalid = bool((sel < 0).any())
-    if n_sel > block_q // 128:      # more tiles than the forced diagonal
+    if n_sel > 2 and block_q == 256:    # more tiles than the forced pair
         require(off_diag and invalid, f'sel at S={s} lacks off-diagonal or '
                 f'-1 entries')
     errs = {}
@@ -2561,9 +2597,11 @@ def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
                else output_tolerance(w, dtype))
         errs[name] = max_err(got, w)
         require(close(got, w, dtype, tol) and bool(torch.isfinite(got).all()),
-                f'block-sparse training {name} {dtype} S={s} d {dh}: err '
-                f'{errs[name]} ({tol_str(dtype, tol)})')
-    log(f'  block_sparse train BH={bh} S={s} d_head {dh} n_sel={n_sel} '
+                f'block-sparse training {name} {dtype} S={s} d {dh} block_q '
+                f'{block_q}: err {errs[name]} ({tol_str(dtype, tol)})')
+    log(f'  block_sparse train BH={bh} S={s} d_head {dh} block_q {block_q} '
+        f'n_sel={n_sel} backward {route}'
+        f'{", key tile 1 dropped" if drop_tile else ""} '
         f'{str(dtype):14s} max err ' + ', '.join(
             f'{k_} {v_:.3g}' for k_, v_ in errs.items())
         + f' (bf16: 2^-7 max|want|); off-diagonal {off_diag}, -1 {invalid}')
@@ -2573,29 +2611,44 @@ def check_block_sparse_train(dtype, bh, s, dh, coeff, timer=None,
             q, k, v, sel, **kw), reps=5)
         plain_bwd = timer.ms(lambda: m.block_sparse_attention_bwd_ref(
             q, k, v, sel, o, lse, g, **kw), reps=5)
+        # the yardstick: SDPA's dense causal backward over the same rows
+        leaves = [t[None].detach().clone().requires_grad_()
+                  for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 scale=kw['scale'])
+        g4 = g[None]
+        lib_bwd = timer.ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g4, retain_graph=True))
+        del lib_out, leaves
         used = sum(int(torch.unique(sel[i][sel[i] >= 0]).numel())
                    for i in range(bh))
         kv_bytes = used * 128 * dh * 2 * q.element_size()
         pairs = causal_pairs(sel, block_q)
+        lib = ('scaled_dot_product_attention backward (dq, dk, dv), dense '
+               'causal over the same rows: not the same function')
         rows = dict(
             block_sparse_attention_lse=(
                 lambda: m.block_sparse_attention_lse(q, k, v, sel, **kw),
                 'o', nbytes(q, sel, o, lse) + kv_bytes, 4 * dh * pairs,
-                plain_fwd),
+                plain_fwd, None),
             block_sparse_attention_dq=(
                 lambda: m.block_sparse_attention_dq(q, k, v, sel, g, lse, dd,
                                                     **kw),
                 'dq', nbytes(q, g, lse, dd, sel, dq) + kv_bytes,
-                6 * dh * pairs, plain_bwd),
+                6 * dh * pairs, plain_bwd, lib_bwd),
             block_sparse_attention_dkv=(
                 lambda: m.block_sparse_attention_dkv(q, k, v, sel, rsel, g,
                                                      lse, dd, **kw),
                 'dk', nbytes(q, g, lse, dd, rsel, dk, dv) + kv_bytes,
-                8 * dh * pairs, plain_bwd))
-        for name, (fn, out, n_b, n_o, plain) in rows.items():
+                8 * dh * pairs, plain_bwd, lib_bwd))
+        for name, (fn, out, n_b, n_o, plain, lib_ms) in rows.items():
             r = dict(max_abs_err=max(errs[out], errs['dv'])
                      if name.endswith('dkv') else errs[out],
-                     ms=timer.ms(fn), plain_ms=plain, library_ms=None)
+                     ms=timer.ms(fn), plain_ms=plain, library_ms=lib_ms,
+                     route=route if name != 'block_sparse_attention_lse'
+                     else m.fwd_route(dtype, dh, block_q, 128))
+            if lib_ms is not None:
+                r['library'] = lib
             r['bound_ms'], r['bound_by'] = bound_ms(n_b, n_o, dtype)
             log(f'    {name}:')
             log_times(r)
@@ -2764,6 +2817,12 @@ def phase_kernels(timer):
                              (2 * PROMPT, HEADS_LL, DH_LL)):
             check_block_sparse_train(dtype, bh_, s_, dh_, 4,
                                      n_sub=dh_ // 8)
+        # block_q 64, off the tensor-core rule (the CUDA-core pair in bf16
+        # too), and a table that leaves key tile 1 unselected (its dk / dv
+        # exact zeros)
+        check_block_sparse_train(dtype, B * HEADS, 512, DH, 8, block_q=64)
+        check_block_sparse_train(dtype, B * HEADS, 512, DH, 8,
+                                 drop_tile=True)
         # int8 weight-only serving (w8)
         r_front8, _ = check_front(dtype, t, packed=True)
         r_front8_bf, _ = check_front(dtype, t, quantized=False, packed=True)
@@ -5017,6 +5076,11 @@ IN_SITU = {
     'flash_attention': lambda k: 'flash_fwd_kernel' in k,
     'flash_attention_dq': lambda k: 'flash_dq_kernel' in k,
     'flash_attention_dkv': lambda k: 'flash_dkv_kernel' in k}
+# the kernels a bf16 training step never launches: the CUDA-core
+# block-sparse backward (every bf16 training call takes the tensor-core
+# pair, bwd_route); a profiled bf16 tune window is held to it
+NOT_BF16_TRAIN = ('block_sparse_dq_kernel<__nv_bfloat16',
+                  'block_sparse_dkv_kernel<__nv_bfloat16')
 # kernels of IN_SITU that are not counted as calls
 IN_SITU_UNCOUNTED = ('tgmm_reduce_kernel', 'int8_matmul_reduce_kernel')
 # the bf16 training kernels of the grouped matmuls (phase 10's gmm run
@@ -5131,6 +5195,10 @@ def train_run(label, argv, b, s, n_layers, per_layer=None, timed=TRAIN_TIMED,
             f'{label} losses {losses} (slack {loss_slack})')
     prof = profile_summary(label, rec['prof'], rec['window'][0].elapsed_time(
         rec['window'][1]) * 1e3)
+    if 'bfloat16' in argv:
+        old = sorted(k for k in prof['by_kernel']
+                     if any(name in k for name in NOT_BF16_TRAIN))
+        require(not old, f'{label}: the bf16 training steps launched {old}')
     in_situ, in_situ_names = {}, {}
     for n in per_layer:
         hits = [(k, t, c) for k, (t, c) in prof['by_kernel'].items()
@@ -5573,16 +5641,17 @@ KERNELS = [
      ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:108',
       'spt_proto_tpu/ops/pallas/block_sparse_attention.py:373'],
      'train 125M f32 B=8 S=512'),
+    # the backward pair, counted in the bf16 run (the tensor-core kernels)
     ('block_sparse_attention_dq',
      'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:416',
      ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:626'],
-     'train 125M f32 B=8 S=512'),
+     'train 125M bf16 B=8 S=512'),
     ('block_sparse_attention_dkv',
      'spt_proto_tpu_torch/csrc/block_sparse_attention.cu',
      'spt_proto_tpu/ops/pallas/block_sparse_attention.py:463',
      ['spt_proto_tpu/ops/pallas/block_sparse_attention.py:672'],
-     'train 125M f32 B=8 S=512'),
+     'train 125M bf16 B=8 S=512'),
     # phase 10: the int8_base and grouped-matmul training kernels
     ('int8_matmul_t', 'spt_proto_tpu_torch/csrc/int8_matmul.cu',
      'spt_proto_tpu/ops/pallas/int8_matmul.py:134',
@@ -5707,7 +5776,7 @@ def main() -> int:
             bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             library_ms=r['library_ms'],
             **{k: v for k, v in r.items() if isinstance(v, dict)
-               or k in ('unfused_ms', 'sdpa_causal_ms')}))
+               or k in ('unfused_ms', 'sdpa_causal_ms', 'library')}))
 
     for row in rows:
         require(row['launches'] > 0 or not row['on_main_path'],

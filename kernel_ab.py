@@ -21,6 +21,7 @@ they serve, from several checkouts, in turns, on one CUDA card.
     python3 kernel_ab.py --attn-sweep CHECKOUT
     python3 kernel_ab.py --paged PARENT CHANGE CHANGE PARENT
     python3 kernel_ab.py --verify PARENT CHANGE CHANGE PARENT
+    python3 kernel_ab.py --bsa-bwd PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repository; each runs in a
 process of its own, which builds that checkout's kernels and times, with
@@ -97,7 +98,13 @@ union and dense tables, K = 30 at G = 4), each checked first, cold L2
 beside its bound, the kernel and the wrapper's torch ops apart, then the
 n-gram speculative runs (OPT-125M, Llama-3-8B at
 16 layers) and phase 8's speculative engine: the kernel in situ, device ms
-a verify round, verify steps timed after a sync (verify).
+a verify round, verify steps timed after a sync (verify); or (--bsa-bwd)
+the block-sparse backward's dq and dk/dv at four training shapes, each
+checked first, cold L2 beside their bounds, dense causal SDPA's backward
+and the plain glue (dd, reverse_table), then the bf16 OPT-125M tune steps
+at S 512 and 2048 (synced step ms, device ms a step, the kernels in situ)
+and, where the checkout has the tensor-core pair, the sweep of its dq key
+step and dk/dv chunk height (bsa_bwd).
 One JSON
 line per checkout. Two versions are compared only within one call, on one
 card, in turns.
@@ -111,7 +118,8 @@ import sys
 
 MODES = ('--flash', '--int8t', '--head', '--e2e', '--gmm', '--int8',
          '--int8-sweep', '--int8-losses', '--front', '--host',
-         '--dense-attn', '--bsa', '--attn-sweep', '--paged', '--verify')
+         '--dense-attn', '--bsa', '--attn-sweep', '--paged', '--verify',
+         '--bsa-bwd')
 # the greedy heads' timed shapes, B=8: the fp head over Llama-3-8B's and
 # LLaMA-7B's vocabularies at d 4096 and at OPT-125M; the int8 head at d
 # 4096 (V 128,256), OPT-1.3B and OPT-125M
@@ -1147,6 +1155,176 @@ def attn_sweep(cs, timer) -> dict:
     return out
 
 
+# the block-sparse backward's timed shapes: (label, B*H, S, d_head,
+# sparse_coeff, PQ subspaces); coeff 8 lists are the diagonal pair, coeff 4
+# ones hold off-diagonal and -1 entries
+BSA_BWD_SHAPES = (('96 x 512 x 64 coeff 8', 96, 512, 64, 8, 8),
+                  ('96 x 2048 x 64 coeff 8', 96, 2048, 64, 8, 8),
+                  ('96 x 2048 x 64 coeff 4', 96, 2048, 64, 4, 8),
+                  ('32 x 2048 x 128 coeff 4', 32, 2048, 128, 4, 16))
+# the sweep's (dq keys a step, dk/dv rows a chunk) by d_head: every key
+# step and chunk height the library holds
+BSA_BWD_PLANS = {64: ((32, 16), (64, 32), (32, 64)), 128: ((32, 16),
+                                                           (32, 32))}
+BSA_BWD_NAMES = ('block_sparse_dq_kernel', 'block_sparse_dkv_kernel')
+
+
+def sdpa_bwd_ms(timer, bh, s, d) -> float:
+    """Dense causal SDPA's backward (dq, dk, dv through autograd) over q,
+    k, v [1, bh, s, d] bf16: the yardstick of the block-sparse backward."""
+    import torch
+    g = torch.Generator(device='cuda')
+    g.manual_seed(0)
+    leaves = [torch.randn((1, bh, s, d), generator=g, device='cuda')
+              .bfloat16().requires_grad_() for _ in range(3)]
+    do = torch.randn((1, bh, s, d), generator=g, device='cuda').bfloat16()
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           is_causal=True)
+    return timer.ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True))
+
+
+def bwd_glue_us(cs, bh, s, d, coeff, n_sub) -> float:
+    """Device us a call of the backward's plain glue, dd = sum(g * o) and
+    reverse_table(sel), at one shape (profiler, 10 calls, warm L2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    g_ = cs.gen(cs.SEED + 9)
+    sel = cs.sparse_sel(s, max(2, (s // 128) // coeff), bh, 256, g_, n_sub)
+    g, o = (cs.randn(g_, (bh, s, d), torch.bfloat16) for _ in range(2))
+
+    def glue():
+        (g.float() * o.float()).sum(-1)
+        m.reverse_table(sel, s // 128)
+    for _ in range(3):
+        glue()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            glue()
+        torch.cuda.synchronize()
+    return sum(a.device_time_total for a in prof.key_averages()
+               if a.device_time_total > 0) / 10
+
+
+def tune_steps(cs, seq) -> dict:
+    """cli.tune.main at OPT-125M, bf16, B=8, S=seq: 2 warm-up steps, 4
+    steps each between a sync and CUDA events (synced step ms, median),
+    then 2 profiled steps after a sync: device ms a step, busy share, and
+    the in-situ us a call of the lse forward, dq and dk/dv."""
+    import statistics
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spt_proto_tpu_torch.cli import tune
+    from spt_proto_tpu_torch.tuning import trainer
+    warm, synced, profiled = 2, 4, 2
+    rec = dict(times=[])
+    make = trainer.make_train_step
+
+    def instrumented(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            i = state.step
+            if i == warm + synced:
+                torch.cuda.synchronize()
+                rec['prof'] = profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+                rec['prof'].__enter__()
+                rec['window'] = [torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2)]
+                rec['window'][0].record()
+            if warm <= i < warm + synced:
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, m = step(state, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+                rec['times'].append(ev[0].elapsed_time(ev[1]))
+            else:
+                state, m = step(state, batch)
+            if i == warm + synced + profiled - 1:
+                rec['window'][1].record()
+                torch.cuda.synchronize()
+                rec['prof'].__exit__(None, None, None)
+                raise cs._StopRun
+            return state, m
+        return run
+
+    trainer.make_train_step = instrumented
+    argv = ['--device', cs.DEV, '--config', 'opt-125m', '--batch_size',
+            str(cs.B), '--dtype', 'bfloat16', '--seq_length', str(seq + 1),
+            '--steps', str(warm + synced + profiled)]
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            tune.main(argv + ['--out', out_dir + '/tuned'])
+    except cs._StopRun:
+        pass
+    finally:
+        trainer.make_train_step = make
+    prof = cs.profile_summary(f'tune S={seq}', rec['prof'],
+                              rec['window'][0].elapsed_time(
+                                  rec['window'][1]) * 1e3)
+    bk = prof['by_kernel']
+    out = {f'tune S={seq} synced step ms': statistics.median(rec['times']),
+           f'tune S={seq} device ms a step': prof['device_busy_us']
+           / profiled / 1e3,
+           f'tune S={seq} busy': prof['busy_share']}
+    for name in ('block_sparse_attention_lse', 'block_sparse_attention_dq',
+                 'block_sparse_attention_dkv'):
+        hits = [(t, c) for k, (t, c) in bk.items() if cs.IN_SITU[name](k)]
+        out[f'tune S={seq} {name} in situ us'] = (
+            sum(t for t, _ in hits) / max(1, sum(c for _, c in hits)))
+    out[f'tune S={seq} backward kernels'] = sorted(
+        k[:60] for k in bk if any(n in k for n in BSA_BWD_NAMES))
+    return out
+
+
+def bsa_bwd(cs, timer) -> dict:
+    """The block-sparse backward: dq and dk/dv at BSA_BWD_SHAPES, each
+    checked against its twin first (the checkout's check_block_sparse_train),
+    cold L2, beside their bounds, dense causal SDPA's backward over the
+    same rows and the plain glue's device us a call (dd and reverse_table);
+    then the bf16 OPT-125M tune steps at S 512 and 2048 (tune_steps); and,
+    in a checkout that has the tensor-core pair's plan, the sweep of its dq
+    key step and dk/dv chunk height (BSA_BWD_PLANS) at the same shapes."""
+    import torch
+    from spt_proto_tpu_torch.ops import block_sparse_attention as m
+    bf = torch.bfloat16
+    out = {}
+    for name, bh, s, d, coeff, n_sub in BSA_BWD_SHAPES:
+        r = cs.check_block_sparse_train(bf, bh, s, d, coeff, timer, n_sub)
+        for kern in ('dq', 'dkv'):
+            row = r[f'block_sparse_attention_{kern}']
+            out[f'{name} {kern} us'] = row['ms'] * 1e3
+            out[f'{name} {kern} bound us'] = row['bound_ms'] * 1e3
+        out[f'{name} lse us'] = r['block_sparse_attention_lse']['ms'] * 1e3
+        out[f'{name} SDPA backward us'] = sdpa_bwd_ms(timer, bh, s, d) * 1e3
+        out[f'{name} glue us'] = bwd_glue_us(cs, bh, s, d, coeff, n_sub)
+    torch.cuda.empty_cache()
+    for seq in (512, 2048):
+        out.update(tune_steps(cs, seq))
+        torch.cuda.empty_cache()
+    if hasattr(m, 'BWD_DQ_KEYS'):
+        keys0, rows0 = dict(m.BWD_DQ_KEYS), dict(m.BWD_DKV_ROWS)
+        try:
+            for name, bh, s, d, coeff, n_sub in BSA_BWD_SHAPES:
+                for keys, rows in BSA_BWD_PLANS[d]:
+                    m.BWD_DQ_KEYS, m.BWD_DKV_ROWS = {d: keys}, {d: rows}
+                    r = cs.check_block_sparse_train(bf, bh, s, d, coeff,
+                                                    timer, n_sub)
+                    out[f'sweep {name} dq {keys} keys us'] = r[
+                        'block_sparse_attention_dq']['ms'] * 1e3
+                    out[f'sweep {name} dkv {rows} rows us'] = r[
+                        'block_sparse_attention_dkv']['ms'] * 1e3
+        finally:
+            m.BWD_DQ_KEYS, m.BWD_DKV_ROWS = keys0, rows0
+    return out
+
+
 # profiler names of the paged and verify kernels in either checkout
 PAGED_NAMES = ('paged_attention_kernel', 'paged_attention_split_kernel')
 VERIFY_NAMES = ('verify_attention_kernel', 'verify_attention_split_kernel')
@@ -1399,6 +1577,8 @@ def one(root: str, mode: str | None) -> dict:
         return dict(out, **paged(cs, timer))
     if mode == '--verify':
         return dict(out, **verify(cs, timer))
+    if mode == '--bsa-bwd':
+        return dict(out, **bsa_bwd(cs, timer))
     front = cs.check_front(bf, timer)[0]['ms']
     front8 = cs.check_front(bf, timer, packed=True)[0]['ms']
     tail8 = cs.check_ffn(bf, cs.D, cs.FF, timer, int8=True)['ms']

@@ -60,7 +60,8 @@ SIGNATURES = {
     'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],
     'spt_block_sparse_fwd': [_I, _I] + [_P] * 6 + [_I] * 6
                             + [_F, _F, _I, _P],
-    'spt_block_sparse_bwd': [_I] + [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
+    'spt_block_sparse_bwd': [_I] * 3 + [_P] * 11 + [_I] * 6
+                            + [_F, _F, _I, _P],
     'spt_paged_attention': [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _I, _I,
                                                              _P, _P],
     'spt_paged_split_scores': [_I] * 5,

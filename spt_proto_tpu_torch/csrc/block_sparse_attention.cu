@@ -41,6 +41,8 @@
 // Bound: memory, as the forward; the training shape (96 x 512 x 64, the
 // diagonal tiles only) reads q, k, v, do and writes dq, dk, dv: a few MB,
 // a few us, against 3 (dq) and 4 (dk/dv) products per selected element.
+// In bf16 the tensor-core pair below runs these products; f32 and the
+// shapes off its rule run the CUDA-core pair:
 // dq: one CTA per (batch*head, 64-row sub-tile), walking the q tile's `sel`
 // as the forward does; S and dP micro-tiles in registers, dS through the V
 // tile's shared memory, dq accumulated in registers.
@@ -709,6 +711,389 @@ __global__ void __launch_bounds__(256) block_sparse_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// block_sparse_dq_kernel_tc<D, N> and block_sparse_dkv_kernel_tc<D, R>
+// compute what block_sparse_dq_kernel / block_sparse_dkv_kernel<bf16, D>
+// compute, for bf16 q/k/v/do at block_k 128, block_q a multiple of 128 and
+// 16-byte aligned operands (ops/block_sparse_attention.py bwd_route); f32
+// and the shapes off that rule keep the CUDA-core pair above, whose f32
+// products on the CUDA cores ran at 19-36x the bound.
+//
+// Design: flash_dq_kernel_tc's and flash_dkv_kernel_tc's
+// (csrc/flash_attention.cu) on the selection lists. Both run 4 warps of 16
+// rows (dq: query rows; dk/dv: keys) a CTA, mma.sync m16n8k16 from
+// ldmatrix on tiles of bf16 rows padded by 8 elements (the 8 row addresses
+// of an ldmatrix in distinct banks), filled by cp.async, p and ds formed in
+// registers from the saved lse (bwd_element's numerics, the clip rule per
+// fragment) and repacked from the accumulator layout into the A operand of
+// the next product as bf16.
+//   dq: one CTA per (batch*head, 64 query rows). Q and dO fragments stay in
+// registers, lse and dd of the thread's two rows beside them. The CTA walks
+// its parent q tile's `sel` entries (-1 and tiles wholly after its rows
+// left out) through a 2-slot ring of whole 128-key K/V tiles: tile 0's
+// copy starts with Q's and dO's, which are staged in slot 1 and leave it
+// for tile 1 once their fragments are loaded, so a list of two (the
+// training lists: the forced diagonal pair) is in flight at once in 74 KB
+// at d 64, three CTAs an SM (with Q and dO apart, 92 KB and two CTAs an
+// SM, dq ran 1.09-1.25x slower: chip_smoke.py check_block_sparse_train on
+// an H100). Since p comes from lse and not from a
+// running max, a tile may be walked in N-key steps (N 32 or 64,
+// BWD_DQ_KEYS): S = Q K^T and dP = dO V^T, then dq += bf16(dS) K (K through
+// ldmatrix.trans); a warp stops at the first step wholly after its rows,
+// and only a step that crosses its diagonal is masked. dq * scale leaves
+// through the warp's rows of slot 0.
+//   dk/dv: one CTA per (batch*head, 64 keys), half a key tile, so two CTAs
+// read one row of the reverse table; K and V stay in shared memory. It
+// walks the q tiles of that row (ascending, -1 padded) in chunks of R query
+// rows (R 16, 32 or 64, BWD_DKV_ROWS), each q tile from the first chunk
+// that can see the CTA's first key (rows before it see none), through a
+// 3-stage ring of Q, dO and the rows' lse and dd: S^T = K Q^T and dP^T =
+// V dO^T, then dV += bf16(P^T) dO and dK += bf16(dS^T) Q (dO and Q through
+// ldmatrix.trans). A warp skips a chunk wholly before its keys, and only a
+// chunk that crosses its diagonal is masked. A CTA whose row is empty
+// writes zeros.
+// Each output element is written once: no atomics, runs are deterministic.
+// Only the order of the f32 sums differs from the CUDA-core pair's.
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRows = 16 * kBwdWarps;   // query rows (dq) / keys (dk/dv)
+constexpr int kDqStages = 2;               // whole K/V tiles in flight
+constexpr int kDkvStages = 3;              // query chunks in flight
+
+// a warp's f32 accumulator tile [16][D] times `mul`
+template <int D>
+__device__ __forceinline__ void scale_tile(float (&acc)[D / 8][4],
+                                           float mul) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] *= mul;
+}
+
+template <int D, int N>
+__global__ void __launch_bounds__(kBwdThreads) block_sparse_dq_kernel_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    const int* __restrict__ sel, __nv_bfloat16* __restrict__ dq, int S,
+    int NQT, int NSEL, int BQ, float scale, float clamp, int has_clamp) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kRow = D + kTilePad, kNT = N / 8, kStage = 2 * kBK * kRow;
+  static_assert(kBK % N == 0 && N % 16 == 0, "whole k16 steps a tile");
+  static_assert(kDqStages == 2, "Q and dO are staged in the second slot");
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* ring = reinterpret_cast<bf16*>(smb);  // [kDqStages][K, V][kBK][kRow]
+  bf16* qs = ring + kStage;        // [kBwdRows][kRow] Q, before tile 1
+  bf16* gs = qs + kBwdRows * kRow;  // [kBwdRows][kRow] dO, before tile 1
+  int* tl = reinterpret_cast<int*>(ring + kDqStages * kStage);  // [NSEL]
+  int* s_n = tl + NSEL;
+
+  const int bh = blockIdx.y, row0 = blockIdx.x * kBwdRows, qt = row0 / BQ;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const size_t off = (size_t)bh * S * D;
+
+  // the CTA's tiles: sel entries in order, -1 and tiles wholly after its
+  // rows left out
+  if (tid == 0) {
+    const int* srow = sel + ((size_t)bh * NQT + qt) * NSEL;
+    int n = 0;
+    for (int si = 0; si < NSEL; ++si) {
+      const int t = srow[si];
+      if (t >= 0 && t * kBK <= row0 + kBwdRows - 1) tl[n++] = t;
+    }
+    *s_n = n;
+  }
+  copy_rows<D, kBwdRows, kBwdThreads>(qs, q + off + (size_t)row0 * D, D);
+  copy_rows<D, kBwdRows, kBwdThreads>(gs, g + off + (size_t)row0 * D, D);
+  cp_async_commit();
+  __syncthreads();
+  const int n_act = *s_n;
+  // one commit group a tile (empty past the last), after Q and dO's
+  auto load_kv = [&](int j) {
+    if (j < n_act) {
+      bf16* st = ring + (j % kDqStages) * kStage;
+      const size_t col0 = (size_t)tl[j] * kBK;
+      copy_rows<D, kBK, kBwdThreads>(st, k + off + col0 * D, D);
+      copy_rows<D, kBK, kBwdThreads>(st + kBK * kRow, v + off + col0 * D,
+                                     D);
+    }
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  const int wr0 = row0 + 16 * w;   // the warp's first row
+  float lr[2], dr[2];              // lse and dd of rows gr and gr + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t r = (size_t)bh * S + wr0 + gr + 8 * i;
+    lr[i] = lse[r];
+    dr[i] = dd[r];
+  }
+  cp_async_wait<1>();              // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldsm_x4(qf[kk], qs + a_off(16 * w, kk * 16, kRow));
+    ldsm_x4(gf[kk], gs + a_off(16 * w, kk * 16, kRow));
+  }
+  __syncthreads();                 // Q and dO are read out of slot 1
+  load_kv(1);
+
+  float acc[D / 8][4] = {};
+  for (int j = 0; j < n_act; ++j) {
+    if (j > 0) {
+      __syncthreads();             // tile j - 1 is read out
+      load_kv(j - 1 + kDqStages);  // into its slot
+    }
+    cp_async_wait<kDqStages - 1>();   // tile j has landed
+    __syncthreads();                  // ... for every thread
+    const int col0 = tl[j] * kBK;
+    const bf16* ks = ring + (j % kDqStages) * kStage;
+    const bf16* vs = ks + kBK * kRow;
+    for (int c = 0; c < kBK; c += N) {
+      const int c0 = col0 + c;
+      if (c0 > wr0 + 15) break;    // this step and the rest lie past the rows
+      float s[kNT][4] = {}, dp[kNT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < N / 16; ++np) {
+          const int o = bt_off(c + np * 16, kk * 16, kRow);
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, ks + o);
+          ldsm_x4(vb, vs + o);
+          mma_bf16_16816(s[2 * np], qf[kk], kb);
+          mma_bf16_16816(s[2 * np + 1], qf[kk], kb + 2);
+          mma_bf16_16816(dp[2 * np], gf[kk], vb);
+          mma_bf16_16816(dp[2 * np + 1], gf[kk], vb + 2);
+        }
+      }
+      const bool diag = c0 + N - 1 > wr0;
+      uint32_t dsa[N / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, r = wr0 + gr + 8 * i;
+          const int col = c0 + nt * 8 + tig * 2 + (e & 1);
+          float p;
+          bwd_element(s[nt][e], dp[nt][e], !diag || col <= r, lr[i], dr[i],
+                      scale, clamp, has_clamp, &p, &ds[e]);
+        }
+        to_a<kNT>(dsa, nt, ds);
+      }
+#pragma unroll
+      for (int t = 0; t < N / 16; ++t) {
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, ks + bn_off(c + t * 16, n2 * 16, kRow));
+          mma_bf16_16816(acc[2 * n2], dsa[t], kb);
+          mma_bf16_16816(acc[2 * n2 + 1], dsa[t], kb + 2);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                 // every warp is done with the tiles
+  scale_tile<D>(acc, scale);
+  store_tile<D>(dq + off + (size_t)wr0 * D, D, ring + 16 * w * kRow, acc);
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kBwdThreads) block_sparse_dkv_kernel_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    const int* __restrict__ rsel, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int S, int NKT, int NQT, int BQ,
+    float scale, float clamp, int has_clamp) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kRow = D + kTilePad, kNT = R / 8;
+  constexpr int kStage = 2 * R * kRow;   // elements of a chunk's Q and dO
+  static_assert(kBwdRows % R == 0 && R % 16 == 0, "whole chunks a CTA");
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* ks = reinterpret_cast<bf16*>(smb);    // [kBwdRows][kRow] K, then dk
+  bf16* vs = ks + kBwdRows * kRow;            // [kBwdRows][kRow] V, then dv
+  bf16* ring = vs + kBwdRows * kRow;          // [kDkvStages][Q, dO][R][kRow]
+  float* stats = reinterpret_cast<float*>(ring + kDkvStages * kStage);
+                                              // [kDkvStages][lse, dd][R]
+  int* first = reinterpret_cast<int*>(stats + kDkvStages * 2 * R);
+                                              // [NQT] a q tile's first row
+  int* pre = first + NQT;                     // [NQT + 1] its first chunk
+  int* s_n = pre + NQT + 1;                   // the count of q tiles
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kBwdRows, kti = k0 / kBK;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
+  const size_t off = (size_t)bh * S * D, srow = (size_t)bh * S;
+
+  // the q tiles that selected the key tile, each from its first row that
+  // can see key k0 (rows before it see none of the CTA's keys), and the
+  // running count of their R-row chunks
+  if (tid == 0) {
+    const int* rrow = rsel + ((size_t)bh * NKT + kti) * NQT;
+    int n = 0, c = 0;
+    for (int hi = 0; hi < NQT; ++hi) {
+      const int t = rrow[hi];
+      if (t < 0) break;                       // ascending, -1 padded
+      const int r0 = max(t * BQ, k0), end = t * BQ + BQ;
+      if (r0 >= end) continue;
+      first[n] = r0;
+      pre[n++] = c;
+      c += (end - r0) / R;
+    }
+    pre[n] = c;
+    *s_n = n;
+  }
+  copy_rows<D, kBwdRows, kBwdThreads>(ks, k + off + (size_t)k0 * D, D);
+  copy_rows<D, kBwdRows, kBwdThreads>(vs, v + off + (size_t)k0 * D, D);
+  cp_async_commit();
+  __syncthreads();
+  const int n_chunks = pre[*s_n];
+  // the first row of chunk j
+  auto chunk_row = [&](int j) {
+    int i = 0;
+    while (pre[i + 1] <= j) ++i;
+    return first[i] + (j - pre[i]) * R;
+  };
+  // one commit group a chunk (empty past the last): chunk j's is group j + 1
+  auto load_q = [&](int j) {
+    if (j < n_chunks) {
+      const int r0 = chunk_row(j), st = j % kDkvStages;
+      bf16* qs = ring + st * kStage;
+      copy_rows<D, R, kBwdThreads>(qs, q + off + (size_t)r0 * D, D);
+      copy_rows<D, R, kBwdThreads>(qs + R * kRow, g + off + (size_t)r0 * D,
+                                   D);
+      constexpr int kC = R / 4;   // 16-byte copies a statistic
+      if (tid < 2 * kC) {
+        const int t = tid / kC, c = tid % kC;
+        cp_async16(stats + (st * 2 + t) * R + c * 4,
+                   (t == 0 ? lse : dd) + srow + r0 + c * 4);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kDkvStages - 1; ++j) load_q(j);
+
+  const int wk0 = k0 + 16 * w;   // the warp's first key
+  float adk[D / 8][4] = {}, adv[D / 8][4] = {};
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<kDkvStages - 2>();   // K, V and chunk j have landed
+    __syncthreads();                   // ... for every thread; j - 1 read out
+    load_q(j + kDkvStages - 1);
+    const int r0 = chunk_row(j);
+    if (r0 + R - 1 < wk0) continue;    // every row lies before the keys
+    const int st = j % kDkvStages;
+    const bf16* qs = ring + st * kStage;
+    const bf16* gs = qs + R * kRow;
+    const float* sl = stats + st * 2 * R;
+    const float* sd = sl + R;
+
+    float s[kNT][4] = {}, dp[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, ks + a_off(16 * w, kk * 16, kRow));
+      ldsm_x4(va, vs + a_off(16 * w, kk * 16, kRow));
+#pragma unroll
+      for (int np = 0; np < R / 16; ++np) {
+        const int o = bt_off(np * 16, kk * 16, kRow);
+        uint32_t qb[4], gb[4];
+        ldsm_x4(qb, qs + o);
+        ldsm_x4(gb, gs + o);
+        mma_bf16_16816(s[2 * np], ka, qb);
+        mma_bf16_16816(s[2 * np + 1], ka, qb + 2);
+        mma_bf16_16816(dp[2 * np], va, gb);
+        mma_bf16_16816(dp[2 * np + 1], va, gb + 2);
+      }
+    }
+    const bool diag = r0 < wk0 + 15;   // some row before some key
+    uint32_t pa[R / 16][4], dsa[R / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = wk0 + gr + 8 * (e >> 1);
+        const int ql = nt * 8 + tig * 2 + (e & 1);
+        bwd_element(s[nt][e], dp[nt][e], !diag || key <= r0 + ql, sl[ql],
+                    sd[ql], scale, clamp, has_clamp, &p[e], &ds[e]);
+      }
+      to_a<kNT>(pa, nt, p);
+      to_a<kNT>(dsa, nt, ds);
+    }
+#pragma unroll
+    for (int t = 0; t < R / 16; ++t) {
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        const int o = bn_off(t * 16, n2 * 16, kRow);
+        uint32_t gb[4], qb[4];
+        ldsm_x4_trans(gb, gs + o);
+        ldsm_x4_trans(qb, qs + o);
+        mma_bf16_16816(adv[2 * n2], pa[t], gb);
+        mma_bf16_16816(adv[2 * n2 + 1], pa[t], gb + 2);
+        mma_bf16_16816(adk[2 * n2], dsa[t], qb);
+        mma_bf16_16816(adk[2 * n2 + 1], dsa[t], qb + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();      // K and V have landed even where no chunk was walked
+  scale_tile<D>(adk, scale);
+  store_tile<D>(dk + off + (size_t)wk0 * D, D, ks + 16 * w * kRow, adk);
+  store_tile<D>(dv + off + (size_t)wk0 * D, D, vs + 16 * w * kRow, adv);
+}
+
+template <int D, int N>
+int launch_bsa_dq_tc(const void* q, const void* k, const void* v,
+                     const void* g, const float* lse, const float* dd,
+                     const void* sel, void* dq, int BH, int S, int NQT,
+                     int NSEL, int BQ, float scale, float clamp,
+                     int has_clamp, cudaStream_t stream) {
+  const int smem = 2 * (D + kTilePad) * 2 * kDqStages * kBK + 4 * (NSEL + 1);
+  auto kern = block_sparse_dq_kernel_tc<D, N>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem((const void*)kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(S / kBwdRows, BH), kBwdThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)g, lse, dd,
+      (const int*)sel, (__nv_bfloat16*)dq, S, NQT, NSEL, BQ, scale, clamp,
+      has_clamp);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int R>
+int launch_bsa_dkv_tc(const void* q, const void* k, const void* v,
+                      const void* g, const float* lse, const float* dd,
+                      const void* rsel, void* dk, void* dv, int BH, int S,
+                      int NQT, int BQ, float scale, float clamp,
+                      int has_clamp, cudaStream_t stream) {
+  const int smem = 2 * (D + kTilePad) * (2 * kBwdRows + 2 * kDkvStages * R) +
+                   4 * kDkvStages * 2 * R + 4 * (2 * NQT + 2);
+  auto kern = block_sparse_dkv_kernel_tc<D, R>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = raise_smem((const void*)kern, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(S / kBwdRows, BH), kBwdThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)g, lse, dd,
+      (const int*)rsel, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, S / kBK,
+      NQT, BQ, scale, clamp, has_clamp);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_bsa_bwd(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* dd,
@@ -778,8 +1163,13 @@ extern "C" int spt_block_sparse_fwd(int dtype, int tc, const void* q,
 
 // The backward: dq when `dq` is not null (walking `sel` [BH, NQT, NSEL]),
 // dk and dv when `dk` is not null (walking `rsel` [BH, S/128, NQT]). `g` is
-// the output gradient, lse and dd [BH, S] f32.
-extern "C" int spt_block_sparse_bwd(int dtype, const void* q, const void* k,
+// the output gradient, lse and dd [BH, S] f32. dq_keys and dkv_rows: both 0
+// for the CUDA-core pair, else (bf16 only) the tensor-core pair with dq's
+// key step (32 or 64; 32 only at d 128) and dk/dv's chunk height (16, 32 or
+// 64; 16 or 32 at d 128): ops/block_sparse_attention.py bwd_route,
+// BWD_DQ_KEYS, BWD_DKV_ROWS.
+extern "C" int spt_block_sparse_bwd(int dtype, int dq_keys, int dkv_rows,
+                                    const void* q, const void* k,
                                     const void* v, const void* g,
                                     const void* lse, const void* dd,
                                     const void* sel, const void* rsel,
@@ -787,12 +1177,41 @@ extern "C" int spt_block_sparse_bwd(int dtype, const void* q, const void* k,
                                     int S, int D, int NQT, int NSEL, int BQ,
                                     float scale, float clamp, int has_clamp,
                                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  const float* d2 = (const float*)dd;
+  if (dq_keys != 0 || dkv_rows != 0) {
+    if (dtype != spt::kBF16 || BQ % spt::kBK != 0 || S % spt::kBK != 0)
+      return (int)cudaErrorInvalidValue;
+    if (dq != nullptr) {
+      auto f = D == 64 && dq_keys == 32   ? spt::launch_bsa_dq_tc<64, 32>
+               : D == 64 && dq_keys == 64 ? spt::launch_bsa_dq_tc<64, 64>
+               : D == 128 && dq_keys == 32
+                   ? spt::launch_bsa_dq_tc<128, 32>
+                   : nullptr;
+      if (f == nullptr) return (int)cudaErrorInvalidValue;
+      const int e = f(q, k, v, g, l, d2, sel, dq, BH, S, NQT, NSEL, BQ,
+                      scale, clamp, has_clamp, st);
+      if (e != 0) return e;
+    }
+    if (dk != nullptr) {
+      auto f = D == 64 && dkv_rows == 16    ? spt::launch_bsa_dkv_tc<64, 16>
+               : D == 64 && dkv_rows == 32  ? spt::launch_bsa_dkv_tc<64, 32>
+               : D == 64 && dkv_rows == 64  ? spt::launch_bsa_dkv_tc<64, 64>
+               : D == 128 && dkv_rows == 16 ? spt::launch_bsa_dkv_tc<128, 16>
+               : D == 128 && dkv_rows == 32 ? spt::launch_bsa_dkv_tc<128, 32>
+                                            : nullptr;
+      if (f == nullptr) return (int)cudaErrorInvalidValue;
+      return f(q, k, v, g, l, d2, rsel, dk, dv, BH, S, NQT, BQ, scale,
+               clamp, has_clamp, st);
+    }
+    return (int)cudaSuccess;
+  }
   auto f = dtype == spt::kBF16
                ? (D == 64 ? spt::launch_bsa_bwd<__nv_bfloat16, 64>
                           : spt::launch_bsa_bwd<__nv_bfloat16, 128>)
                : (D == 64 ? spt::launch_bsa_bwd<float, 64>
                           : spt::launch_bsa_bwd<float, 128>);
-  return f(q, k, v, g, (const float*)lse, (const float*)dd, sel, rsel, dq, dk,
-           dv, BH, S, NQT, NSEL, BQ, scale, clamp, has_clamp,
-           (cudaStream_t)stream);
+  return f(q, k, v, g, l, d2, sel, rsel, dq, dk, dv, BH, S, NQT, NSEL, BQ,
+           scale, clamp, has_clamp, st);
 }

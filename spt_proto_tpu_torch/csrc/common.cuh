@@ -200,6 +200,65 @@ __device__ __forceinline__ int at_off(int m0, int k0, int kRow) {
 }
 
 
+// The tensor-core attention kernels' tile helpers (csrc/flash_attention.cu,
+// csrc/block_sparse_attention.cu): bf16 tiles in shared memory hold rows of
+// D + kTilePad elements (16 B of padding put the 8 row addresses of an
+// ldmatrix in distinct banks).
+constexpr int kTilePad = 8;
+
+// rows [0, N) of a D-wide bf16 operand (row stride ss elements) into shared
+// rows of D + kTilePad elements, 16 B a cp.async, by the CTA's Threads
+// threads
+template <int D, int N, int Threads = 128>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss) {
+  constexpr int kC = D / 8, kRow = D + kTilePad;
+  static_assert((N * kC) % Threads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < N * kC / Threads; ++it) {
+    const int i = it * Threads + threadIdx.x, r = i / kC, c = i % kC;
+    cp_async16(dst + r * kRow + c * 8, src + r * ss + c * 8);
+  }
+}
+
+// a warp's f32 accumulator tile [16][D] as bf16 into rows [0, 16) of dst
+// (row stride ss): through the warp's own 16 shared rows, then 16-byte
+// stores
+template <int D>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, long long ss,
+                                           __nv_bfloat16* rows,
+                                           const float (&acc)[D / 8][4]) {
+  constexpr int kC = D / 8, kRow = D + kTilePad;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tig = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(rows + gr * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(rows + (gr + 8) * kRow + c) =
+        __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * kC / 32; ++it) {
+    const int i = it * 32 + lane, r = i / kC, c = i % kC;
+    *reinterpret_cast<uint4*>(dst + r * ss + c * 8) =
+        *reinterpret_cast<const uint4*>(rows + r * kRow + c * 8);
+  }
+}
+
+// accumulator tile nt's four values (rows gr, gr + 8; columns 2 tig, +1)
+// rounded to bf16 into the A operand of the next product: accumulator
+// tiles 2t and 2t + 1 are k16 step t
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], int nt,
+                                     const float* x) {
+  a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[0], x[1]);
+  a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
 // one word of ldmatrix.trans over int8 pairs: bytes (k, c), (k, c + 1),
 // (k + 1, c), (k + 1, c + 1) -> the A registers of rows c and c + 1, each
 // the bf16 pair (k, k + 1): byte b becomes the f32 2^23 + (b ^ 0x80), less

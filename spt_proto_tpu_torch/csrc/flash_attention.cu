@@ -474,7 +474,7 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcPad = 8;     // bf16 elements of padding a shared row
+constexpr int kTcPad = kTilePad;   // bf16 elements of padding a shared row
 constexpr int kTcWarps = 4;   // warps a CTA, 16 query rows or keys each
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;   // query rows (dq) / keys (dk/dv)
@@ -507,57 +507,6 @@ struct BwdArgs {
 __device__ __forceinline__ const bf16* head(const bf16* t, Strides st,
                                             int b, int h) {
   return t + b * st.b + h * st.h;
-}
-
-// rows [0, N) of a D-wide operand (row stride ss) into shared rows of
-// D + kTcPad elements, 16 B a copy, by the CTA's threads
-template <int D, int N>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long ss) {
-  constexpr int kC = D / 8, kRow = D + kTcPad;
-  static_assert((N * kC) % kTcThreads == 0, "whole copies a thread");
-#pragma unroll
-  for (int it = 0; it < N * kC / kTcThreads; ++it) {
-    const int i = it * kTcThreads + threadIdx.x, r = i / kC, c = i % kC;
-    cp_async16(dst + r * kRow + c * 8, src + r * ss + c * 8);
-  }
-}
-
-// a warp's f32 accumulator tile [16][D] as bf16 into rows [0, 16) of dst
-// (row stride ss): through the warp's own 16 shared rows, then 16-byte
-// stores
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* dst, long long ss,
-                                           bf16* rows,
-                                           const float (&acc)[D / 8][4]) {
-  constexpr int kC = D / 8, kRow = D + kTcPad;
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tig = lane & 3;
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + tig * 2;
-    *reinterpret_cast<__nv_bfloat162*>(rows + gr * kRow + c) =
-        __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<__nv_bfloat162*>(rows + (gr + 8) * kRow + c) =
-        __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < 16 * kC / 32; ++it) {
-    const int i = it * 32 + lane, r = i / kC, c = i % kC;
-    *reinterpret_cast<uint4*>(dst + r * ss + c * 8) =
-        *reinterpret_cast<const uint4*>(rows + r * kRow + c * 8);
-  }
-}
-
-// accumulator tile nt's four values (rows gr, gr + 8; columns 2 tig, +1)
-// rounded to bf16 into the A operand of the next product: accumulator
-// tiles 2t and 2t + 1 are k16 step t
-template <int NT>
-__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], int nt,
-                                     const float* x) {
-  a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[0], x[1]);
-  a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
 }
 
 struct FwdArgs {

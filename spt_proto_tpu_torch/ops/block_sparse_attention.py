@@ -20,6 +20,9 @@ _bwd_kernels); each choice computes the same function and one Hopper kernel
 (one pair for the backward) replaces it. `fwd_route` picks the forward's
 kernel: bf16 at the prefill tiles runs block_sparse_fwd_kernel_tc (the
 tensor cores), f32 and shapes off that rule block_sparse_fwd_kernel.
+`bwd_route` picks the backward's pair on the same rule: bf16 runs
+block_sparse_dq_kernel_tc and block_sparse_dkv_kernel_tc, f32 and the
+shapes off the rule block_sparse_dq_kernel and block_sparse_dkv_kernel.
 """
 from __future__ import annotations
 
@@ -72,6 +75,31 @@ def fwd_route(dtype: torch.dtype, d: int, block_q: int, block_k: int,
             and block_q % 128 == 0 and aligned):
         return 'tc'
     return 'cuda_core'
+
+
+def bwd_route(dtype: torch.dtype, d: int, block_q: int, block_k: int,
+              aligned: bool = True) -> str:
+    """The kernels a backward launch runs: 'tc' (block_sparse_dq_kernel_tc
+    and block_sparse_dkv_kernel_tc, the tensor cores) for bf16 q/k/v/g at
+    d_head 64 or 128, block_k 128, a block_q multiple of 128 and 16-byte
+    aligned q, k, v, g, lse and dd (`aligned`); else 'cuda_core'
+    (block_sparse_dq_kernel, block_sparse_dkv_kernel). The forward's rule
+    (fwd_route)."""
+    return fwd_route(dtype, d, block_q, block_k, aligned)
+
+
+# the tensor-core backward's plan by d_head: keys a dq step (a tile is
+# walked in steps of this many keys) and query rows a dk/dv chunk; the
+# library holds 32 / 64 keys at d 64 and 32 at d 128, and 16 / 32 / 64
+# rows at d 64 and 16 / 32 at d 128. From kernel_ab.py --bsa-bwd's sweep
+# (H100 80GB HBM3, 700 W, cold L2, mean of two runs, us at 96 x 512 x 64 /
+# 96 x 2048 x 64 coeff 8 / coeff 4): dq 32 keys 38.4 / 100.0 / 199.4
+# against 64 keys 41.8 / 120.6 / 240.0 (164 registers a thread against
+# 232: three CTAs an SM against two); dk/dv 32 rows 45.7 / 123.0 / 316.3
+# against 16 rows 47.4 / 122.1 / 337.8 and 64 rows 49.4 / 145.2 / 351.4; at
+# d 128 (32 x 2048 coeff 4) 32 rows 214.8 against 16 rows 249.6
+BWD_DQ_KEYS = {64: 32, 128: 32}
+BWD_DKV_ROWS = {64: 32, 128: 32}
 
 
 def _launch_fwd(q, k, v, sel, lse, block_q, scale, clamp):
@@ -225,11 +253,14 @@ def _launch_bwd(q, k, v, g, lse, dd, sel, rsel, dq, dk, dv, block_q, scale,
                 clamp, name):
     b, s, d = q.shape
     p = _build.ptr
+    tc = bwd_route(q.dtype, d, block_q, 128, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, g, lse, dd))) == 'tc'
     err = _build.lib().spt_block_sparse_bwd(
-        _build.dtype_code(q), p(q), p(k), p(v), p(g), p(lse), p(dd), p(sel),
-        p(rsel), p(dq), p(dk), p(dv), b, s, d, s // block_q, sel.shape[2],
-        block_q, float(scale), float(clamp or 0.0), int(clamp is not None),
-        _build.stream())
+        _build.dtype_code(q), BWD_DQ_KEYS[d] if tc else 0,
+        BWD_DKV_ROWS[d] if tc else 0, p(q), p(k), p(v), p(g), p(lse), p(dd),
+        p(sel), p(rsel), p(dq), p(dk), p(dv), b, s, d, s // block_q,
+        sel.shape[2], block_q, float(scale), float(clamp or 0.0),
+        int(clamp is not None), _build.stream())
     _build.check(err, name)
 
 

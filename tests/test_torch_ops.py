@@ -702,3 +702,65 @@ def test_block_sparse_forward_route(monkeypatch, dtype, d, block_q, aligned,
     assert [a[1] for a in calls] == [
         tbsa.FWD_WARPS[d] if route == 'tc' else 0] * 2
     assert calls[0][7] is None and calls[1][7] is not None     # lse
+
+
+@pytest.mark.parametrize('dtype,d,block_q,aligned,route', [
+    (torch.bfloat16, 64, 256, True, 'tc'),      # OPT training
+    (torch.bfloat16, 128, 256, True, 'tc'),     # LLaMA training
+    (torch.bfloat16, 64, 128, True, 'tc'),
+    (torch.bfloat16, 128, 128, False, 'cuda_core'),
+    (torch.bfloat16, 64, 64, True, 'cuda_core'),
+    (torch.bfloat16, 96, 256, True, 'cuda_core'),
+    (torch.float32, 64, 256, True, 'cuda_core'),
+    (torch.float32, 128, 128, True, 'cuda_core')])
+def test_block_sparse_backward_route(dtype, d, block_q, aligned, route):
+    """Which pair a backward launch takes (bwd_route): the tensor-core dq
+    and dk/dv kernels for bf16 at d_head 64 / 128, block_k 128, a block_q
+    multiple of 128 and aligned operands; the CUDA-core pair else. The
+    library holds a tensor-core instance for each d_head's plan."""
+    assert tbsa.bwd_route(dtype, d, block_q, 128, aligned) == route
+    assert tbsa.bwd_route(dtype, d, block_q, 64, aligned) == 'cuda_core'
+    if route == 'tc':
+        assert tbsa.BWD_DQ_KEYS[d] in ((32, 64) if d == 64 else (32,))
+        assert tbsa.BWD_DKV_ROWS[d] in ((16, 32, 64) if d == 64
+                                        else (16, 32))
+
+
+@pytest.mark.parametrize('dtype,d,block_q,aligned,route', [
+    (torch.bfloat16, 64, 256, True, 'tc'),
+    (torch.bfloat16, 128, 128, True, 'tc'),
+    (torch.bfloat16, 64, 128, False, 'cuda_core'),
+    (torch.bfloat16, 128, 64, True, 'cuda_core'),
+    (torch.float32, 64, 256, True, 'cuda_core')])
+def test_block_sparse_backward_launches_the_route(monkeypatch, dtype, d,
+                                                  block_q, aligned, route):
+    """block_sparse_attention_bwd hands the library bwd_route's pick (the
+    tensor-core plan, BWD_DQ_KEYS / BWD_DKV_ROWS, or 0 and 0 for the
+    CUDA-core pair): one dq launch, then one dk/dv launch over the reverse
+    table, each counted once a call."""
+    calls = []
+    _fake_lib(monkeypatch, tbsa, 'spt_block_sparse_bwd', calls)
+    s = 256
+    flat = torch.zeros(4 * s * d + 8, dtype=dtype)
+    off = 0 if aligned else 1
+    q, k, v, o = (flat[off + i * s * d:off + (i + 1) * s * d].view(1, s, d)
+                  for i in range(4))
+    sel = torch.zeros((1, s // block_q, 2), dtype=torch.int32)
+    lse = torch.zeros((1, s), dtype=torch.float32)
+    g = torch.zeros((1, s, d), dtype=dtype)
+    tbsa.block_sparse_attention_dq.launches = 0
+    tbsa.block_sparse_attention_dkv.launches = 0
+    tbsa.block_sparse_attention_bwd(q, k, v, sel, o, lse, g, block_q=block_q,
+                                    block_k=128, scale=0.1)
+    assert tbsa.block_sparse_attention_dq.launches == 1
+    assert tbsa.block_sparse_attention_dkv.launches == 1
+    tbsa.block_sparse_attention_dq.launches = 0
+    tbsa.block_sparse_attention_dkv.launches = 0
+    plan = ((tbsa.BWD_DQ_KEYS[d], tbsa.BWD_DKV_ROWS[d]) if route == 'tc'
+            else (0, 0))
+    assert [a[1:3] for a in calls] == [plan] * 2
+    # dq first (rsel, dk, dv null), then dk/dv (dq null)
+    assert calls[0][10] is None and calls[0][11] is not None
+    assert calls[0][12] is None and calls[0][13] is None
+    assert calls[1][10] is not None and calls[1][11] is None
+    assert calls[1][12] is not None and calls[1][13] is not None
