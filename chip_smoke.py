@@ -186,7 +186,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    twice under remat, no block-sparse launch); cli.profile.main at S 2048,
    B=8, bf16: dense forward, and the dense, lora and sparse train steps
    (step ms, tok/s, peak memory, exact launch counts);
-12. print the per-kernel JSON line, then the contract line
+12. the command line and the data path, OPT-125M at full width (seeded
+   random weights saved with the port's save_checkpoint: the dense base
+   and its sparse mha_v2 upgrade, bf16 compute): cli.generate.main with
+   --ckpt and --prompt_ids (four 512-token prompts, 32 new tokens, greedy)
+   plain over int8 KV, --int8, --speculative --spec_k 4 and --continuous
+   --prefix_cache, each run's tokens equal to the engine called directly on
+   the same card weights and its launches exact; cli.bench_serving.main
+   --config opt-125m at its defaults (B 8, prompt 512, max_len 1024, 32
+   steps) in the dense, sparse, int8 and paged modes (exact launches) and
+   --spec_k 4 (its kernels counted); a synthetic MMLU + FLAN-mini corpus
+   (numpy seed) and cli.tune.main --data_root (bf16, B 8, S 512, 1 warm-up
+   + 3 steps, exact launches, finite losses, batches equal to the CPU's
+   mmlu_flan_mixture); cli.dump_delta.main of its output;
+   cli.evaluate.main with and without --spt_ckpt (4 batches of 8 x 512,
+   equal to tuning.evaluate on the same weights and batches, exact
+   launches); cli.model_info.main --serving and cli.svd_rank.main
+   --activations; no transformers (a character tokenizer defined here);
+13. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -4057,10 +4074,16 @@ def phase_speculative():
     with random weights from a seed."""
     from spt_proto_tpu_torch.inference.bridge import init_params
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    from spt_proto_tpu_torch.cli.bench_serving import spec_prompts
     cfg = opt_cfg('125m', SPEC_MAX_LEN, torch.bfloat16)
     small = InferenceWeights.from_params(cfg, init_params(cfg, SEED,
                                                           device=DEV))
-    prompts = spec_workload(cfg.vocab_size)
+    # the workload is bench_serving's own (spec_prompts), held to the
+    # script's spec_workload first
+    prompts = torch.as_tensor(spec_prompts(cfg.vocab_size, B, PROMPT),
+                              device=DEV)
+    require(torch.equal(prompts, spec_workload(cfg.vocab_size)),
+            'bench_serving.spec_prompts differs from spec_workload')
     runs = {}
     runs['spec 125M n-gram bf16-KV'] = spec_run(
         'spec 125M n-gram bf16-KV', small, prompts, False)
@@ -5588,6 +5611,444 @@ def phase_dense():
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the command line and the data path (the CLIs' main functions on
+# the card: generate, bench_serving, tune --data_root, dump_delta, evaluate,
+# model_info, svd_rank), OPT-125M at full width
+# ---------------------------------------------------------------------------
+
+CLI_B, CLI_PROMPT, CLI_NEW, CLI_SHARED = 4, 512, 32, 256
+CLI_TUNE_STEPS, CLI_EVAL_BATCHES = 3, 4
+MMLU_SUBJECTS = ('abstract_algebra', 'college_physics', 'world_religions')
+
+
+def char_tokenizer(text):
+    """A character-level tokenizer: each character's code point mod 250,
+    plus 3 (ids 3-252, inside every vocabulary here)."""
+    return [ord(c) % 250 + 3 for c in text]
+
+
+def write_corpus(root, seed):
+    """A synthetic MMLU tree (mmlu/{dev,test,auxiliary_train}/<subject>_
+    <split>.csv, six columns: question, A-D, answer) and FLAN-mini text
+    (flan-mini/*.jsonl, input / output) under root, from a numpy seed."""
+    import csv
+    r = np.random.RandomState(seed)
+    words = ['alpha', 'beta', 'gamma', 'delta', 'field', 'group', 'ring',
+             'mass', 'force', 'energy', 'faith', 'temple', 'ritual']
+
+    def phrase(n):
+        return ' '.join(r.choice(words, size=n))
+    for split, n in (('dev', 6), ('test', 16), ('auxiliary_train', 40)):
+        os.makedirs(os.path.join(root, 'mmlu', split))
+        for subject in MMLU_SUBJECTS:
+            path = os.path.join(root, 'mmlu', split,
+                                f'{subject}_{split}.csv')
+            with open(path, 'w', newline='') as f:
+                w = csv.writer(f)
+                for _ in range(n):
+                    w.writerow([phrase(12) + '?'] + [phrase(3)
+                                                     for _ in range(4)]
+                               + ['ABCD'[r.randint(4)]])
+    os.makedirs(os.path.join(root, 'flan-mini'))
+    with open(os.path.join(root, 'flan-mini', 'part0.jsonl'), 'w') as f:
+        for _ in range(200):
+            f.write(json.dumps({'input': phrase(r.randint(10, 60)),
+                                'output': phrase(r.randint(5, 40))}) + '\n')
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def cli_counts(fn):
+    """(fn()'s result, the kernel launches it made): the counters zeroed
+    just before and read just after."""
+    ws = wrappers()
+    sync()
+    for w in ws.values():
+        w.launches = 0
+    out = fn()
+    sync()
+    return out, {n: w.launches for n, w in ws.items()}
+
+
+def cli_generate(ckpt, prompts):
+    """cli.generate.main with --ckpt and --prompt_ids (four prompts of 512
+    tokens sharing a 256-token head, 32 new tokens, greedy), plain over an
+    int8 KV cache, with int8 weights, speculative (n-gram, k 4) and through
+    the continuous batching engine with the prefix cache: the tokens equal
+    the engine's called directly on the same card weights, and the
+    launches the same calls make (exact per the engine's counts: the
+    prefill's and each step's, spec_expected for the speculative run)."""
+    from spt_proto_tpu_torch.cli import generate as gen_cli
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.inference.batching import \
+        ContinuousBatchingEngine
+    from spt_proto_tpu_torch.inference.speculative import \
+        generate_speculative
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    from spt_proto_tpu_torch.utils import checkpoint as ckpt_io
+    # the references' weights, built as the CLI builds them on the card
+    cfg, params = ckpt_io.load_checkpoint(ckpt, DEV)
+    cfg = cfg.replace(dtype=torch.bfloat16, attn_impl='pallas')
+    ref_iw = {q: InferenceWeights.from_params(cfg, params, quant=q)
+              for q in (None, 'int8')}
+    del params
+    ids = [','.join(map(str, row)) for row in prompts.tolist()]
+    argv = ['--device', DEV, '--ckpt', ckpt, '--dtype', 'bfloat16',
+            '--max_new_tokens', str(CLI_NEW)]
+    for row in ids:
+        argv += ['--prompt_ids', row]
+    batch = prompts.to(torch.int32)
+    lengths = torch.full((CLI_B,), CLI_PROMPT, dtype=torch.int32)
+    out, runs = {}, {}
+    for name, flags in (('plain', ['--quantized_kv']), ('int8', ['--int8']),
+                        ('speculative', ['--speculative', '--spec_k',
+                                         str(SPEC_K)]),
+                        ('continuous', ['--continuous', '--prefix_cache'])):
+        t0 = time.perf_counter()
+        got, counts = cli_counts(lambda: gen_cli.main(argv + flags))
+        dt = time.perf_counter() - t0
+        iw = ref_iw['int8' if name == 'int8' else None]
+        quantized = name == 'plain'
+        if name == 'continuous':
+            def direct():
+                eng = ContinuousBatchingEngine(
+                    iw, n_slots=CLI_B, max_len=CLI_PROMPT + CLI_NEW,
+                    prefix_cache=True)
+                rids = [eng.submit(row, CLI_NEW) for row in prompts.tolist()]
+                done = {c.request_id: c.tokens for c in eng.run_until_done()}
+                return [list(map(int, done[r])) for r in rids]
+            want, want_counts = cli_counts(direct)
+            rule = 'the direct engine run\'s'
+        elif name == 'speculative':
+            (ref, st), want_counts = cli_counts(
+                lambda: generate_speculative(iw, batch, CLI_NEW, k=SPEC_K,
+                                             lengths=lengths))
+            want = ref[:, CLI_PROMPT:].tolist()
+            _, spec_want = spec_expected(iw, None, False, st['rounds'])
+            require(want_counts == spec_want,
+                    f'generate speculative: direct launches {want_counts} '
+                    f'(expected {spec_want})')
+            rule = f'spec_expected over {st["rounds"]} rounds'
+        else:
+            ref = engine.generate(iw, batch, CLI_NEW, lengths=lengths,
+                                  quantized_kv=quantized)
+            want = ref[:, CLI_PROMPT:].tolist()
+            pre, step = expected_launches(iw, quantized)
+            want_counts = {n: pre[n] + (CLI_NEW - 1) * step[n] for n in pre}
+            rule = f'the prefill + {CLI_NEW - 1} greedy steps'
+        require(got == want, f'cli generate {name}: tokens {got} differ '
+                f'from the engine\'s {want}')
+        require(counts == want_counts,
+                f'cli generate {name}: launches {counts} (expected '
+                f'{want_counts}, {rule})')
+        log(f'  [cli generate {name}] {CLI_B} x {CLI_NEW} tokens equal the '
+            f'engine\'s; {dt:.2f} s with the checkpoint load; launches '
+            f'{ {n: c for n, c in counts.items() if c} } ({rule})')
+        runs[f'cli generate {name}'] = dict(seconds=dt, launches=counts)
+        out[name] = got
+    del ref_iw, iw
+    torch.cuda.empty_cache()
+    return runs
+
+
+def bench_expected(iw, steps, runs=2):
+    """bench_serving's launches in one contiguous mode: `runs` (warm-up and
+    timed) prefills + `steps` decode_steps, each step's logits from the
+    plain head (an int8_matmul with int8 weights, no argmax kernel)."""
+    pre, step = expected_launches(iw, False)
+    step = dict(step, lm_head_argmax=0, lm_head_argmax_int8=0)
+    if iw.quant == 'int8':
+        step['int8_matmul'] += 1
+    return {n: runs * (pre[n] + steps * step[n]) for n in pre}
+
+
+def cli_bench_serving():
+    """cli.bench_serving.main --config opt-125m at its defaults (B 8,
+    prompt 512, max_len 1024, 32 steps) in all four modes and --spec_k 4:
+    each mode's launches held exactly (bench_expected; paged: one
+    paged_attention a layer a step), the speculative run's verify, front,
+    attention and prefill kernels counted, not zero; its JSON lines
+    parsed."""
+    import contextlib
+    import io
+    from spt_proto_tpu_torch.cli import bench_serving as bs
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    counts, built = {}, []
+    mode_fn, spec_fn = bs.bench_mode, bs._bench_speculative
+    build = InferenceWeights.from_params
+
+    def record(*a, **kw):
+        iw = build(*a, **kw)
+        built.append(iw)
+        return iw
+
+    def counted_mode(args, mode, *a):
+        res, counts[mode] = cli_counts(lambda: mode_fn(args, mode, *a))
+        return res
+
+    def counted_spec(*a):
+        res, counts['speculative'] = cli_counts(lambda: spec_fn(*a))
+        return res
+    bs.bench_mode, bs._bench_speculative = counted_mode, counted_spec
+    InferenceWeights.from_params = staticmethod(record)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = bs.main(['--device', DEV, '--config', 'opt-125m',
+                               '--mode', 'dense', 'sparse', 'int8', 'paged',
+                               '--spec_k', str(SPEC_K)])
+    finally:
+        bs.bench_mode, bs._bench_speculative = mode_fn, spec_fn
+        InferenceWeights.from_params = staticmethod(build)
+    dt = time.perf_counter() - t0
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    require(lines[-1] == summary and len(lines) == 6,
+            f'bench_serving lines {lines}')
+    res = summary['decode_throughput']
+    steps = 32
+    runs = {}
+    for mode, iw in zip(('dense', 'sparse', 'int8', 'paged'), built):
+        if mode == 'paged':
+            want = {n: 2 * steps * LAYERS if n == 'paged_attention' else 0
+                    for n in counts[mode]}
+        else:
+            want = bench_expected(iw, steps)
+        require(counts[mode] == want and res[mode]['tokens_per_s'] > 0,
+                f'bench_serving {mode}: launches {counts[mode]} (expected '
+                f'{want}), {res[mode]}')
+        log(f'  [cli bench_serving {mode}] {res[mode]["tokens_per_s"]} '
+            f'tok/s, {res[mode]["ms_per_step"]} ms/step (B=8, prompt 512, '
+            f'32 steps; host time included), compile_s '
+            f'{res[mode]["compile_s"]}; launches '
+            f'{ {n: c for n, c in counts[mode].items() if c} }')
+        runs[f'cli bench_serving {mode}'] = dict(res[mode],
+                                                 launches=counts[mode])
+    spec = counts['speculative']
+    need = ('block_sparse_attention', 'decode_front', 'decode_attention_rows',
+            'verify_attention_rows')
+    require(all(spec[n] > 0 for n in need)
+            and 0 <= res['speculative']['acceptance'] <= 1,
+            f'bench_serving speculative: launches {spec}, '
+            f'{res["speculative"]}')
+    log(f'  [cli bench_serving speculative] {res["speculative"]}; launches '
+        f'{ {n: c for n, c in spec.items() if c} }; whole CLI {dt:.1f} s')
+    runs['cli bench_serving speculative'] = dict(res['speculative'],
+                                                 launches=spec)
+    del built
+    torch.cuda.empty_cache()
+    return runs
+
+
+def cli_tune(base, corpus, out_dir):
+    """cli.tune.main --ckpt base --data_root corpus (the four stages, bf16,
+    B 8, S 512) with the character tokenizer: 1 warm-up step, then
+    CLI_TUNE_STEPS timed (CUDA events) with exact launches (1 lse
+    forward, 1 dq, 1 dk/dv a layer a step); finite losses; the batches it
+    trained on equal those mmlu_flan_mixture builds on the CPU."""
+    import contextlib
+    import io
+    from spt_proto_tpu_torch.cli import tune
+    from spt_proto_tpu_torch.data.datamodule import mmlu_flan_mixture
+    from spt_proto_tpu_torch.tuning import trainer
+    from spt_proto_tpu_torch.tuning.partition import count_trainable
+    ws = wrappers()
+    rec = dict(events=[], losses=[], batches=[])
+    make, loop = trainer.make_train_step, trainer.train_loop
+
+    def instrumented(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            if state.step == 1:
+                sync()
+                for w in ws.values():
+                    w.launches = 0
+            rec['batches'].append({k: np.array(v) for k, v in batch.items()})
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step(state, batch)
+            ev[1].record()
+            rec['events'].append(ev)
+            rec['losses'].append(m['loss'].detach())
+            return state, m
+        return run
+    trainer.make_train_step = instrumented
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            params, _ = tune.main(
+                ['--device', DEV, '--ckpt', base, '--dtype', 'bfloat16',
+                 '--data_root', corpus, '--batch_size', str(B), '--steps',
+                 str(1 + CLI_TUNE_STEPS), '--out', out_dir],
+                tokenizer=char_tokenizer)
+    finally:
+        trainer.make_train_step, trainer.train_loop = make, loop
+    seconds = time.perf_counter() - t0
+    saved = json.loads(printed.getvalue().splitlines()[-1])
+    n_train = count_trainable(params)[0]
+    del params
+    sync()
+    counts = {n: w.launches for n, w in ws.items()}
+    want = {n: CLI_TUNE_STEPS * LAYERS if n in TRAIN_KERNELS else 0
+            for n in ws}
+    losses = [x.item() for x in rec['losses']]
+    cpu = mmlu_flan_mixture(corpus, char_tokenizer, seq_length=513,
+                            batch_size=B)
+    same = all(sorted(got) == sorted(want_b) and all(
+        np.array_equal(got[k], want_b[k]) for k in got)
+        for got, want_b in zip(rec['batches'], cpu))
+    require(counts == want and all(np.isfinite(losses)) and same
+            and saved['delta_params'] == n_train
+            and len(rec['batches']) == 1 + CLI_TUNE_STEPS
+            and rec['batches'][0]['inputs'].shape == (B, 512),
+            f'cli tune --data_root: launches {counts} (expected {want}), '
+            f'losses {losses}, batches equal to the CPU\'s: {same}')
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec['events'][1:]]
+    log(f'  [cli tune --data_root bf16 B={B} S=512] steps '
+        f'{[round(t, 2) for t in step_ms]} ms after 1 warm-up; losses '
+        f'{losses}; the {len(rec["batches"])} batches equal the CPU\'s '
+        f'mmlu_flan_mixture; launches a layer a step '
+        f'{ {n: c // (LAYERS * CLI_TUNE_STEPS) for n, c in counts.items() if c} }'
+        f'; delta {saved["delta_params"]} parameters (every trainable '
+        f'leaf); {seconds:.1f} s with the checkpoint load and writes')
+    return dict(step_ms=step_ms, losses=losses, launches=counts,
+                delta_params=saved['delta_params'], seconds=seconds)
+
+
+def cli_evaluate(base, delta, corpus):
+    """cli.evaluate.main on the base checkpoint (dense: the flash forward)
+    and with --spt_ckpt (the four stages and the delta: the block-sparse
+    forward), bf16, 4 batches of 8 x 512, 5 shots: ppl and accuracy equal
+    tuning.evaluate on the same weights and batches, launches exact (one
+    forward a layer a batch)."""
+    from spt_proto_tpu_torch.cli import evaluate as eval_cli
+    from spt_proto_tpu_torch.data.datamodule import mmlu_batches
+    from spt_proto_tpu_torch.tuning import evaluate, surgery
+    from spt_proto_tpu_torch.utils import checkpoint as ckpt_io
+    argv = ['--device', DEV, '--ckpt', base, '--dtype', 'bfloat16',
+            '--data_root', corpus, '--batch_size', str(B), '--max_batches',
+            str(CLI_EVAL_BATCHES)]
+    runs = {}
+    base_cfg, base_params = ckpt_io.load_checkpoint(base, DEV)
+    for name, flags, kernel in (
+            ('dense', [], 'flash_attention'),
+            ('spt', ['--spt_ckpt', delta], 'block_sparse_attention')):
+        t0 = time.perf_counter()
+        got, counts = cli_counts(lambda: eval_cli.main(
+            argv + flags, tokenizer=char_tokenizer))
+        dt = time.perf_counter() - t0
+        cfg, params = base_cfg.replace(dtype=torch.bfloat16), base_params
+        if flags:
+            cfg, params = surgery.full_upgrade(cfg, params, 0)
+            cfg_l, params = ckpt_io.load_delta_checkpoint(delta, params, DEV)
+            cfg = cfg_l.replace(dtype=torch.bfloat16)
+        cfg = cfg.replace(attn_impl='pallas')
+        want = evaluate.evaluate(
+            cfg, params, mmlu_batches(corpus, char_tokenizer, n_shots=5,
+                                      seq_length=513, batch_size=B),
+            max_batches=CLI_EVAL_BATCHES)
+        want_counts = {n: CLI_EVAL_BATCHES * LAYERS if n == kernel else 0
+                       for n in counts}
+        require(got == want and counts == want_counts
+                and got['n_examples'] == B * CLI_EVAL_BATCHES
+                and np.isfinite(got['ppl']),
+                f'cli evaluate {name}: {got} vs tuning.evaluate {want}; '
+                f'launches {counts} (expected {want_counts})')
+        log(f'  [cli evaluate {name}] {got} equals tuning.evaluate; '
+            f'{dt:.2f} s with the checkpoint load; {kernel} '
+            f'{counts[kernel]}')
+        runs[f'cli evaluate {name}'] = dict(got, seconds=dt, launches=counts)
+        del params
+    del base_params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_cli():
+    """Phase 12: the port's command line and data path on the card, OPT-125M
+    at full width (seeded random weights): checkpoints of the dense base
+    and of its sparse (mha_v1 -> mha_v2) upgrade, bf16 compute, f32 params
+    (the port's save_checkpoint); generate in four forms; bench_serving in
+    all modes; a synthetic MMLU + FLAN-mini corpus; tune --data_root,
+    dump_delta of its output, evaluate with and without the delta;
+    model_info --serving and svd_rank --activations. No transformers: the
+    tokenizer is char_tokenizer."""
+    import tempfile
+    from spt_proto_tpu_torch.cli import bench_serving as bs
+    from spt_proto_tpu_torch.cli import dump_delta, model_info, svd_rank
+    from spt_proto_tpu_torch.config import opt_config
+    from spt_proto_tpu_torch.tuning import surgery
+    from spt_proto_tpu_torch.utils import checkpoint as ckpt_io
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base, sparse = os.path.join(tmp, 'base'), os.path.join(tmp, 'sparse')
+        cfg = opt_config('125m', dtype=torch.bfloat16, pq_metric='l2')
+        params = surgery.init_params(cfg, SEED, DEV)
+        ckpt_io.save_checkpoint(base, cfg, params)
+        scfg, sp = surgery.upgrade(cfg, params, 'mha_v1', SEED + 1)
+        scfg, sp = surgery.upgrade(scfg, sp, 'mha_v2', SEED + 2)
+        # the serving checkpoint holds bf16 leaves (half the bytes to load)
+        ckpt_io.save_checkpoint(sparse,
+                                scfg.replace(param_dtype=torch.bfloat16),
+                                cast_tree(sp, torch.bfloat16))
+        del params, sp
+        log(f'  checkpoints written in {time.perf_counter() - t0:.1f} s')
+        prompts = torch.as_tensor(bs.random_prompts(cfg.vocab_size, CLI_B,
+                                                    CLI_PROMPT))
+        prompts[:, :CLI_SHARED] = prompts[0, :CLI_SHARED]
+        runs.update(cli_generate(sparse, prompts))
+        log(f'  ({time.perf_counter() - t0:.1f} s)')
+        runs.update(cli_bench_serving())
+        log(f'  ({time.perf_counter() - t0:.1f} s)')
+        corpus = os.path.join(tmp, 'text')
+        write_corpus(corpus, SEED + 31)
+        tuned = os.path.join(tmp, 'tuned')
+        runs['cli tune --data_root'] = tune_run = cli_tune(base, corpus,
+                                                           tuned)
+        t1 = time.perf_counter()
+        dd = dump_delta.main(['--device', DEV, '--base', base, '--tuned',
+                              tuned, '--out', os.path.join(tmp, 'dd')])
+        require(dd['delta_params'] == tune_run['delta_params'],
+                f'dump_delta: {dd} (tune wrote a delta of '
+                f'{tune_run["delta_params"]})')
+        log(f'  [cli dump_delta] {dd["delta_params"]} parameters, the tune '
+            f'run\'s delta (every trainable leaf, nothing frozen moved), in '
+            f'{time.perf_counter() - t1:.2f} s')
+        runs.update(cli_evaluate(base, tuned + '-delta', corpus))
+        log(f'  ({time.perf_counter() - t0:.1f} s)')
+    info, info_counts = cli_counts(lambda: model_info.main(
+        ['--device', DEV, '--config', 'opt-125m', '--tuning', 'sparse',
+         '--serving']))
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 2**30
+    require(info['hbm_gb'] == card_gb and info['trainable_params'] > 0
+            and info['max_seqs_at_ctx_int8'] > info['max_seqs_at_ctx_bf16']
+            > 0 and not any(info_counts.values()),
+            f'cli model_info: {info}')
+    log(f'  [cli model_info --serving] {info}')
+    ranks, svd_counts = cli_counts(lambda: svd_rank.main(
+        ['--device', DEV, '--config', 'opt-125m', '--activations']))
+    want = {n: LAYERS if n == 'flash_attention' else 0 for n in svd_counts}
+    require(len(ranks) == 5 and svd_counts == want
+            and all(0 < r['rank@95%'] for r in ranks.values()),
+            f'cli svd_rank: {ranks}, launches {svd_counts}')
+    log(f'  [cli svd_rank --activations] ranks@90% '
+        f'{ {k: r["rank@90%"] for k, r in ranks.items()} }; flash forwards '
+        f'{svd_counts["flash_attention"]}')
+    runs['cli svd_rank'] = dict(launches=svd_counts)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f'  phase 12: {seconds:.1f} s')
+    return dict(runs=runs, model_info=info, svd_rank=ranks, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel it replaces, others it also replaces, the
 # phase-4 or phase-6 run whose launch counts the kernel line reports)
@@ -5757,9 +6218,14 @@ def main() -> int:
     log(f'  ({time.perf_counter() - t_start:.0f} s; phase 11 '
         f'{time.perf_counter() - t11:.0f} s)')
 
+    log('phase 12: command line and data (generate, bench_serving, tune '
+        '--data_root, dump_delta, evaluate, model_info, svd_rank)')
+    cli = phase_cli()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
     all_runs = {**serving['runs'], **llama['runs'], **spec['runs'],
                 **stack['runs'], **training['runs'], **int8_gmm['runs'],
-                **dense['runs']}
+                **dense['runs'], **cli['runs']}
     rows = []
     for name, src, replaces, also, run in KERNELS:
         r = res[name]
@@ -5801,6 +6267,8 @@ def main() -> int:
                                          in dense['runs'].items()},
                             profiles={k: brief(r) for k, r
                                       in dense['profiles'].items()}),
+        command_line=dict(cli, runs={k: brief(r) for k, r
+                                     in cli['runs'].items()}),
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

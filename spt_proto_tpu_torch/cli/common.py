@@ -5,7 +5,8 @@ every entry point runs on the card unless the caller asks for the CPU,
 where the plain twins run); `load_or_init` loads a checkpoint (the JAX
 package's format) or builds a named config's seeded random weights
 (the port's init_params, seed 0) on that device; `apply_dtype` sets the
-compute dtype.
+compute dtype; `add_mesh_args` adds the serving CLIs' --mesh_model /
+--mesh_data, which `check_no_mesh` refuses until the parallelism slice.
 """
 from __future__ import annotations
 
@@ -63,3 +64,27 @@ def load_or_init(args, min_length: int = 0) -> Tuple[ModelConfig, Any]:
 
 def apply_dtype(cfg: ModelConfig, args) -> ModelConfig:
     return cfg.replace(dtype=DTYPES[args.dtype])
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument('--mesh_model', type=int, default=None,
+                   help='tensor-parallel width for serving (the '
+                        'parallelism slice; raises until then)')
+    p.add_argument('--mesh_data', type=int, default=1,
+                   help='data axis width for serving (the parallelism '
+                        'slice)')
+
+
+def check_no_mesh(args) -> None:
+    """Single-device serving only: a mesh flag raises, naming its slice."""
+    if getattr(args, 'mesh_model', None) is not None \
+            or getattr(args, 'mesh_data', 1) != 1:
+        raise NotImplementedError(
+            'a serving mesh (--mesh_model / --mesh_data) comes with the '
+            'parallelism slice')
+
+
+def on_card(args) -> bool:
+    """True where args.device is a CUDA device (checked to exist): there
+    every attention goes through the kernels (attn_impl='pallas')."""
+    return resolve_device(args.device).type == 'cuda'

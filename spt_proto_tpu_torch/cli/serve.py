@@ -4,11 +4,12 @@
     python -m spt_proto_tpu_torch.cli.serve --config opt-125m \
         --port 8000 --n_slots 8 --max_len 2048 --paged --quantized_kv
 
-Weights are random, made on the device from --seed by the port's
-init_params (loading a checkpoint comes with the utils slice). The server
-takes and returns token ids; --tokenizer names a local tokenizer directory
-(never a hub name: it loads with local_files_only) to accept text prompts
-as well. It runs on --device (default cuda, where every kernel of the
+--ckpt DIR serves a checkpoint (the JAX package's format, loaded onto
+the device by cli/common.py::load_or_init), in --dtype; without it the
+weights are --config's, random, made on the device from --seed by the
+port's init_params. The server takes and returns token ids; --tokenizer
+names a local tokenizer directory (never a hub name: it loads with
+local_files_only) to accept text prompts as well. It runs on --device (default cuda, where every kernel of the
 serving path runs; cpu runs the plain twins). See inference/server.py for
 the threading contract.
 """
@@ -18,11 +19,15 @@ import argparse
 
 import torch
 
-from spt_proto_tpu_torch.cli.common import DTYPES, named_config
+from spt_proto_tpu_torch.cli.common import (DTYPES, apply_dtype,
+                                            load_or_init, named_config)
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('--ckpt', type=str, default=None,
+                   help='checkpoint directory (config.json + params.npz); '
+                        'random --config weights if omitted')
     p.add_argument('--config', type=str, default='opt-125m',
                    help='opt-125m, opt-1.3b, llama-7b, llama-3-8b, ... or '
                         'tiny-opt / tiny-llama')
@@ -61,13 +66,17 @@ def build_server(args):
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
 
     dtype = DTYPES[args.dtype]
-    cfg = named_config(args.config, dtype=dtype, param_dtype=dtype)
-    cfg = cfg.replace(max_length=max(cfg.max_length, args.max_len))
+    if args.ckpt:
+        cfg, params = load_or_init(args, min_length=args.max_len)
+        cfg = apply_dtype(cfg, args)
+    else:
+        cfg = named_config(args.config, dtype=dtype, param_dtype=dtype)
+        cfg = cfg.replace(max_length=max(cfg.max_length, args.max_len))
+        params = init_params(cfg, args.seed, device=args.device)
     if torch.device(args.device).type == 'cuda':
         # on the GPU the port attends only through its kernels
         cfg = cfg.replace(attn_impl='pallas')
     cfg.validate()
-    params = init_params(cfg, args.seed, device=args.device)
     iw = InferenceWeights.from_params(cfg, params,
                                       quant='int8' if args.int8 else None)
     tok = eos_id = None

@@ -23,11 +23,16 @@ cfg.int8_base set, as the JAX CLI saves them. Training runs in place on
 the tree the CLI built (the delta's base keeps copies of the leaves it
 trains), so the card holds the base weights once.
 
-Without --data_root the batches are synthetic (numpy seed 0): rows of
---seq_length tokens, so inputs and targets are seq_length - 1 = 512 long,
-the length the data path gives (the JAX CLI's synthetic rows are one token
-shorter). --data_root and a device mesh (--mesh_*, --fsdp, --ep) raise,
-naming the slice that brings them.
+--data_root DIR trains on the MMLU + FLAN-mini mixture under DIR
+(data/datamodule.py::mmlu_flan_mixture: mmlu/auxiliary_train CSVs at
+weight 0.1, flan-mini/*.jsonl at 1.0, TruncPadding to --seq_length),
+tokenized by the local tokenizer directory --tokenizer DIR, or by the
+`tokenizer` callable (str -> list of ids) handed to main, which needs no
+`transformers`. Without --data_root the batches are synthetic (numpy
+seed 0): rows of --seq_length tokens, so inputs and targets are
+seq_length - 1 = 512 long, the length the data path gives (the JAX CLI's
+synthetic rows are one token shorter). A device mesh (--mesh_*, --fsdp,
+--ep) raises, naming the parallelism slice.
 """
 from __future__ import annotations
 
@@ -43,8 +48,11 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     add_model_args(p)
     p.add_argument('--data_root', type=str, default=None,
-                   help='dataset tree (the data slice); synthetic LM '
+                   help='dataset tree (mmlu + flan-mini); synthetic LM '
                         'batches if omitted')
+    p.add_argument('--tokenizer', type=str, default=None,
+                   help='local tokenizer directory for --data_root (no '
+                        'download)')
     p.add_argument('--out', type=str, required=True)
     p.add_argument('--d_lora', type=int, default=16)
     p.add_argument('--steps', type=int, default=100)
@@ -75,10 +83,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.data_root:
-        raise NotImplementedError(
-            '--data_root (tokenized MMLU / FLAN batches through '
-            'AutoTokenizer.from_pretrained) comes with the data slice')
     if (args.mesh_data or args.mesh_model or args.mesh_pipe > 1
             or args.mesh_sp > 1 or args.fsdp or args.ep):
         raise NotImplementedError(
@@ -97,7 +101,21 @@ def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int):
         yield {'inputs': x[:, :-1], 'targets': x[:, 1:]}
 
 
-def main(argv=None):
+def data_tokenizer(args, tokenizer=None):
+    """The tokenizer of --data_root: `tokenizer` (a callable str -> ids)
+    if given, else the local directory --tokenizer."""
+    if tokenizer is not None:
+        return tokenizer
+    if not args.tokenizer:
+        raise SystemExit('--data_root needs --tokenizer DIR (a local '
+                         'tokenizer directory)')
+    from spt_proto_tpu_torch.data.datamodule import default_tokenizer
+    return default_tokenizer(args.tokenizer)
+
+
+def main(argv=None, tokenizer=None):
+    """Parse argv and train; `tokenizer` (str -> list of ids) tokenizes
+    --data_root in place of --tokenizer DIR."""
     args = _parser().parse_args(argv)
     _check_ported(args)
 
@@ -131,12 +149,20 @@ def main(argv=None):
         k: v.detach().clone() if is_trainable_path(k) else v
         for k, v in flatten(base_params).items()})
 
-    batches = synthetic_batches(cfg.vocab_size, args.batch_size,
-                                args.seq_length)
+    if args.data_root:
+        from spt_proto_tpu_torch.data.datamodule import mmlu_flan_mixture
+        batches = mmlu_flan_mixture(args.data_root,
+                                    data_tokenizer(args, tokenizer),
+                                    seq_length=args.seq_length,
+                                    batch_size=args.batch_size)
+    else:
+        batches = synthetic_batches(cfg.vocab_size, args.batch_size,
+                                    args.seq_length)
     if args.accumulate > 1:
         def accumulated(src, a):
+            it = iter(src)
             while True:
-                group = [next(src) for _ in range(a)]
+                group = [next(it) for _ in range(a)]
                 yield {k: np.concatenate([g[k] for g in group])
                        for k in group[0]}
         batches = accumulated(batches, args.accumulate)

@@ -694,6 +694,16 @@ class ContinuousBatchingEngine:
                  else np.zeros((self.n_slots, 0), np.int64))
         block = self._on_device(np.concatenate(
             [self._tokens[:, None], props.astype(np.int32)], axis=1))
+        # a finished request's lane can sit at the cache's end: its dead
+        # block must still land inside the cache (the JAX engine's scatter
+        # drops the columns past it; an index past it raises here)
+        free = [s for s in range(self.n_slots) if s not in self._live]
+        if free:
+            lane = torch.zeros((self.n_slots,), dtype=torch.bool)
+            lane[free] = True
+            self.cache = dataclasses.replace(self.cache, length=torch.where(
+                lane.to(self.dev), self.cache.length.clamp(
+                    max=self.cap - block.shape[1]), self.cache.length))
         n_acc, corr, self.cache = _verify_and_accept(
             self.iw, block, self.cache, torch.from_numpy(active).to(self.dev),
             self._gen, temperature=self.temperature)

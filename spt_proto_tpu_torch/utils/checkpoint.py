@@ -1,7 +1,8 @@
 """Checkpoint IO in the JAX package's format (port of
 spt_proto_tpu/utils/checkpoint.py): a directory with `params.npz` (flat
-'/'-joined param paths) and `config.json` (the ModelConfig fields, dtypes
-by name), so that each package loads the other's checkpoints; delta
+'/'-joined param paths; bf16 leaves as ml_dtypes' bfloat16) and
+`config.json` (the ModelConfig fields, dtypes by name), so that each
+package loads the other's checkpoints; delta
 checkpoints hold only the tensors that changed against a base (`delta.npz`,
 allclose at atol 1e-3, fewer than 50M parameters)."""
 from __future__ import annotations
@@ -52,7 +53,15 @@ def _read_config(path: str) -> ModelConfig:
 def _load_npz(file: str, device) -> Any:
     with np.load(file) as data:
         flat = {k: data[k] for k in data.files}
-    return params_from_numpy(unflatten(flat), device)
+    # a bf16 leaf (ml_dtypes' bfloat16, as both packages save one) comes
+    # back from the npz as 2-byte void records: its bits, viewed as bf16
+    bf16 = {k for k, v in flat.items()
+            if v.dtype.kind == 'V' and v.dtype.itemsize == 2}
+    tree = params_from_numpy(unflatten(
+        {k: v.view(np.uint16) if k in bf16 else v for k, v in flat.items()}),
+        device)
+    return unflatten({k: v.view(torch.bfloat16) if k in bf16 else v
+                      for k, v in flatten(tree).items()})
 
 
 def save_checkpoint(path: str, cfg: ModelConfig, params: Any) -> None:

@@ -83,10 +83,15 @@ def flat(tree, prefix=''):
 @pytest.fixture(scope='module')
 def model():
     """tests/test_decode_front.py's sparse_model recipe (d_model 128, two
-    heads, l2 PQ metric) at max_length 1024 and sparse_coeff 2."""
+    heads, l2 PQ metric) at max_length 1024 and sparse_coeff 2. The JAX
+    engine takes its per-slot decode kernels (decode_multislot=False: the
+    same function as the all-slot ones, which test_torch_decode.py holds
+    the twin to, in half the compile time), as test_torch_engine_modes.py
+    does."""
     cfg = jcfg.tiny_config('opt', d_model=128, n_heads=2, d_feedforward=256,
                            vocab_size=256, max_length=MAX_LEN).replace(
-        dtype=jnp.float32, pq_metric='l2', attn_impl='pallas')
+        dtype=jnp.float32, pq_metric='l2', attn_impl='pallas',
+        decode_multislot=False)
     params = surgery.init_params(cfg, jax.random.PRNGKey(0))
     cfg, params = surgery.upgrade(cfg, params, 'mha_v1',
                                   jax.random.PRNGKey(1))
@@ -262,7 +267,8 @@ def test_routed_lora_model_decodes_as_jax():
             flat[path] = (r.randn(*flat[path].shape) * 0.1).astype(np.float32)
     params = unflatten(flat)
     kw = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)}
-    kw.update(dtype=jnp.float32, param_dtype=jnp.float32)
+    kw.update(dtype=jnp.float32, param_dtype=jnp.float32,
+              decode_multislot=False)
     jc = jcfg.ModelConfig(**kw)
     tokens = r.randint(1, 256, size=(B, 512)).astype(np.int32)
     j_logits, _, j_tokens = _jax_run(jc, params, tokens)

@@ -2,6 +2,7 @@
 the JAX package, its entry points default to CUDA and raise without it,
 and on CPU tensors every kernel wrapper runs its plain twin and launches
 nothing."""
+import re
 import subprocess
 import sys
 import types
@@ -71,6 +72,49 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert 'jax' not in src.replace('spt_proto_tpu_torch', ''), name
         assert 'spt_proto_tpu.' not in src.replace('spt_proto_tpu_torch',
                                                    ''), name
+    # the command line and the data path: plain Python and numpy where
+    # they need no tensor, never the JAX package
+    for name in CLI_AND_DATA:
+        src = (REPO / 'spt_proto_tpu_torch' / name).read_text()
+        assert 'jax' not in src.replace('spt_proto_tpu_torch', ''), name
+        assert 'spt_proto_tpu.' not in src.replace('spt_proto_tpu_torch',
+                                                   ''), name
+
+
+CLI_AND_DATA = ('data/transform.py', 'data/reader.py', 'data/mmlu.py',
+                'data/datamodule.py', 'cli/generate.py',
+                'cli/bench_serving.py', 'cli/convert.py', 'cli/model_info.py',
+                'cli/dump_delta.py', 'cli/svd_rank.py', 'cli/evaluate.py',
+                'cli/tune.py', 'utils/convert_hf.py', 'utils/metrics.py')
+HUB_NAMES = ('facebook/', 'meta-llama/', 'princeton-nlp/', 'huggingface.co')
+
+
+def test_no_download_from_the_port_or_chip_smoke():
+    """Every from_pretrained( call in the port passes local_files_only=True
+    (local directories only: no machine here reaches a hub); no port module
+    or chip_smoke.py names a hub model; chip_smoke.py never imports
+    transformers (the card's machine has none), and neither does any port
+    module at import time."""
+    calls = 0
+    for path in sorted((REPO / 'spt_proto_tpu_torch').rglob('*.py')):
+        src = path.read_text()
+        assert not any(h in src for h in HUB_NAMES), path
+        assert not re.search(r'^(import|from) (transformers|tokenizers)\b',
+                             src, re.M), path
+        for m in re.finditer(r'from_pretrained\(', src):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {'(': 1, ')': -1}.get(src[i], 0)
+                i += 1
+            assert 'local_files_only=True' in src[m.end():i], \
+                f'{path}: {src[m.start():i]}'
+            calls += 1
+    assert calls >= 4           # generate, serve, convert, datamodule
+    smoke = (REPO / 'chip_smoke.py').read_text()
+    assert not re.search(r'^\s*(import|from) (transformers|tokenizers)\b',
+                         smoke, re.M)
+    assert 'from_pretrained' not in smoke
+    assert not any(h in smoke for h in HUB_NAMES)
 
 
 def _tiny_cfg():
@@ -160,9 +204,10 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 def test_unported_forms_raise_not_implemented():
     """What a later slice brings raises and names its slice: ffn_impl='ep'
-    (expert parallelism), a training mesh (the parallelism slice) and the
-    tune CLI's --data_root (the data slice). What this and earlier slices
-    brought runs, and no NotImplementedError is left for it: dense attention
+    (expert parallelism), a training mesh, and the mesh flags of the
+    generate, bench_serving and tune CLIs (the parallelism slice). What
+    this and earlier slices brought runs, and no NotImplementedError is
+    left for it: dense attention
     under attn_impl='pallas' (the flash kernels; their twins here, a CUDA
     tensor the kernel checks refuse only for a shape they do not take, such
     as d_head 16), remat_policy='dots', int8 weights over a routed + LoRA
@@ -171,7 +216,7 @@ def test_unported_forms_raise_not_implemented():
     the routed FFN with LoRA in init_params and the engine, a bf16/f32 KV
     cache, int8 weights, and a tiny LLaMA GQA model that builds int8
     weights (the triple_int8 form) and decodes a step on the CPU."""
-    from spt_proto_tpu_torch.cli import tune
+    from spt_proto_tpu_torch.cli import bench_serving, generate, tune
     from spt_proto_tpu_torch.models.decoder import DecoderLM
     from spt_proto_tpu_torch.ops import flash_attention as fa
     from spt_proto_tpu_torch.tuning import surgery, trainer
@@ -203,9 +248,14 @@ def test_unported_forms_raise_not_implemented():
     q = torch.zeros((1, 4, 128, 16))
     with pytest.raises(ValueError, match='d_head 64 or 128'):
         fa._check_kernel(q, q, q, True)
-    with pytest.raises(NotImplementedError, match='data slice'):
+    for cli, flags in ((generate, ['--prompt_ids', '1,2', '--mesh_model',
+                                   '2']),
+                       (bench_serving, ['--mesh_data', '2'])):
+        with pytest.raises(NotImplementedError, match='parallelism slice'):
+            cli.main(['--device', 'cpu', '--config', 'tiny-opt'] + flags)
+    with pytest.raises(NotImplementedError, match='parallelism slice'):
         tune.main(['--device', 'cpu', '--config', 'tiny-opt', '--out',
-                   'unused', '--data_root', 'x'])
+                   'unused', '--mesh_model', '2'])
     with pytest.raises(NotImplementedError, match='parallelism slice'):
         trainer.train_loop(rcfg, routed, [], mesh=object())
     w8_routed = InferenceWeights.from_params(rcfg, routed, quant='int8')

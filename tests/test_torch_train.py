@@ -257,8 +257,8 @@ def test_checkpoints_load_in_both_packages(tmp_path):
 def test_tune_cli_two_steps(tmp_path, capsys):
     """cli.tune.main on the CPU at tiny-opt: 2 steps of the four-stage
     pipeline, the JSON lines, and a checkpoint the JAX package loads; the
-    unported flags raise naming their slices (--int8_base runs: see
-    test_torch_int8_base.py)."""
+    unported flags raise naming their slice (--int8_base runs: see
+    test_torch_int8_base.py; --data_root: test_torch_cli.py)."""
     out = str(tmp_path / 'tuned')
     argv = ['--device', 'cpu', '--config', 'tiny-opt', '--steps', '2',
             '--seq_length', '33', '--batch_size', '2', '--out', out]
@@ -270,7 +270,7 @@ def test_tune_cli_two_steps(tmp_path, capsys):
     jc, jp = jckpt.load_checkpoint(out)
     assert jc.attention == 'sparse_v2' and jc.ffn == 'routed'
     assert jc.d_lora == 16 and 'router' in jp['blocks']['ffn']
-    for flag, slice_ in (('--data_root=x', 'data slice'),
+    for flag, slice_ in (('--mesh_sp=2', 'parallelism slice'),
                          ('--fsdp', 'parallelism slice')):
         with pytest.raises(NotImplementedError, match=slice_):
             tune.main(argv + [flag])
