@@ -6,7 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from spt_proto_tpu_torch/csrc and print the build time, and
+   kernels from spt_proto_tpu_torch/csrc and print the build time (two
+   more processes build at the same time, as the ranks of a world on a
+   fresh checkout do, and must load the same library), and
    beside the build compile the tensor-core kernels' sources once more
    with -Xptxas -v to print their registers and spills (the int8_matmul
    wgmma and weight-stream kernels, the FFN-tail streams, the bf16 decode
@@ -203,7 +205,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal to tuning.evaluate on the same weights and batches, exact
    launches); cli.model_info.main --serving and cli.svd_rank.main
    --activations; no transformers (a character tokenizer defined here);
-13. print the per-kernel JSON line, then the contract line
+13. tensor- and data-parallel serving (spt_proto_tpu_torch/parallel):
+   ranks spawned on this one card over gloo (the device and the backend
+   passed explicitly; NCCL needs a GPU a rank, so it is not run here), each
+   serving its shard, beside the same calls unsharded in this process:
+   OPT-125M at full width and depth on a world of 4 at (data 2, model 2),
+   greedy generate() B=8, prompt 512, 16 new tokens, sparse int8-KV and
+   dense, in f32 and in bf16 (reported), then the batching engine
+   on phase 8's traffic cut to 16 tokens a request (f32): contiguous
+   sparse int8-KV, contiguous dense with prefill_chunk 512 and the prefix
+   cache, paged dense and speculative=4; Llama-3-8B width (2 layers, vocabulary
+   32,000) on a world of 2 at (1, 2), generate() sparse int8-KV in f32
+   and with int8 weights, and cli.generate under --mesh_model 2; the f32
+   free-running tokens are pooled a world (>= 0.995), and the sparse and
+   w8 runs are also held by phase 3's stepwise rule from the unsharded
+   reference's state (mesh_stepwise); every rank's launches equal the
+   single-rank run's;
+   each run prints its world, the transport of each collective, its
+   seconds and its ms a step (ranks sharing one card: a parity run, not a
+   speed); phase 2 holds the heads' value output (value=True) at OPT-125M,
+   Llama width and the shard widths;
+14. print the per-kernel JSON line, then the contract line
    {"ok": true, "device": {...}} last.
 
 It needs the rest of the repository beside it and a CUDA device; without
@@ -1967,6 +1989,65 @@ def check_lm_head_edges(dtype):
     return res
 
 
+# the heads' value output at the serving widths and at the shard widths of
+# phase 13 (a vocabulary split over 'model' = 2): (d, V)
+HEAD_VALUE_SHAPES = ((D, VOCAB), (D, VOCAB // 2), (D_LL, VOCAB_7B),
+                     (D_LL, VOCAB_7B // 2))
+
+
+def check_head_values(dtype):
+    """Both heads with value=True, the logit each row chose (what a
+    vocab-parallel head's ranks compare, engine._greedy_head), at
+    HEAD_VALUE_SHAPES, B=8: the ids by the chosen-logit rule and the value
+    within one step of the twin's value of the kernel's id, which is the
+    dtype-rounded logit there (f32: within the f32 bound). Returns, by
+    head, the largest value error."""
+    from spt_proto_tpu_torch.ops import lm_head as m
+    res = {}
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    for int8 in (False, True):
+        name = 'lm_head_argmax_int8' if int8 else 'lm_head_argmax'
+        worst = 0.0
+        for d, v in HEAD_VALUE_SHAPES:
+            g = gen(SEED + 14)
+            x = randn(g, (B, d), dtype)
+            if int8:
+                w = int8_weight(g, d, v, dtype)
+                ids, val = m.lm_head_argmax_int8(x, w, value=True)
+                logits = m.int8_head_logits(x, w['q'], w['scale'])
+                r_ids, r_val = m.lm_head_argmax_int8_ref(x, w, value=True)
+            else:
+                w = randn(g, (d, v), dtype, std=d ** -0.5)
+                ids, val = m.lm_head_argmax(x, w, value=True)
+                logits = (x.float() @ w.float()).to(dtype).float()
+                r_ids, r_val = m.lm_head_argmax_ref(x, w, value=True)
+            sync()
+            gap, step, _ = chosen_logit_gap(logits, ids, dtype)
+            at = logits.gather(1, ids.long()[:, None])[:, 0]
+            err = (val - at).abs()
+            # f32: the f32 bound (the kernel sums in its own order); bf16:
+            # one step of the largest logit (the rounding can land a step
+            # apart)
+            val_ok = (close(val, at, dtype) if dtype == torch.float32
+                      else bool((err <= step).all()))
+            require(val.dtype == torch.float32 and bool((gap <= step).all())
+                    and val_ok,
+                    f'{name} value=True {dtype} d={d} V={v}: ids '
+                    f'{ids.tolist()} (twin {r_ids.tolist()}), values '
+                    f'{val.tolist()} vs the logits there {at.tolist()}')
+            worst = max(worst, err.max().item())
+            log(f'  {name} value=True B={B} d={d} V={v} {str(dtype):14s} '
+                f'ids equal the twin: {torch.equal(ids, r_ids)}; value err '
+                f'{err.max().item():.3g} (tol '
+                f'{tol_str(dtype) if dtype == torch.float32 else f"{rel:g}|max logit|"}'
+                f'), twin values err {(val - r_val).abs().max().item():.3g}')
+            del w
+        res[name] = {'value output': dict(
+            shapes=[list(s_) for s_ in HEAD_VALUE_SHAPES],
+            max_abs_err=worst)}
+    return res
+
+
 def int8_route(x, q):
     """The kernel int8_matmul runs for these operands (its wrapper's rule,
     ops/int8_matmul.py int8_matmul_plan)."""
@@ -2903,6 +2984,7 @@ def phase_kernels(timer):
         r_head8_ll = {f'llama d={D_LL} V={v}': check_lm_head_int8(
             dtype, D_LL, t, v) for v in (VOCAB_38B, VOCAB_7B)}
         r_edges = check_lm_head_edges(dtype)
+        r_values = check_head_values(dtype)
         r_bsa_ll = check_block_sparse(dtype, PROMPT, 8, t, B * HEADS_LL,
                                       DH_LL, N_SUB_LL)
         check_block_sparse(dtype, 2 * PROMPT, 4, None, HEADS_LL, DH_LL,
@@ -2959,7 +3041,8 @@ def phase_kernels(timer):
                                         in r_paged_edges.items()}),
                 decode_attention=r_pool,
                 lm_head_argmax=dict(r_head, **r_head_ll,
-                                    **r_edges['lm_head_argmax']),
+                                    **r_edges['lm_head_argmax'],
+                                    **r_values['lm_head_argmax']),
                 block_sparse_attention=dict(
                     r_bsa, llama_d_head_128=r_bsa_ll,
                     **{f'edge {k}': v for k, v in r_bsa_edges.items()}),
@@ -2980,7 +3063,8 @@ def phase_kernels(timer):
                    for n in FLASH_KERNELS},
                 lm_head_argmax_int8=dict(r_head8, opt_1p3b=r_head8_13,
                                          **r_head8_ll,
-                                         **r_edges['lm_head_argmax_int8']),
+                                         **r_edges['lm_head_argmax_int8'],
+                                         **r_values['lm_head_argmax_int8']),
                 ffn_tail_int8=dict(r_ffn8, opt_1p3b=r_ffn8_13,
                                    **r_ffn8_edges),
                 verify_attention_rows=dict(r_ver['opt-125m union'],
@@ -6052,6 +6136,406 @@ def phase_cli():
 
 # (name, source, TPU kernel it replaces, others it also replaces, the
 # phase-4 or phase-6 run whose launch counts the kernel line reports)
+# ---------------------------------------------------------------------------
+# phase 13: tensor- and data-parallel serving over torch.distributed
+# ---------------------------------------------------------------------------
+# A world of ranks shares the one card over gloo (NCCL needs a GPU a rank):
+# each rank serves its shard, the parent process runs the same calls
+# unsharded. The ms a step are those of ranks sharing one card: a parity
+# run, not a speed of tensor-parallel serving.
+MESH_B, MESH_PROMPT, MESH_NEW = 8, 512, 16
+MESH_MAX_LEN = MESH_PROMPT + TILE
+MESH_WORLDS = {'opt': (2, 2), 'llama': (1, 2)}
+MESH_DEVICE = 'cuda:0'          # every rank's, given explicitly
+# label -> (model, dtype, dense, int8 KV, weight quant); the sparse runs
+# are also held stepwise (mesh_stepwise; the bf16 one reported)
+MESH_GEN = {
+    'opt': {'f32 sparse int8-KV': ('opt', torch.float32, False, True, None),
+            'f32 dense f32-KV': ('opt', torch.float32, True, False, None),
+            'bf16 sparse int8-KV': ('opt', torch.bfloat16, False, True,
+                                    None),
+            'bf16 dense bf16-KV': ('opt', torch.bfloat16, True, False,
+                                   None)},
+    'llama': {'f32 sparse int8-KV': ('llama', torch.float32, False, True,
+                                     None),
+              'w8 f32 sparse int8-KV': ('llama', torch.float32, False, True,
+                                        'int8')}}
+MESH_ENGINES = {   # label -> (dense, engine kwargs): phase 8's traffic
+    'engine contiguous sparse int8-KV': (False, dict(quantized_kv=True)),
+    # the chunked prefill (a slot's owner runs it, its last logits are
+    # broadcast over 'data') and the prefix cache (spliced into the owner),
+    # dense: a sparse chunk selects per row by integer PQ match counts, and
+    # an f32 ulp of the row-parallel sums that flips one code moves a row
+    # past the k-th count (its sharded tokens agreed 0.918 with one rank's
+    # in f32 on the card; PERF.md §6)
+    'engine contiguous dense f32-KV prefill_chunk 512 + prefix cache': (
+        True, dict(prefill_chunk=512, prefix_cache=True)),
+    'engine paged dense f32-KV': (True, dict(paged=True,
+                                             page_size=PAGED_PS)),
+    'engine speculative=4 sparse f32-KV': (False,
+                                           dict(speculative=SPEC_K))}
+MESH_ENGINE_NEW = 16
+MESH_CLI = ['--config', 'opt-125m', '--dtype', 'float32',
+            '--max_new_tokens', str(MESH_NEW)]
+
+
+def mesh_model(model, dtype, dense, quant, max_len):
+    """The runs' weights: OPT-125M at full width and depth, or Llama-3-8B
+    width cut to 2 layers and a 32,000-token vocabulary; random, from
+    SEED, made on the card (the same numbers in every process)."""
+    from spt_proto_tpu_torch.inference.bridge import init_params
+    from spt_proto_tpu_torch.inference.weights import InferenceWeights
+    if model == 'opt':
+        cfg = opt_cfg('125m', max_len, dtype)
+    else:
+        cfg = llama_cfg('3-8b', max_len, dtype, n_layers=2,
+                        vocab_size=VOCAB_7B)
+    params = init_params(cfg, SEED, device=DEV)
+    if dense:
+        cfg, params = cfg.replace(attention='dense'), dense_params(params)
+    return InferenceWeights.from_params(cfg, params, quant=quant)
+
+
+def mesh_counted(fn):
+    """(fn()'s result, seconds, kernel launches, collective calls): the
+    counters zeroed just before and read just after."""
+    from spt_proto_tpu_torch.parallel import comm
+    ws = wrappers()
+    sync()
+    for w in ws.values():
+        w.launches = 0
+    comm.CALLS.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    dt = time.perf_counter() - t0
+    return out, dt, {n: w.launches for n, w in ws.items()}, dict(comm.CALLS)
+
+
+def mesh_cases(which, mesh=None):
+    """Every run of one world, sharded on `mesh` or (None) on one rank:
+    greedy generate() (B=8, prompt 512, 16 new tokens; after a warm-up,
+    the seconds of a 1-token run, its prefill, give the ms a step of the
+    16-token run,
+    whose launches and collectives are counted); for OPT-125M the batching
+    engine on phase 8's traffic cut to 16 tokens a request; for Llama-3-8B
+    the w8 stepwise rule; and cli.generate under the mesh flags. Returns
+    {label: numbers and tokens}."""
+    from spt_proto_tpu_torch.inference import engine
+    out = {}
+    vocab = VOCAB if which == 'opt' else VOCAB_7B
+    tokens = torch.randint(1, vocab, (MESH_B, MESH_PROMPT),
+                           generator=gen(SEED + 13, 'cpu')).to(DEV)
+    for label, (model, dtype, dense, kv8, quant) in MESH_GEN[which].items():
+        t_case = time.perf_counter()
+        full = mesh_model(model, dtype, dense, quant, MESH_MAX_LEN)
+        iw = engine.mesh_weights(full, mesh) if mesh is not None else full
+
+        def run(n):
+            return engine.generate(iw, tokens, n, max_len=MESH_MAX_LEN,
+                                   quantized_kv=kv8, mesh=mesh)
+        run(1)                                   # warm-up
+        _, t1, _, _ = mesh_counted(lambda: run(1))
+        got, dt, launches, calls = mesh_counted(lambda: run(MESH_NEW))
+        out[label] = dict(tokens=got[:, MESH_PROMPT:].cpu(), seconds=dt,
+                          ms_step=(dt - t1) / (MESH_NEW - 1) * 1e3,
+                          launches=launches, collectives=calls)
+        if not dense and mesh is not None:
+            out[label]['stepwise'] = mesh_stepwise(full, iw, tokens, mesh,
+                                                   kv8)
+        out[label]['case_seconds'] = time.perf_counter() - t_case
+        del iw, full
+    if which == 'opt':
+        prompts = serve_traffic(VOCAB)[0]
+        for label, (dense, kw) in MESH_ENGINES.items():
+            t_case = time.perf_counter()
+            iw = mesh_model('opt', torch.float32, dense, None, MAX_LEN)
+            (done, steps, stats), dt, launches, calls = mesh_counted(
+                lambda: mesh_serve(iw, prompts, mesh, kw))
+            out[label] = dict(tokens=done, seconds=dt, launches=launches,
+                              collectives=calls, ms_step=dt / steps * 1e3,
+                              spec_stats=stats,
+                              case_seconds=time.perf_counter() - t_case)
+            del iw
+    else:
+        from spt_proto_tpu_torch.cli import generate as gen_cli
+        argv = MESH_CLI + ['--device', str(mesh.device if mesh else DEV)]
+        for row in tokens[:4, :128].tolist():
+            argv += ['--prompt_ids', ','.join(map(str, row))]
+        if mesh is not None:
+            argv += ['--mesh_model', str(mesh.shape['model'])]
+        t_case = time.perf_counter()
+        got, dt, launches, calls = mesh_counted(lambda: gen_cli.main(argv))
+        out['cli generate'] = dict(tokens=got, seconds=dt, launches=launches,
+                                   collectives=calls,
+                                   case_seconds=time.perf_counter() - t_case)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(iw, prompts, mesh, kw):
+    """Phase 8's traffic (16 new tokens a request) through the batching
+    engine: (completions in request order, engine steps, speculative
+    stats)."""
+    from spt_proto_tpu_torch.inference.batching import \
+        ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(iw, n_slots=SERVE_SLOTS, max_len=MAX_LEN,
+                                   prefill_bucket=SERVE_BUCKET, mesh=mesh,
+                                   **kw)
+    rids = [eng.submit(p, max_new_tokens=MESH_ENGINE_NEW) for p in prompts]
+    steps = 0
+    while eng.num_active or eng.queue_depth:
+        eng.step()
+        steps += 1
+    done = {c.request_id: c.tokens for c in eng.completions}
+    return [list(map(int, done[r])) for r in rids], steps, \
+        dict(eng.spec_stats)
+
+
+def mesh_margins(which, label, want, got):
+    """Where a free-running f32 generate run parts from the single-rank
+    one: the single-rank logits along its own tokens (prefill, then
+    decode_step teacher-forced), and at each row's first differing step
+    how far the sharded token's logit lies below the maximum, over |max
+    logit|. Returns [(row, step, gap / |max|)]."""
+    from spt_proto_tpu_torch.inference import engine
+    model, dtype, dense, kv8, quant = MESH_GEN[which][label]
+    iw = mesh_model(model, dtype, dense, quant, MESH_MAX_LEN)
+    vocab = VOCAB if which == 'opt' else VOCAB_7B
+    tokens = torch.randint(1, vocab, (MESH_B, MESH_PROMPT),
+                           generator=gen(SEED + 13, 'cpu')).to(DEV)
+    want_t = torch.as_tensor(want, dtype=torch.int32, device=DEV)
+    cache = engine.new_cache(iw, MESH_B, MESH_MAX_LEN, quantized=kv8)
+    lg, cache = engine.prefill(iw, tokens, cache)
+    logits = [lg[:, -1].float()]
+    for t in range(MESH_NEW - 1):
+        lg, cache = engine.decode_step(iw, want_t[:, t], cache)
+        logits.append(lg.float())
+    out = []
+    for r in range(MESH_B):
+        diff = [t for t in range(MESH_NEW) if got[r][t] != want[r][t]]
+        if diff:
+            t = diff[0]
+            row = logits[t][r]
+            gap = (row.max() - row[got[r][t]]).item()
+            out.append((r, t, gap / row.abs().max().item()))
+    del iw
+    torch.cuda.empty_cache()
+    return out
+
+
+class MeshFrontTap:
+    """In mesh_stepwise: the unsharded reference's decode_front calls (all
+    slots and kv heads) are recorded, layer by layer, and the sharded
+    step's calls (the rank's slots `rows` and kv heads from h0) take the
+    reference's key codes and tables of those slots and heads in place of
+    their own, as phase 3's SelectionTap gives the card the twins' (the
+    flips are counted)."""
+
+    def __init__(self, full_kv, rows, h0, kv):
+        self.full_kv, self.rows, self.h0, self.kv = full_kv, rows, h0, kv
+        self.rec = collections.deque()
+        self.stats = dict(fronts=0, key_codes=0, key_code_flips=0,
+                          table_rows=0, table_row_flips=0)
+
+    def __enter__(self):
+        from spt_proto_tpu_torch.inference import engine
+        self.engine, self.orig = engine, engine.decode_front
+        engine.decode_front = self
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.decode_front = self.orig
+
+    def __call__(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        if args[7].shape[1] == self.full_kv \
+                and args[7].shape[0] == MESH_B:          # the reference's
+            self.rec.append(out)
+            return out
+        ref = self.rec.popleft()
+        hs = slice(self.h0, self.h0 + self.kv)
+        codes, tables = ref[3][self.rows][:, hs], ref[4][self.rows][:, hs]
+        st = self.stats
+        st['fronts'] += 1
+        st['key_codes'] += codes.numel()
+        st['key_code_flips'] += int((codes != out[3]).sum())
+        st['table_rows'] += tables.shape[0] * tables.shape[1]
+        st['table_row_flips'] += int((tables != out[4]).any(-1).sum())
+        return tuple(out[:3]) + (codes.contiguous(), tables.contiguous()) \
+            + tuple(out[5:])
+
+
+def mesh_stepwise(full, iw, tokens, mesh, kv8):
+    """Phase 3's stepwise rule for a sharded run: before each step the
+    rank's shard takes the unsharded reference's cache (shard_cache: its
+    slots and kv heads), its tokens and, through MeshFrontTap, its key
+    codes and tables; the reference takes its step (decode_step: the
+    logits) and the shard its greedy step. A sharded decision that is not
+    the reference's argmax must lie within one bf16 step (2^-7 |max
+    logit|) of its maximum: max_gap_over_tol <= 1 (phase_mesh holds it)."""
+    from spt_proto_tpu_torch.inference import engine
+    from spt_proto_tpu_torch.parallel.infer_sharding import (data_rows,
+                                                             shard_cache)
+    rows = data_rows(mesh, MESH_B)[0]
+    ref = engine.new_cache(full, MESH_B, MESH_MAX_LEN, quantized=kv8)
+    lg, ref = engine.prefill(full, tokens, ref)
+    tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
+    s = iw.shard
+    tap = MeshFrontTap(full.cfg.kv_heads, rows, mesh.coords['model']
+                       * s.kv_heads if s.attn else 0, s.kv_heads)
+    agree, worst = [], 0.0
+    with tap:
+        for _ in range(MESH_NEW - 1):
+            card = shard_cache(mesh, ref, iw=iw)
+            lg_all, ref = engine.decode_step(full, tok, ref)
+            chosen, _ = engine.decode_step_greedy(iw, tok[rows].contiguous(),
+                                                  card)
+            tok = torch.argmax(lg_all, -1).to(torch.int32)
+            lg = lg_all[rows].float()
+            gap = lg.max(-1).values - lg.gather(
+                1, chosen.long()[:, None])[:, 0]
+            tol = 2.0 ** -7 * lg.abs().max(-1).values
+            worst = max(worst, (gap / tol).max().item())
+            agree.append((chosen == tok[rows]).float().mean().item())
+    return dict(agreement=sum(agree) / len(agree), max_gap_over_tol=worst,
+                selection=tap.stats)
+
+
+def mesh_rank(rank, which):
+    """A rank of phase 13's world `which` on the one card (gloo)."""
+    from spt_proto_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*MESH_WORLDS[which], device=MESH_DEVICE)
+    return dict(backend=mesh.backend, coords=mesh.coords,
+                runs=mesh_cases(which, mesh))
+
+
+def phase_mesh():
+    """Phase 13: the sharded serving of parallel/ on ranks sharing the one
+    card over gloo (the device and the backend passed explicitly; NCCL
+    needs a GPU a rank). OPT-125M (full width and depth) on a world of 4
+    at (data 2, model 2) and Llama-3-8B width (2 layers, vocabulary
+    32,000) on a world of 2 at (1, 2), each beside the same calls
+    unsharded in this process (mesh_cases). Every rank must return the
+    same tokens and launch each kernel as often as the single-rank run;
+    the free-running f32 runs of a world (generate, the engines, the CLI)
+    must equal the single-rank runs for >= 0.995 of their tokens pooled
+    (each run's share printed; where a row parts, the single rank's logit
+    gap there is printed too); the sparse runs, and w8, are held by phase
+    3's stepwise rule (mesh_stepwise; bf16 reported); bf16 free-running
+    agreement is reported. Prints, a run, the world, the transport of each
+    collective, the seconds and the ms a step."""
+    from spt_proto_tpu_torch.parallel import comm, launch
+    t_phase = time.perf_counter()
+    out, failed = {}, []
+    for which, (nd, nm) in MESH_WORLDS.items():
+        pool = [0, 0]         # equal tokens, tokens of the pooled f32 runs
+        t0 = time.perf_counter()
+        world = launch.start(mesh_rank, nd * nm, (which,), backend='gloo',
+                             device=MESH_DEVICE, timeout=600)
+        ref = mesh_cases(which)
+        t_ref = time.perf_counter() - t0
+        ranks = world.join()
+        wall = time.perf_counter() - t0
+        backend = ranks[0]['backend']
+        log(f'  world {which}: {nd * nm} ranks at (data {nd}, model {nm}) '
+            f'on one card over {backend}, {wall:.1f} s with the spawn (the '
+            f'single-rank runs here {t_ref:.1f} s beside them)')
+        for label, want in ref.items():
+            got = [r['runs'][label] for r in ranks]
+            tok = [g['tokens'] for g in got]
+            want_tok = want['tokens']
+            if isinstance(want_tok, torch.Tensor):
+                tok = [t.tolist() for t in tok]
+                want_tok = want_tok.tolist()
+            agree = min(agreement(t, want_tok) for t in tok)
+            n_tok = sum(len(r_) for r_ in want_tok)
+            same = all(t == tok[0] for t in tok)
+            # the free-running f32 runs are pooled (w8 is held stepwise)
+            pooled = 'bf16' not in label and not label.startswith('w8')
+            gated = 'bf16' not in label
+            if pooled:
+                pool[0] += round(agree * n_tok)
+                pool[1] += n_tok
+            res = dict(world=[nd, nm], backend=backend, agreement=agree,
+                       tokens=n_tok, gated=gated,
+                       seconds=max(g['seconds'] for g in got),
+                       single_rank_seconds=want['seconds'],
+                       case_seconds=max(g['case_seconds'] for g in got),
+                       launches={n: c for n, c in want['launches'].items()
+                                 if c})
+            ok = same and all(g['launches'] == want['launches']
+                              for g in got)
+            if gated and agree < 1.0 and label in MESH_GEN[which]:
+                # where a free-running row parts from the single-rank run:
+                # the single rank's logits there (teacher-forced), how far
+                # below its maximum the sharded token lies
+                res['first_divergences'] = mesh_margins(which, label,
+                                                        want_tok, tok[0])
+            if gated and 'stepwise' in got[0]:
+                ok = ok and all(g['stepwise']['max_gap_over_tol'] <= 1.0
+                                for g in got)
+            calls = got[0]['collectives']
+            ways = {op: comm.transport(backend, 'cuda', op) for op in calls}
+            res.update(collectives=calls, transport=ways)
+            msg = ''
+            if 'ms_step' in want:
+                res['ms_step_sharing_one_card'] = max(
+                    g['ms_step'] for g in got)
+                res['single_rank_ms_step'] = want['ms_step']
+                kind = 'a step' if label in MESH_GEN[which] \
+                    else 'an engine step'
+                msg = (f'; {res["ms_step_sharing_one_card"]:.2f} ms {kind} '
+                       f'with {nd * nm} ranks sharing one card (a parity '
+                       f'run, not a speed of tensor-parallel serving; one '
+                       f'rank {want["ms_step"]:.2f} ms)')
+            if 'first_divergences' in res:
+                msg += (f'; rows part at (row, step, gap / |max logit|) '
+                        f'{res["first_divergences"]}')
+            if 'stepwise' in got[0]:
+                res['stepwise'] = [g['stepwise'] for g in got]
+                sw = res['stepwise']
+                msg += (f'; stepwise ({"gated" if gated else "reported"}): '
+                        f'agreement '
+                        f'{min(x["agreement"] for x in sw):.3f}, max gap '
+                        f'{max(x["max_gap_over_tol"] for x in sw):.3g} x '
+                        f'2^-7 |max logit|, key-code flips '
+                        f'{sum(x["selection"]["key_code_flips"] for x in sw)}'
+                        f', table-row flips '
+                        f'{sum(x["selection"]["table_row_flips"] for x in sw)}')
+            if 'spec_stats' in want:
+                res['spec_stats'] = [want['spec_stats'], got[0]['spec_stats']]
+            log(f'  [{which} {label}] tokens agree {agree:.4f} '
+                f'({"pooled" if pooled else "reported"}), ranks equal '
+                f'{same}; '
+                f'launches equal the single rank\'s on every rank: '
+                f'{all(g["launches"] == want["launches"] for g in got)}; '
+                f'collectives {calls} '
+                f'({", ".join(f"{k} {v}" for k, v in ways.items())}); '
+                f'{res["seconds"]:.2f} s timed, {res["case_seconds"]:.1f} s '
+                f'with its build (one rank {want["seconds"]:.2f} s){msg}')
+            out[f'{which} {label}'] = res
+            if not ok:
+                failed.append(f'{which} {label}')
+        share = pool[0] / pool[1]
+        log(f'  [{which}] f32 free-running runs pooled: {pool[0]} of '
+            f'{pool[1]} tokens equal the single-rank runs\' = {share:.4f} '
+            f'(>= 0.995)')
+        out[f'{which} f32 pooled agreement'] = dict(equal=pool[0],
+                                                     tokens=pool[1],
+                                                     share=share)
+        if share < 0.995:
+            failed.append(f'{which} f32 pooled agreement {share}')
+    seconds = time.perf_counter() - t_phase
+    log(f'  phase 13: {seconds:.1f} s')
+    require(not failed, f'phase 13: {failed} (tokens, launches or ranks '
+            f'unequal; the lines above)')
+    return dict(runs=out, seconds=seconds,
+                nccl='not run: NCCL needs a GPU a rank, the machine has one')
+
+
 KERNELS = [
     ('decode_front', 'spt_proto_tpu_torch/csrc/decode_front.cu',
      'spt_proto_tpu/ops/pallas/decode_front.py:359', [], 'sparse int8-KV'),
@@ -6168,9 +6652,26 @@ def main() -> int:
     # once more with -Xptxas -v beside the build
     ptxas = [(start_ptxas(src), pattern, no_spills)
              for src, pattern, no_spills in PTXAS_KERNELS]
+    # two more processes build at the same time (the ranks of a world on a
+    # fresh checkout): one compiles under the build's file lock, the others
+    # wait for it and load its library
+    build_procs = [subprocess.Popen(
+        [sys.executable, '-c', 'from spt_proto_tpu_torch import _build; '
+         'print(_build.build())'], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for _ in range(2)]
     try:
         log(f'  kernels built and loaded in {_build.build_timed():.1f} s')
+        lib_path = str(_build.build())
+        for proc in build_procs:
+            out = proc.communicate(timeout=900)[0]
+            require(proc.returncode == 0 and lib_path in out,
+                    f'a concurrent build failed: {out[-2000:]}')
+        log(f'  two more processes built at once: the same library, '
+            f'{lib_path.split("/_build/")[-1]}')
     finally:
+        for proc in build_procs:
+            if proc.poll() is None:
+                proc.kill()
         for proc, pattern, no_spills in ptxas:
             log_ptxas(proc, pattern, no_spills)
 
@@ -6223,6 +6724,11 @@ def main() -> int:
     cli = phase_cli()
     log(f'  ({time.perf_counter() - t_start:.0f} s)')
 
+    log('phase 13: tensor- and data-parallel serving, ranks sharing the '
+        'card over gloo')
+    mesh = phase_mesh()
+    log(f'  ({time.perf_counter() - t_start:.0f} s)')
+
     all_runs = {**serving['runs'], **llama['runs'], **spec['runs'],
                 **stack['runs'], **training['runs'], **int8_gmm['runs'],
                 **dense['runs'], **cli['runs']}
@@ -6269,6 +6775,7 @@ def main() -> int:
                                       in dense['profiles'].items()}),
         command_line=dict(cli, runs={k: brief(r) for k, r
                                      in cli['runs'].items()}),
+        mesh=mesh,
         seconds=time.perf_counter() - t_start)))
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

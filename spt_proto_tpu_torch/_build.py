@@ -5,6 +5,9 @@ source, all started together), and the objects link into one shared
 library with a plain C interface that is loaded with ctypes. The library
 lands in `_build/<hash>/` (listed in .gitignore), keyed by a hash of the
 sources and flags, so it is rebuilt at first use whenever a source changes.
+Processes that start at once on a fresh checkout (the ranks of a world)
+build it once: the build holds a file lock on its directory, and the
+others wait for it and load the library it leaves.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without nvcc or a GPU.
 
@@ -15,6 +18,7 @@ return into an exception.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,8 +60,8 @@ SIGNATURES = {
     'spt_int8_matmul_t': [_I] + [_P] * 4 + [_I] * 5 + [_P],
     'spt_int8_matmul_tc': [_P] * 5 + [_I] * 9 + [_P],
     'spt_ffn_tail_tc': [_I] + [_P] * 13 + [_I] * 13 + [_P],
-    'spt_lm_head_argmax': [_I] + [_P] * 5 + [_I] * 3 + [_P],
-    'spt_lm_head_argmax_int8': [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    'spt_lm_head_argmax': [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    'spt_lm_head_argmax_int8': [_I] + [_P] * 7 + [_I] * 5 + [_P],
     'spt_block_sparse_fwd': [_I, _I] + [_P] * 6 + [_I] * 6
                             + [_F, _F, _I, _P],
     'spt_block_sparse_bwd': [_I] * 3 + [_P] * 11 + [_I] * 6
@@ -105,6 +109,18 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / '.lock', 'w') as lock:
+        # one process builds; the others wait here and find its library
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not lib_path.exists():
+                _compile(sources, flags, out_dir, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
+def _compile(sources, flags, out_dir: Path, lib_path: Path) -> None:
     nvcc = nvcc_path()
     procs = []
     for src in sources:
@@ -127,7 +143,6 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f'nvcc link failed:\n{link.stdout}')
     os.replace(tmp, lib_path)
-    return lib_path
 
 
 def lib() -> ctypes.CDLL:

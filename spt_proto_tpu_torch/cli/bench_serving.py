@@ -28,7 +28,14 @@ repetitive workload (`spec_prompts`: the RandomState(7) phrase tiled
 through each prompt), and the decode and verify step costs (best of 2
 timed loops of 16 steps; a verify block of k+1 columns rolled back by k).
 One JSON line a mode, then the summary line, with the JAX CLI's keys.
---mesh_* raise (the parallelism slice).
+
+--mesh_model M (--mesh_data N) runs each contiguous mode tensor- and
+data-parallel, one process a rank under torchrun (cli/common.py): the
+weights sharded on 'model', the batch's rows on 'data' when they divide;
+tokens_per_s counts the whole batch, and only rank 0 prints. The paged
+mode needs the contiguous cache under a mesh (the JAX CLI asserts the
+same); --spec_k serves through the sharded engine and times the sharded
+steps.
 """
 from __future__ import annotations
 
@@ -41,8 +48,9 @@ import numpy as np
 import torch
 
 from spt_proto_tpu_torch.cli.common import (add_mesh_args, add_model_args,
-                                            check_no_mesh, load_or_init,
+                                            load_or_init, mesh_from_args,
                                             on_card)
+from spt_proto_tpu_torch.parallel.mesh import is_main_process
 
 PAGE_SIZE = 64
 SPEC_PERIOD = 16
@@ -134,11 +142,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def bench_mode(args, mode: str, base_cfg, params, prompts: torch.Tensor
-               ) -> dict:
+def bench_mode(args, mode: str, base_cfg, params, prompts: torch.Tensor,
+               mesh=None) -> dict:
     """One mode: a warm-up run (its seconds are compile_s), then a run whose
-    decode loop is timed after a sync. Returns the mode's JSON record."""
-    from spt_proto_tpu_torch.inference.engine import (KVCache, decode_step,
+    decode loop is timed after a sync. Returns the mode's JSON record.
+    mesh: the rank's shard of the weights over its rows of the batch."""
+    from spt_proto_tpu_torch.inference.engine import (decode_step,
+                                                      mesh_weights, new_cache,
                                                       prefill)
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
     cfg, quant, mparams = base_cfg, None, params
@@ -152,6 +162,12 @@ def bench_mode(args, mode: str, base_cfg, params, prompts: torch.Tensor
     dev = prompts.device
     b = prompts.shape[0]
     clock = _Clock(dev)
+    if mesh is not None:
+        from spt_proto_tpu_torch.parallel.infer_sharding import data_rows
+        if mode == 'paged':
+            raise ValueError('--mesh_model needs contiguous cache')
+        iw = mesh_weights(iw, mesh)
+        prompts = prompts[data_rows(mesh, b)[0]]
 
     if mode == 'paged':
         from spt_proto_tpu_torch.inference.paged import (PageAllocator,
@@ -175,8 +191,7 @@ def bench_mode(args, mode: str, base_cfg, params, prompts: torch.Tensor
         step = paged_decode_step
     else:
         def start():
-            cache = KVCache.create(cfg, b, args.max_len, dtype=cfg.dtype,
-                                   device=dev)
+            cache = new_cache(iw, prompts.shape[0], args.max_len)
             return prefill(iw, prompts, cache)
         step = decode_step
 
@@ -202,7 +217,7 @@ def bench_mode(args, mode: str, base_cfg, params, prompts: torch.Tensor
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    check_no_mesh(args)
+    mesh = mesh_from_args(args)
     card = on_card(args)
     base_cfg, params = load_or_init(args, min_length=args.max_len)
     base_cfg = base_cfg.replace(
@@ -213,23 +228,29 @@ def main(argv=None) -> dict:
     prompts = torch.as_tensor(random_prompts(
         base_cfg.vocab_size, args.batch, args.prompt_len), device=dev)
 
+    say = is_main_process()
     results = {}
     for mode in args.mode:
-        results[mode] = bench_mode(args, mode, base_cfg, params, prompts)
-        print(json.dumps({mode: results[mode]}), flush=True)
+        results[mode] = bench_mode(args, mode, base_cfg, params, prompts,
+                                   mesh)
+        if say:
+            print(json.dumps({mode: results[mode]}), flush=True)
 
     if args.spec_k:
-        results['speculative'] = _bench_speculative(args, base_cfg, params)
-        print(json.dumps({'speculative': results['speculative']}),
-              flush=True)
+        results['speculative'] = _bench_speculative(args, base_cfg, params,
+                                                    mesh)
+        if say:
+            print(json.dumps({'speculative': results['speculative']}),
+                  flush=True)
 
     summary = {'decode_throughput': results, 'batch': args.batch,
                'prompt_len': args.prompt_len, 'max_len': args.max_len}
-    print(json.dumps(summary))
+    if say:
+        print(json.dumps(summary))
     return summary
 
 
-def _bench_speculative(args, base_cfg, params) -> dict:
+def _bench_speculative(args, base_cfg, params, mesh=None) -> dict:
     """Speculative-decoding numbers from one run.
 
     1. ACCEPTANCE: the ContinuousBatchingEngine runs k-token n-gram
@@ -245,13 +266,19 @@ def _bench_speculative(args, base_cfg, params) -> dict:
     """
     from spt_proto_tpu_torch.inference.batching import \
         ContinuousBatchingEngine
-    from spt_proto_tpu_torch.inference.engine import (KVCache, decode_step,
+    from spt_proto_tpu_torch.inference.engine import (decode_step,
+                                                      mesh_weights, new_cache,
                                                       prefill, verify_step)
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
 
     cfg = base_cfg.replace(attention='sparse_v2')
     cfg.validate()
     iw = InferenceWeights.from_params(cfg, _sparse_params(base_cfg, params))
+    rows = slice(None)
+    if mesh is not None:
+        from spt_proto_tpu_torch.parallel.infer_sharding import data_rows
+        iw = mesh_weights(iw, mesh)
+        rows = data_rows(mesh, args.batch)[0]
     dev = params['embedding']['embedding'].device
     k = args.spec_k
     b, s0 = args.batch, args.prompt_len
@@ -260,7 +287,7 @@ def _bench_speculative(args, base_cfg, params) -> dict:
     prompts = spec_prompts(cfg.vocab_size, b, s0)
     new_tokens = min(64, args.max_len - s0)
     eng = ContinuousBatchingEngine(iw, n_slots=b, max_len=args.max_len,
-                                   speculative=k)
+                                   speculative=k, mesh=mesh)
     for prompt in prompts:
         eng.submit(prompt.tolist(), max_new_tokens=new_tokens)
     eng.run_until_done()
@@ -268,8 +295,9 @@ def _bench_speculative(args, base_cfg, params) -> dict:
     acc = st['accepted'] / max(1, st['proposed'])
 
     # -- 2. step costs at the same batch / context
-    cache = KVCache.create(cfg, b, args.max_len, dtype=cfg.dtype, device=dev)
-    logits, cache = prefill(iw, torch.as_tensor(prompts, device=dev), cache)
+    mine = torch.as_tensor(prompts, device=dev)[rows]
+    cache = new_cache(iw, mine.shape[0], args.max_len)
+    logits, cache = prefill(iw, mine, cache)
     tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
     del logits
     clock = _Clock(dev)

@@ -1,4 +1,4 @@
-"""Shared CLI helpers (port of spt_proto_tpu/cli/common.py, single device).
+"""Shared CLI helpers (port of spt_proto_tpu/cli/common.py).
 
 `add_model_args` adds --ckpt, --config, --dtype and --device (default cuda:
 every entry point runs on the card unless the caller asks for the CPU,
@@ -6,7 +6,13 @@ where the plain twins run); `load_or_init` loads a checkpoint (the JAX
 package's format) or builds a named config's seeded random weights
 (the port's init_params, seed 0) on that device; `apply_dtype` sets the
 compute dtype; `add_mesh_args` adds the serving CLIs' --mesh_model /
---mesh_data, which `check_no_mesh` refuses until the parallelism slice.
+--mesh_data and `mesh_from_args` makes their mesh (parallel/mesh.py): one
+process a rank, launched by torchrun (`torchrun --nproc_per_node N -m
+spt_proto_tpu_torch.cli.generate ... --mesh_model N`), each rank on
+cuda:LOCAL_RANK over NCCL, or on the CPU over gloo with --device cpu; a
+caller that started the process group itself (gloo, several ranks on one
+GPU) passes the device explicitly (--device cuda:0). Only rank 0 prints
+(parallel/mesh.py `is_main_process`).
 """
 from __future__ import annotations
 
@@ -68,20 +74,33 @@ def apply_dtype(cfg: ModelConfig, args) -> ModelConfig:
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--mesh_model', type=int, default=None,
-                   help='tensor-parallel width for serving (the '
-                        'parallelism slice; raises until then)')
+                   help='tensor-parallel width for serving: weights '
+                        'sharded on the model axis, KV cache heads sharded '
+                        '(parallel/infer_sharding.py); one process a rank '
+                        '(torchrun)')
     p.add_argument('--mesh_data', type=int, default=1,
-                   help='data axis width for serving (the parallelism '
-                        'slice)')
+                   help='data axis width for serving (cache slots sharded '
+                        'across it)')
 
 
-def check_no_mesh(args) -> None:
-    """Single-device serving only: a mesh flag raises, naming its slice."""
-    if getattr(args, 'mesh_model', None) is not None \
-            or getattr(args, 'mesh_data', 1) != 1:
-        raise NotImplementedError(
-            'a serving mesh (--mesh_model / --mesh_data) comes with the '
-            'parallelism slice')
+def mesh_from_args(args):
+    """None when no --mesh_model: single-device serving. Otherwise the
+    ('data', 'model') mesh over the process group (started here from
+    torchrun's environment when it is not running yet), on the rank's
+    device: --device cuda means cuda:LOCAL_RANK (which must exist), cpu
+    the CPU over gloo, cuda:N that GPU. args.device is set to the mesh's
+    device, where the weights then load."""
+    if getattr(args, 'mesh_model', None) is None:
+        if getattr(args, 'mesh_data', 1) != 1:
+            raise ValueError('--mesh_data needs --mesh_model')
+        return None
+    from spt_proto_tpu_torch.parallel.mesh import (initialize_multihost,
+                                                   make_mesh)
+    dev = None if args.device == 'cuda' else args.device
+    dev = initialize_multihost(device=dev)
+    mesh = make_mesh(args.mesh_data, args.mesh_model, device=dev)
+    args.device = str(mesh.device)
+    return mesh
 
 
 def on_card(args) -> bool:

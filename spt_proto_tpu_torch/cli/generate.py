@@ -21,8 +21,18 @@ generate_speculative (n-gram drafts, or --draft_ckpt's model), and
 weights, --quantized_kv keeps an int8 KV cache; --temperature / --top_k /
 --top_p sample with a torch.Generator seeded by --seed. On the card
 (--device cuda, the default) every attention goes through the kernels
-(attn_impl='pallas'); --device cpu runs the plain twins. --mesh_* raise
-(the parallelism slice).
+(attn_impl='pallas'); --device cpu runs the plain twins.
+
+--mesh_model M (and --mesh_data N) serve tensor- and data-parallel, one
+process a rank (cli/common.py mesh_from_args):
+
+    torchrun --nproc_per_node 2 -m spt_proto_tpu_torch.cli.generate \
+        --config opt-125m --prompt_ids 2,100,200 --mesh_model 2
+
+through engine.generate and the --continuous engine, as the JAX CLI does
+(--speculative without --continuous takes no mesh there either, and
+raises here). Every rank builds the same weights and serves its shard;
+only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -31,8 +41,9 @@ import json
 from typing import List
 
 from spt_proto_tpu_torch.cli.common import (add_mesh_args, add_model_args,
-                                            apply_dtype, check_no_mesh,
-                                            load_or_init, on_card)
+                                            apply_dtype, load_or_init,
+                                            mesh_from_args, on_card)
+from spt_proto_tpu_torch.parallel.mesh import is_main_process
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -88,7 +99,11 @@ def _serving_cfg(cfg, args):
 
 def main(argv=None) -> List[List[int]]:
     args = _parser().parse_args(argv)
-    check_no_mesh(args)
+    mesh = mesh_from_args(args)
+    if mesh is not None and args.speculative and not args.continuous:
+        raise ValueError('--speculative takes no mesh (generate_speculative '
+                         'is single-device, as in the JAX CLI): add '
+                         '--continuous to verify through the sharded engine')
 
     import torch
 
@@ -138,7 +153,7 @@ def main(argv=None) -> List[List[int]]:
             prefill_chunk=args.prefill_chunk,
             quantized_kv=args.quantized_kv,
             speculative=args.spec_k if args.speculative else None,
-            prefix_cache=args.prefix_cache)
+            prefix_cache=args.prefix_cache, mesh=mesh)
         rids = [eng.submit(e, args.max_new_tokens) for e in enc]
         by_id = {c.request_id: c.tokens for c in eng.run_until_done()}
         outs = [list(map(int, by_id[r])) for r in rids]
@@ -159,9 +174,11 @@ def main(argv=None) -> List[List[int]]:
     else:
         out = generate(iw, batch, args.max_new_tokens, generator=gen,
                        eos_id=eos_id, lengths=lengths,
-                       quantized_kv=args.quantized_kv, **warps)
+                       quantized_kv=args.quantized_kv, mesh=mesh, **warps)
         outs = out[:, width:].tolist()
 
+    if not is_main_process():
+        return outs
     for i, new in enumerate(outs):
         if prompts is None:
             print(json.dumps(new))

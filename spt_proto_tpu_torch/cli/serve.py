@@ -12,6 +12,16 @@ names a local tokenizer directory (never a hub name: it loads with
 local_files_only) to accept text prompts as well. It runs on --device (default cuda, where every kernel of the
 serving path runs; cpu runs the plain twins). See inference/server.py for
 the threading contract.
+
+--mesh_model M (--mesh_data N) serves tensor- and data-parallel, one
+process a rank under torchrun (cli/common.py mesh_from_args):
+
+    torchrun --nproc_per_node 2 -m spt_proto_tpu_torch.cli.serve \
+        --config opt-125m --mesh_model 2
+
+Rank 0 owns the HTTP socket and broadcasts each step's admissions; the
+other ranks step the same engine (inference/server.py `follow`). The
+paged cache shards its heads only; the contiguous one also its slots.
 """
 from __future__ import annotations
 
@@ -19,8 +29,10 @@ import argparse
 
 import torch
 
-from spt_proto_tpu_torch.cli.common import (DTYPES, apply_dtype,
-                                            load_or_init, named_config)
+from spt_proto_tpu_torch.cli.common import (DTYPES, add_mesh_args,
+                                            apply_dtype, load_or_init,
+                                            mesh_from_args, named_config)
+from spt_proto_tpu_torch.parallel.mesh import is_main_process
 
 
 def parser() -> argparse.ArgumentParser:
@@ -52,17 +64,25 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument('--prefill_chunk', type=int, default=None)
     p.add_argument('--speculative', type=int, default=None,
                    help='k: n-gram speculative decoding per engine step')
+    add_mesh_args(p)
     return p
 
 
-def build_server(args):
+def build_server(args, mesh=None):
     """(server, frontend) for parsed args: the model, the engine and the
     HTTP server bound to host:port (port 0 picks a free one), not yet
     serving."""
+    from spt_proto_tpu_torch.inference.server import make_server
+    eng, tok = build_engine(args, mesh)
+    return make_server(eng, args.host, args.port, tokenizer=tok)
+
+
+def build_engine(args, mesh=None):
+    """(engine, tokenizer or None) for parsed args (on a mesh: the rank's
+    shard)."""
     from spt_proto_tpu_torch.inference.batching import \
         ContinuousBatchingEngine
     from spt_proto_tpu_torch.inference.bridge import init_params
-    from spt_proto_tpu_torch.inference.server import make_server
     from spt_proto_tpu_torch.inference.weights import InferenceWeights
 
     dtype = DTYPES[args.dtype]
@@ -90,12 +110,19 @@ def build_server(args):
         temperature=args.temperature, eos_id=eos_id, paged=args.paged,
         page_size=args.page_size, seed=args.seed,
         prefill_chunk=args.prefill_chunk, quantized_kv=args.quantized_kv,
-        speculative=args.speculative, prefix_cache=args.prefix_cache)
-    return make_server(eng, args.host, args.port, tokenizer=tok)
+        speculative=args.speculative, prefix_cache=args.prefix_cache,
+        mesh=mesh)
+    return eng, tok
 
 
 def main(argv=None):
-    server, frontend = build_server(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    mesh = mesh_from_args(args)
+    if mesh is not None and not is_main_process():
+        from spt_proto_tpu_torch.inference.server import follow
+        follow(build_engine(args, mesh)[0])
+        return
+    server, frontend = build_server(args, mesh)
     print(f'serving on http://{server.server_address[0]}:'
           f'{server.server_address[1]} (POST /v1/completions)', flush=True)
     try:

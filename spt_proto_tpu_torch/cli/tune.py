@@ -32,7 +32,8 @@ tokenized by the local tokenizer directory --tokenizer DIR, or by the
 seed 0): rows of --seq_length tokens, so inputs and targets are
 seq_length - 1 = 512 long, the length the data path gives (the JAX CLI's
 synthetic rows are one token shorter). A device mesh (--mesh_*, --fsdp,
---ep) raises, naming the parallelism slice.
+--ep) raises, naming its slice (the training mesh's, expert
+parallelism's).
 """
 from __future__ import annotations
 
@@ -86,8 +87,8 @@ def _check_ported(args) -> None:
     if (args.mesh_data or args.mesh_model or args.mesh_pipe > 1
             or args.mesh_sp > 1 or args.fsdp or args.ep):
         raise NotImplementedError(
-            'a device mesh (--mesh_*, --fsdp, --ep) comes with the '
-            'parallelism slice')
+            'a training mesh (--mesh_*, --fsdp) comes with the training-mesh '
+            'slice, --ep with the expert-parallelism slice')
 
 
 def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int):

@@ -117,9 +117,11 @@ __global__ void __launch_bounds__(kHeadTile) lm_head_partial_kernel(
   }
 }
 
+// out_val (may be null): the logit each row chose, the value the compare
+// kept (a vocab-parallel head's ranks agree on a global maximum from it)
 __global__ void __launch_bounds__(256) lm_head_reduce_kernel(
     const float* __restrict__ pval, const int* __restrict__ pidx,
-    int* __restrict__ out, int B, int n_tiles) {
+    int* __restrict__ out, float* __restrict__ out_val, int B, int n_tiles) {
   __shared__ float sv[256];
   __shared__ int si[256];
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -140,7 +142,10 @@ __global__ void __launch_bounds__(256) lm_head_reduce_kernel(
     }
     __syncthreads();
   }
-  if (tid == 0) out[b] = si[0];
+  if (tid == 0) {
+    out[b] = si[0];
+    if (out_val != nullptr) out_val[b] = sv[0];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -368,8 +373,8 @@ int launch_tc(const void* x, const void* w, const float* scale, float* pval,
 
 template <typename T, typename W>
 int launch_head(const void* x, const void* w, const float* scale, void* pval,
-                void* pidx, void* out, int B, int D, int V, int LDW, int BK,
-                cudaStream_t stream) {
+                void* pidx, void* out, void* out_val, int B, int D, int V,
+                int LDW, int BK, cudaStream_t stream) {
   int n_tiles = (V + kHeadTile - 1) / kHeadTile;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     n_tiles = (V + HeadCfg<W>::kTile - 1) / HeadCfg<W>::kTile;
@@ -401,29 +406,31 @@ int launch_head(const void* x, const void* w, const float* scale, void* pval,
     if (e != cudaSuccess) return (int)e;
   }
   lm_head_reduce_kernel<<<B, 256, 0, stream>>>(
-      (const float*)pval, (const int*)pidx, (int*)out, B, n_tiles);
+      (const float*)pval, (const int*)pidx, (int*)out, (float*)out_val, B,
+      n_tiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace spt
 
 extern "C" int spt_lm_head_argmax(int dtype, const void* x, const void* w,
-                                  void* pval, void* pidx, void* out, int B,
-                                  int D, int V, void* stream) {
+                                  void* pval, void* pidx, void* out,
+                                  void* out_val, int B, int D, int V,
+                                  void* stream) {
   auto f = dtype == spt::kBF16
                ? spt::launch_head<__nv_bfloat16, __nv_bfloat16>
                : spt::launch_head<float, float>;
-  return f(x, w, nullptr, pval, pidx, out, B, D, V, V, D,
+  return f(x, w, nullptr, pval, pidx, out, out_val, B, D, V, V, D,
            (cudaStream_t)stream);
 }
 
 extern "C" int spt_lm_head_argmax_int8(int dtype, const void* x,
                                        const void* q, const void* scale,
                                        void* pval, void* pidx, void* out,
-                                       int B, int D, int V, int LDW, int BK,
-                                       void* stream) {
+                                       void* out_val, int B, int D, int V,
+                                       int LDW, int BK, void* stream) {
   auto f = dtype == spt::kBF16 ? spt::launch_head<__nv_bfloat16, int8_t>
                                : spt::launch_head<float, int8_t>;
-  return f(x, q, (const float*)scale, pval, pidx, out, B, D, V, LDW, BK,
-           (cudaStream_t)stream);
+  return f(x, q, (const float*)scale, pval, pidx, out, out_val, B, D, V,
+           LDW, BK, (cudaStream_t)stream);
 }

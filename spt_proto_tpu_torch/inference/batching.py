@@ -23,6 +23,20 @@ dense decode through the paged-attention kernel. Unlike the JAX engine,
 which threads new caches through donated jit calls, the caches here are
 updated in place (the splices are copies into views). Host syncs: one read
 of the sampled tokens a step, and one per admission (its first token).
+
+mesh=: tensor- and data-parallel serving, one process a rank, every rank
+running the same scheduler on the same submissions (the host Python and
+the native scheduler are deterministic, so every rank takes the same
+decisions). The weights are a rank's shard (parallel/infer_sharding.py);
+the contiguous cache holds the rank's kv heads and, when the slots divide
+over 'data', its data coordinate's slots (else all of them; the paged pools
+hold all slots' pages at the rank's heads). A prompt's prefill runs on
+every rank (the JAX engine's mini cache is replicated over 'data' too) and
+lands in the slot's owner; a chunked prefill reads the slot's cached
+context, so only its owner's data group runs it, and the first token's
+logits are broadcast over 'data' from it. Each step's sampled tokens (or,
+when sampling, the logits) are gathered over 'data', so that every rank
+holds every slot's token and reads the same values back.
 """
 from __future__ import annotations
 
@@ -37,8 +51,9 @@ import torch
 
 from spt_proto_tpu_torch.inference.engine import (
     DECODE_BUCKET, TILE, KVCache, decode_step, decode_step_greedy,
-    grow_cache, prefill, prefill_chunk_compute, prefill_chunk_past,
-    round_up, sample, verify_step, weights_device)
+    grow_cache, heads, mesh_weights, new_cache, prefill,
+    prefill_chunk_compute, prefill_chunk_past, round_up, sample, verify_step,
+    weights_device)
 from spt_proto_tpu_torch.inference.weights import InferenceWeights
 
 _RUNTIME_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -102,33 +117,45 @@ def _hold_back(cache, active: torch.Tensor):
         cache, length=torch.where(active, cache.length, cache.length - 1))
 
 
+def _all_rows(t):
+    return t
+
+
 def _decode_and_sample(iw, tokens, cache, active, generator, *,
-                       temperature):
+                       temperature, all_rows=_all_rows):
     """Decode + inactive-lane hold-back + sampling. Greedy goes through
-    decode_step_greedy (the fused lm_head argmax kernel on the card)."""
+    decode_step_greedy (the fused lm_head argmax kernel on the card).
+    tokens / cache / active are the rank's slots; all_rows gathers a
+    per-slot tensor over 'data' (the identity without a data split), and
+    the returned tokens are every slot's."""
     if temperature == 0.0:
         tok, new = decode_step_greedy(iw, tokens, cache)
+        tok = all_rows(tok)
     else:
         logits, new = decode_step(iw, tokens, cache)
-        tok = sample(logits, generator, temperature=temperature)
+        tok = sample(all_rows(logits), generator, temperature=temperature)
     return tok, _hold_back(new, active)
 
 
 def _paged_decode_and_sample(iw, tokens, cache, active, generator, *,
-                             temperature):
+                             temperature, all_rows=_all_rows):
     from spt_proto_tpu_torch.inference.paged import paged_decode_step
     logits, new = paged_decode_step(iw, tokens, cache)
     tok = sample(logits, generator, temperature=temperature)
     return tok, _hold_back(new, active)
 
 
-def _verify_and_accept(iw, block, cache, active, generator, *, temperature):
+def _verify_and_accept(iw, block, cache, active, generator, *, temperature,
+                       rows=slice(None), all_rows=_all_rows):
     """Speculative round for the batching engine: block verify
     (engine.verify_step: the block-verify kernel over a bf16/f32 cache),
     greedy or rejection-sampling acceptance, and rollback. Inactive lanes
-    roll back fully. Returns (n_acc [B], correction token [B], cache)."""
+    roll back fully. block [B, K] holds every slot's; the cache and active
+    the rank's (its `rows` of them). Returns (n_acc [B], correction token
+    [B], cache), every slot's acceptance."""
     b, kk = block.shape
-    logits, new = verify_step(iw, block, cache)
+    logits, new = verify_step(iw, block[rows].contiguous(), cache)
+    logits = all_rows(logits)
     len0 = new.length - kk
     if temperature == 0.0:
         t_hat = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -140,7 +167,7 @@ def _verify_and_accept(iw, block, cache, active, generator, *, temperature):
         n_acc, corr = spec_accept(logits, None, block[:, 1:], generator,
                                   temperature=temperature)
     new = dataclasses.replace(
-        new, length=torch.where(active, len0 + 1 + n_acc,
+        new, length=torch.where(active, len0 + 1 + n_acc[rows],
                                 len0).to(torch.int32))
     return n_acc, corr, new
 
@@ -224,10 +251,17 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = False,
                  prefix_cache_entries: int = 8,
                  mesh=None):
+        # mesh: tensor-parallel serving (the module doc): weights sharded
+        # on 'model', the contiguous cache's slots on 'data' when they
+        # divide
+        self.mesh = mesh
+        self._rows, self._split = slice(None), False
         if mesh is not None:
-            raise NotImplementedError(
-                'ContinuousBatchingEngine(mesh=...): tensor-parallel serving '
-                'comes with the parallelism slice')
+            iw = mesh_weights(iw, mesh)
+            if not paged:
+                from spt_proto_tpu_torch.parallel.infer_sharding import \
+                    data_rows
+                self._rows, self._split = data_rows(mesh, n_slots)
         self.iw = iw
         self.dev = weights_device(iw)
         self.n_slots = n_slots
@@ -288,17 +322,18 @@ class ContinuousBatchingEngine:
                                              page_size, max_len,
                                              dtype=cfg.dtype,
                                              quantized=quantized_kv,
-                                             device=self.dev)
+                                             device=self.dev,
+                                             kv_heads=heads(iw)[1])
             self._decode_fn = _paged_decode_and_sample
         else:
             # the contiguous cache starts at one bucket and grows with the
             # longest live sequence (decode cost tracks context, not
             # max_len)
             self.cap = min(max_len, DECODE_BUCKET)
-            self.cache = KVCache.create(cfg, n_slots, self.cap,
-                                        dtype=cfg.dtype,
-                                        quantized=quantized_kv,
-                                        device=self.dev)
+            n_local = n_slots // mesh.shape['data'] if self._split \
+                else n_slots
+            self.cache = new_cache(iw, n_local, self.cap,
+                                   quantized=quantized_kv)
             self._decode_fn = _decode_and_sample
         self._prompts: Dict[int, List[int]] = {}
         self._max_new: Dict[int, int] = {}
@@ -371,8 +406,7 @@ class ContinuousBatchingEngine:
         key = tuple(int(t) for t in tokens[:p_len])
         if key in self._prefix_store:
             return p_len
-        mini = KVCache.create(self.iw.cfg, 1, p_len, dtype=self.iw.cfg.dtype,
-                              quantized=self.quantized_kv, device=self.dev)
+        mini = new_cache(self.iw, 1, p_len, quantized=self.quantized_kv)
         _, mini = prefill(self.iw, self._on_device([key]), mini)
         self._store_prefix(key, dict(k=mini.k, v=mini.v, codes=mini.codes,
                                      k_scale=mini.k_scale,
@@ -403,13 +437,34 @@ class ContinuousBatchingEngine:
             self._prefix_lru.append(best)
         return best
 
+    # ------------------------------------------------------------------
+    # a data split: which rank holds a slot
+    def _local(self, slot: int) -> Optional[int]:
+        """The slot's row in this rank's cache, None when another data
+        coordinate holds it."""
+        if not self._split:
+            return slot
+        j = slot - self._rows.start
+        return j if 0 <= j < self._rows.stop - self._rows.start else None
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-slot tensor of the rank's slots -> every slot's, gathered
+        over 'data' (the identity without a split)."""
+        if not self._split:
+            return t
+        from spt_proto_tpu_torch.parallel import comm
+        return comm.gather(self.mesh, t, 'data', dim=0)
+
     def _splice(self, slot: int, e: dict, new_len: int) -> None:
+        local = self._local(slot)
+        if local is None:
+            return
         nl = self.iw.cfg.n_layers
         if self.quantized_kv:
-            _splice_slot_q(self.cache, slot, e['k'], e['v'], e['codes'],
+            _splice_slot_q(self.cache, local, e['k'], e['v'], e['codes'],
                            e['k_scale'], e['v_scale'], new_len, nl)
         else:
-            _splice_slot(self.cache, slot, e['k'], e['v'], e['codes'],
+            _splice_slot(self.cache, local, e['k'], e['v'], e['codes'],
                          new_len, nl)
 
     def _prefill_slot(self, slot: int, rid: int) -> None:
@@ -486,9 +541,7 @@ class ContinuousBatchingEngine:
                 return
             if sb > self.cap:
                 self._grow(sb)
-            mini = KVCache.create(self.iw.cfg, 1, sb, dtype=self.iw.cfg.dtype,
-                                  quantized=self.quantized_kv,
-                                  device=self.dev)
+            mini = new_cache(self.iw, 1, sb, quantized=self.quantized_kv)
             logits, mini = prefill(self.iw, self._on_device(padded), mini)
             # automatic prefix insertion: keep this prompt's TILE-aligned
             # head so later requests sharing it skip that prefill work
@@ -534,20 +587,35 @@ class ContinuousBatchingEngine:
         # self.chunk is None when only the prefix cache routed us here: the
         # whole tail is one chunk
         c = min(self.chunk or (total - offset), total - offset)
-        chunk = self._on_device(st['tokens'][:, offset:offset + c])
-        past = prefill_chunk_past(self.iw, self.cache, slot, offset)
-        logits, self.cache = prefill_chunk_compute(
-            self.iw, chunk, self.cache, past, slot, offset)
         st['done'] = offset + c
         self.last_step_prefill_tokens += c
+        s = st['true_len']
+        # the slot's cached context lives on its owner: only the owner's
+        # data group runs the chunk (a data split broadcasts its last
+        # logits below)
+        local = self._local(slot)
+        if local is not None:
+            chunk = self._on_device(st['tokens'][:, offset:offset + c])
+            past = prefill_chunk_past(self.iw, self.cache, local, offset)
+            logits, self.cache = prefill_chunk_compute(
+                self.iw, chunk, self.cache, past, local, offset)
         if st['done'] < total:
             return
         del self._chunking[slot]
-        s = st['true_len']
-        # the cache length was set to the padded total: the true length
-        self.cache.length[slot] = s
-        self._start(slot, st['rid'], logits[:, (s - 1) - offset], s,
-                    st['carry'])
+        if local is not None:
+            # the cache length was set to the padded total: the true length
+            self.cache.length[local] = s
+            last = logits[:, (s - 1) - offset]
+        if self._split:
+            from spt_proto_tpu_torch.parallel import comm
+            n_local = self._rows.stop - self._rows.start
+            if local is not None:
+                last = last.float()
+            else:
+                last = torch.empty((1, self.iw.cfg.vocab_size),
+                                   dtype=torch.float32, device=self.dev)
+            last = comm.broadcast(self.mesh, last, slot // n_local, 'data')
+        self._start(slot, st['rid'], last, s, st['carry'])
 
     def _release_pages(self, slot: int) -> None:
         self.alloc.release(slot)
@@ -650,10 +718,11 @@ class ContinuousBatchingEngine:
             need = max(self._cache_len(l) for l in self._live.values()) + 1
             if need > self.cap and self.cap < self.max_len:
                 self._grow(need)
+        rows = self._rows
         toks, self.cache = self._decode_fn(
-            self.iw, self._on_device(self._tokens), self.cache,
-            torch.from_numpy(active).to(self.dev), self._gen,
-            temperature=self.temperature)
+            self.iw, self._on_device(self._tokens[rows]), self.cache,
+            torch.from_numpy(active[rows]).to(self.dev), self._gen,
+            temperature=self.temperature, all_rows=self._all_rows)
         toks = toks.cpu().numpy()              # the step's one host sync
         produced = 0
         for slot in range(self.n_slots):
@@ -694,19 +763,29 @@ class ContinuousBatchingEngine:
                  else np.zeros((self.n_slots, 0), np.int64))
         block = self._on_device(np.concatenate(
             [self._tokens[:, None], props.astype(np.int32)], axis=1))
-        # a finished request's lane can sit at the cache's end: its dead
-        # block must still land inside the cache (the JAX engine's scatter
-        # drops the columns past it; an index past it raises here)
-        free = [s for s in range(self.n_slots) if s not in self._live]
+        # a lane with no request (a finished one can sit at the cache's
+        # end) is moved to where its dead block lands inside the cache:
+        # the verify kernel cannot drop columns past it as the JAX
+        # engine's scatter does. A lane in chunked prefill is live and
+        # keeps its length (its cached prompt ends there): its block,
+        # rolled back after the round, lies below the cache's end on the
+        # kernel's route (its length is at most the padded prompt less a
+        # whole chunk, and K <= 30 < TILE), and verify_step's plain path
+        # drops the columns past the cache (engine._Block.write_at)
+        rows = self._rows
+        free = [s for s in range(self.n_slots)
+                if s not in self._live and s not in self._chunking]
         if free:
             lane = torch.zeros((self.n_slots,), dtype=torch.bool)
             lane[free] = True
             self.cache = dataclasses.replace(self.cache, length=torch.where(
-                lane.to(self.dev), self.cache.length.clamp(
+                lane[rows].to(self.dev), self.cache.length.clamp(
                     max=self.cap - block.shape[1]), self.cache.length))
         n_acc, corr, self.cache = _verify_and_accept(
-            self.iw, block, self.cache, torch.from_numpy(active).to(self.dev),
-            self._gen, temperature=self.temperature)
+            self.iw, block, self.cache,
+            torch.from_numpy(active[rows]).to(self.dev), self._gen,
+            temperature=self.temperature, rows=rows,
+            all_rows=self._all_rows)
         # the round's one host sync
         n_acc, corr = torch.stack([n_acc.long(), corr.long()]).cpu().numpy()
         produced = 0

@@ -44,8 +44,19 @@ with ffn_impl='gmm' the grouped-matmul kernels (ops/gmm.py) once a call
 has at least 128 rows, as in the JAX engine, so a long prefill runs gmm and
 a decode step of a few slots the masked form; 'gather' serves masked, as
 the JAX engine does. Out of this port so far, and raising
-NotImplementedError with the slice that brings it: ffn_impl='ep' and
-generate(mesh=...) (parallelism slice).
+NotImplementedError with the slice that brings it: ffn_impl='ep' (expert
+parallelism) and tp_overlap under a mesh (the overlap slice).
+
+Tensor parallelism (generate(mesh=...), the batching engine's mesh): each
+rank runs these functions on its shard (iw.shard, parallel/
+infer_sharding.py) with plain local tensors, reading its own widths
+(`heads`, shard.d_ff, shard.vocab) and calling the collectives of
+parallel/comm.py at the seams: the embedding's rows summed over 'model',
+the o-projection's and the FFN's row-parallel products summed over 'model'
+with the replicated bias (and a fused tail's residual and bias) added
+once, and the head's vocabulary shards gathered (logits) or its (value,
+index) pairs gathered for the global first maximum (greedy). The kernels
+run unchanged at the shard's shapes.
 
 Unlike the JAX engine, which returns new caches, prefill and decode update
 the cache tensors in place and return a KVCache over the same tensors.
@@ -106,9 +117,10 @@ class KVCache:
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, quantized: bool = False,
-               device='cuda') -> 'KVCache':
+               device='cuda', kv_heads: Optional[int] = None) -> 'KVCache':
+        """kv_heads: the heads a rank holds under a mesh (default all)."""
         dev = resolve_device(device)
-        l, h, d = cfg.n_layers, cfg.kv_heads, cfg.d_head
+        l, h, d = cfg.n_layers, kv_heads or cfg.kv_heads, cfg.d_head
         n_sub = code_width(cfg)
         nt = -(-max_len // TILE)
         kv_dtype = torch.int8 if quantized else dtype
@@ -229,12 +241,15 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return cos.reshape(shape)[:, None], sin.reshape(shape)[:, None]
 
 
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+         shard=None) -> torch.Tensor:
     """Dense FFN: ReLU (OPT) or gated SiLU, down(silu(gate x) * side x)
     (LLaMA), in the serving dtype; a routed FFN runs the training layer's
     forms, masked or (ffn_impl='gmm', >= 128 rows) grouped-matmul (routed +
     LoRA keeps its factors: the 2 * prob coeff scales only the frozen
-    path)."""
+    path). Under a mesh that splits d_ff (shard.ffn) fc1 / gate / side are
+    a rank's columns and fc2 / down its rows, summed over 'model'."""
+    split = shard is not None and shard.ffn
     if cfg.ffn == FFN_ROUTED:
         if cfg.ffn_impl == 'gather':      # the JAX engine serves it masked
             cfg = cfg.replace(ffn_impl='masked')
@@ -242,23 +257,28 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     xf = x.reshape(-1, cfg.d_model)
     if cfg.ffn_gated:
-        y = _dense(p['down'], torch.nn.functional.silu(_dense(p['gate'], xf))
-                   * _dense(p['side'], xf))
+        y = _row(p['down'], torch.nn.functional.silu(_dense(p['gate'], xf))
+                 * _dense(p['side'], xf), shard, split)
     else:
-        y = _dense(p['fc2'], torch.relu(_dense(p['fc1'], xf)))
+        y = _row(p['fc2'], torch.relu(_dense(p['fc1'], xf)), shard, split)
     return y.reshape(*lead, cfg.d_model)
 
 
 def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, shard=None) -> torch.Tensor:
     """x + ffn(norm2(x)); through the fused tail kernel when the config
     asks for it (decode_fused_ffn=True; None means "for int8 weights only",
     as in the JAX engine) and the shape is eligible: <= 256 rows, d_model
     and d_ff multiples of 128, and for int8 weights a d_ff tile of >= 128
-    dividing d_ff."""
+    dividing d_ff (the rank's d_ff under a mesh). A split tail (shard.ffn)
+    gives each rank's partial product: the residual and fc2's bias go in on
+    the first model rank only (zeros on the others), and the ranks' outputs
+    are summed over 'model'."""
     xn = _norm(cfg, pn, x)
     if cfg.ffn == FFN_ROUTED:             # the fused tails are dense only
-        return x + _ffn(cfg, p, xn)
+        return x + _ffn(cfg, p, xn, shard)
+    split = shard is not None and shard.ffn
+    d_ff = shard.d_ff if shard is not None else cfg.d_feedforward
     rows = x.numel() // cfg.d_model
     names = ('gate', 'side', 'down') if cfg.ffn_gated else ('fc1', 'fc2')
     quant = [isinstance(p[n]['kernel'], dict) for n in names]
@@ -266,20 +286,27 @@ def _ffn_residual(cfg: ModelConfig, p: dict, pn: dict,
     if use_fused is None:
         use_fused = all(quant)
     eligible = (use_fused and rows <= MAX_ROWS and cfg.d_model % 128 == 0
-                and cfg.d_feedforward % 128 == 0
-                and (all(quant) or not any(quant)))
+                and d_ff % 128 == 0 and (all(quant) or not any(quant)))
     if eligible and all(quant):
-        eligible = int8_tile(cfg.d_feedforward) >= 128
+        eligible = int8_tile(d_ff) >= 128
     if not eligible:
-        return x + _ffn(cfg, p, xn)
-    xs = (xn.reshape(rows, cfg.d_model), x.reshape(rows, cfg.d_model))
+        return x + _ffn(cfg, p, xn, shard)
+    res = x.reshape(rows, cfg.d_model)
+    first = not split or shard.model_rank == 0
+    if not first:
+        res = torch.zeros_like(res)
+    xs = (xn.reshape(rows, cfg.d_model), res)
     if cfg.ffn_gated:
         tail = ffn_tail_gated_int8 if all(quant) else ffn_tail_gated
         y = tail(*xs, *(p[n]['kernel'] for n in names))
     else:
         tail = ffn_tail_int8 if all(quant) else ffn_tail
+        b2 = p['fc2']['bias']
         y = tail(*xs, p['fc1']['kernel'], p['fc1']['bias'],
-                 p['fc2']['kernel'], p['fc2']['bias'])
+                 p['fc2']['kernel'], b2 if first else torch.zeros_like(b2))
+    if split:
+        from spt_proto_tpu_torch.parallel import comm
+        y = comm.sum_(shard.mesh, y)
     return y.reshape(x.shape)
 
 
@@ -317,6 +344,106 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: a rank's widths and the collectives at the layer seams
+# (iw.shard is None for the whole model on one device, parallel/
+# infer_sharding.py otherwise)
+# ---------------------------------------------------------------------------
+
+def heads(iw: InferenceWeights) -> Tuple[int, int, int, int]:
+    """(query heads, kv heads, group size, d_head) of the weights a rank
+    holds."""
+    cfg, s = iw.cfg, iw.shard
+    h, kv = (cfg.n_heads, cfg.kv_heads) if s is None else (s.n_heads,
+                                                            s.kv_heads)
+    return h, kv, cfg.kv_groups, cfg.d_head
+
+
+def new_cache(iw: InferenceWeights, batch: int, max_len: int, *,
+              quantized: bool = False, device=None) -> KVCache:
+    """An empty cache for `batch` slots at the rank's kv heads, on the
+    weights' device unless `device` is given."""
+    return KVCache.create(iw.cfg, batch, max_len, dtype=iw.cfg.dtype,
+                          quantized=quantized,
+                          device=device or weights_device(iw),
+                          kv_heads=heads(iw)[1])
+
+
+def _embed(iw: InferenceWeights, tokens: torch.Tensor,
+           pos: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (+ OPT's learned positions) in the serving dtype.
+    Vocab-parallel under a mesh: each rank looks up the ids in its rows
+    (zeros for the others) and the ranks' rows are summed over 'model'."""
+    p, s = iw.params, iw.shard
+    emb = p['embedding']['embedding']
+    tok = tokens.long()
+    if s is not None and s.head:
+        from spt_proto_tpu_torch.parallel import comm
+        local = tok - s.vocab_lo
+        inside = (local >= 0) & (local < s.vocab)
+        h_tok = torch.where(inside[..., None],
+                            emb[local.clamp(0, s.vocab - 1)], 0)
+        h_tok = comm.sum_(s.mesh, h_tok)
+    else:
+        h_tok = emb[tok]
+    if iw.cfg.arch == 'opt':
+        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET]
+    return h_tok.to(iw.cfg.dtype)
+
+
+def _row(p: dict, x: torch.Tensor, shard, split: bool) -> torch.Tensor:
+    """A row-parallel dense (o, fc2 / down): under a mesh that splits its
+    input dim, the ranks' partial products summed over 'model', the bias
+    added once after the sum; else _dense."""
+    if shard is None or not split:
+        return _dense(p, x)
+    from spt_proto_tpu_torch.parallel import comm
+    y = comm.sum_(shard.mesh, _dense({'kernel': p['kernel']}, x))
+    return y + p['bias'] if 'bias' in p else y
+
+
+def _o_proj(iw: InferenceWeights, p: dict, o: torch.Tensor) -> torch.Tensor:
+    return _row(p, o, iw.shard, iw.shard is not None and iw.shard.attn)
+
+
+def _lm_logits(iw: InferenceWeights, x: torch.Tensor) -> torch.Tensor:
+    """Full-vocabulary logits: a vocab-parallel head gathers its ranks'
+    columns over 'model'."""
+    y = _dense(iw.params['lm_head'], x)
+    s = iw.shard
+    if s is not None and s.head:
+        from spt_proto_tpu_torch.parallel import comm
+        y = comm.gather(s.mesh, y, 'model', dim=-1)
+    return y
+
+
+def first_max(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """vals, ids [R, B] (each rank's chosen logit and its GLOBAL id) -> ids
+    [B] int32 of the largest value, the lowest id on ties: the unsharded
+    argmax's first-maximum rule."""
+    best = vals.max(0, keepdim=True).values
+    cand = torch.where(vals == best, ids.to(torch.int64),
+                       torch.iinfo(torch.int64).max)
+    return cand.min(0).values.to(torch.int32)
+
+
+def _greedy_head(iw: InferenceWeights, x: torch.Tensor) -> torch.Tensor:
+    """The fused lm_head argmax; vocab-parallel under a mesh: each rank's
+    kernel gives (its first maximum, the logit it compared), the pairs are
+    gathered over 'model' and the global first maximum taken."""
+    kern = iw.params['lm_head']['kernel']
+    head = lm_head_argmax_int8 if isinstance(kern, dict) else lm_head_argmax
+    s = iw.shard
+    if s is None or not s.head:
+        return head(x, kern)
+    from spt_proto_tpu_torch.parallel import comm
+    ids, val = head(x, kern, value=True)
+    # one gather of both: the f32 values' bits beside the int32 ids
+    pairs = comm.gather(s.mesh, torch.stack(
+        [val.view(torch.int32), ids + s.vocab_lo])[None], 'model', dim=0)
+    return first_max(pairs[:, 0].view(torch.float32), pairs[:, 1])
+
+
 def _require_slice(iw: InferenceWeights, cache: KVCache) -> None:
     cfg = iw.cfg
     if cache.k.device.type == 'cuda' and cfg.attn_impl != 'pallas':
@@ -341,11 +468,8 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
     dev = tokens.device
     tokens = tokens.long()
     pos = torch.arange(s, device=dev)[None].expand(b, s)
-    h_tok = p['embedding']['embedding'][tokens]
-    if cfg.arch == 'opt':
-        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET]
-    x = h_tok.to(cfg.dtype)
-    h, kv, g, dh = cfg.n_heads, cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    x = _embed(iw, tokens, pos)
+    h, kv, g, dh = heads(iw)
     nt = cache.tiles_per_layer(cfg.n_layers)
     nt_m = -(-s // TILE)
     scale = dh ** -0.5
@@ -387,9 +511,9 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
             o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
             codes_k = torch.zeros((b, kv, s, 1), dtype=torch.int32,
                                   device=dev)
-        o = o.reshape(b, h, s, dh).transpose(1, 2).reshape(b, s, cfg.d_model)
-        x = x + _dense(bp['mha']['o'], o)
-        x = x + _ffn(cfg, bp['ffn'], _norm(cfg, bp['norm2'], x))
+        o = o.reshape(b, h, s, dh).transpose(1, 2).reshape(b, s, h * dh)
+        x = x + _o_proj(iw, bp['mha']['o'], o)
+        x = x + _ffn(cfg, bp['ffn'], _norm(cfg, bp['norm2'], x), iw.shard)
 
         # write this layer's tiles (from the unrepeated k/v) into the cache,
         # in place
@@ -404,7 +528,7 @@ def prefill(iw: InferenceWeights, tokens: torch.Tensor,
         cache.k[:, :, t0:t1] = to_tiles(k_kv).to(cache.k.dtype)
         cache.v[:, :, t0:t1] = to_tiles(v_kv).to(cache.v.dtype)
     cache = dataclasses.replace(cache, length=torch.full_like(cache.length, s))
-    return _dense(p['lm_head'], _norm(cfg, p['final_norm'], x)), cache
+    return _lm_logits(iw, _norm(cfg, p['final_norm'], x)), cache
 
 
 def _sparse_prefill_attention(cfg: ModelConfig, mha: dict, q, k, v,
@@ -454,7 +578,7 @@ def prefill_chunk_past(iw: InferenceWeights, cache: KVCache, slot: int,
     once: token-major K/V [L, 1, KV, offset, D] (an int8 cache dequantized
     to the serving dtype here) and codes [L, 1, KV, offset, w]."""
     cfg = iw.cfg
-    l, kv = cfg.n_layers, cfg.kv_heads
+    l, kv = cfg.n_layers, heads(iw)[1]
     nt = cache.tiles_per_layer(l)
     t0s = max(offset // TILE, 1)
 
@@ -515,12 +639,9 @@ def prefill_chunk_compute(iw: InferenceWeights, tokens: torch.Tensor,
     dev = tokens.device
     l, nt = cfg.n_layers, cache.tiles_per_layer(cfg.n_layers)
     nt_c, t0 = c // TILE, offset // TILE
-    h, kv, g, dh = cfg.n_heads, cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    h, kv, g, dh = heads(iw)
     pos = offset + torch.arange(c, device=dev)[None]           # [1, C]
-    h_tok = p['embedding']['embedding'][tokens.long()]
-    if cfg.arch == 'opt':
-        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET]
-    x = h_tok.to(cfg.dtype)
+    x = _embed(iw, tokens, pos)
     sparse = cfg.attention == ATTN_SPARSE_V2
     scale = dh ** -0.5
     s_tot = offset + c
@@ -571,9 +692,9 @@ def prefill_chunk_compute(iw: InferenceWeights, tokens: torch.Tensor,
             scores = torch.where(causal[None, None], scores, NEG_INF)
         scores = scores - scores.amax(-1, keepdim=True)
         o = torch.softmax(scores, dim=-1).to(q.dtype) @ v_all
-        o = o.transpose(1, 2).reshape(b, c, cfg.d_model)
-        x = x + _dense(mha['o'], o)
-        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+        o = o.transpose(1, 2).reshape(b, c, h * dh)
+        x = x + _o_proj(iw, mha['o'], o)
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x, iw.shard)
 
         # append the chunk's tiles in place at [offset, offset + C)
         base = li * nt + t0
@@ -589,7 +710,7 @@ def prefill_chunk_compute(iw: InferenceWeights, tokens: torch.Tensor,
         write(cache.v, v_w, base)
         write(cache.codes, _fit_codes(c_new, cache.codes.shape[3]), base)
     cache.length[slot] = s_tot
-    logits = _dense(p['lm_head'], _norm(cfg, p['final_norm'], x))
+    logits = _lm_logits(iw, _norm(cfg, p['final_norm'], x))
     return logits, cache
 
 
@@ -601,7 +722,7 @@ def decode_step(iw: InferenceWeights, tokens: torch.Tensor,
                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """One token per active slot -> (logits [B, V], cache)."""
     x, cache = _decode_hidden(iw, tokens, cache)
-    return _dense(iw.params['lm_head'], x), cache
+    return _lm_logits(iw, x), cache
 
 
 def _uses_fused_front(cfg: ModelConfig, mha: dict) -> bool:
@@ -674,11 +795,8 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
     nt = cache.tiles_per_layer(cfg.n_layers)
     pos = cache.length
     dev = pos.device
-    h_tok = p['embedding']['embedding'][tokens.long()]
-    if cfg.arch == 'opt':
-        h_tok = h_tok + p['learned_pe']['embedding'][pos.long() + PE_OFFSET]
-    x = h_tok[:, None].to(cfg.dtype)                        # [B, 1, D]
-    kv, g, dh = cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    x = _embed(iw, tokens, pos.long())[:, None]             # [B, 1, D]
+    _, kv, g, dh = heads(iw)
     scale = dh ** -0.5
     cur = (pos // TILE).long()                              # [B]
     sparse = cfg.attention == ATTN_SPARSE_V2
@@ -767,8 +885,8 @@ def _decode_hidden(iw: InferenceWeights, tokens: torch.Tensor,
             o = decode_attention_rows(
                 q4, cache.k, cache.v, cache.codes, tables, n_tiles, pos,
                 k_new, v_new, c_new, base_t, **kw)[0]
-        x = x + _dense(mha['o'], o.reshape(b, 1, cfg.d_model))
-        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+        x = x + _o_proj(iw, mha['o'], o.reshape(b, 1, kv * g * dh))
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x, iw.shard)
     cache = dataclasses.replace(cache, length=cache.length + 1)
     return _norm(cfg, p['final_norm'], x)[:, 0], cache
 
@@ -783,22 +901,22 @@ def decode_step_greedy(iw: InferenceWeights, tokens: torch.Tensor,
             'decode_fused_head=False: on the GPU the port takes the greedy '
             'token only through its fused lm_head kernel')
     x, cache = _decode_hidden(iw, tokens, cache)
-    kern = iw.params['lm_head']['kernel']
-    if isinstance(kern, dict):           # int8 weight-only lm_head
-        return lm_head_argmax_int8(x, kern), cache
-    return lm_head_argmax(x, kern), cache
+    return _greedy_head(iw, x), cache
 
 
 # ---------------------------------------------------------------------------
 # block verify (speculative decoding)
 # ---------------------------------------------------------------------------
 
-def _insert_cols(sl: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
-                 tile_r: torch.Tensor, col_r: torch.Tensor) -> None:
+def _insert_cols(sl: torch.Tensor, new: torch.Tensor, blk: '_Block'
+                 ) -> None:
     """In place: sl [B, KV, NT, w, T] (a layer's slice of a cache), new
-    [B, KV, K, w]; column i of slot b lands at (tile_r[b, i], col_r[b, i])
-    (slot [B, K] holds b)."""
-    sl[slot, :, tile_r, :, col_r] = new.transpose(1, 2).to(sl.dtype)
+    [B, KV, K, w]; column i of slot b lands at its position pos0[b] + i,
+    and a column past the slice is dropped, as the JAX engine's scatter
+    drops it (_Block.write_at; no host sync)."""
+    vals = new.transpose(1, 2).to(sl.dtype)                 # [B, K, KV, w]
+    old = sl[blk.slot[:, 0], :, -1, :, -1]                  # [B, KV, w]
+    sl[blk.slot, :, blk.tile_w, :, blk.col_w] = blk.write_vals(vals, old)
 
 
 class _Block:
@@ -814,6 +932,7 @@ class _Block:
         self.wpos = pos0.long()[:, None] + torch.arange(kk, device=dev)
         self.tile_r, self.col_r = self.wpos // TILE, self.wpos % TILE
         self.slot = torch.arange(b, device=dev)[:, None].expand(b, kk)
+        self.write_at(nt)
         ar = torch.arange(nt, device=dev)
         self.own = ar == self.tile_r[..., None]             # [B, K, NT]
         self.not_full = ar >= self.tile_r[..., None]        # [B, K, NT]
@@ -823,6 +942,28 @@ class _Block:
         self.dup = (w0 == w1)[:, None]                      # [B, 1]
         self.jbit = 1 << torch.arange(kk, device=dev, dtype=torch.int32)
         self._dense = None
+
+    def write_at(self, nt: int) -> None:
+        """Where the block's columns are written in a layer of nt tiles:
+        a column past the layer (a lane whose length sits within K of the
+        cache's end) is dropped. Without a host sync: a dropped column is
+        sent to the block's first column with that column's value when the
+        first lands, else to the slot's last lane with the value already
+        there, so that every write to one place carries one value."""
+        inside = self.tile_r < nt                            # [B, K]
+        self.keep, self.keep0 = inside, inside[:, :1]
+        self.tile_w = torch.where(inside, self.tile_r, torch.where(
+            self.keep0, self.tile_r[:, :1], nt - 1))
+        self.col_w = torch.where(inside, self.col_r, torch.where(
+            self.keep0, self.col_r[:, :1], TILE - 1))
+
+    def write_vals(self, vals: torch.Tensor, old: torch.Tensor
+                   ) -> torch.Tensor:
+        """vals [B, K, ...] the columns' values, old [B, ...] the value at
+        the slot's last lane -> the values to write at (tile_w, col_w)."""
+        pad = (None,) * (vals.dim() - 2)
+        fill = torch.where(self.keep0[:, 0][(...,) + pad], vals[:, 0], old)
+        return torch.where(self.keep[(...,) + pad], vals, fill[:, None])
 
     def select(self, cfg: ModelConfig, c_l: torch.Tensor,
                codes_q: torch.Tensor) -> torch.Tensor:
@@ -942,16 +1083,13 @@ def verify_step(iw: InferenceWeights, tokens: torch.Tensor, cache: KVCache,
     p = iw.params
     b, kk = tokens.shape
     nt = cache.tiles_per_layer(cfg.n_layers)
-    kv, g, dh = cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    _, kv, g, dh = heads(iw)
     pos0 = cache.length
     dev = pos0.device
     sparse = cfg.attention == ATTN_SPARSE_V2
     nsel = min(nt, max(1, nt // cfg.sparse_coeff) + 1) if sparse else 0
     blk = _Block(pos0, kk, nt, kv, nsel)
-    h_tok = p['embedding']['embedding'][tokens.long()]
-    if cfg.arch == 'opt':
-        h_tok = h_tok + p['learned_pe']['embedding'][blk.wpos + PE_OFFSET]
-    x = h_tok.to(cfg.dtype)                                  # [B, K, D]
+    x = _embed(iw, tokens, blk.wpos)                         # [B, K, D]
     scale = dh ** -0.5
     rope = _rope_tables(cfg, blk.wpos) if cfg.arch == 'llama' else None
     if use_kernel:
@@ -982,7 +1120,7 @@ def verify_step(iw: InferenceWeights, tokens: torch.Tensor, cache: KVCache,
             # boundary selects over the tile the block's earlier columns
             # filled
             c_l = cache.codes[:, :, base:base + nt]          # a view
-            _insert_cols(c_l, c_new, blk.slot, blk.tile_r, blk.col_r)
+            _insert_cols(c_l, c_new, blk)
             keep = blk.select(cfg, c_l, codes_q)
         if use_kernel:
             tables, bits = blk.tables(keep, base)
@@ -995,14 +1133,14 @@ def verify_step(iw: InferenceWeights, tokens: torch.Tensor, cache: KVCache,
                 cn.to(torch.int32).contiguous(), bases[li], ps=TILE,
                 scale=scale, clamp=cfg.score_clamp if sparse else 0.0)[0]
             o = o.reshape(b, kv, g, kk, dh).permute(0, 3, 1, 2, 4).reshape(
-                b, kk, cfg.d_model)
+                b, kk, kv * g * dh)
         else:
             o = _verify_plain(cfg, cache, base, blk, q, k_new, v_new, keep,
                               scale)
-        x = x + _dense(mha['o'], o)
-        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+        x = x + _o_proj(iw, mha['o'], o)
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x, iw.shard)
     cache = dataclasses.replace(cache, length=pos0 + kk)
-    logits = _dense(p['lm_head'], _norm(cfg, p['final_norm'], x))
+    logits = _lm_logits(iw, _norm(cfg, p['final_norm'], x))
     return logits, cache
 
 
@@ -1015,19 +1153,19 @@ def _verify_plain(cfg: ModelConfig, cache: KVCache, base: int, blk: _Block,
     [B, K, d_model]."""
     b, kv, kk, dh = k_new.shape
     g, nt = cfg.kv_groups, blk.nt
-    at = (blk.slot, blk.tile_r, blk.col_r)
     sl = slice(base, base + nt)
     k_l, v_l = cache.k[:, :, sl], cache.v[:, :, sl]          # views
     if cache.quantized:
         k8, ks_new = _quantize_kv(k_new)                     # [B,KV,K,D]
         v8, vs_new = _quantize_kv(v_new)
-        _insert_cols(k_l, k8, *at)
-        _insert_cols(v_l, v8, *at)
+        _insert_cols(k_l, k8, blk)
+        _insert_cols(v_l, v8, blk)
         ksc_l, vsc_l = cache.k_scale[:, sl], cache.v_scale[:, sl]
         hp = ksc_l.shape[2]
         for sc_l, s_new in ((ksc_l, ks_new), (vsc_l, vs_new)):
             s_pad = torch.nn.functional.pad(s_new, (0, 0, 0, hp - kv))
-            sc_l[blk.slot, blk.tile_r, :, blk.col_r] = s_pad.transpose(1, 2)
+            sc_l[blk.slot, blk.tile_w, :, blk.col_w] = blk.write_vals(
+                s_pad.transpose(1, 2), sc_l[blk.slot[:, 0], -1, :, -1])
         # dequantized operands (the kernels' scores x kscale and
         # probabilities x vscale)
         kf = (k_l.float() * ksc_l[:, :, :kv].permute(0, 2, 1, 3)[:, :, :,
@@ -1037,8 +1175,8 @@ def _verify_plain(cfg: ModelConfig, cache: KVCache, base: int, blk: _Block,
                                                                   None]
               ).to(cfg.dtype)
     else:
-        _insert_cols(k_l, k_new, *at)
-        _insert_cols(v_l, v_new, *at)
+        _insert_cols(k_l, k_new, blk)
+        _insert_cols(v_l, v_new, blk)
         kf, vf = k_l, v_l
     s_all = nt * TILE
     k_tok = kf.transpose(3, 4).reshape(b, kv, s_all, dh)
@@ -1050,14 +1188,14 @@ def _verify_plain(cfg: ModelConfig, cache: KVCache, base: int, blk: _Block,
     causal = torch.arange(s_all, device=q.device) <= blk.wpos[..., None]
     if keep is not None:
         scores = scores.clamp(-cfg.score_clamp, cfg.score_clamp)
-        keep_s = keep.repeat_interleave(cfg.n_heads // keep.shape[1], dim=1)
+        keep_s = keep.repeat_interleave(q.shape[1] // keep.shape[1], dim=1)
         allowed = keep_s.repeat_interleave(TILE, dim=3) & causal[:, None]
     else:
         allowed = causal[:, None]
     scores = torch.where(allowed, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_tok.dtype)
     o = (probs.float() @ v_tok.float()).to(cfg.dtype)       # [B, H, K, D]
-    return o.transpose(1, 2).reshape(b, kk, cfg.d_model)
+    return o.transpose(1, 2).reshape(b, kk, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -1158,40 +1296,61 @@ def generate(iw: InferenceWeights, prompts: torch.Tensor,
     Ragged batches: right-pad the prompts and pass the true per-row
     `lengths [B]`: the cache length is set per row and the first token is
     sampled at each row's last prompt token; generated tokens still land at
-    out[:, S_prompt + i]. `mesh` (tensor-parallel serving) comes with the
-    parallelism slice and raises."""
+    out[:, S_prompt + i].
+
+    mesh (parallel.mesh.Mesh; every rank of the world calls generate with
+    the same arguments): tensor-parallel serving. The weights are sharded
+    on 'model' (parallel/infer_sharding.py; weights already sharded are
+    taken as they are), the prompts' rows split over 'data' when B divides
+    (else every data rank runs them all), and each rank's cache holds its
+    rows and kv heads. Greedy takes the global first maximum of the ranks'
+    fused heads; sampling gathers the logits over 'model' and 'data' and
+    draws every row on every rank from the same generator, so the draws
+    are the unsharded run's. Every rank returns the whole [B, S] array."""
+    rows = slice(None)
+    split = False
     if mesh is not None:
-        raise NotImplementedError(
-            'generate(mesh=...): tensor-parallel serving comes with the '
-            'parallelism slice')
+        from spt_proto_tpu_torch.parallel.infer_sharding import data_rows
+        iw = mesh_weights(iw, mesh)
+        rows, split = data_rows(mesh, prompts.shape[0])
     dev = weights_device(iw)
     prompts = prompts.to(dev)
     b, s0 = prompts.shape
     limit = max_len or (s0 + max_new_tokens)
     cap = min(max(s0, round_up(s0 + 1, DECODE_BUCKET)), max(limit, s0))
-    cache = KVCache.create(iw.cfg, b, cap, dtype=iw.cfg.dtype,
-                           quantized=quantized_kv, device=dev)
+    mine = prompts[rows]
+    cache = new_cache(iw, mine.shape[0], cap, quantized=quantized_kv)
     greedy = temperature == 0.0 and eos_id is None
-    logits, cache = prefill(iw, prompts, cache)
+    logits, cache = prefill(iw, mine, cache)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
         max_pos = int(lengths.max())
+        lengths = lengths[rows]
         cache = dataclasses.replace(cache, length=lengths.clone())
-        last = logits[torch.arange(b, device=dev), lengths.long() - 1]
+        last = logits[torch.arange(mine.shape[0], device=dev),
+                      lengths.long() - 1]
     else:
         max_pos = s0
         last = logits[:, -1]
+
+    def all_rows(t):           # every row's values, on every rank
+        if not split:
+            return t
+        from spt_proto_tpu_torch.parallel import comm
+        return comm.gather(mesh, t, 'data', dim=0)
+
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     warps = dict(temperature=temperature, top_k=top_k, top_p=top_p)
-    out = [prompts.to(torch.int32)]
-    tok = sample(last, generator, **warps)
+    out = [mine.to(torch.int32)]
+    tok = (sample(last, generator, **warps) if greedy
+           else sample(all_rows(last), generator, **warps)[rows])
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for i in range(max_new_tokens):
         out.append(tok[:, None])
         if eos_id is not None:
-            done = done | (tok == eos_id)
+            done = done | (all_rows(tok) == eos_id)
             if bool(done.all()):
                 break
         if i == max_new_tokens - 1:
@@ -1203,6 +1362,20 @@ def generate(iw: InferenceWeights, prompts: torch.Tensor,
             tok, cache = decode_step_greedy(iw, tok, cache)
         else:
             logits, cache = decode_step(iw, tok, cache)
-            tok = sample(logits, generator, **warps)
+            tok = sample(all_rows(logits), generator, **warps)[rows]
         max_pos += 1
-    return torch.cat(out, dim=1)
+    return all_rows(torch.cat(out, dim=1))
+
+
+def mesh_weights(iw: InferenceWeights, mesh) -> InferenceWeights:
+    """The rank's shard of the serving weights (iw itself when already
+    sharded). tp_overlap's overlapped collective matmuls are not ported."""
+    if iw.cfg.tp_overlap:
+        raise NotImplementedError(
+            'tp_overlap=True under a mesh: the overlapped collective '
+            'matmuls (parallel/overlap.py) come with the overlap slice')
+    if iw.shard is not None:
+        return iw
+    from spt_proto_tpu_torch.parallel.infer_sharding import \
+        shard_inference_weights
+    return shard_inference_weights(mesh, iw)

@@ -32,12 +32,14 @@ import numpy as np
 import torch
 
 from spt_proto_tpu_torch.config import ATTN_SPARSE_V2, ModelConfig
-from spt_proto_tpu_torch.inference.bridge import PE_OFFSET, resolve_device
-from spt_proto_tpu_torch.inference.engine import (TILE, KVCache, NEG_INF,
+from spt_proto_tpu_torch.inference.bridge import resolve_device
+from spt_proto_tpu_torch.inference.engine import (TILE, NEG_INF,
                                                   _apply_rope, _bd_of,
-                                                  _dense, _encode_codes,
+                                                  _embed, _encode_codes,
                                                   _ffn_residual, _layer,
-                                                  _norm, _qkv_proj, prefill)
+                                                  _lm_logits, _norm, _o_proj,
+                                                  _qkv_proj, heads, new_cache,
+                                                  prefill)
 from spt_proto_tpu_torch.inference.weights import InferenceWeights
 from spt_proto_tpu_torch.layers.common import rope_cos_sin
 from spt_proto_tpu_torch.ops.paged_attention import (MAX_INT8,
@@ -63,12 +65,14 @@ class PagedKVCache:
     @staticmethod
     def create(cfg: ModelConfig, batch: int, n_pages: int, page_size: int,
                max_len: int, dtype=torch.bfloat16, quantized: bool = False,
-               device='cuda') -> 'PagedKVCache':
+               device='cuda', kv_heads: Optional[int] = None
+               ) -> 'PagedKVCache':
         """L*n_pages + 1 physical pages: the last is the reserved write
         sink, where decode writes of slots with no page table (-1 entries)
-        land instead of corrupting a real page."""
+        land instead of corrupting a real page. kv_heads: the heads a rank
+        holds under a mesh (default all)."""
         dev = resolve_device(device)
-        l, h, d = cfg.n_layers, cfg.kv_heads, cfg.d_head
+        l, h, d = cfg.n_layers, kv_heads or cfg.kv_heads, cfg.d_head
         n_sub = cfg.n_subspaces if cfg.attention == ATTN_SPARSE_V2 else 1
         pps = -(-max_len // page_size)
         n_phys = l * n_pages + 1
@@ -229,9 +233,9 @@ def paged_prefill(iw: InferenceWeights, tokens: torch.Tensor,
     b, s = tokens.shape
     dev = cache.k_pages.device
     ps = cache.page_size
-    l, h = cfg.n_layers, cfg.kv_heads
+    l, h = cfg.n_layers, heads(iw)[1]
     n_log = cache.n_logical(l)
-    tmp = KVCache.create(cfg, b, s, dtype=cfg.dtype, device=dev)
+    tmp = new_cache(iw, b, s, device=dev)
     logits, tmp = prefill(iw, tokens, tmp)
     # tmp is layer-folded tile-major [B, KV, L*NTm, w, T]; unfold to
     # [L, B, KV, S, w], then scatter into the pools [KV, L*N+1, ps, w]
@@ -283,11 +287,8 @@ def paged_decode_step(iw: InferenceWeights, tokens: torch.Tensor,
     ps = cache.page_size
     n_log = cache.n_logical(cfg.n_layers)
     pos = cache.length.long()
-    h_tok = p['embedding']['embedding'][tokens.long()][:, None]
-    if cfg.arch == 'opt':
-        h_tok = h_tok + p['learned_pe']['embedding'][pos + PE_OFFSET][:, None]
-    x = h_tok.to(cfg.dtype)                                   # [B, 1, D]
-    hq, kv, g, dh = cfg.n_heads, cfg.kv_heads, cfg.kv_groups, cfg.d_head
+    x = _embed(iw, tokens, pos)[:, None]                      # [B, 1, D]
+    hq, kv, g, dh = heads(iw)
     scale = dh ** -0.5
     sparse = cfg.attention == ATTN_SPARSE_V2
     pps = cache.page_indices.shape[1]
@@ -346,8 +347,8 @@ def paged_decode_step(iw: InferenceWeights, tokens: torch.Tensor,
                                 lengths, phys_idx, scale=scale,
                                 k_scales=cache.k_scales,
                                 v_scales=cache.v_scales)
-        x = x + _dense(mha['o'], o.reshape(b, 1, cfg.d_model))
-        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x)
+        x = x + _o_proj(iw, mha['o'], o.reshape(b, 1, hq * dh))
+        x = _ffn_residual(cfg, bp['ffn'], bp['norm2'], x, iw.shard)
     cache = dataclasses.replace(cache, length=lengths)
-    logits = _dense(p['lm_head'], _norm(cfg, p['final_norm'], x)[:, 0])
+    logits = _lm_logits(iw, _norm(cfg, p['final_norm'], x)[:, 0])
     return logits, cache

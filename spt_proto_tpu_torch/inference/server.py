@@ -20,6 +20,15 @@ thread (`_loop`). Handlers only enqueue (prompt, max_tokens) tuples and
 wait. Batching across concurrent requests falls out of the engine's slot
 scheduler: requests that arrive while a step is in flight are admitted at
 the next step boundary.
+
+Under a mesh (an engine built with mesh=, one process a rank) rank 0 owns
+the HTTP socket and the frontend: before each step its engine thread
+broadcasts the step's admissions (the (prompt, max_tokens) pairs it is
+about to submit) to the other ranks, which run `follow`: submit the same
+requests in the same order and step the same engine, so every rank's
+scheduler takes the same decisions. An idle frontend broadcasts a no-step
+message every HEARTBEAT_S seconds (the other ranks would otherwise wait
+in the collective past its timeout), and shutdown broadcasts a stop.
 """
 from __future__ import annotations
 
@@ -28,12 +37,15 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
+HEARTBEAT_S = 60.0
+
 
 class ServingFrontend:
     """Thread-safe submit/wait facade over ContinuousBatchingEngine."""
 
     def __init__(self, engine, tokenizer=None):
         self.engine = engine
+        self.mesh = getattr(engine, 'mesh', None)
         self.tokenizer = tokenizer
         self._cv = threading.Condition()
         self._pending: List[Tuple[int, List[int], int]] = []  # ticket,...
@@ -133,14 +145,27 @@ class ServingFrontend:
         while True:
             with self._cv:
                 # sleep until there is work: a submission or live slots
+                # (under a mesh, wake every HEARTBEAT_S to tell the other
+                # ranks to wait on)
                 self._cv.wait_for(
                     lambda: self._stop or self._pending
-                    or eng.num_active or eng.queue_depth)
+                    or eng.num_active or eng.queue_depth,
+                    HEARTBEAT_S if self.mesh is not None else None)
                 if self._stop:
+                    if self.mesh is not None:
+                        _tell(dict(stop=True))
                     return
-                for ticket, toks, mx in self._pending:
-                    if ticket not in self._tickets:
-                        continue        # abandoned (client timed out)
+                # abandoned tickets (client timed out) are not submitted
+                batch = [(t, toks, mx) for t, toks, mx in self._pending
+                         if t in self._tickets]
+                self._pending.clear()
+                if self.mesh is not None:
+                    work = bool(batch or eng.num_active or eng.queue_depth)
+                    _tell(dict(stop=False, step=work, reqs=[
+                        (toks, mx) for _, toks, mx in batch]))
+                    if not work:
+                        continue
+                for ticket, toks, mx in batch:
                     try:
                         rid = eng.submit(toks, max_new_tokens=mx)
                     except ValueError as e:
@@ -152,7 +177,6 @@ class ServingFrontend:
                         self._cv.notify_all()
                         continue
                     self._rid_to_ticket[rid] = ticket
-                self._pending.clear()
                 eng.step()
                 changed = False
                 for rid, toks in eng.live_progress().items():
@@ -173,6 +197,31 @@ class ServingFrontend:
                     changed = True
                 if changed:
                     self._cv.notify_all()
+
+
+def _tell(msg: dict) -> dict:
+    """Rank 0's step message to every rank (a broadcast over the world)."""
+    from spt_proto_tpu_torch.parallel import comm
+    return comm.broadcast_object(msg, src=0)
+
+
+def follow(engine) -> None:
+    """The loop of a rank other than 0 under a mesh: take rank 0's step
+    messages, submit the same requests (a request that rank 0's engine
+    refuses is refused here too) and step the same engine, until rank 0
+    stops."""
+    while True:
+        msg = _tell(None)
+        if msg['stop']:
+            return
+        for toks, mx in msg['reqs']:
+            try:
+                engine.submit(toks, max_new_tokens=mx)
+            except ValueError:
+                pass
+        if msg['step']:
+            engine.step()
+            engine.completions = []
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -106,11 +106,34 @@ def _cast_to(dtype, device):
     return fn
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """What a rank's local shard of the serving weights holds
+    (parallel/infer_sharding.py): the mesh, this rank's query and kv heads,
+    its slice of d_ff, its vocabulary columns [vocab_lo, vocab_lo + vocab),
+    and which of the three the 'model' axis splits (a width the axis does
+    not divide is held whole by every rank)."""
+    mesh: Any
+    n_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    vocab_lo: int
+    attn: bool
+    ffn: bool
+    head: bool
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.coords['model']
+
+
 @dataclasses.dataclass
 class InferenceWeights:
     cfg: ModelConfig
     params: Any = None   # folded param tree (blocks stacked [L, ...])
     quant: Optional[str] = None
+    shard: Optional[Shard] = None   # None: the whole model on one device
 
     @staticmethod
     def from_params(cfg: ModelConfig, params: Any,

@@ -47,7 +47,7 @@ class MultiheadAttention(nn.Module):
         if cfg.context_parallel:
             raise NotImplementedError(
                 'context parallelism (ring attention) comes with the '
-                'parallelism slice')
+                'context-parallelism slice')
         self.cfg = cfg
         self.deterministic = deterministic
         self.train_quantizer = train_quantizer

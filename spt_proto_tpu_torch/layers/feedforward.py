@@ -10,8 +10,8 @@ GMM_MIN_ROWS rows (else the masked ones), 'gather' the capacity dispatch
 masked forms only. Under cfg.int8_base the frozen kernels arrive as frozen8
 leaves ({'q', 'scale'} at p[name]['kernel']) and every form is the masked
 one on int8_frozen_matmul ('masked' or 'gmm' only, as JAX asserts).
-`ffn_impl='ep'` (expert parallelism) and `tp_overlap` raise, naming the
-parallelism slice.
+`ffn_impl='ep'` (expert parallelism) and `tp_overlap` raise, naming their
+slices.
 """
 from __future__ import annotations
 
@@ -35,12 +35,12 @@ def _activation(cfg: ModelConfig):
 def _check_supported(cfg: ModelConfig, routed: bool) -> None:
     if cfg.tp_overlap:
         raise NotImplementedError(
-            'tp_overlap (ring collective matmuls) comes with the parallelism '
-            'slice')
+            'tp_overlap (ring collective matmuls, parallel/overlap.py) comes '
+            'with the overlap slice')
     if routed and cfg.ffn_impl == 'ep':
         raise NotImplementedError(
-            "ffn_impl='ep' comes with the parallelism slice (expert "
-            'parallelism)')
+            "ffn_impl='ep' (ops/routed_ffn_ep.py) comes with the "
+            'expert-parallelism slice')
     if routed and cfg.int8_base and cfg.ffn_impl not in ('masked', 'gmm'):
         raise ValueError('int8_base routed FFN uses the masked-dispatch form '
                          f"(ffn_impl 'masked' or 'gmm', got {cfg.ffn_impl!r})")

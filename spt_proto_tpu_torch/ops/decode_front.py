@@ -12,8 +12,9 @@ engine calls it for sparse decode over an int8 KV cache (quantized=True)
 and over a bf16/f32 one (quantized=False). Architectures: OPT (LayerNorm,
 biases) and LLaMA (RMSNorm, no biases, RoPE from per-slot cos / sin
 tables). Weight forms, as the JAX kernel takes them:
-- 'stack': the fp QKV [3, D, D] (MHA);
-- 'packed_int8': {'q': [D, 3D_pad] int8, 'scale': [3D] f32}, columns
+- 'stack': the fp QKV [3, D, O] (MHA; O = D, or a rank's H*dh / model
+  under a mesh);
+- 'packed_int8': {'q': [D, 3O_pad] int8, 'scale': [3O] f32}, columns
   [q|k|v] (MHA, int8 weight-only serving);
 - 'triple': (wq [D, H*dh], wk [D, KV*dh], wv [D, KV*dh]) in the serving
   dtype (GQA);
@@ -71,10 +72,14 @@ def weight_form(wqkv) -> str:
 
 
 def _part_widths(wqkv, d: int):
-    """Output widths of q, k, v (true widths for the int8 forms)."""
+    """Output widths of q, k, v (true widths for the int8 forms). The stack
+    and packed forms have three equal parts: D wide for the whole model, a
+    rank's heads under a mesh (parallel/infer_sharding.py)."""
     form = weight_form(wqkv)
-    if form in ('stack', 'packed_int8'):
-        return [d, d, d]
+    if form == 'stack':
+        return [wqkv.shape[2]] * 3
+    if form == 'packed_int8':
+        return [wqkv['scale'].numel() // 3] * 3
     if form == 'triple':
         return [w.shape[1] for w in wqkv]
     return [w['scale'].numel() for w in wqkv]
@@ -89,11 +94,12 @@ def _parts(wqkv, d: int):
     """Per part (q, k, v): (weight tensor, first column, row stride, scale
     tensor or None, first scale column), as the kernels address them."""
     form = weight_form(wqkv)
+    o = _part_widths(wqkv, d)[0]
     if form == 'stack':
-        return [(wqkv, i * d * d, d, None, 0) for i in range(3)]
+        return [(wqkv, i * d * o, o, None, 0) for i in range(3)]
     if form == 'packed_int8':
         w8, wsc = wqkv['q'], wqkv['scale']
-        return [(w8, i * d, w8.shape[1], wsc, i * d) for i in range(3)]
+        return [(w8, i * o, w8.shape[1], wsc, i * o) for i in range(3)]
     if form == 'triple':
         return [(w, 0, w.shape[1], None, 0) for w in wqkv]
     return [(w['q'], 0, w['q'].shape[1], w['scale'], 0) for w in wqkv]
@@ -177,9 +183,10 @@ def _project(hn, wqkv, bqkv, dtype):
     elif form == 'triple':
         ys = [(hn.float() @ w.float()).to(dtype) for w in wqkv]
     elif form == 'packed_int8':
-        acc = int8_dot(hn, wqkv['q'][:, :3 * d], _front_block_k(d))
+        o = widths[0]
+        acc = int8_dot(hn, wqkv['q'][:, :3 * o], _front_block_k(d))
         y = (acc * wqkv['scale'].reshape(1, -1).float()).to(dtype)
-        ys = [y[:, t * d:(t + 1) * d] for t in range(3)]
+        ys = [y[:, t * o:(t + 1) * o] for t in range(3)]
     else:
         ys = [(int8_dot(hn, w['q'][:, :n], _front_block_k(d))
                * w['scale'].reshape(1, -1).float()).to(dtype)
@@ -336,15 +343,17 @@ def decode_front(x, norm_scale, norm_bias, wqkv, bqkv, bd, cb_norm,
         req(bqkv.dim() == 2 and bqkv.shape[0] == 3
             and bqkv.shape[1] >= max(widths), f'bqkv {tuple(bqkv.shape)}')
     ldb = 0 if bqkv is None else bqkv.shape[1]
+    o = widths[0]
     if form == 'stack':
-        req(wqkv.dtype == x.dtype and wqkv.shape == (3, d, d),
-            f'wqkv {tuple(wqkv.shape)} {wqkv.dtype} != [3, {d}, {d}] '
+        req(wqkv.dtype == x.dtype and wqkv.dim() == 3
+            and wqkv.shape[:2] == (3, d),
+            f'wqkv {tuple(wqkv.shape)} {wqkv.dtype} != [3, {d}, O] '
             f'{x.dtype}')
     elif form == 'packed_int8':
         w8, wsc = wqkv['q'], wqkv['scale']
         req(w8.dtype == torch.int8 and w8.dim() == 2 and w8.shape[0] == d
-            and w8.shape[1] >= 3 * d and wsc.dtype == torch.float32
-            and wsc.numel() == 3 * d,
+            and w8.shape[1] >= 3 * o and wsc.dtype == torch.float32
+            and wsc.numel() == 3 * o,
             f'packed int8 QKV {tuple(w8.shape)} {w8.dtype} / scale '
             f'[{wsc.numel()}] at D={d}')
     elif form == 'triple':

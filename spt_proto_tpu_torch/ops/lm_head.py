@@ -8,6 +8,12 @@ dtype logits; the [B, V] logits are never stored by the kernels. The int8
 form has int8_matmul's numerics (x rounded to bf16, f32 partials per K
 chunk added in ascending order, then the per-column scale), and masks the
 lanes at or past the TRUE vocab (the scale's width, not q's padded one).
+
+value=True also returns the logit each row chose, f32 [B]: the value the
+kernel compared (the dtype-rounded logit its reduce kept), so that ranks
+of a vocab-parallel head agree on a global first maximum from the numbers
+that decided each rank's own (engine._greedy_head); the twins return the
+same pair.
 """
 from __future__ import annotations
 
@@ -36,16 +42,26 @@ def _check_layout(x: torch.Tensor, w: torch.Tensor) -> None:
                    f'{w.dtype} need 16-byte aligned rows')
 
 
-def lm_head_argmax_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B, D] @ w [D, V] -> greedy token ids [B] int32 (plain twin)."""
+def _first_max(logits: torch.Tensor, value: bool):
+    ids = torch.argmax(logits, dim=-1).to(torch.int32)    # first maximum
+    if not value:
+        return ids
+    return ids, logits.gather(-1, ids.long()[:, None])[:, 0]
+
+
+def lm_head_argmax_ref(x: torch.Tensor, w: torch.Tensor, *,
+                       value: bool = False):
+    """x [B, D] @ w [D, V] -> greedy token ids [B] int32 (plain twin); with
+    value=True (ids, the chosen logits [B] f32)."""
     logits = (x.float() @ w.float()).to(x.dtype).float()
-    return torch.argmax(logits, dim=-1).to(torch.int32)   # first maximum
+    return _first_max(logits, value)
 
 
-def lm_head_argmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B, D] @ w [D, V] -> greedy token ids [B] int32, streaming W."""
+def lm_head_argmax(x: torch.Tensor, w: torch.Tensor, *, value: bool = False):
+    """x [B, D] @ w [D, V] -> greedy token ids [B] int32, streaming W; with
+    value=True (ids, the chosen logits [B] f32)."""
     if not _build.on_cuda(x, w):
-        return lm_head_argmax_ref(x, w)
+        return lm_head_argmax_ref(x, w, value=value)
     b, d = x.shape
     v = w.shape[1]
     _build.require(w.dtype == x.dtype and w.shape[0] == d,
@@ -59,13 +75,15 @@ def lm_head_argmax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pval = torch.empty((n_tiles, b), dtype=torch.float32, device=x.device)
     pidx = torch.empty((n_tiles, b), dtype=torch.int32, device=x.device)
     out = torch.empty((b,), dtype=torch.int32, device=x.device)
+    val = (torch.empty((b,), dtype=torch.float32, device=x.device)
+           if value else None)
     p = _build.ptr
     err = _build.lib().spt_lm_head_argmax(
-        code, p(x), p(w), p(pval), p(pidx), p(out), b, d, v,
+        code, p(x), p(w), p(pval), p(pidx), p(out), p(val), b, d, v,
         _build.stream())
     _build.check(err, 'lm_head_argmax')
     lm_head_argmax.launches += 1
-    return out
+    return (out, val) if value else out
 
 
 lm_head_argmax.launches = 0
@@ -89,19 +107,21 @@ def int8_head_logits(x: torch.Tensor, q: torch.Tensor,
     return (acc * scale.reshape(1, v).float()).to(x.dtype).float()
 
 
-def lm_head_argmax_int8_ref(x: torch.Tensor, wq: dict) -> torch.Tensor:
+def lm_head_argmax_int8_ref(x: torch.Tensor, wq: dict, *,
+                            value: bool = False):
     """Plain twin: x [B, D], wq {'q': [D, V_pad] int8, 'scale': [V] f32}
-    -> greedy token ids [B] int32."""
-    logits = int8_head_logits(x, wq['q'], wq['scale'])
-    return torch.argmax(logits, dim=-1).to(torch.int32)   # first maximum
+    -> greedy token ids [B] int32; with value=True (ids, the chosen logits
+    [B] f32)."""
+    return _first_max(int8_head_logits(x, wq['q'], wq['scale']), value)
 
 
-def lm_head_argmax_int8(x: torch.Tensor, wq: dict) -> torch.Tensor:
+def lm_head_argmax_int8(x: torch.Tensor, wq: dict, *, value: bool = False):
     """Greedy token ids [B] int32 from an int8 lm_head, streaming the int8
-    weight; lanes at or past the true vocab never win."""
+    weight; lanes at or past the true vocab never win. value=True: (ids,
+    the chosen logits [B] f32)."""
     q, scale = wq['q'], wq['scale']
     if not _build.on_cuda(x, q, scale):
-        return lm_head_argmax_int8_ref(x, wq)
+        return lm_head_argmax_int8_ref(x, wq, value=value)
     b, d = x.shape
     v, v_pad = scale.numel(), q.shape[1]
     req = _build.require
@@ -117,13 +137,15 @@ def lm_head_argmax_int8(x: torch.Tensor, wq: dict) -> torch.Tensor:
     pval = torch.empty((n_tiles, b), dtype=torch.float32, device=x.device)
     pidx = torch.empty((n_tiles, b), dtype=torch.int32, device=x.device)
     out = torch.empty((b,), dtype=torch.int32, device=x.device)
+    val = (torch.empty((b,), dtype=torch.float32, device=x.device)
+           if value else None)
     p = _build.ptr
     err = _build.lib().spt_lm_head_argmax_int8(
-        code, p(x), p(q), p(scale), p(pval), p(pidx), p(out), b, d, v, v_pad,
-        int8_head_block_k(b, d), _build.stream())
+        code, p(x), p(q), p(scale), p(pval), p(pidx), p(out), p(val), b, d,
+        v, v_pad, int8_head_block_k(b, d), _build.stream())
     _build.check(err, 'lm_head_argmax_int8')
     lm_head_argmax_int8.launches += 1
-    return out
+    return (out, val) if value else out
 
 
 lm_head_argmax_int8.launches = 0

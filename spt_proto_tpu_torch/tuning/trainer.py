@@ -16,8 +16,9 @@ them as buffers, and they are no leaf of the optimizer, the grad norm or
 the saved train state, as the JAX package passes them to the step as a
 separate argument.
 
-Not in this slice, and raising with the slice that brings it: a mesh,
-FSDP, pipeline (pp_micro) and context parallelism (the parallelism slice).
+Not in this slice, and raising with the slice that brings it: a training
+mesh, FSDP and pipeline (pp_micro) (the training-mesh slice) and context
+parallelism (the context-parallelism slice).
 """
 from __future__ import annotations
 
@@ -237,9 +238,9 @@ def train_loop(cfg: ModelConfig, params: Any, batches: Iterable[dict], *,
     checkpoint_dir every checkpoint_every steps and at the end; resume
     restores it from there first."""
     if mesh is not None or fsdp or pp_micro is not None:
-        raise _unported('a device mesh (FSDP, pipeline)', 'parallelism')
+        raise _unported('a training mesh (FSDP, pipeline)', 'training-mesh')
     if cfg.context_parallel:
-        raise _unported('context parallelism', 'parallelism')
+        raise _unported('context parallelism', 'context-parallelism')
     state = create_train_state(cfg, params, lr=lr, weight_decay=weight_decay,
                                freeze_base=freeze_base, frozen8=frozen8)
     if resume and checkpoint_dir is not None and os.path.exists(

@@ -428,3 +428,63 @@ def test_sampled_engine_repeats_itself_for_a_seed(short):
     assert run(4) != a
     assert run(3, paged=True, page_size=16) == run(3, paged=True,
                                                    page_size=16)
+
+
+def _verify_overhang(monkeypatch, eng):
+    """Wrap the engine's verify: record, for every round with a lane in
+    chunked prefill, the largest (length + K) - capacity over those lanes
+    (positive: the block's columns run past the cache)."""
+    from spt_proto_tpu_torch.inference import batching
+    seen = []
+    real = batching.verify_step
+
+    def verify(iw, block, cache, *a, **kw):
+        cap = cache.tiles_per_layer(iw.cfg.n_layers) * TILE
+        lanes = list(eng._chunking)
+        if lanes:
+            seen.append(max(int(cache.length[s]) for s in lanes)
+                        + block.shape[1] - cap)
+        return real(iw, block, cache, *a, **kw)
+    monkeypatch.setattr(batching, 'verify_step', verify)
+    return seen
+
+
+@pytest.mark.parametrize('k', [4, 131])
+def test_speculative_verify_past_the_cache_for_a_lane_in_prefill(
+        monkeypatch, k):
+    """A lane mid chunked prefill is live but not decoding; a verify round
+    writes its K block columns at its length and rolls them back. Its
+    length is at most the padded prompt less one chunk (whole tiles), so
+    the columns run past the cache only when K exceeds a tile (128): never
+    on the verify kernel's route (K <= 30, k = 4 here: the overhang stays
+    <= K - 128), only on the plain int8-KV path (k = 131 here). There the
+    columns past the cache are dropped, as JAX's scatter drops them (the
+    engine once moved such a lane's length down to cap - K, as it does a
+    lane with no request, and the block overwrote the end of its cached
+    prompt: the long request's first token, from its last chunk, parted
+    from JAX's), and tokens and stats equal JAX's ContinuousBatchingEngine
+    on the same requests. The long request takes one token, so that the
+    cache never grows (one verify shape for JAX to compile)."""
+    from spt_proto_tpu.inference.batching import \
+        ContinuousBatchingEngine as JaxEngine
+    j_iw, t_iw = _weights(**SPARSE)
+    rs = np.random.RandomState(11)
+    base = list(map(int, rs.randint(1, 40, size=5)))
+    prompts = [base, list(map(int, rs.randint(1, 250, size=200)))]
+    kw = dict(n_slots=2, max_len=512, prefill_bucket=16, speculative=k,
+              prefill_chunk=TILE, quantized_kv=k > 30)
+    got = []
+    for make, iw in ((JaxEngine, j_iw), (ContinuousBatchingEngine, t_iw)):
+        eng = make(iw, **kw)
+        if make is ContinuousBatchingEngine:
+            seen = _verify_overhang(monkeypatch, eng)
+        rids = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, (8, 1))]
+        done = {c.request_id: c.tokens for c in eng.run_until_done()}
+        got.append(([done[r] for r in rids], dict(eng.spec_stats)))
+    assert got[1] == got[0]
+    assert seen, 'no verify round met a lane in chunked prefill'
+    if k <= 30:
+        assert max(seen) <= k + 1 - TILE
+    else:
+        assert max(seen) > 0, 'the block never ran past the cache'

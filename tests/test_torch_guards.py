@@ -66,9 +66,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ('inference/paged.py', 'inference/batching.py',
                  'inference/server.py', 'cli/serve.py',
                  'ops/paged_attention.py', 'ops/gmm.py', 'ops/routed_ffn.py',
-                 'ops/int8_matmul.py'):
+                 'ops/int8_matmul.py', 'parallel/mesh.py', 'parallel/comm.py',
+                 'parallel/sharding.py', 'parallel/infer_sharding.py',
+                 'parallel/launch.py'):
         src = (REPO / 'spt_proto_tpu_torch' / name).read_text()
-        assert 'import torch' in src or name == 'inference/server.py', name
+        assert 'import torch' in src or name in ('inference/server.py',
+                                                 'parallel/launch.py'), name
         assert 'jax' not in src.replace('spt_proto_tpu_torch', ''), name
         assert 'spt_proto_tpu.' not in src.replace('spt_proto_tpu_torch',
                                                    ''), name
@@ -204,10 +207,12 @@ def test_settings_that_would_run_plain_pytorch_on_the_gpu_raise():
 
 def test_unported_forms_raise_not_implemented():
     """What a later slice brings raises and names its slice: ffn_impl='ep'
-    (expert parallelism), a training mesh, and the mesh flags of the
-    generate, bench_serving and tune CLIs (the parallelism slice). What
-    this and earlier slices brought runs, and no NotImplementedError is
-    left for it: dense attention
+    (expert parallelism), a training mesh (the trainer's mesh, fsdp and
+    pp sharding, tune's mesh flags), context parallelism (the attention
+    layer, n_sp > 1) and pipeline stages (n_pipe > 1). What this and
+    earlier slices brought runs, and no NotImplementedError is left for it
+    (the serving mesh among it: tests/test_torch_parallel.py): dense
+    attention
     under attn_impl='pallas' (the flash kernels; their twins here, a CUDA
     tensor the kernel checks refuse only for a shape they do not take, such
     as d_head 16), remat_policy='dots', int8 weights over a routed + LoRA
@@ -248,16 +253,32 @@ def test_unported_forms_raise_not_implemented():
     q = torch.zeros((1, 4, 128, 16))
     with pytest.raises(ValueError, match='d_head 64 or 128'):
         fa._check_kernel(q, q, q, True)
-    for cli, flags in ((generate, ['--prompt_ids', '1,2', '--mesh_model',
-                                   '2']),
-                       (bench_serving, ['--mesh_data', '2'])):
-        with pytest.raises(NotImplementedError, match='parallelism slice'):
-            cli.main(['--device', 'cpu', '--config', 'tiny-opt'] + flags)
-    with pytest.raises(NotImplementedError, match='parallelism slice'):
-        tune.main(['--device', 'cpu', '--config', 'tiny-opt', '--out',
-                   'unused', '--mesh_model', '2'])
-    with pytest.raises(NotImplementedError, match='parallelism slice'):
+    from spt_proto_tpu_torch.layers.attention import MultiheadAttention
+    from spt_proto_tpu_torch.parallel import mesh as pmesh
+    from spt_proto_tpu_torch.parallel import sharding
+    for flags in (['--mesh_model', '2'], ['--fsdp']):
+        with pytest.raises(NotImplementedError, match='training-mesh slice'):
+            tune.main(['--device', 'cpu', '--config', 'tiny-opt', '--out',
+                       'unused'] + flags)
+    with pytest.raises(NotImplementedError, match='training-mesh slice'):
         trainer.train_loop(rcfg, routed, [], mesh=object())
+    with pytest.raises(NotImplementedError, match='training-mesh slice'):
+        sharding.shard_params(object(), params, fsdp=True)
+    with pytest.raises(NotImplementedError, match='pipeline slice'):
+        sharding.shard_params(object(), params, pp=True)
+    with pytest.raises(NotImplementedError, match='context-parallelism'):
+        pmesh.make_mesh(1, 1, n_sp=2)
+    with pytest.raises(NotImplementedError, match='pipeline slice'):
+        pmesh.make_mesh(1, 1, n_pipe=2)
+    with pytest.raises(NotImplementedError, match='context-parallelism'):
+        MultiheadAttention(cfg.replace(context_parallel=True))
+    # the serving CLIs take the mesh flags now: without --mesh_model a
+    # stray --mesh_data is refused, not dropped
+    for cli, flags in ((generate, ['--prompt_ids', '1,2']),
+                       (bench_serving, [])):
+        with pytest.raises(ValueError, match='--mesh_data needs'):
+            cli.main(['--device', 'cpu', '--config', 'tiny-opt',
+                      '--mesh_data', '2'] + flags)
     w8_routed = InferenceWeights.from_params(rcfg, routed, quant='int8')
     tok_w8, _ = teng.decode_step_greedy(
         w8_routed, torch.zeros(1, dtype=torch.int32),
@@ -324,16 +345,24 @@ def test_decode_attention_refuses_tables_past_its_envelope(monkeypatch):
 
 
 def test_generate_with_a_mesh_raises_and_names_its_slice():
-    """Tensor-parallel generate() and serving come with the parallelism
-    slice."""
+    """Tensor-parallel generate() and serving run (tests/
+    test_torch_parallel.py); what they cannot take yet under a mesh raises
+    and names its slice: tp_overlap (the overlapped collective matmuls,
+    the overlap slice) and a routed FFN (expert parallelism)."""
     cfg = _tiny_cfg()
-    iw = InferenceWeights.from_params(
-        cfg, bridge.init_params(cfg, seed=0, device='cpu'))
-    with pytest.raises(NotImplementedError, match='parallelism slice'):
+    params = bridge.init_params(cfg, seed=0, device='cpu')
+    iw = InferenceWeights.from_params(cfg.replace(tp_overlap=True), params)
+    with pytest.raises(NotImplementedError, match='overlap slice'):
         teng.generate(iw, torch.ones((1, 4), dtype=torch.int64), 2,
                       mesh=object())
-    with pytest.raises(NotImplementedError, match='parallelism slice'):
+    with pytest.raises(NotImplementedError, match='overlap slice'):
         ContinuousBatchingEngine(iw, n_slots=1, max_len=256, mesh=object())
+    rcfg = cfg.replace(ffn='routed', ffn_block_size=64)
+    routed = InferenceWeights.from_params(
+        rcfg, bridge.init_params(rcfg, seed=0, device='cpu'))
+    with pytest.raises(NotImplementedError, match='expert-parallelism'):
+        teng.generate(routed, torch.ones((1, 4), dtype=torch.int64), 2,
+                      mesh=object())
 
 
 def test_serving_stack_on_cpu_runs_the_twins_and_launches_nothing():
